@@ -1,0 +1,227 @@
+"""Profile a window of lockstep steps of the port's main path on one card.
+
+    python3 profile_step.py
+
+Runs `chip_smoke.py`'s phase-5 grid (fig5 YCSB, T = 128, ssp / ssp-local /
+scalardb / geotp x seeds 0-3, 16 lanes) through `Simulator.run_grid` for
+WINDOW events per lane, three times: a warm-up, an unprofiled run (host
+wall per step) and a run under `torch.profiler`. The step is branchless
+(every step issues the same ops whatever events it processes), so the
+opening window costs per step what any window does.
+
+Per lockstep step it prints the host wall, the aten ops issued, the device
+kernels run, the device busy time (union of kernel intervals) and the idle
+share; then, for each labelled part of the step (the uint32 hash / salt /
+delay helpers, the hot-table probe, the lane freeze, the two `geo_schedule`
+calls), its host time and its share of the profiled loop. The last line is
+a JSON summary. The full op tables go to `build/profile_step.txt`.
+Needs one card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# (module, function, label); labels with `outer` open a range only when no
+# other `outer` range is open, so their host times are disjoint and add up
+LABELS = (
+    ("repro_torch.core.netmodel", "_hash_u32", "hash: _hash_u32", True),
+    ("repro_torch.core.netmodel", "_mul_u32", "hash: _mul_u32", True),
+    ("repro_torch.core.engine.state", "_salt", "hash: _salt", True),
+    ("repro_torch.core.engine.state", "_u01", "hash: _u01", True),
+    ("repro_torch.core.engine.state", "_delay_salted", "hash: _delay_salted", True),
+    ("repro_torch.core.hotspot", "probe_slots_batch", "hash: probe_slots_batch", True),
+    ("repro_torch.core.engine.batch", "_freeze", "lane freeze", False),
+    ("repro_torch.core.engine.batch", "_active", "done check", False),
+    ("repro_torch.core.scheduler", "plan_dispatch", "geo_schedule call", False),
+    ("repro_torch.core.engine.batch", "_omni_step", "step", False),
+)
+RUN_LABEL = "lockstep run"
+WINDOW = 128  # events per lane: 128 steps, ~5 s of card time a run
+
+
+def install_labels(undo: list) -> None:
+    """Wrap each LABELS function in a `record_function` range, in every
+    `repro_torch` module that holds a reference to it; `undo` collects
+    what to restore."""
+    depth = [0]
+
+    def wrap(fn, label, outer):
+        def labelled(*a, **k):
+            if outer and depth[0]:
+                return fn(*a, **k)
+            depth[0] += outer
+            try:
+                with torch.profiler.record_function(label):
+                    return fn(*a, **k)
+            finally:
+                depth[0] -= outer
+
+        return labelled
+
+    for mod_name, fn_name, label, outer in LABELS:
+        fn = getattr(sys.modules[mod_name], fn_name)
+        new = wrap(fn, label, outer)
+        for name, mod in list(sys.modules.items()):
+            if name.startswith("repro_torch") and getattr(mod, fn_name, None) is fn:
+                undo.append((mod, fn_name, fn))
+                setattr(mod, fn_name, new)
+
+
+def install_run_timer(device, undo: list) -> dict:
+    """Time `batch.run` (the lockstep loop alone, synchronised) as called by
+    `placement.simulate_batch`, inside a RUN_LABEL range."""
+    from repro_torch.core.engine import placement
+
+    run, timing = placement.run, {}
+
+    def timed_run(*a, **k):
+        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(RUN_LABEL):
+            out = run(*a, **k)
+        sync()
+        timing["wall_s"], timing["steps"] = time.perf_counter() - t0, out[1]
+        return out
+
+    undo.append((placement, "run", run))
+    placement.run = timed_run
+    return timing
+
+
+def _union_us(spans) -> float:
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if s > end:
+            busy, end = busy + (e - s), e
+        elif e > end:
+            busy, end = busy + (e - end), e
+    return busy
+
+
+def measure(grid, window: int, device, activities, tables=None) -> dict:
+    """Warm-up, unprofiled and profiled runs of `grid` for `window` events
+    per lane; returns the per-step summary (device fields are None when the
+    profiler recorded no device activity)."""
+    from repro_torch.core.engine import Simulator
+
+    undo = []
+    try:
+        install_labels(undo)
+        timing = install_run_timer(device, undo)
+        sim = Simulator.from_bank(grid.banks[0], horizon_s=2.5, warmup_s=0.5, device=device)
+        sim.cfg = dataclasses.replace(sim.cfg, max_events=window)
+        sim.run_grid(grid)
+        sim.run_grid(grid)
+        wall_s, steps = timing["wall_s"], timing["steps"]
+        with torch.profiler.profile(activities=activities) as prof:
+            sim.run_grid(grid)
+        prof_wall_s = timing["wall_s"]
+    finally:
+        for mod, name, fn in reversed(undo):
+            setattr(mod, name, fn)
+    if timing["steps"] != steps:
+        raise AssertionError(f"profiled run took {timing['steps']} steps, unprofiled {steps}")
+
+    events = prof.events()
+    cpu_t = torch.autograd.DeviceType.CPU
+    # the host range; on a card the profiler also mirrors it on the device
+    run_ev = [e for e in events if e.name == RUN_LABEL and e.device_type == cpu_t]
+    if len(run_ev) != 1:
+        raise AssertionError(f"expected one host '{RUN_LABEL}' range, got {len(run_ev)}")
+    t_lo, t_hi = run_ev[0].time_range.start, run_ev[0].time_range.end
+    loop_host_us = t_hi - t_lo
+    in_loop = [e for e in events if t_lo <= e.time_range.start <= t_hi]
+    aten = [
+        e for e in in_loop
+        if e.device_type == cpu_t and e.name.startswith("aten::")
+        and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))
+    ]
+    # device activity, less the device-side mirrors of the labelled ranges
+    names = {RUN_LABEL} | {label for _, _, label, _ in LABELS}
+    kernels = [e for e in in_loop if e.device_type != cpu_t and e.name not in names]
+    out = {
+        "device": str(device),
+        "window_events_per_lane": window,
+        "steps": steps,
+        "lanes": len(grid),
+        "wall_ms_per_step": wall_s * 1e3 / steps,
+        "profiled_wall_ms_per_step": prof_wall_s * 1e3 / steps,
+        "aten_ops_per_step": len(aten) / steps,
+        "device_kernels_per_step": None,
+        "device_busy_ms_per_step": None,
+        "idle_share_profiled": None,
+        "idle_share_unprofiled": None,
+        "labels": {},
+    }
+    if kernels:
+        busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
+        out["device_kernels_per_step"] = len(kernels) / steps
+        out["device_busy_ms_per_step"] = busy_us / 1e3 / steps
+        out["idle_share_profiled"] = 1.0 - busy_us / loop_host_us
+        out["idle_share_unprofiled"] = 1.0 - busy_us / (wall_s * 1e6)
+    for _, _, label, _ in LABELS:
+        evs = [e for e in in_loop if e.name == label and e.device_type == cpu_t]
+        host_us = sum(e.time_range.end - e.time_range.start for e in evs)
+        out["labels"][label] = {
+            "calls_per_step": len(evs) / steps,
+            "host_ms_per_step": host_us / 1e3 / steps,
+            "share_of_loop": host_us / loop_host_us,
+        }
+    if tables is not None:
+        avg = prof.key_averages()
+        tables.write(avg.table(sort_by="self_cpu_time_total", row_limit=60) + "\n")
+        if kernels:
+            dev_key = "self_device_time_total" if hasattr(avg[0], "self_device_time_total") \
+                else "self_cuda_time_total"
+            tables.write(avg.table(sort_by=dev_key, row_limit=40) + "\n")
+    return out
+
+
+def main() -> int:
+    print("python", sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: torch.cuda.is_available() is False — needs a CUDA card")
+    from chip_smoke import main_grid
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    with open(out_dir / "profile_step.txt", "w") as tables:
+        res = measure(main_grid(), WINDOW, torch.device("cuda"), acts, tables)
+    res["card"] = smi
+    if res["device_busy_ms_per_step"] is None:
+        print("the profiler recorded no device activity: device busy time and idle share "
+              "not measured")
+    print(f"{res['steps']} steps x {res['lanes']} lanes: wall {res['wall_ms_per_step']:.4f} "
+          f"ms/step unprofiled, {res['profiled_wall_ms_per_step']:.4f} profiled; "
+          f"{res['aten_ops_per_step']:.1f} aten ops/step, "
+          f"{res['device_kernels_per_step']} device kernels/step, "
+          f"device busy {res['device_busy_ms_per_step']} ms/step, "
+          f"idle share {res['idle_share_profiled']} (profiled wall) / "
+          f"{res['idle_share_unprofiled']} (unprofiled wall)")
+    for label, v in res["labels"].items():
+        print(f"{label:26s} {v['calls_per_step']:7.2f} calls/step  "
+              f"{v['host_ms_per_step']:9.4f} host ms/step  {100 * v['share_of_loop']:6.2f}% of loop")
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

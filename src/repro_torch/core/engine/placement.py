@@ -1,0 +1,55 @@
+"""Execution placement (port of `repro.core.engine.placement`, the `vmap` row).
+
+| strategy | placement | lane execution |
+|---|---|---|
+| ``vmap`` | one device | lockstep lanes through the branchless step (`omni._omni_step`), the [B] axis written out |
+| ``map`` / ``mesh`` | — | not ported yet: raise `NotImplementedError` |
+| ``auto`` | | ``vmap``, the port's one placement (the reference's strategies are bitwise-identical per cell, so the results are the reference's ``map`` results too) |
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.engine.batch import lane_bank, run
+from repro_torch.core.engine.metrics import summarize_batch
+from repro_torch.core.engine.state import SimConfig, WorldSpec, init_state_world, not_ported
+
+STRATEGIES = ("map", "vmap", "mesh")
+
+
+def resolve_strategy(strategy: str) -> str:
+    """``auto`` -> ``vmap``; ``map``/``mesh`` raise; unknown names raise."""
+    if strategy == "vmap" or strategy == "auto":
+        return "vmap"
+    if strategy == "map":
+        raise not_ported('strategy="map" (sequential lanes)', "A2")
+    if strategy == "mesh":
+        raise not_ported('strategy="mesh" (multi-GPU grids)', "A7")
+    raise ValueError(
+        f"unknown strategy {strategy!r} (choose from {('auto',) + STRATEGIES})"
+    )
+
+
+def placement_cfg(cfg: SimConfig, strategy: str) -> SimConfig:
+    """The vmap strategy's engine configuration: lockstep lanes."""
+    if strategy == "vmap":
+        return dataclasses.replace(cfg, lockstep=True)
+    return cfg
+
+
+def simulate_batch(cfg: SimConfig, bank, worlds: WorldSpec, *, bank_batched: bool = False,
+                   states=None, strategy: str = "auto", device=None):
+    """Run a [B]-stacked batch of worlds in lockstep on `device`.
+
+    Returns (final states [B-batched], list of B metric dicts, lockstep
+    steps executed)."""
+    if states is not None:
+        raise not_ported("continuing states (Simulator.resume)", "A5")
+    strategy = resolve_strategy(strategy)
+    cfg = placement_cfg(cfg, strategy)
+    B = int(worlds.seed.shape[0])
+    bank = lane_bank(bank, B, bank_batched)
+    states = init_state_world(cfg, worlds, device)
+    states, steps = run(cfg, bank, states)
+    return states, summarize_batch(cfg, states), steps

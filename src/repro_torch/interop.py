@@ -1,0 +1,70 @@
+"""Carry the reference's data structures across, as numpy arrays.
+
+The reference's `Bank`, stacked `WorldSpec` and `SimState` come in as
+mappings (or NamedTuples) of numpy arrays under the reference's field names
+— nested `dyn` / `hs` included — and leave as the port's tensors, and back.
+With these a test can take a reference state from the middle of a run, step
+it once in each package and name the first leaf that differs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.hotspot import HashHotspot
+from repro_torch.core.workloads import BANK_ARRAYS, Bank
+from repro_torch.core.engine.state import DynProto, SimState, WorldSpec, not_ported
+
+
+def _fields(obj) -> dict:
+    if hasattr(obj, "_asdict"):
+        return dict(obj._asdict())
+    return dict(obj)
+
+
+def _tensor(x, device=None) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def _build(cls, obj, nested: dict, device=None):
+    src = _fields(obj)
+    out = {}
+    for f in cls._fields:
+        if f in nested:
+            out[f] = _build(nested[f], src[f], {}, device)
+        else:
+            out[f] = _tensor(src[f], device)
+    return cls(**out)
+
+
+def bank_from_numpy(bank) -> Bank:
+    """A reference Bank (numpy leaves) -> the port's Bank on the CPU."""
+    src = _fields(bank)
+    arrays = {f: _tensor(src[f]) for f in BANK_ARRAYS}
+    return Bank(**arrays, num_records=int(np.max(src["num_records"])),
+                num_ds=int(np.max(src["num_ds"])))
+
+
+def worlds_from_numpy(worlds) -> WorldSpec:
+    """A reference [B]-stacked WorldSpec (numpy leaves) -> the port's."""
+    src = _fields(worlds)
+    if np.asarray(src["faults"]).shape[-2] > 0:
+        raise not_ported("a fault schedule", "A3")
+    return _build(WorldSpec, src, {"dyn": DynProto})
+
+
+def state_from_numpy(state, device=None) -> SimState:
+    """A reference SimState (numpy leaves, any batch shape) -> the port's."""
+    return _build(SimState, state, {"hs": HashHotspot, "dyn": DynProto}, device)
+
+
+def state_to_numpy(state: SimState) -> dict:
+    """The port's SimState -> nested dict of numpy arrays (reference names)."""
+    out = {}
+    for f, v in zip(state._fields, state):
+        if hasattr(v, "_fields"):
+            out[f] = {g: x.detach().cpu().numpy() for g, x in zip(v._fields, v)}
+        else:
+            out[f] = v.detach().cpu().numpy()
+    return out

@@ -1,0 +1,106 @@
+"""The PyTorch port stands alone: no JAX, nothing of `repro`, CUDA by default,
+and loud about what it has not ported yet."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.core import workloads
+from repro_torch.core.engine import Grid, Simulator
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def test_import_leaves_jax_and_repro_unloaded():
+    code = (
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'repro' or k.startswith('repro.'))\n"
+        "print(len([k for k in sys.modules if k.startswith('repro_torch')]), bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    n_mods, bad = out.stdout.strip().split(" ", 1)
+    assert int(n_mods) >= 20  # every submodule was imported
+    assert bad == "[]", bad
+
+
+def test_sources_import_no_jax_and_no_repro():
+    pat = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)", re.M)
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 20
+    files += [ROOT / "chip_smoke.py", ROOT / "profile_step.py"]
+    for f in files:
+        hits = pat.findall(f.read_text())
+        assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+
+
+def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Simulator(2, 2, 2, 4)
+    Simulator(2, 2, 2, 4, device="cpu")  # explicit CPU is fine
+
+
+def _bank():
+    cfg = workloads.YCSBConfig(num_ds=2, records_per_node=64, ops_per_txn=2)
+    return workloads.make_ycsb_bank(cfg, terminals=2, txns_per_terminal=4)
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["drain", "faults", "replica_tau", "map", "mesh", "resume", "save"],
+)
+def test_unported_paths_raise_not_implemented(case):
+    bank = _bank()
+    grid = Grid.cross(preset=("ssp",), rtt_ms=(0.0, 10.0))
+    if case == "drain":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Simulator.from_bank(bank, drain=True, device="cpu")
+        return
+    if case == "faults":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Grid([{"preset": "ssp", "faults": ((100, 0, 200),)}])
+        return
+    if case == "replica_tau":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Grid([{"preset": "ssp", "replica_tau": (1000, 1000)}], default_rtt_ms=(0.0, 10.0))
+        return
+    sim = Simulator.from_bank(bank, horizon_s=0.05, warmup_s=0.0, device="cpu")
+    if case in ("map", "mesh"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sim.run_grid(grid, bank, strategy=case)
+        return
+    res = sim.run_grid(grid, bank)
+    assert res.strategy_resolved == "vmap" and res.metrics[0]["noops"] == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if case == "resume":
+            sim.resume(res)
+        else:
+            res.save("x")
+
+
+def test_grid_validation_messages():
+    with pytest.raises(ValueError, match=r"Grid cell 1: unknown preset 'nope'"):
+        Grid([{"preset": "ssp"}, {"preset": "nope"}])
+    with pytest.raises(ValueError, match="missing required key 'preset'"):
+        Grid([{}])
+    with pytest.raises(ValueError, match="differs from cell 0's num_ds"):
+        Grid([{"preset": "ssp", "rtt_ms": (0.0, 1.0)}, {"preset": "ssp"}])
+    with pytest.raises(ValueError, match="clock_skew_us must be a non-negative"):
+        Grid([{"preset": "tiga", "clock_skew_us": -1}])
+    with pytest.raises(ValueError, match="unknown strategy"):
+        Simulator(2, 2, 2, 4, device="cpu").run_grid(
+            Grid.cross(preset="ssp", rtt_ms=(0.0, 1.0)), _bank(), strategy="nope"
+        )
