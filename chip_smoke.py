@@ -5,7 +5,9 @@
 Phases (any failure raises; the script then exits non-zero):
 
 1. environment — torch / CUDA versions and the card's name and power limit;
-2. build — the `geo_schedule` CUDA kernel from `src/repro_torch/csrc`;
+2. build — the `geo_schedule` CUDA kernel from `src/repro_torch/csrc`, with
+   ptxas's registers, stack frame and spills for each kernel variant (as
+   for phase 6's);
 3. kernel vs plain version on the card — the reference kernel's GEO_CASES
    shapes plus N = 16 at D = 4, K = 5, then the two launches of one
    lockstep step built as the step builds them (Eq.9 at [16,1] + [16,5]
@@ -24,14 +26,45 @@ Phases (any failure raises; the script then exits non-zero):
    noops == 0 and commits > 0 on every lane, and that the kernel launched
    exactly twice per lockstep step.
 
+Slice 2, the serving path of the LM stack (dense GQA, llama3.2-3b):
+
+6. build — `decode_attention.cu` and `flash_attention.cu`, each by its own
+   nvcc started beside phase 2's, so they compile while phases 3-5 run;
+7. kernels vs plain versions on the card — every FLASH_CASES / DECODE_CASES
+   row of the reference's kernel tests and the WIDE_* cases (head dims up
+   to 256, decode's G = 3 and G = 5 row layouts) in float32 and bfloat16,
+   plus the serving path's own launch shapes in float32 and bfloat16
+   (prefill B = 8 x 2048 tokens at 24/8 heads of 128; decode B = 8 over a
+   4096-slot cache with random positions; the router's decode B = 1 over 64
+   slots, slot 0 valid), within 2e-5 (f32) / 2e-2 (bf16) abs + rel;
+   CUDA-event times of the kernel, its plain version and
+   `F.scaled_dot_product_attention` (timed only, never used by the port);
+8. model, GPU vs CPU — llama3.2-3b at full width cut to 2 layers, one set of
+   weights drawn on the CPU and copied to the card: prefill 2 x 128 tokens,
+   then 4 decode steps, logits within 0.05 abs/rel; the router
+   (`GeoServingEngine`, run_model=True, geotp and fcfs) gives exactly equal
+   summaries and latency lists on both devices;
+9. the serving path at full width — llama3.2-3b, all 28 layers, weights
+   drawn on the card: (a) `make_prefill_step(cfg, 4096)` on 8 prompts of
+   2048 tokens, then 64 `make_decode_step` steps, with 28 flash launches per
+   prefill and 28 decode launches per step; (b) `GeoServingEngine` geotp vs
+   fcfs over the launcher's three pods (RTT 0/30/100 ms, 12 slots), 60
+   requests, run_model=True: geotp's average latency below fcfs's, 28
+   decode launches per generation and one geo_schedule launch per geotp
+   admission. Cut: `max_seq` 32768 -> 4096 for the pods' slot caches
+   (3 x 12 slots x 28 layers at 32768 would need 135 GB).
+
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -51,10 +84,55 @@ B_MAIN, D_MAIN, K_MAIN = 16, 4, 5  # lanes, data sources, ops per txn of phase 5
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 
 
 def phase(name: str) -> None:
     print(f"\n== {name}", flush=True)
+
+
+def kernel_label(mangled: str) -> str:
+    """`decode_kernel<bfloat16, 8>` from the mangled name of a kernel
+    variant (its name and its template's type and integer arguments)."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), ""
+    while i < len(mangled) and mangled[i].isdigit():  # <length><name> ... (namespaces)
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    rest = mangled[i:]
+    if not rest.startswith("I"):
+        return name
+    args = ["bfloat16" if rest.startswith("I13__nv_bfloat16") else "float32"]
+    args += re.findall(r"Li(\d+)E", rest)
+    return f"{name}<{', '.join(args)}>"
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """One line per kernel variant of a `ptxas -v` report: registers, stack
+    frame and spill bytes (whether the variant keeps its state in
+    registers)."""
+    out, label, frame = [], None, None
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            label = kernel_label(m.group(1))
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            frame = m.groups()
+        elif (m := re.search(r"Used (\d+) registers", line)) and label and frame:
+            out.append(f"{label}: {m.group(1)} registers, {frame[0]} B stack frame, "
+                       f"{frame[1]} B spill stores, {frame[2]} B spill loads")
+            label = frame = None
+    return out
+
+
+def print_build(name: str, secs: float, note: str = "") -> None:
+    from repro_torch.kernels import _build
+
+    print(f"built {_build.library_path(name).relative_to(ROOT)} in {secs:.2f} s{note}")
+    for line in ptxas_lines(_build.report_path(name).read_text()):
+        print(f"  ptxas {line}")
 
 
 def geo_inputs(n, d, k, seed):
@@ -128,9 +206,9 @@ def geo_work(tau, lel, inv, c, t, a, valid):
     return nbytes, 3 * n * d + 12 * int(valid.sum()) + n
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     """Least time (ms) for this work on the card, and what bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -166,6 +244,405 @@ def leaf_mismatches(a, b):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 2: the serving path of the LM stack
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "llama3.2-3b"
+SERVE_MAX_SEQ = 4096  # cut from 32768: the pods' slot caches (135 GB at 32768)
+PREFILL_B, PREFILL_S, DECODE_STEPS = 8, 2048, 64  # phase 9a
+ROUTER_REQUESTS, ROUTER_RATE = 60, 400.0  # phase 9b
+ROUTER_CACHE = 64  # slots of the cache each `gen_done` decode step builds
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/kernels/test_kernels.py
+LOGIT_TOL = 0.05  # bf16 logits (tests/models/test_archs.py)
+# the reference's kernel test cases (tests/kernels/test_kernels.py)
+FLASH_CASES = [
+    # (B, S, H, KV, dh, causal, window, chunk_local)
+    (2, 256, 4, 2, 64, True, 0, False),
+    (1, 512, 4, 4, 128, True, 128, False),
+    (2, 256, 8, 2, 120, True, 64, True),
+    (1, 128, 2, 1, 64, False, 0, False),
+    (1, 384, 6, 6, 32, True, 96, False),
+]
+DECODE_CASES = [(2, 1024, 8, 2, 64), (4, 512, 4, 4, 128), (1, 2048, 16, 1, 120), (3, 768, 6, 3, 64)]
+# beyond the reference's cases: the widest head dim the wrappers take (256,
+# each kernel's widest variant), a head dim between variants, and decode's
+# row layouts G = 3 (two warps a row, two warps idle: the serving path's)
+# and G = 5 (one warp a row) over ragged caches
+WIDE_FLASH_CASES = [
+    (1, 200, 4, 2, 256, True, 0, False),
+    (1, 160, 2, 2, 256, True, 48, True),
+    (1, 130, 2, 1, 192, False, 0, False),
+]
+WIDE_DECODE_CASES = [(2, 333, 6, 2, 128), (1, 257, 3, 1, 256), (2, 300, 10, 2, 256)]
+
+
+def serve_cfg(n_layers=None):
+    """llama3.2-3b at full width with the `max_seq` cut (and optionally
+    fewer layers)."""
+    from repro_torch.configs import registry
+
+    cfg = dataclasses.replace(registry.get(SERVE_ARCH), max_seq=SERVE_MAX_SEQ)
+    return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def launch_shapes(cfg, batch, seq, cache_len):
+    """The shapes the model gives each kernel: flash (B, S, H, KV, dh,
+    causal, window, chunk_local) per prefill layer, decode (B, Sc, H, KV,
+    dh) per decode layer (dense GQA: every layer alike)."""
+    window = cfg.window if cfg.pattern[0][0] in ("swa", "cla") else 0
+    cap = min(cfg.window, cache_len) if window else cache_len
+    flash = (batch, seq, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True, window,
+             cfg.pattern[0][0] == "cla")
+    return flash, (batch, cap, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+
+
+def _randn(shape, dtype, dev, gen):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def flash_inputs(case, dtype, dev, seed):
+    """q [B,S,H,dh], k/v [B,S,KV,dh] in the model's layout."""
+    B, S, H, KV, dh = case[:5]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (_randn((B, S, H, dh), dtype, dev, gen), _randn((B, S, KV, dh), dtype, dev, gen),
+            _randn((B, S, KV, dh), dtype, dev, gen))
+
+
+def decode_inputs(case, dtype, dev, seed, valid_slots=None):
+    """q [B,H,dh], caches [B,Sc,KV,dh], valid [B,Sc]: slots <= a random
+    pos in [1, Sc) per row, or the first `valid_slots` slots."""
+    B, Sc, H, KV, dh = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = _randn((B, H, dh), dtype, dev, gen)
+    k, v = _randn((B, Sc, KV, dh), dtype, dev, gen), _randn((B, Sc, KV, dh), dtype, dev, gen)
+    if valid_slots is None:
+        pos = torch.randint(1, Sc, (B,), generator=gen, device=dev)
+    else:
+        pos = torch.full((B,), valid_slots - 1, device=dev)
+    return q, k, v, torch.arange(Sc, device=dev)[None, :] <= pos[:, None]
+
+
+def _to_bhsd(*xs):
+    return [x.transpose(1, 2).contiguous() for x in xs]
+
+
+def check_close(out, ref, tol, label) -> float:
+    """|out - ref| <= tol + tol |ref| everywhere; returns max |out - ref|."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    if not bool(torch.isfinite(out).all()) or bool((err > tol + tol * ref.abs()).any()):
+        raise AssertionError(f"{label}: the two differ, max |d| = {err.max().item():.3g} "
+                             f"(tol {tol} abs + rel)")
+    return err.max().item()
+
+
+def check_flash(case, dtype, dev, seed=0) -> float:
+    """The kernel (through `ops.mha`) against its plain version."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, S, H, KV, dh, causal, window, cl = case
+    q, k, v = flash_inputs(case, dtype, dev, seed)
+    out = ops.mha(q, k, v, causal=causal, window=window, chunk_local=cl)
+    ref = attention_ref(*_to_bhsd(q, k, v), causal=causal, window=window, chunk_local=cl)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return check_close(out, ref.transpose(1, 2), TOL[str(dtype)[6:]], f"flash {case} {dtype}")
+
+
+def check_decode(case, dtype, dev, seed=0, valid_slots=None) -> float:
+    """The kernel (through `ops.decode`) against its plain version."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+
+    q, k, v, valid = decode_inputs(case, dtype, dev, seed, valid_slots)
+    out = ops.decode(q, k, v, valid)
+    ref = decode_ref(q, k, v, valid)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return check_close(out, ref, TOL[str(dtype)[6:]], f"decode {case} {dtype}")
+
+
+def flash_work(case, itemsize):
+    """(bytes, flops) of one launch: q, k, v read and out written once;
+    4·dh flops (QK^T and PV) per (query, key) pair the mask keeps."""
+    B, S, H, KV, dh, causal, window, cl = case
+    qpos = torch.arange(S)[:, None]
+    kpos = torch.arange(S)[None, :]
+    keep = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= (kpos // window == qpos // window) if cl else (kpos > qpos - window)
+    pairs = int(keep.sum())
+    return B * S * (2 * H + 2 * KV) * dh * itemsize, 4 * dh * B * H * pairs
+
+
+def decode_work(valid, H, KV, dh, itemsize):
+    """(bytes, flops) of one launch: the valid cache slots' K and V, q, the
+    mask and out, each moved once; 4·dh flops per (query head, valid slot).
+    Only valid slots count: the output does not depend on the others."""
+    n_valid = int(valid.sum())
+    B, Sc = valid.shape
+    nbytes = 2 * n_valid * KV * dh * itemsize + 2 * B * H * dh * itemsize + B * Sc
+    return nbytes, 4 * dh * H * n_valid
+
+
+def time_flash(case, dev):
+    """(kernel, plain, SDPA) ms per call at one bf16 shape, CUDA events."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as binding
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, S, H, KV, dh, causal, window, cl = case
+    qt, kt, vt = _to_bhsd(*flash_inputs(case, torch.bfloat16, dev, 1))
+    out = torch.empty_like(qt)
+    k_ms = cuda_ms(lambda: binding.launch(qt, kt, vt, out, dh**-0.5, causal, window, cl), 10)
+    p_ms = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=causal, window=window,
+                                         chunk_local=cl), 3)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                            enable_gqa=True), 10)
+    return k_ms, p_ms, lib_ms
+
+
+def time_decode(case, dev, valid_slots=None):
+    """(kernel, plain, SDPA) ms per call at one bf16 shape, and the inputs'
+    (bytes, flops)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_ref
+
+    B, Sc, H, KV, dh = case
+    q, k, v, valid = decode_inputs(case, torch.bfloat16, dev, 1, valid_slots)
+    k_ms = cuda_ms(lambda: ops.decode(q, k, v, valid), 200)
+    p_ms = cuda_ms(lambda: decode_ref(q, k, v, valid), 50)
+    q4, kt, vt, mask = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), valid[:, None, None]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
+                                                            enable_gqa=True), 200)
+    return k_ms, p_ms, lib_ms, decode_work(valid, H, KV, dh, 2)
+
+
+def prefill_decode(cfg, params, tokens, steps, cache_len, dev):
+    """Prefill tokens[:, :-steps], then decode the last `steps` tokens one
+    by one (positions continue the prompt). Returns the logits of each call
+    as float32 on the CPU: [last prefill position, decode 1, ..., decode n]."""
+    from repro_torch.models import model
+
+    tokens = tokens.to(dev)
+    n = tokens.shape[1]
+    prefill = model.make_prefill_step(cfg, cache_len)
+    decode = model.make_decode_step(cfg)
+    logits, cache = prefill(params, {"tokens": tokens[:, : n - steps]})
+    out = [logits.float().cpu()]
+    for t in range(n - steps, n):
+        pos = torch.full((tokens.shape[0],), t, dtype=torch.int32, device=dev)
+        logits, cache = decode(params, tokens[:, t], pos, cache)
+        out.append(logits.float().cpu())
+    return out
+
+
+def router(cfg, params, dev, policy, n_requests=ROUTER_REQUESTS):
+    """GeoServingEngine over the launcher's three pods on `dev`. Returns
+    (summary, stats, seconds, admits)."""
+    from repro_torch.serving.engine import GeoServingEngine, PodConfig, synthetic_workload
+
+    pods = [PodConfig(rtt_us=0, n_slots=12), PodConfig(rtt_us=30_000, n_slots=12),
+            PodConfig(rtt_us=100_000, n_slots=12)]
+    t0 = time.perf_counter()
+    eng = GeoServingEngine(cfg, pods, policy=policy, run_model=True, device=dev,
+                           params=params)
+    reqs = synthetic_workload(n_requests, len(pods), rate_per_s=ROUTER_RATE)
+    for r in reqs:
+        eng.submit(r)
+    res = eng.run(until_us=120_000_000)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return res, eng.stats, time.perf_counter() - t0, len(reqs)
+
+
+SERVE_KERNELS = ("decode_attention", "flash_attention")
+
+
+def timed_build(name):
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.build(name, verbose=True)
+    return time.perf_counter() - t0
+
+
+def serving_phases(dev, builds):
+    """Phases 6-9. Returns the kernel records of decode_attention and
+    flash_attention."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.geo_schedule import ops as geo_ops
+    from repro_torch.models import model, stack
+    from repro_torch.models.schema import init_params, param_count
+
+    bf16 = torch.bfloat16
+    phase("6 build decode_attention, flash_attention")
+    for name, fut in builds.items():
+        secs = fut.result()
+        _build.load(name)
+        print_build(name, secs, " (nvcc started in phase 2)")
+
+    phase("7 attention kernels vs plain versions on the card")
+    cfg = serve_cfg()
+    f_main, d_main = launch_shapes(cfg, PREFILL_B, PREFILL_S, SERVE_MAX_SEQ)
+    _, d_router = launch_shapes(cfg, 1, 1, ROUTER_CACHE)
+    err_f = err_d = 0.0
+    for dt in (torch.float32, bf16):
+        for i, case in enumerate(FLASH_CASES + WIDE_FLASH_CASES):
+            e = check_flash(case, dt, dev, seed=i)
+            err_f = max(err_f, e)
+            print(f"flash  {str(case):44s} {str(dt)[6:]:8s} max |d| {e:.3g}")
+        for i, case in enumerate(DECODE_CASES + WIDE_DECODE_CASES):
+            e = check_decode(case, dt, dev, seed=i)
+            err_d = max(err_d, e)
+            print(f"decode {str(case):44s} {str(dt)[6:]:8s} max |d| {e:.3g}")
+    # the serving path's own shapes in float32 too: there the kernel and its
+    # plain version differ only by summation order, so 2e-5 sees a dropped
+    # chunk or a wrong merge that bf16 rounding of the output would hide
+    for dt in (torch.float32, bf16):
+        e = (check_flash(f_main, dt, dev), check_decode(d_main, dt, dev),
+             check_decode(d_router, dt, dev, valid_slots=1))
+        err_f, err_d = max(err_f, e[0]), max(err_d, e[1], e[2])
+        print(f"main shapes {str(dt)[6:]} (tol {TOL[str(dt)[6:]]} abs + rel): max |d| flash "
+              f"{f_main} {e[0]:.3g}, decode {d_main} {e[1]:.3g}, router decode {d_router} "
+              f"(slot 0 valid) {e[2]:.3g}")
+    f_ms, f_plain, f_lib = time_flash(f_main, dev)
+    f_work = flash_work(f_main, 2)
+    f_bound, f_by = bound(*f_work, BF16_TENSOR_OPS_PER_S)
+    print(f"flash {f_main} bf16: kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, SDPA "
+          f"{f_lib:.4f} ms; {f_work[0]} bytes, {f_work[1]:.4g} flops, bound {f_bound:.4g} ms "
+          f"({f_by}); {f_work[1] / f_ms / 1e9:.2f} TFLOP/s")
+    d_ms, d_plain, d_lib, d_work = time_decode(d_main, dev)
+    d_bound, d_by = bound(*d_work, BF16_TENSOR_OPS_PER_S)
+    full = 2 * d_main[0] * d_main[1] * d_main[3] * d_main[4] * 2
+    print(f"decode {d_main} bf16: kernel {d_ms:.4f} ms, plain {d_plain:.4f} ms, SDPA "
+          f"{d_lib:.4f} ms; {d_work[0]} bytes (valid slots), {d_work[1]} flops, bound "
+          f"{d_bound:.4g} ms ({d_by}); every slot's K+V: {full} bytes, "
+          f"{full / HBM_BYTES_PER_S * 1e3:.4g} ms")
+    r_ms, r_plain, r_lib, r_work = time_decode(d_router, dev, valid_slots=1)
+    print(f"decode {d_router} bf16 (router): kernel {r_ms:.4f} ms, plain {r_plain:.4f} ms, "
+          f"SDPA {r_lib:.4f} ms, bound {bound(*r_work, BF16_TENSOR_OPS_PER_S)[0]:.4g} ms")
+
+    phase("8 model at full width, 2 layers: GPU vs CPU")
+    cfg2 = serve_cfg(n_layers=2)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    w_cpu = init_params(stack.build_schema(cfg2), torch.Generator().manual_seed(0), cpu)
+    params = {cpu: stack.cast_weights(w_cpu),
+              dev: stack.cast_weights({k: x.to(dev) for k, x in w_cpu.items()})}
+    del w_cpu
+    print(f"{cfg2.name} x {cfg2.n_layers} layers: weights drawn on the CPU and copied in "
+          f"{time.perf_counter() - t0:.2f} s")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg2.vocab, (2, 132)))
+    logits = {}
+    for d in (dev, cpu):
+        t0 = time.perf_counter()
+        logits[d] = prefill_decode(cfg2, params[d], tokens, 4, 160, d)
+        print(f"{d.type}: prefill 2 x 128 + 4 decode steps in {time.perf_counter() - t0:.2f} s")
+    for i, (a, b) in enumerate(zip(logits[dev], logits[cpu])):
+        e = check_close(a, b, LOGIT_TOL, f"logits of call {i}")
+        print(f"{'prefill' if i == 0 else f'decode {i}'} logits: max |gpu - cpu| {e:.4g}")
+    for pol in ("geotp", "fcfs"):
+        runs = {d: router(cfg2, params[d], d, pol) for d in (dev, cpu)}
+        (rg, sg, tg, _), (rc, sc, tc, _) = runs[dev], runs[cpu]
+        if rg != rc or sg.lat_us != sc.lat_us or sg.occ_us != sc.occ_us:
+            raise AssertionError(f"router {pol}: GPU {rg} != CPU {rc}")
+        print(f"router {pol}: equal on both devices ({tg:.2f} s GPU, {tc:.2f} s CPU): {rg}")
+    del params, logits
+
+    phase("9 serving path at full width: llama3.2-3b, 28 layers")
+    print(f"CUT: max_seq {SERVE_MAX_SEQ} (registry: 32768) for the pods' slot caches")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    schema = stack.build_schema(cfg)
+    params = stack.cast_weights(init_params(schema, gen, dev))
+    torch.cuda.synchronize()
+    print(f"{param_count(schema)} parameters drawn on the card (float32) and cast to bf16 "
+          f"copies in {time.perf_counter() - t0:.2f} s")
+    L = cfg.n_layers
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S + DECODE_STEPS), generator=gen,
+                           device=dev, dtype=torch.int32)
+    prefill = model.make_prefill_step(cfg, SERVE_MAX_SEQ)
+    decode = model.make_decode_step(cfg)
+    fl_ops.mha.launches = dec_ops.decode.launches = geo_ops.geo_schedule.launches = 0
+    pre_s = []
+    for _ in range(2):  # the first call warms the libraries' plans for these shapes
+        cache = None
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": tokens[:, :PREFILL_S]})
+        torch.cuda.synchronize()
+        pre_s.append(time.perf_counter() - t0)
+    if fl_ops.mha.launches != 2 * L:
+        raise AssertionError(f"flash launches {fl_ops.mha.launches} != {L} per prefill x 2")
+    finite = bool(torch.isfinite(logits.float()).all())
+    step_s = []
+    for t in range(PREFILL_S, PREFILL_S + DECODE_STEPS):
+        pos = torch.full((PREFILL_B,), t, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        logits, cache = decode(params, tokens[:, t], pos, cache)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        finite = finite and bool(torch.isfinite(logits.float()).all())
+    if dec_ops.decode.launches != L * DECODE_STEPS:
+        raise AssertionError(f"decode launches {dec_ops.decode.launches} != {L} x "
+                             f"{DECODE_STEPS} steps")
+    if not finite:
+        raise AssertionError("non-finite logits on the serving path")
+    n_pre = PREFILL_B * PREFILL_S
+    dec_mean = sum(step_s) / len(step_s)
+    dec_rest = sum(step_s[1:]) / (len(step_s) - 1)
+    print(f"prefill {PREFILL_B} x {PREFILL_S}: {pre_s[0] * 1e3:.2f} ms (first), "
+          f"{pre_s[1] * 1e3:.2f} ms (second) = {n_pre / pre_s[1]:.1f} tokens/s")
+    print(f"decode B={PREFILL_B} over a {SERVE_MAX_SEQ}-slot cache: {dec_mean * 1e3:.3f} ms a "
+          f"step (mean of {DECODE_STEPS}; {dec_rest * 1e3:.3f} without the first) = "
+          f"{PREFILL_B / dec_mean:.1f} tokens/s; launches flash {fl_ops.mha.launches}, "
+          f"decode {dec_ops.decode.launches}; logits finite")
+    del cache, logits
+    flash_launches = fl_ops.mha.launches
+    decode_launches = dec_ops.decode.launches
+    res = {}
+    for pol in ("geotp", "fcfs"):
+        dec_ops.decode.launches = geo_ops.geo_schedule.launches = 0
+        res[pol], stats, secs, admits = router(cfg, params, dev, pol)
+        gens = len(stats.occ_us)
+        if dec_ops.decode.launches != L * gens:
+            raise AssertionError(f"router {pol}: decode launches {dec_ops.decode.launches} "
+                                 f"!= {L} x {gens} generations")
+        want_geo = admits if pol == "geotp" else 0
+        if geo_ops.geo_schedule.launches != want_geo:
+            raise AssertionError(f"router {pol}: geo_schedule launches "
+                                 f"{geo_ops.geo_schedule.launches} != {want_geo}")
+        decode_launches += dec_ops.decode.launches
+        print(f"router {pol}: {res[pol]} in {secs:.2f} s; {gens} generations, decode launches "
+              f"{dec_ops.decode.launches}, geo_schedule launches "
+              f"{geo_ops.geo_schedule.launches}")
+    if not res["geotp"]["avg_latency_ms"] < res["fcfs"]["avg_latency_ms"]:
+        raise AssertionError(f"geotp avg latency not below fcfs: {res}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return [
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:64",
+         "launches": decode_launches, "max_abs_err": err_d, "ms": d_ms, "plain_ms": d_plain,
+         "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
+         "launches": flash_launches, "max_abs_err": err_f, "ms": f_ms, "plain_ms": f_plain,
+         "bound_ms": f_bound, "bound_by": f_by, "library_ms": f_lib},
+    ]
+
+
 def main() -> int:
     phase("1 environment")
     print("python", sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
@@ -186,12 +663,18 @@ def main() -> int:
     print("device", kind, "count", torch.cuda.device_count())
     print(smi)
     dev = torch.device("cuda")
+    # the default, stated: float32 products (the plain versions) stay float32
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     phase("2 build")
+    # slice 2's kernels compile beside this one and phases 3-5 (phase 6 waits)
+    pool = concurrent.futures.ThreadPoolExecutor(len(SERVE_KERNELS))
+    builds = {name: pool.submit(timed_build, name) for name in SERVE_KERNELS}
+    pool.shutdown(wait=False)
     t0 = time.perf_counter()
-    lib = _build.build("geo_schedule", verbose=True)
+    _build.build("geo_schedule", verbose=True)
     _build.load("geo_schedule")
-    print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
+    print_build("geo_schedule", time.perf_counter() - t0)
 
     phase("3 geo_schedule kernel vs plain version on the card")
     max_err = 0.0
@@ -267,6 +750,8 @@ def main() -> int:
         print(f"{p:10s} throughput {tps:9.2f} tps  avg latency {lat:8.2f} ms  "
               f"(mean of {len(rows)} seeds)")
 
+    serving_records = serving_phases(dev, builds)
+
     print(json.dumps({"kernels": [{
         "name": "geo_schedule",
         "route": "cuda",
@@ -279,7 +764,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }] + serving_records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -34,10 +34,10 @@ from repro_torch.core.engine.state import (
     SimConfig,
     WorldSpec,
     make_world,
-    not_ported,
     stack_worlds,
     tree_map,
 )
+from repro_torch.unported import not_ported
 
 _VECTOR_AXES = ("rtt_ms", "tau_true_us", "exec_scale_milli", "replica_tau")
 _FAULT_AXES = ("faults", "replica_tau", "repl_lag_us")

@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.core.workloads import BANK_ARRAYS, Bank
 from repro_torch.core.engine.omni import _omni_step
-from repro_torch.core.engine.state import SimConfig, SimState, _times_flat, not_ported, tree_map
+from repro_torch.core.engine.state import SimConfig, SimState, _times_flat, tree_map
+from repro_torch.unported import not_ported
 
 # steps between two host reads of "all lanes done"; safe at any value,
 # since a step leaves every frozen lane as it was

@@ -13,7 +13,8 @@ import dataclasses
 
 from repro_torch.core.engine.batch import lane_bank, run
 from repro_torch.core.engine.metrics import summarize_batch
-from repro_torch.core.engine.state import SimConfig, WorldSpec, init_state_world, not_ported
+from repro_torch.core.engine.state import SimConfig, WorldSpec, init_state_world
+from repro_torch.unported import not_ported
 
 STRATEGIES = ("map", "vmap", "mesh")
 

@@ -31,6 +31,7 @@ from repro_torch.core.protocols import (
     STAGGER_NONE,
     ProtocolConfig,
 )
+from repro_torch.unported import not_ported
 
 # ---- op states -------------------------------------------------------------
 OP_NONE, OP_PENDING, OP_ENROUTE, OP_QUEUED, OP_WAIT, OP_EXEC, OP_HOLD, OP_DONE = range(8)
@@ -84,12 +85,6 @@ N_ABORT_CAUSES = 5
 ABORT_CAUSES = ("none", "timeout", "admission", "crash", "exhausted")
 
 FAULT_COLS = 6
-
-NOT_PORTED = "not ported to repro_torch yet (ROADMAP.md §A item {item})"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is " + NOT_PORTED.format(item=item))
 
 
 class DynProto(NamedTuple):

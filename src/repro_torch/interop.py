@@ -5,6 +5,10 @@ mappings (or NamedTuples) of numpy arrays under the reference's field names
 — nested `dyn` / `hs` included — and leave as the port's tensors, and back.
 With these a test can take a reference state from the middle of a run, step
 it once in each package and name the first leaf that differs.
+
+The model's parameters (a flat dict of numpy arrays under the reference's
+names) and its decode caches (nested dicts) cross the same way, so the two
+packages run the same weights and the same caches.
 """
 
 from __future__ import annotations
@@ -14,7 +18,8 @@ import torch
 
 from repro_torch.core.hotspot import HashHotspot
 from repro_torch.core.workloads import BANK_ARRAYS, Bank
-from repro_torch.core.engine.state import DynProto, SimState, WorldSpec, not_ported
+from repro_torch.core.engine.state import DynProto, SimState, WorldSpec
+from repro_torch.unported import not_ported
 
 
 def _fields(obj) -> dict:
@@ -67,4 +72,38 @@ def state_to_numpy(state: SimState) -> dict:
             out[f] = {g: x.detach().cpu().numpy() for g, x in zip(v._fields, v)}
         else:
             out[f] = v.detach().cpu().numpy()
+    return out
+
+
+def _from_numpy(x, device=None) -> torch.Tensor:
+    """A numpy array -> tensor; bfloat16 (ml_dtypes) arrays keep their bits."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return _tensor(x, device)
+
+
+def params_from_numpy(params, device=None) -> dict:
+    """The reference's parameters {name: array} -> the port's {name: tensor}."""
+    return {name: _from_numpy(x, device) for name, x in params.items()}
+
+
+def cache_from_numpy(cache, device=None) -> dict:
+    """A reference decode cache (nested dicts of arrays) -> the port's."""
+    return {
+        k: cache_from_numpy(v, device) if isinstance(v, dict) else _from_numpy(v, device)
+        for k, v in cache.items()
+    }
+
+
+def cache_to_numpy(cache) -> dict:
+    """The port's decode cache -> nested dicts of numpy arrays. bfloat16
+    leaves come back as float32 (exact), since numpy has no bfloat16."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out[k] = cache_to_numpy(v)
+        else:
+            v = v.detach().cpu()
+            out[k] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     return out

@@ -3,8 +3,10 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled at first use
 into `build/kernels/` at the checkout's root (listed in `.gitignore`), under
 a file name that carries a hash of the source and the flags, so an edited
-source never loads a stale library. Nothing is fetched: the build needs only
-the CUDA toolkit's `nvcc`.
+source never loads a stale library. A verbose build keeps ptxas's report
+(registers, stack and spills of every kernel variant) beside the library
+(`report_path`). Nothing is fetched: the build needs only the CUDA
+toolkit's `nvcc`.
 """
 
 from __future__ import annotations
@@ -47,10 +49,16 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def report_path(name: str) -> pathlib.Path:
+    """Where a verbose build keeps ptxas's report for this source."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
 def build(name: str, verbose: bool = False) -> pathlib.Path:
-    """Compile `csrc/<name>.cu` unless the library for this source exists."""
+    """Compile `csrc/<name>.cu` unless the library for this source exists
+    (and, with `verbose`, its ptxas report)."""
     out = library_path(name)
-    if out.exists():
+    if out.exists() and (not verbose or report_path(name).exists()):
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -61,8 +69,8 @@ def build(name: str, verbose: bool = False) -> pathlib.Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr, end="")
+    if verbose:
+        report_path(name).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return out
 

@@ -1,0 +1,48 @@
+"""ctypes binding of the CUDA flash-attention kernel
+(`csrc/flash_attention.cu`).
+
+`launch` takes tensors already checked by `ops.mha`; the library is built
+and loaded at the first launch, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def entry():
+    """The C entry point; the library is built at the first call."""
+    fn = _build.load("flash_attention").flash_attention_launch
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 5
+        + [ctypes.c_float]
+        + [ctypes.c_int] * 4
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(q, k, v, out, scale: float, causal: bool, window: int, chunk_local: bool) -> None:
+    """Enqueue one kernel on the current stream of the tensors' device.
+    q/out [B,H,S,dh], k/v [B,KV,S,dh]."""
+    B, H, S, dh = q.shape
+    KV = k.shape[1]
+    fn = entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, S, dh, scale,
+            int(causal), int(window), int(chunk_local), DTYPE_CODES[q.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")

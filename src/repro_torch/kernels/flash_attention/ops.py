@@ -1,0 +1,62 @@
+"""The flash-attention wrapper: layout, checks, allocation, launch, count.
+
+Takes the model's [B,S,H,dh] layout and hands the kernel [B,H,S,dh]. On
+CUDA tensors it launches the hand-written kernel; on CPU tensors it
+computes the plain version (`ref.py`). It never catches an error to fall
+back. `mha.launches` counts kernel launches (plain calls do not count). The
+kernel takes dh as it is (up to 256) and S as it is, masking the ragged
+edge: the reference wrapper's padding of dh to 128 and its shrinking of
+the block to divide S are TPU artefacts.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention as _cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+MAX_HEAD_DIM = 256
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"mha: q must be [B,S,H,dh] and k/v [B,S,KV,dh], got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    if k.shape != (B, S, KV, dh) or v.shape != k.shape:
+        raise ValueError(f"mha: k/v must be [B,S,KV,dh] = {(B, S, KV, dh)} (the kernel "
+                         f"needs q_len == kv_len), got {tuple(k.shape)} and {tuple(v.shape)}")
+    if KV == 0 or H % KV:
+        raise ValueError(f"mha: H = {H} must be a multiple of KV = {KV}")
+    if not 0 < dh <= MAX_HEAD_DIM:
+        raise ValueError(f"mha: head dim {dh} outside 1..{MAX_HEAD_DIM}")
+    if q.dtype not in _cuda.DTYPE_CODES or {k.dtype, v.dtype} != {q.dtype}:
+        raise TypeError(f"mha: q, k, v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    for name, x in (("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"mha: {name} on {x.device}, q on {q.device}")
+
+
+def mha(q, k, v, *, causal: bool = True, window: int = 0, chunk_local: bool = False):
+    """q: [B,S,H,dh]; k/v: [B,S,KV,dh] -> [B,S,H,dh] in q's dtype."""
+    _check(q, k, v)
+    if window < 0:
+        raise ValueError(f"mha: window must be >= 0, got {window}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mha: no kernel for device {q.device}")
+    if q.device.type == "cuda":
+        _cuda.entry()  # a library that cannot build or load raises before any work
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if q.device.type == "cpu":
+        out = attention_ref(qt, kt, vt, causal=causal, window=window, chunk_local=chunk_local)
+    else:
+        out = torch.empty_like(qt)
+        _cuda.launch(qt, kt, vt, out, q.shape[-1] ** -0.5, causal, window, chunk_local)
+        mha.launches += 1
+    return out.transpose(1, 2)
+
+
+mha.launches = 0

@@ -1,0 +1,31 @@
+"""Plain PyTorch version of the flash-attention kernel: a straight
+translation of `repro.kernels.flash_attention.ref.attention_ref`. It
+materializes the full score matrix. The CPU path of the wrapper, and what
+`chip_smoke.py` holds the CUDA kernel against."""
+
+from __future__ import annotations
+
+import torch
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, chunk_local=False):
+    """q: [B,H,S,dh], k/v: [B,KV,S,dh] -> [B,H,S,dh] (float32 math)."""
+    B, H, S, dh = q.shape
+    G = H // k.shape[1]
+    qf = q.float()
+    kf = torch.repeat_interleave(k.float(), G, dim=1)
+    vf = torch.repeat_interleave(v.float(), G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (dh**-0.5)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        if chunk_local:
+            mask &= (kpos // window) == (qpos // window)
+        else:
+            mask &= kpos > qpos - window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)

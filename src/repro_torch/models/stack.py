@@ -1,0 +1,419 @@
+"""Model stack: declarative parameter schema + the serving forward passes
+(port of `repro.models.stack`).
+
+Layers are stacked by pattern *group*: a config with pattern period P and
+n_layers = G*P (+ tail) stores each pattern slot's weights as [G, ...]
+tensors. The reference scans over G (`jax.lax.scan`); the port loops over the
+stacked tensors in Python, taking one layer's weights and cache as views
+(no copies). Parameter names, the [G, ...] stacking and the cache layout
+(``{"blk0": {"k": [G,B,Sc,KV,hd], "v": ...}}``) are the reference's, so
+weights and caches carry across as they are (`repro_torch.interop`).
+
+Two entry points of the serving path:
+  forward_prefill(cfg, params, batch, cache_len) -> (last_logits, cache)
+  forward_decode(cfg, params, token, pos, cache) -> (logits, cache)
+Decode writes the new key and value into `cache` IN PLACE and returns it.
+
+`build_schema` covers all ten architectures. The forward passes run the
+dense GQA family (mixers gqa / swa / cla, FFN dense, bf16 KV cache);
+anything else raises `NotImplementedError` naming its ROADMAP.md §A item.
+`forward_train` is training (item A7).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import embed_lookup, ffn, rmsnorm
+from repro_torch.models.schema import ParamSpec, Schema
+from repro_torch.unported import not_ported
+
+# the activations' dtype, as in the reference: embeddings are looked up in it
+# and every product casts its weights to it
+ACT_DTYPE = torch.bfloat16
+
+# ---------------------------------------------------------------------------
+# schema
+# ---------------------------------------------------------------------------
+
+
+def _attn_schema(cfg: ModelConfig, pfx: str) -> Schema:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s = {
+        f"{pfx}.ln": ParamSpec((D,), ("embed",), "zeros"),
+        f"{pfx}.wq": ParamSpec((D, H, hd), ("embed", "heads", None), f"scaled:{D}"),
+        f"{pfx}.wk": ParamSpec((D, KV, hd), ("embed", "kv", None), f"scaled:{D}"),
+        f"{pfx}.wv": ParamSpec((D, KV, hd), ("embed", "kv", None), f"scaled:{D}"),
+        f"{pfx}.wo": ParamSpec((H, hd, D), ("heads", None, "embed"), f"scaled:{H*hd}"),
+    }
+    if cfg.qkv_bias:
+        s[f"{pfx}.bq"] = ParamSpec((H, hd), ("heads", None), "zeros")
+        s[f"{pfx}.bk"] = ParamSpec((KV, hd), ("kv", None), "zeros")
+        s[f"{pfx}.bv"] = ParamSpec((KV, hd), ("kv", None), "zeros")
+    return s
+
+
+def _mla_schema(cfg: ModelConfig, pfx: str) -> Schema:
+    D, H = cfg.d_model, cfg.n_heads
+    qk = cfg.nope_head_dim + cfg.rope_head_dim
+    return {
+        f"{pfx}.ln": ParamSpec((D,), ("embed",), "zeros"),
+        f"{pfx}.wq_a": ParamSpec((D, cfg.q_lora_rank), ("embed", None), f"scaled:{D}"),
+        f"{pfx}.q_norm": ParamSpec((cfg.q_lora_rank,), (None,), "zeros"),
+        f"{pfx}.wq_b": ParamSpec(
+            (cfg.q_lora_rank, H, qk), (None, "heads", None), f"scaled:{cfg.q_lora_rank}"
+        ),
+        f"{pfx}.wkv_a": ParamSpec(
+            (D, cfg.kv_lora_rank + cfg.rope_head_dim), ("embed", None), f"scaled:{D}"
+        ),
+        f"{pfx}.kv_norm": ParamSpec((cfg.kv_lora_rank,), (None,), "zeros"),
+        f"{pfx}.wkv_b": ParamSpec(
+            (cfg.kv_lora_rank, H, cfg.nope_head_dim + cfg.v_hd),
+            (None, "heads", None),
+            f"scaled:{cfg.kv_lora_rank}",
+        ),
+        f"{pfx}.wo": ParamSpec(
+            (H, cfg.v_hd, D), ("heads", None, "embed"), f"scaled:{H*cfg.v_hd}"
+        ),
+    }
+
+
+def _mlstm_schema(cfg: ModelConfig, pfx: str) -> Schema:
+    D, H = cfg.d_model, cfg.n_heads
+    return {
+        f"{pfx}.ln": ParamSpec((D,), ("embed",), "zeros"),
+        f"{pfx}.wu": ParamSpec((D, 2 * D), ("embed", "mlp"), f"scaled:{D}"),
+        f"{pfx}.conv": ParamSpec((4, D), (None, None), f"scaled:4"),
+        f"{pfx}.wq": ParamSpec((D, D), ("embed", "mlp"), f"scaled:{D}"),
+        f"{pfx}.wk": ParamSpec((D, D), ("embed", "mlp"), f"scaled:{D}"),
+        f"{pfx}.wv": ParamSpec((D, D), ("embed", "mlp"), f"scaled:{D}"),
+        f"{pfx}.wi": ParamSpec((D, H), ("embed", None), f"scaled:{D}"),
+        f"{pfx}.wf": ParamSpec((D, H), ("embed", None), f"scaled:{D}"),
+        f"{pfx}.bi": ParamSpec((H,), (None,), "zeros"),
+        f"{pfx}.bf": ParamSpec((H,), (None,), "ones"),
+        f"{pfx}.mn": ParamSpec((D,), ("embed",), "zeros"),
+        f"{pfx}.wd": ParamSpec((D, D), ("mlp", "embed"), f"scaled:{D}"),
+    }
+
+
+def _slstm_schema(cfg: ModelConfig, pfx: str) -> Schema:
+    D, H = cfg.d_model, cfg.n_heads
+    dh = D // H
+    return {
+        f"{pfx}.ln": ParamSpec((D,), ("embed",), "zeros"),
+        f"{pfx}.wzifo": ParamSpec((D, 4 * D), ("embed", "mlp"), f"scaled:{D}"),
+        f"{pfx}.bzifo": ParamSpec((4 * D,), ("mlp",), "zeros"),
+        f"{pfx}.r": ParamSpec(
+            (4, H, dh, dh), (None, "heads", None, None), f"scaled:{dh}"
+        ),
+        f"{pfx}.mn": ParamSpec((D,), ("embed",), "zeros"),
+        f"{pfx}.wd": ParamSpec((D, D), ("mlp", "embed"), f"scaled:{D}"),
+    }
+
+
+def _rglru_schema(cfg: ModelConfig, pfx: str) -> Schema:
+    D = cfg.d_model
+    E = int(cfg.rnn_scale * D)
+    return {
+        f"{pfx}.ln": ParamSpec((D,), ("embed",), "zeros"),
+        f"{pfx}.wgate": ParamSpec((D, E), ("embed", "mlp"), f"scaled:{D}"),
+        f"{pfx}.wx": ParamSpec((D, E), ("embed", "mlp"), f"scaled:{D}"),
+        f"{pfx}.conv": ParamSpec((cfg.rglru_conv_width, E), (None, "mlp"), "scaled:4"),
+        f"{pfx}.wa": ParamSpec((E, E), ("embed", "mlp"), f"scaled:{E}"),
+        f"{pfx}.wi": ParamSpec((E, E), ("embed", "mlp"), f"scaled:{E}"),
+        f"{pfx}.ba": ParamSpec((E,), ("mlp",), "ones"),
+        f"{pfx}.bi": ParamSpec((E,), ("mlp",), "zeros"),
+        f"{pfx}.lam": ParamSpec((E,), ("mlp",), "ones"),
+        f"{pfx}.wout": ParamSpec((E, D), ("mlp", "embed"), f"scaled:{E}"),
+    }
+
+
+def _ffn_schema(cfg: ModelConfig, pfx: str, kind: str) -> Schema:
+    D, F = cfg.d_model, cfg.d_ff
+    if kind == "none":
+        return {}
+    if kind == "moe":
+        E = cfg.n_experts
+        return {
+            f"{pfx}.ln2": ParamSpec((D,), ("embed",), "zeros"),
+            f"{pfx}.router": ParamSpec((D, E), ("embed", None), f"scaled:{D}"),
+            f"{pfx}.we_g": ParamSpec(
+                (E, D, F), ("experts", "embed", "mlp"), f"scaled:{D}"
+            ),
+            f"{pfx}.we_u": ParamSpec(
+                (E, D, F), ("experts", "embed", "mlp"), f"scaled:{D}"
+            ),
+            f"{pfx}.we_d": ParamSpec(
+                (E, F, D), ("experts", "mlp", "embed"), f"scaled:{F}"
+            ),
+        }
+    return {
+        f"{pfx}.ln2": ParamSpec((D,), ("embed",), "zeros"),
+        f"{pfx}.wg": ParamSpec((D, F), ("embed", "mlp"), f"scaled:{D}"),
+        f"{pfx}.wu": ParamSpec((D, F), ("embed", "mlp"), f"scaled:{D}"),
+        f"{pfx}.wd": ParamSpec((F, D), ("mlp", "embed"), f"scaled:{F}"),
+    }
+
+
+_MIXER_SCHEMA = {
+    "gqa": _attn_schema,
+    "swa": _attn_schema,
+    "cla": _attn_schema,
+    "mla": _mla_schema,
+    "mlstm": _mlstm_schema,
+    "slstm": _slstm_schema,
+    "rglru": _rglru_schema,
+}
+
+
+def _layer_schema(cfg: ModelConfig, pfx: str, mixer: str, ffn_kind: str, cross: bool) -> Schema:
+    s = dict(_MIXER_SCHEMA[mixer](cfg, f"{pfx}.mix"))
+    s.update(_ffn_schema(cfg, f"{pfx}.ffn", ffn_kind))
+    if cross:
+        s.update(_attn_schema(cfg, f"{pfx}.x"))
+        # cross-attention has no qkv bias regardless of cfg
+        for b in (f"{pfx}.x.bq", f"{pfx}.x.bk", f"{pfx}.x.bv"):
+            s.pop(b, None)
+    return s
+
+
+def _stack(s: Schema, g: int) -> Schema:
+    return {
+        n: ParamSpec((g,) + sp.shape, ("layers",) + sp.axes, sp.init, sp.dtype)
+        for n, sp in s.items()
+    }
+
+
+def tail_layers(cfg: ModelConfig) -> tuple:
+    tail = getattr(cfg, "tail", ())
+    return tuple(tail)
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    tail = tail_layers(cfg)
+    if (cfg.n_layers - len(tail)) % cfg.period:
+        raise ValueError(f"{cfg.name}: n_layers - len(tail) is not a multiple of the period")
+    return (cfg.n_layers - len(tail)) // cfg.period
+
+
+def build_schema(cfg: ModelConfig) -> Schema:
+    s: Schema = {
+        "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), "embed"),
+        "final_ln": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ParamSpec(
+            (cfg.d_model, cfg.vocab), ("embed", "vocab"), f"scaled:{cfg.d_model}"
+        )
+    if cfg.frontend != "none":
+        s["frontend_proj"] = ParamSpec(
+            (cfg.frontend_dim, cfg.d_model), (None, "embed"), f"scaled:{cfg.frontend_dim}"
+        )
+    G = n_groups(cfg)
+    cross = cfg.is_encdec
+    for j, (mixer, fk) in enumerate(cfg.pattern):
+        s.update(_stack(_layer_schema(cfg, f"blk{j}", mixer, fk, cross), G))
+    for i, (mixer, fk) in enumerate(tail_layers(cfg)):
+        s.update(_layer_schema(cfg, f"tail{i}", mixer, fk, cross))
+    if cfg.is_encdec:
+        enc = _layer_schema(cfg, "eblk0", "gqa", "dense", False)
+        s.update(_stack(enc, cfg.n_enc_layers))
+        s["enc_final_ln"] = ParamSpec((cfg.d_model,), ("embed",), "zeros")
+    return s
+
+
+# ---------------------------------------------------------------------------
+# what the serving path runs
+# ---------------------------------------------------------------------------
+
+_ATTN = ("gqa", "swa", "cla")
+_RECURRENT = ("mlstm", "slstm", "rglru")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise `NotImplementedError` (naming its ROADMAP item) for anything in
+    `cfg` the port's forward passes do not run yet."""
+    if cfg.is_encdec:
+        raise not_ported(f"{cfg.name}: encoder-decoder models", "A9")
+    if cfg.frontend != "none":
+        raise not_ported(f"{cfg.name}: the {cfg.frontend} frontend", "A9")
+    for mixer, fk in tuple(cfg.pattern) + tail_layers(cfg):
+        if mixer in _RECURRENT:
+            raise not_ported(f"{cfg.name}: the {mixer} mixer (kernels B4/B5)", "A8")
+        if mixer not in _ATTN:
+            raise not_ported(f"{cfg.name}: the {mixer} mixer", "A9")
+        if fk == "moe":
+            raise not_ported(f"{cfg.name}: the MoE FFN", "A9")
+    if cfg.kv_cache_dtype != "bf16":
+        raise not_ported(f"{cfg.name}: the {cfg.kv_cache_dtype} KV cache", "A9")
+    if cfg.attn_softcap > 0:
+        raise not_ported(f"{cfg.name}: attention logit softcapping", "A9")
+
+
+_CAST = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "wg", "wu", "wd")
+
+
+def cast_weights(params: dict) -> dict:
+    """Copies of the weights every product casts to the activations' dtype
+    (`astype(x.dtype)` in the reference, `ACT_DTYPE` here) made once, so a forward does not
+    re-cast them (6.4 GB of writes a forward at llama3.2-3b). Casting is
+    round-to-nearest-even in both frameworks, so the values are bitwise
+    those of a per-call cast. Norm scales stay float32: they are read as
+    float32. Other entries are shared, not copied."""
+    out = {}
+    for name, w in params.items():
+        last = name.rsplit(".", 1)[-1]
+        cast = name in ("embed", "lm_head") or last in _CAST
+        out[name] = w.to(ACT_DTYPE) if cast else w
+    return out
+
+
+def _layer(params: dict, pfx: str, g: int | None) -> dict:
+    """One layer's weights: views `[g]` of the stacked tensors (or the tail's)."""
+    return {
+        k: (v if g is None else v[g]) for k, v in params.items() if k.startswith(pfx + ".")
+    }
+
+
+def _layers(cfg: ModelConfig):
+    """(prefix, stacked index or None, mixer, ffn kind) in forward order."""
+    for g in range(n_groups(cfg)):
+        for j, (mixer, fk) in enumerate(cfg.pattern):
+            yield f"blk{j}", g, mixer, fk
+    for i, (mixer, fk) in enumerate(tail_layers(cfg)):
+        yield f"tail{i}", None, mixer, fk
+
+
+def _layer_cache(cache: dict, pfx: str, g: int | None) -> dict:
+    return {k: (v if g is None else v[g]) for k, v in cache[pfx].items()}
+
+
+def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    head = params.get("lm_head", None)
+    if head is None:
+        head = params["embed"].T
+    return x @ head.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _cache_capacity(cfg: ModelConfig, mixer: str, cache_len: int) -> int:
+    if mixer in ("swa", "cla"):
+        return min(cfg.window, cache_len)
+    return cache_len
+
+
+def _ring_fill(buf: torch.Tensor, k: torch.Tensor) -> None:
+    """Write the last `cap` timesteps of k [B,S,...] into the ring buffer
+    `buf` [B,cap,...] at slots absolute-position % cap (in place)."""
+    cap, S = buf.shape[1], k.shape[1]
+    w = min(cap, S)
+    slots = torch.arange(S - w, S, device=k.device) % cap
+    buf[:, slots] = k[:, S - w :].to(buf.dtype)
+
+
+def _seed_to_cache(cfg, mixer, kv, cache: dict, cache_len: int) -> None:
+    """Write a prefill's k/v [B,S,KV,hd] into one layer's zeroed cache views:
+    a linear cache holds positions 0..S-1 then zeros, a ring buffer the last
+    `cap` positions (the reference pads / ring-fills new arrays)."""
+    k, v = kv
+    cap = _cache_capacity(cfg, mixer, cache_len)
+    if cap == cache_len:  # linear cache, zero-padded to capacity
+        if k.shape[1] > cache_len:
+            raise ValueError(f"prompt of {k.shape[1]} tokens exceeds cache_len {cache_len}")
+        cache["k"][:, : k.shape[1]] = k.to(cache["k"].dtype)
+        cache["v"][:, : v.shape[1]] = v.to(cache["v"].dtype)
+    else:
+        _ring_fill(cache["k"], k)
+        _ring_fill(cache["v"], v)
+
+
+def _prefill_layer(cfg, p, pfx, mixer, fk, x, positions, cache, cache_len):
+    xn = rmsnorm(x, p[f"{pfx}.mix.ln"])
+    y, kv = attn.gqa_attn(cfg, p, pfx + ".mix", xn, positions, mixer=mixer)
+    _seed_to_cache(cfg, mixer, kv, cache, cache_len)
+    x = x + y
+    if fk != "none":
+        xn = rmsnorm(x, p[f"{pfx}.ffn.ln2"])
+        x = x + ffn(cfg, p, f"{pfx}.ffn", fk, xn)
+    return x
+
+
+def forward_prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
+    """Prefill: full forward + decode-ready cache. batch["tokens"]: [B,S]
+    int. Returns (last_logits [B,V], cache)."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    x = embed_lookup(params["embed"], tokens, ACT_DTYPE)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    cache = init_cache(cfg, B, cache_len, device=x.device)
+    for pfx, g, mixer, fk in _layers(cfg):
+        x = _prefill_layer(
+            cfg, _layer(params, pfx, g), pfx, mixer, fk, x, positions,
+            _layer_cache(cache, pfx, g), cache_len,
+        )
+    x = rmsnorm(x, params["final_ln"])
+    return _head(params, x[:, -1]), cache
+
+
+def _decode_layer(cfg, p, pfx, mixer, fk, x, pos, cache):
+    xn = rmsnorm(x, p[f"{pfx}.mix.ln"])
+    y, _ = attn.gqa_decode(cfg, p, pfx + ".mix", xn, pos, cache, mixer=mixer)
+    x = x + y
+    if fk != "none":
+        xn = rmsnorm(x, p[f"{pfx}.ffn.ln2"])
+        x = x + ffn(cfg, p, f"{pfx}.ffn", fk, xn)
+    return x
+
+
+def forward_decode(cfg: ModelConfig, params: dict, token, pos, cache: dict):
+    """One decode step. token/pos: [B] int. Returns (logits [B,V], cache),
+    the cache updated in place."""
+    check_supported(cfg)
+    x = embed_lookup(params["embed"], token, ACT_DTYPE)[:, None]  # [B,1,D]
+    for pfx, g, mixer, fk in _layers(cfg):
+        x = _decode_layer(
+            cfg, _layer(params, pfx, g), pfx, mixer, fk, x, pos, _layer_cache(cache, pfx, g)
+        )
+    x = rmsnorm(x, params["final_ln"])
+    return _head(params, x[:, 0]), cache
+
+
+# ---------------------------------------------------------------------------
+# cache specs and zero-init (for real serving)
+# ---------------------------------------------------------------------------
+
+
+def _layer_cache_spec(cfg: ModelConfig, mixer: str, B: int, cache_len: int) -> dict:
+    cap = _cache_capacity(cfg, mixer, cache_len)
+    shape = (B, cap, cfg.n_kv_heads, cfg.hd)
+    return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
+
+
+def decode_cache_specs(cfg: ModelConfig, B: int, cache_len: int) -> dict:
+    """{"blk<j>": {"k": (shape, dtype), "v": ...}, "tail<i>": ...}; the
+    stacked blocks carry a leading [G] dim."""
+    check_supported(cfg)
+    G = n_groups(cfg)
+    cache = {}
+    for j, (mixer, _) in enumerate(cfg.pattern):
+        spec = _layer_cache_spec(cfg, mixer, B, cache_len)
+        cache[f"blk{j}"] = {k: ((G,) + s, dt) for k, (s, dt) in spec.items()}
+    for i, (mixer, _) in enumerate(tail_layers(cfg)):
+        cache[f"tail{i}"] = _layer_cache_spec(cfg, mixer, B, cache_len)
+    return cache
+
+
+def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None) -> dict:
+    dev = resolve_device(device)
+    return {
+        blk: {k: torch.zeros(s, dtype=dt, device=dev) for k, (s, dt) in spec.items()}
+        for blk, spec in decode_cache_specs(cfg, B, cache_len).items()
+    }

@@ -93,3 +93,148 @@ def test_scripts_refuse_to_run_without_a_card(script):
                          text=True, env=env, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# ---- slice 2: the serving path's phases (6-9) -----------------------------
+
+
+def _record_kernel_shapes(monkeypatch):
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+
+    seen = {"flash": [], "decode": []}
+    real_mha, real_decode = fl_ops.mha, dec_ops.decode
+
+    def mha(q, k, v, *, causal=True, window=0, chunk_local=False):
+        B, S, H, dh = q.shape
+        seen["flash"].append((B, S, H, k.shape[2], dh, causal, window, chunk_local))
+        return real_mha(q, k, v, causal=causal, window=window, chunk_local=chunk_local)
+
+    def decode(q, k_cache, v_cache, valid):
+        B, Sc, KV, dh = k_cache.shape
+        seen["decode"].append((B, Sc, q.shape[-2], KV, dh))
+        return real_decode(q, k_cache, v_cache, valid)
+
+    monkeypatch.setattr(fl_ops, "mha", mha)
+    monkeypatch.setattr(dec_ops, "decode", decode)
+    return seen
+
+
+@pytest.mark.parametrize("arch,window", [("llama3.2-3b", None), ("h2o-danube-3-4b", 16)])
+def test_serving_launch_shapes_are_the_models(arch, window, monkeypatch):
+    """`chip_smoke.launch_shapes` gives each kernel the shapes the model's
+    prefill and decode steps hand it (one launch a layer)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import stack
+    from repro_torch.models.schema import init_params
+
+    cfg = dataclasses.replace(registry.reduced(arch), n_layers=2)
+    if window:
+        cfg = dataclasses.replace(cfg, window=window)  # a ring-buffer cache
+    seen = _record_kernel_shapes(monkeypatch)
+    params = init_params(stack.build_schema(cfg), torch.Generator().manual_seed(0), "cpu")
+    B, S, cache_len = 2, 24, 32
+    toks = torch.randint(0, cfg.vocab, (B, S + 2), generator=torch.Generator().manual_seed(1))
+    chip_smoke.prefill_decode(cfg, params, toks, 2, cache_len, torch.device("cpu"))
+    flash, dec = chip_smoke.launch_shapes(cfg, B, S, cache_len)
+    assert seen["flash"] == [flash] * cfg.n_layers
+    assert seen["decode"] == [dec] * (2 * cfg.n_layers)
+
+
+def test_serving_main_shapes_and_router_cache():
+    cfg = chip_smoke.serve_cfg()
+    assert (cfg.name, cfg.n_layers, cfg.max_seq) == ("llama3.2-3b", 28, 4096)
+    flash, dec = chip_smoke.launch_shapes(cfg, 8, 2048, 4096)
+    assert flash == (8, 2048, 24, 8, 128, True, 0, False)
+    assert dec == (8, 4096, 24, 8, 128)
+    assert chip_smoke.launch_shapes(cfg, 1, 1, chip_smoke.ROUTER_CACHE)[1] == (1, 64, 24, 8, 128)
+    assert chip_smoke.serve_cfg(n_layers=2).n_layers == 2
+
+
+def test_serving_helpers_run_on_the_cpu():
+    """The phase-7/8 helpers at a tiny size (on the CPU the wrappers run the
+    plain versions, so this checks the plumbing, not the kernels)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import stack
+    from repro_torch.models.schema import init_params
+
+    cpu = torch.device("cpu")
+    for dtype in (torch.float32, torch.bfloat16):
+        assert chip_smoke.check_flash((1, 40, 4, 2, 16, True, 8, True), dtype, cpu) == 0.0
+        assert chip_smoke.check_decode((2, 50, 4, 2, 16), dtype, cpu) == 0.0
+    assert chip_smoke.check_decode((1, 64, 4, 2, 16), torch.bfloat16, cpu, valid_slots=1) == 0.0
+    with pytest.raises(AssertionError, match="differ"):
+        chip_smoke.check_close(torch.ones(3), torch.zeros(3), 0.05, "x")
+    cfg = dataclasses.replace(registry.reduced("llama3.2-3b"), n_layers=1)
+    params = stack.cast_weights(
+        init_params(stack.build_schema(cfg), torch.Generator().manual_seed(0), cpu))
+    toks = torch.randint(0, cfg.vocab, (2, 10), generator=torch.Generator().manual_seed(1))
+    out = chip_smoke.prefill_decode(cfg, params, toks, 3, 16, cpu)
+    assert len(out) == 4 and all(o.shape == (2, cfg.vocab) for o in out)
+    res, stats, secs, admits = chip_smoke.router(cfg, params, cpu, "geotp", n_requests=8)
+    assert admits == 8 and res["completed"] == 8 and len(stats.occ_us) >= 8
+
+
+def test_serving_work_counts_these_inputs():
+    # causal: S(S+1)/2 pairs a head; a window of w keeps min(i+1, w) keys of row i
+    nb, fl = chip_smoke.flash_work((2, 10, 4, 2, 8, True, 0, False), 2)
+    assert nb == 2 * 10 * (2 * 4 + 2 * 2) * 8 * 2 and fl == 4 * 8 * 2 * 4 * 55
+    _, fl_w = chip_smoke.flash_work((1, 10, 1, 1, 8, True, 3, False), 2)
+    assert fl_w == 4 * 8 * sum(min(i + 1, 3) for i in range(10))
+    _, fl_c = chip_smoke.flash_work((1, 10, 1, 1, 8, False, 4, True), 2)
+    assert fl_c == 4 * 8 * (16 + 16 + 4)  # chunks of 4, 4 and 2 keys
+    valid = torch.zeros((2, 16), dtype=torch.bool)
+    valid[0, :5] = True
+    valid[1, :1] = True
+    nb, fl = chip_smoke.decode_work(valid, 6, 2, 8, 2)
+    assert nb == 2 * 6 * 2 * 8 * 2 + 2 * 2 * 6 * 8 * 2 + 2 * 16 and fl == 4 * 8 * 6 * 6
+    ms, by = chip_smoke.bound(*chip_smoke.flash_work((8, 2048, 24, 8, 128, True, 0, False), 2),
+                              chip_smoke.BF16_TENSOR_OPS_PER_S)
+    assert by == "operations" and ms == pytest.approx(2.0626e11 / 989e12 * 1e3, rel=1e-3)
+
+
+# three kernel variants of a `ptxas -v` report, as nvcc prints it for sm_90a
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z19geo_schedule_kernelPKiS0_PKhS0_S0_S0_S2_PiPfiii' for 'sm_90a'
+ptxas info    : Function properties for _Z19geo_schedule_kernelPKiS0_PKhS0_S0_S0_S2_PiPfiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 29 registers, used 0 barriers
+ptxas info    : Compile time = 46.022 ms
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__52ee7d0f_18_flash_attention_cu_23f0aea712flash_kernelI13__nv_bfloat16Li32ELi256EEEvPKT_S4_S4_PS2_iiiifiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__52ee7d0f_18_flash_attention_cu_23f0aea712flash_kernelI13__nv_bfloat16Li32ELi256EEEvPKT_S4_S4_PS2_iiiifiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__9b822bd5_19_decode_attention_cu_3848999b13decode_kernelIfLi8EEEvPKT_S3_S3_PKhPS1_iiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN52_GLOBAL__N__9b822bd5_19_decode_attention_cu_3848999b13decode_kernelIfLi8EEEvPKT_S3_S3_PKhPS1_iiiif
+    3248 bytes stack frame, 8028 bytes spill stores, 10336 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 3248 bytes cumulative stack size
+"""
+
+
+def test_ptxas_report_gives_a_line_per_kernel_variant():
+    assert chip_smoke.ptxas_lines(PTXAS_REPORT) == [
+        "geo_schedule_kernel: 29 registers, 0 B stack frame, 0 B spill stores, "
+        "0 B spill loads",
+        "flash_kernel<bfloat16, 32, 256>: 168 registers, 0 B stack frame, 0 B spill stores, "
+        "0 B spill loads",
+        "decode_kernel<float32, 8>: 32 registers, 3248 B stack frame, 8028 B spill stores, "
+        "10336 B spill loads",
+    ]
+
+
+def test_wide_kernel_cases_reach_every_variant():
+    """Phase 7's cases beyond the reference's reach each kernel's widest
+    variant (head dim up to 256) and decode's G = 3 and G = 5 row layouts."""
+    from repro_torch.kernels.decode_attention.ops import MAX_HEAD_DIM as DEC_MAX
+    from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM as FL_MAX
+
+    assert max(c[4] for c in chip_smoke.WIDE_FLASH_CASES) == FL_MAX == 256
+    assert max(c[4] for c in chip_smoke.WIDE_DECODE_CASES) == DEC_MAX == 256
+    assert {c[2] // c[3] for c in chip_smoke.WIDE_DECODE_CASES} >= {3, 5}
+    main_dec = chip_smoke.launch_shapes(chip_smoke.serve_cfg(), 8, 2048, 4096)[1]
+    assert main_dec[2] // main_dec[3] == 3  # the serving path's layout is among them
