@@ -28,8 +28,9 @@ Phases (any failure raises; the script then exits non-zero):
 
 Slice 2, the serving path of the LM stack (dense GQA, llama3.2-3b):
 
-6. build — `decode_attention.cu` and `flash_attention.cu`, each by its own
-   nvcc started beside phase 2's, so they compile while phases 3-5 run;
+6. build — `decode_attention.cu`, `flash_attention.cu`, `mlstm_chunk.cu`
+   and `rglru_scan.cu`, each by its own nvcc started beside phase 2's, so
+   they compile while phases 3-5 run; ptxas's line for each variant;
 7. kernels vs plain versions on the card — every FLASH_CASES / DECODE_CASES
    row of the reference's kernel tests and the WIDE_* cases (head dims up
    to 256, decode's G = 3 and G = 5 row layouts) in float32 and bfloat16,
@@ -53,6 +54,31 @@ Slice 2, the serving path of the LM stack (dense GQA, llama3.2-3b):
    decode launches per generation and one geo_schedule launch per geotp
    admission. Cut: `max_seq` 32768 -> 4096 for the pods' slot caches
    (3 x 12 slots x 28 layers at 32768 would need 135 GB).
+
+Slice 3, the recurrent mixers (xlstm-350m, recurrentgemma-9b):
+
+10. kernels vs plain versions on the card — `mlstm_chunk` on MLSTM_CASES at
+    10 x TOL and `rglru_scan` on RGLRU_CASES at 5 x TOL (the reference
+    tests' limits), both dtypes; both again at their serving shapes in
+    float32 ([8,4,2048,256], [4,4096,4096]) at 2e-5; the attention kernels
+    with logit caps 50 and 5 on FLASH_CASES / DECODE_CASES and at
+    recurrentgemma's shapes (flash B = 4 x 4096, 16/1 heads of 256, window
+    2048; decode B = 4 over a 2048-slot ring), cap 50, both dtypes;
+    CUDA-event times of the kernels and their plain versions (no PyTorch
+    call computes the gated recurrence, mLSTM's signed normaliser or a
+    capped softmax: no library time);
+11. xlstm-350m — (a) GPU vs CPU at full width cut to 8 layers (one period,
+    with the sLSTM), layer by layer from the CPU's inputs: prefill 2 x 128,
+    4 decode steps, every layer's output, cache leaf and the logits within
+    0.08 abs + rel; (b) all 24 layers, weights drawn on the card: prefill
+    8 x 2048 (21 mlstm launches per prefill), 64 decode steps at B = 8, the
+    router geotp vs fcfs (run_model=True), geotp's average latency below
+    fcfs's;
+12. recurrentgemma-9b — (a) as 11a at 5 layers (one group and the tail);
+    (b) all 38 layers, weights drawn and cast tensor by tensor on the card:
+    prefill 4 x 4096 (26 rglru_scan and 12 flash launches per prefill,
+    past the 2048 window: band skip and ring wrap), 64 decode steps at
+    B = 4 (12 decode launches a step), the router geotp vs fcfs.
 
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
@@ -85,6 +111,7 @@ B_MAIN, D_MAIN, K_MAIN = 16, 4, 5  # lanes, data sources, ops per txn of phase 5
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
+TF32_TENSOR_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
 
 
 def phase(name: str) -> None:
@@ -93,7 +120,8 @@ def phase(name: str) -> None:
 
 def kernel_label(mangled: str) -> str:
     """`decode_kernel<bfloat16, 8>` from the mangled name of a kernel
-    variant (its name and its template's type and integer arguments)."""
+    variant (its name and its template's type, integer and bool
+    arguments)."""
     i, name = (3 if mangled.startswith("_ZN") else 2), ""
     while i < len(mangled) and mangled[i].isdigit():  # <length><name> ... (namespaces)
         j = i
@@ -105,7 +133,8 @@ def kernel_label(mangled: str) -> str:
     if not rest.startswith("I"):
         return name
     args = ["bfloat16" if rest.startswith("I13__nv_bfloat16") else "float32"]
-    args += re.findall(r"Li(\d+)E", rest)
+    args += [v if t == "i" else ("false", "true")[int(v)]
+             for t, v in re.findall(r"L([ib])(\d+)E", rest)]
     return f"{name}<{', '.join(args)}>"
 
 
@@ -275,6 +304,13 @@ WIDE_FLASH_CASES = [
     (1, 130, 2, 1, 192, False, 0, False),
 ]
 WIDE_DECODE_CASES = [(2, 333, 6, 2, 128), (1, 257, 3, 1, 256), (2, 300, 10, 2, 256)]
+# slice 3: the recurrent mixers (tests/kernels/test_kernels.py's cases)
+MLSTM_CASES = [(1, 2, 256, 64), (2, 4, 128, 128), (1, 1, 512, 32)]  # (B, H, S, dh)
+RGLRU_CASES = [(2, 256, 128), (1, 512, 512), (3, 128, 96)]  # (B, S, E)
+SOFTCAPS = (50.0, 5.0)  # recurrentgemma's cap, and one that tanh saturates
+# q is scaled by 8 in the softcap checks: scores ~ N(0, 64) reach past both
+# caps (|s| / 5 up to ~6, where tanh saturates)
+SOFTCAP_INPUT_SCALE = 8.0
 
 
 def serve_cfg(n_layers=None):
@@ -286,35 +322,38 @@ def serve_cfg(n_layers=None):
     return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
 
 
-def launch_shapes(cfg, batch, seq, cache_len):
+def launch_shapes(cfg, batch, seq, cache_len, mixer=None):
     """The shapes the model gives each kernel: flash (B, S, H, KV, dh,
     causal, window, chunk_local) per prefill layer, decode (B, Sc, H, KV,
-    dh) per decode layer (dense GQA: every layer alike)."""
-    window = cfg.window if cfg.pattern[0][0] in ("swa", "cla") else 0
+    dh) per decode layer of the attention mixer `mixer` (default: the
+    pattern's first; every attention layer of a config alike)."""
+    mixer = mixer or cfg.pattern[0][0]
+    window = cfg.window if mixer in ("swa", "cla") else 0
     cap = min(cfg.window, cache_len) if window else cache_len
-    flash = (batch, seq, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True, window,
-             cfg.pattern[0][0] == "cla")
+    flash = (batch, seq, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True, window, mixer == "cla")
     return flash, (batch, cap, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
 
 
-def _randn(shape, dtype, dev, gen):
-    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+def _randn(shape, dtype, dev, gen, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
 
-def flash_inputs(case, dtype, dev, seed):
-    """q [B,S,H,dh], k/v [B,S,KV,dh] in the model's layout."""
+def flash_inputs(case, dtype, dev, seed, scale=1.0):
+    """q [B,S,H,dh], k/v [B,S,KV,dh] in the model's layout; q scaled by
+    `scale`."""
     B, S, H, KV, dh = case[:5]
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return (_randn((B, S, H, dh), dtype, dev, gen), _randn((B, S, KV, dh), dtype, dev, gen),
+    return (_randn((B, S, H, dh), dtype, dev, gen, scale), _randn((B, S, KV, dh), dtype, dev, gen),
             _randn((B, S, KV, dh), dtype, dev, gen))
 
 
-def decode_inputs(case, dtype, dev, seed, valid_slots=None):
-    """q [B,H,dh], caches [B,Sc,KV,dh], valid [B,Sc]: slots <= a random
-    pos in [1, Sc) per row, or the first `valid_slots` slots."""
+def decode_inputs(case, dtype, dev, seed, valid_slots=None, scale=1.0):
+    """q [B,H,dh] (scaled by `scale`), caches [B,Sc,KV,dh], valid [B,Sc]:
+    slots <= a random pos in [1, Sc) per row, or the first `valid_slots`
+    slots."""
     B, Sc, H, KV, dh = case
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = _randn((B, H, dh), dtype, dev, gen)
+    q = _randn((B, H, dh), dtype, dev, gen, scale)
     k, v = _randn((B, Sc, KV, dh), dtype, dev, gen), _randn((B, Sc, KV, dh), dtype, dev, gen)
     if valid_slots is None:
         pos = torch.randint(1, Sc, (B,), generator=gen, device=dev)
@@ -337,31 +376,34 @@ def check_close(out, ref, tol, label) -> float:
     return err.max().item()
 
 
-def check_flash(case, dtype, dev, seed=0) -> float:
+def check_flash(case, dtype, dev, seed=0, logit_cap=0.0) -> float:
     """The kernel (through `ops.mha`) against its plain version."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     B, S, H, KV, dh, causal, window, cl = case
-    q, k, v = flash_inputs(case, dtype, dev, seed)
-    out = ops.mha(q, k, v, causal=causal, window=window, chunk_local=cl)
-    ref = attention_ref(*_to_bhsd(q, k, v), causal=causal, window=window, chunk_local=cl)
+    q, k, v = flash_inputs(case, dtype, dev, seed, scale=SOFTCAP_INPUT_SCALE if logit_cap else 1.0)
+    kw = dict(causal=causal, window=window, chunk_local=cl, logit_cap=logit_cap)
+    out = ops.mha(q, k, v, **kw)
+    ref = attention_ref(*_to_bhsd(q, k, v), **kw)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    return check_close(out, ref.transpose(1, 2), TOL[str(dtype)[6:]], f"flash {case} {dtype}")
+    return check_close(out, ref.transpose(1, 2), TOL[str(dtype)[6:]],
+                       f"flash {case} {dtype} cap {logit_cap}")
 
 
-def check_decode(case, dtype, dev, seed=0, valid_slots=None) -> float:
+def check_decode(case, dtype, dev, seed=0, valid_slots=None, logit_cap=0.0) -> float:
     """The kernel (through `ops.decode`) against its plain version."""
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_ref
 
-    q, k, v, valid = decode_inputs(case, dtype, dev, seed, valid_slots)
-    out = ops.decode(q, k, v, valid)
-    ref = decode_ref(q, k, v, valid)
+    q, k, v, valid = decode_inputs(case, dtype, dev, seed, valid_slots,
+                                   scale=SOFTCAP_INPUT_SCALE if logit_cap else 1.0)
+    out = ops.decode(q, k, v, valid, logit_cap=logit_cap)
+    ref = decode_ref(q, k, v, valid, logit_cap=logit_cap)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    return check_close(out, ref, TOL[str(dtype)[6:]], f"decode {case} {dtype}")
+    return check_close(out, ref, TOL[str(dtype)[6:]], f"decode {case} {dtype} cap {logit_cap}")
 
 
 def flash_work(case, itemsize):
@@ -389,8 +431,9 @@ def decode_work(valid, H, KV, dh, itemsize):
     return nbytes, 4 * dh * H * n_valid
 
 
-def time_flash(case, dev):
-    """(kernel, plain, SDPA) ms per call at one bf16 shape, CUDA events."""
+def time_flash(case, dev, logit_cap=0.0):
+    """(kernel, plain, SDPA) ms per call at one bf16 shape, CUDA events.
+    SDPA has no logit cap: with one, its time is None."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention as binding
@@ -399,17 +442,20 @@ def time_flash(case, dev):
     B, S, H, KV, dh, causal, window, cl = case
     qt, kt, vt = _to_bhsd(*flash_inputs(case, torch.bfloat16, dev, 1))
     out = torch.empty_like(qt)
-    k_ms = cuda_ms(lambda: binding.launch(qt, kt, vt, out, dh**-0.5, causal, window, cl), 10)
+    k_ms = cuda_ms(lambda: binding.launch(qt, kt, vt, out, dh**-0.5, causal, window, cl,
+                                          logit_cap), 10)
     p_ms = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=causal, window=window,
-                                         chunk_local=cl), 3)
+                                         chunk_local=cl, logit_cap=logit_cap), 3)
+    if logit_cap:
+        return k_ms, p_ms, None
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                             enable_gqa=True), 10)
     return k_ms, p_ms, lib_ms
 
 
-def time_decode(case, dev, valid_slots=None):
+def time_decode(case, dev, valid_slots=None, logit_cap=0.0):
     """(kernel, plain, SDPA) ms per call at one bf16 shape, and the inputs'
-    (bytes, flops)."""
+    (bytes, flops). SDPA has no logit cap: with one, its time is None."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops
@@ -417,11 +463,13 @@ def time_decode(case, dev, valid_slots=None):
 
     B, Sc, H, KV, dh = case
     q, k, v, valid = decode_inputs(case, torch.bfloat16, dev, 1, valid_slots)
-    k_ms = cuda_ms(lambda: ops.decode(q, k, v, valid), 200)
-    p_ms = cuda_ms(lambda: decode_ref(q, k, v, valid), 50)
-    q4, kt, vt, mask = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), valid[:, None, None]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
-                                                            enable_gqa=True), 200)
+    k_ms = cuda_ms(lambda: ops.decode(q, k, v, valid, logit_cap=logit_cap), 200)
+    p_ms = cuda_ms(lambda: decode_ref(q, k, v, valid, logit_cap=logit_cap), 50)
+    lib_ms = None
+    if not logit_cap:
+        q4, kt, vt, mask = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), valid[:, None, None]
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
+                                                                enable_gqa=True), 200)
     return k_ms, p_ms, lib_ms, decode_work(valid, H, KV, dh, 2)
 
 
@@ -463,7 +511,7 @@ def router(cfg, params, dev, policy, n_requests=ROUTER_REQUESTS):
     return res, eng.stats, time.perf_counter() - t0, len(reqs)
 
 
-SERVE_KERNELS = ("decode_attention", "flash_attention")
+LM_KERNELS = ("decode_attention", "flash_attention", "mlstm_chunk", "rglru_scan")
 
 
 def timed_build(name):
@@ -476,7 +524,7 @@ def timed_build(name):
 
 def serving_phases(dev, builds):
     """Phases 6-9. Returns the kernel records of decode_attention and
-    flash_attention."""
+    flash_attention (phase 6 also prints the recurrent kernels' builds)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fl_ops
@@ -485,7 +533,7 @@ def serving_phases(dev, builds):
     from repro_torch.models.schema import init_params, param_count
 
     bf16 = torch.bfloat16
-    phase("6 build decode_attention, flash_attention")
+    phase("6 build decode_attention, flash_attention, mlstm_chunk, rglru_scan")
     for name, fut in builds.items():
         secs = fut.result()
         _build.load(name)
@@ -537,8 +585,8 @@ def serving_phases(dev, builds):
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
     w_cpu = init_params(stack.build_schema(cfg2), torch.Generator().manual_seed(0), cpu)
-    params = {cpu: stack.cast_weights(w_cpu),
-              dev: stack.cast_weights({k: x.to(dev) for k, x in w_cpu.items()})}
+    params = {cpu: stack.cast_weights(cfg2, w_cpu),
+              dev: stack.cast_weights(cfg2, {k: x.to(dev) for k, x in w_cpu.items()})}
     del w_cpu
     print(f"{cfg2.name} x {cfg2.n_layers} layers: weights drawn on the CPU and copied in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -565,7 +613,7 @@ def serving_phases(dev, builds):
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     schema = stack.build_schema(cfg)
-    params = stack.cast_weights(init_params(schema, gen, dev))
+    params = stack.cast_weights(cfg, init_params(schema, gen, dev))
     torch.cuda.synchronize()
     print(f"{param_count(schema)} parameters drawn on the card (float32) and cast to bf16 "
           f"copies in {time.perf_counter() - t0:.2f} s")
@@ -643,6 +691,416 @@ def serving_phases(dev, builds):
     ]
 
 
+# ---------------------------------------------------------------------------
+# slice 3: the recurrent mixers (xlstm-350m, recurrentgemma-9b)
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH, RG_ARCH = "xlstm-350m", "recurrentgemma-9b"
+XLSTM_B, XLSTM_S = 8, 2048  # phase 11: prefill 8 x 2048, then DECODE_STEPS at B = 8
+RG_B, RG_S = 4, 4096  # phase 12: prefill 4 x 4096 (past the 2048 window), then decode at B = 4
+RECURRENT_TOL = 0.08  # bf16 recurrent stacks (tests/models/test_archs.py)
+# a float32 serving-shape check: kernel and plain version differ only by
+# summation order (mLSTM) or by an ulp of expf that the decay damps (RG-LRU),
+# so the reference's float32 TOL (a tenth of the cases' limits) sees a
+# dropped key block, a wrong rescale or a skipped step
+SERVE_F32_TOL = 2e-5
+
+
+def recurrent_shapes(xl, rg):
+    """The serving shapes of phases 11-12: mlstm (B, H, S, dh) of xlstm's
+    prefill, rglru_scan (B, S, E) of recurrentgemma's, and its swa layers'
+    flash and decode launches."""
+    m_main = (XLSTM_B, xl.n_heads, XLSTM_S, xl.d_model // xl.n_heads)
+    r_main = (RG_B, RG_S, int(rg.rnn_scale * rg.d_model))
+    f_rg, d_rg = launch_shapes(rg, RG_B, RG_S, RG_S + DECODE_STEPS, mixer="swa")
+    return m_main, r_main, f_rg, d_rg
+
+
+def mlstm_inputs(case, dtype, dev, seed):
+    """The reference kernel test's distribution: q, k, v ~ N(0, 1) [B,H,S,dh],
+    logi ~ N(0, 0.25), logf = log sigmoid(N(2, 1)) [B,H,S] float32."""
+    B, H, S, dh = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (_randn((B, H, S, dh), dtype, dev, gen) for _ in range(3))
+    logi = 0.5 * torch.randn((B, H, S), generator=gen, device=dev)
+    logf = torch.nn.functional.logsigmoid(torch.randn((B, H, S), generator=gen, device=dev) + 2)
+    return q, k, v, logi, logf
+
+
+def rglru_inputs(case, dtype, dev, seed):
+    """log_a = -0.05 exp(N(0, 1)) float32 and b = sqrt(1 - a^2) N(0, 1) in
+    `dtype`, [B,S,E] (the reference kernel test's)."""
+    B, S, E = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log_a = -torch.exp(torch.randn((B, S, E), generator=gen, device=dev)) * 0.05
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1 - a * a, 0, 1)) * torch.randn((B, S, E), generator=gen, device=dev)
+    return log_a, b.to(dtype)
+
+
+def check_mlstm(case, dtype, dev, seed=0, tol=None) -> float:
+    """The kernel (through `ops.mlstm`) against its plain version, at the
+    reference test's 10 x TOL unless `tol` is given."""
+    from repro_torch.kernels.mlstm import ops
+    from repro_torch.kernels.mlstm.ref import mlstm_ref
+
+    x = mlstm_inputs(case, dtype, dev, seed)
+    out, ref = ops.mlstm(*x), mlstm_ref(*x)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return check_close(out, ref, tol or 10 * TOL[str(dtype)[6:]], f"mlstm {case} {dtype}")
+
+
+def check_rglru(case, dtype, dev, seed=0, tol=None) -> float:
+    """The kernel (through `ops.rglru_scan`) against its plain version, at
+    the reference test's 5 x TOL unless `tol` is given."""
+    from repro_torch.kernels.rglru import ops
+    from repro_torch.kernels.rglru.ref import rglru_ref
+
+    x = rglru_inputs(case, dtype, dev, seed)
+    out, ref = ops.rglru_scan(*x), rglru_ref(*x)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return check_close(out, ref, tol or 5 * TOL[str(dtype)[6:]], f"rglru {case} {dtype}")
+
+
+def mlstm_work(case, itemsize):
+    """(bytes, flops) of one launch: q, k, v read and out written once, F
+    and logi read once; 4·dh flops (q.k and w.v) per (query, key <= query)
+    pair."""
+    B, H, S, dh = case
+    return 4 * B * H * S * dh * itemsize + 2 * B * H * S * 4, 4 * dh * B * H * S * (S + 1) // 2
+
+
+def rglru_work(case, itemsize):
+    """(bytes, flops) of one launch: log_a (float32) and b read, h written
+    once; exp, mul and add per element."""
+    B, S, E = case
+    return B * S * E * (4 + 2 * itemsize), 3 * B * S * E
+
+
+def time_recurrent(mlstm_case, rglru_case, dev):
+    """(kernel, plain) ms per call of both kernels at their serving shapes
+    in float32, CUDA events."""
+    from repro_torch.kernels.mlstm import ops as m_ops
+    from repro_torch.kernels.mlstm.ref import mlstm_ref
+    from repro_torch.kernels.rglru import ops as r_ops
+    from repro_torch.kernels.rglru.ref import rglru_ref
+
+    xm = mlstm_inputs(mlstm_case, torch.float32, dev, 1)
+    xr = rglru_inputs(rglru_case, torch.float32, dev, 1)
+    return {"mlstm": (cuda_ms(lambda: m_ops.mlstm(*xm), 10), cuda_ms(lambda: mlstm_ref(*xm), 3)),
+            "rglru": (cuda_ms(lambda: r_ops.rglru_scan(*xr), 20),
+                      cuda_ms(lambda: rglru_ref(*xr), 2))}
+
+
+def draw_weights(cfg, gen, dev):
+    """`init_params` then `cast_weights`, tensor by tensor in the schema's
+    sorted order (the same draws as one `init_params` call), so the float32
+    copies of all the weights never exist at once (37.6 GB at
+    recurrentgemma-9b)."""
+    from repro_torch.models import stack
+    from repro_torch.models.schema import init_params
+
+    schema = stack.build_schema(cfg)
+    out = {}
+    for name in sorted(schema):
+        out.update(stack.cast_weights(cfg, init_params({name: schema[name]}, gen, dev)))
+    return out
+
+
+def _leaf_items(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaf_items(tree[k], f"{prefix}.{k}")
+        else:
+            yield f"{prefix}.{k}", tree[k]
+
+
+def _copy_tree(dst, src):
+    for (_, d), (_, s) in zip(_leaf_items(dst), _leaf_items(src)):
+        d.copy_(s)
+
+
+def layerwise(cfg, params, tokens, steps, cache_len, dev, tol=RECURRENT_TOL):
+    """GPU vs CPU layer by layer: prefill tokens[:, :-steps], then decode
+    the last `steps` tokens, every layer run on both devices from the CPU's
+    input (hidden state, and for decode the CPU's cache of that layer), so
+    the comparison holds each layer's kernels and products on the same
+    inputs: a free-running bf16 xLSTM stack amplifies an ulp of difference
+    between two GEMMs past any fixed limit within a few layers. Checks every
+    layer's output, every cache leaf and the logits within `tol` abs + rel;
+    returns the largest |gpu - cpu| of each kind."""
+    from repro_torch.models import stack
+    from repro_torch.models.layers import embed_lookup, rmsnorm
+
+    cpu = torch.device("cpu")
+    devs = (cpu, dev)
+    B, n = tokens.shape
+    S = n - steps
+    caches = {d: stack.init_cache(cfg, B, cache_len, d) for d in devs}
+    worst = {"hidden": 0.0, "cache": 0.0, "logits": 0.0}
+
+    def compare(kind, a, b, label):
+        worst[kind] = max(worst[kind], check_close(a.cpu(), b, tol, label))
+
+    def head(x):
+        out = {d: stack._head(params[d], rmsnorm(x.to(d), params[d]["final_ln"])) for d in devs}
+        return out[dev], out[cpu]
+
+    x = embed_lookup(params[cpu]["embed"], tokens[:, :S], stack.ACT_DTYPE)
+    positions = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+    for pfx, g, mixer, fk in stack._layers(cfg):
+        out = {d: stack._prefill_layer(cfg, stack._layer(params[d], pfx, g), pfx, mixer, fk,
+                                       x.to(d), positions.to(d),
+                                       stack._layer_cache(caches[d], pfx, g), cache_len)
+               for d in devs}
+        compare("hidden", out[dev], out[cpu], f"prefill {pfx}[{g}] {mixer} output")
+        x = out[cpu]
+    compare("logits", *head(x[:, -1]), "prefill logits")
+    for (name, a), (_, b) in zip(_leaf_items(caches[dev]), _leaf_items(caches[cpu])):
+        compare("cache", a, b, f"prefill cache {name}")
+    for t in range(S, n):
+        x = embed_lookup(params[cpu]["embed"], tokens[:, t], stack.ACT_DTYPE)[:, None]
+        pos = torch.full((B,), t, dtype=torch.int32)
+        for pfx, g, mixer, fk in stack._layers(cfg):
+            views = {d: stack._layer_cache(caches[d], pfx, g) for d in devs}
+            _copy_tree(views[dev], views[cpu])  # the GPU's layer starts from the CPU's state
+            out = {d: stack._decode_layer(cfg, stack._layer(params[d], pfx, g), pfx, mixer, fk,
+                                          x.to(d), pos.to(d), views[d]) for d in devs}
+            compare("hidden", out[dev], out[cpu], f"decode {t} {pfx}[{g}] {mixer} output")
+            for (name, a), (_, b) in zip(_leaf_items(views[dev]), _leaf_items(views[cpu])):
+                compare("cache", a, b, f"decode {t} {pfx}[{g}] cache {name}")
+            x = out[cpu]
+        compare("logits", *head(x[:, 0]), f"decode {t} logits")
+    return worst
+
+
+def model_phase(arch, n_layers_cpu, prompt, dev, serve):
+    """GPU vs CPU at `n_layers_cpu` layers (one period plus the tail),
+    layer by layer; then the model at full width: prefill `serve` = (B, S)
+    twice, DECODE_STEPS decode steps, and the router geotp vs fcfs. Returns
+    the measured numbers and the kernel launch counts of the full-width
+    run (counts set to 0 just before it and read just after)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.geo_schedule import ops as geo_ops
+    from repro_torch.kernels.mlstm import ops as m_ops
+    from repro_torch.kernels.rglru import ops as r_ops
+    from repro_torch.models import model, stack
+    from repro_torch.models.schema import param_count
+
+    cpu = torch.device("cpu")
+    full = registry.get(arch)
+    cfg_s = dataclasses.replace(full, n_layers=n_layers_cpu)
+    t0 = time.perf_counter()
+    w_cpu = draw_weights(cfg_s, torch.Generator().manual_seed(0), cpu)
+    params = {cpu: w_cpu, dev: {k: x.to(dev) for k, x in w_cpu.items()}}
+    print(f"{arch} x {n_layers_cpu} layers at full width ({param_count(stack.build_schema(cfg_s))} "
+          f"parameters): weights drawn on the CPU and copied in {time.perf_counter() - t0:.2f} s")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, full.vocab, (2, prompt + 4)))
+    t0 = time.perf_counter()
+    worst = layerwise(cfg_s, params, tokens, 4, prompt + 8, dev)
+    print(f"layer by layer, prefill 2 x {prompt} + 4 decode steps ({time.perf_counter() - t0:.2f} "
+          f"s): max |gpu - cpu| hidden {worst['hidden']:.4g}, cache leaves {worst['cache']:.4g}, "
+          f"logits {worst['logits']:.4g} (limit {RECURRENT_TOL} abs + rel)")
+    del params, w_cpu
+
+    B, S = serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = draw_weights(full, gen, dev)
+    torch.cuda.synchronize()
+    n_par = param_count(stack.build_schema(full))
+    print(f"{arch} at full width: {n_par} parameters drawn on the card and cast tensor by tensor "
+          f"in {time.perf_counter() - t0:.2f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    tokens = torch.randint(0, full.vocab, (B, S + DECODE_STEPS), generator=gen, device=dev,
+                           dtype=torch.int32)
+    cache_len = S + DECODE_STEPS
+    prefill = model.make_prefill_step(full, cache_len)
+    decode = model.make_decode_step(full)
+    counters = (m_ops.mlstm, r_ops.rglru_scan, fl_ops.mha, dec_ops.decode)
+    for c in counters:
+        c.launches = 0
+    pre_s = []
+    for _ in range(2):  # the first call warms the libraries' plans for these shapes
+        cache = None
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": tokens[:, :S]})
+        torch.cuda.synchronize()
+        pre_s.append(time.perf_counter() - t0)
+    per_prefill = {c.__name__: c.launches // 2 for c in counters}
+    finite = bool(torch.isfinite(logits.float()).all())
+    step_s = []
+    dec0 = dec_ops.decode.launches
+    for t in range(S, S + DECODE_STEPS):
+        pos = torch.full((B,), t, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        logits, cache = decode(params, tokens[:, t], pos, cache)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        finite = finite and bool(torch.isfinite(logits.float()).all())
+    if not finite:
+        raise AssertionError(f"{arch}: non-finite logits on the serving path")
+    per_step = (dec_ops.decode.launches - dec0) / DECODE_STEPS
+    dec_mean = sum(step_s) / len(step_s)
+    print(f"prefill {B} x {S}: {pre_s[0] * 1e3:.2f} ms (first), {pre_s[1] * 1e3:.2f} ms (second) "
+          f"= {B * S / pre_s[1]:.1f} tokens/s; launches per prefill {per_prefill}")
+    print(f"decode B={B}: {dec_mean * 1e3:.3f} ms a step (mean of {DECODE_STEPS}; "
+          f"{sum(step_s[1:]) / (len(step_s) - 1) * 1e3:.3f} without the first) = "
+          f"{B / dec_mean:.1f} tokens/s; decode launches per step {per_step}; logits finite")
+    del cache, logits
+    res = {}
+    for pol in ("geotp", "fcfs"):
+        before = {c.__name__: c.launches for c in counters}
+        geo_ops.geo_schedule.launches = 0
+        res[pol], stats, secs, admits = router(full, params, dev, pol)
+        gens = len(stats.occ_us)
+        want_geo = admits if pol == "geotp" else 0
+        if geo_ops.geo_schedule.launches != want_geo:
+            raise AssertionError(f"router {pol}: geo_schedule launches "
+                                 f"{geo_ops.geo_schedule.launches} != {want_geo}")
+        used = {c.__name__: c.launches - before[c.__name__] for c in counters}
+        if used["decode"] != per_step * gens:
+            raise AssertionError(f"router {pol}: decode launches {used['decode']} != "
+                                 f"{per_step} x {gens} generations")
+        print(f"router {pol}: {res[pol]} in {secs:.2f} s; {gens} generations, launches {used}, "
+              f"geo_schedule {geo_ops.geo_schedule.launches}")
+    if not res["geotp"]["avg_latency_ms"] < res["fcfs"]["avg_latency_ms"]:
+        raise AssertionError(f"{arch}: geotp avg latency not below fcfs: {res}")
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return {"per_prefill": per_prefill, "per_step": per_step, "launches": launches,
+            "prefill_s": pre_s[1], "step_s": dec_mean, "worst": worst}
+
+
+def recurrent_phases(dev, records):
+    """Phases 10-12. Adds the mlstm_chunk and rglru_scan records to
+    `records` (by name) and folds the softcapped checks and the
+    recurrentgemma launches into the attention kernels' records."""
+    from repro_torch.configs import registry
+
+    phase("10 recurrent kernels and the attention kernels' logit cap vs plain versions")
+    errs = {"mlstm_chunk": 0.0, "rglru_scan": 0.0, "flash_attention": 0.0,
+            "decode_attention": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(MLSTM_CASES):
+            e = check_mlstm(case, dt, dev, seed=i)
+            errs["mlstm_chunk"] = max(errs["mlstm_chunk"], e)
+            print(f"mlstm  {str(case):30s} {str(dt)[6:]:8s} max |d| {e:.3g}")
+        for i, case in enumerate(RGLRU_CASES):
+            e = check_rglru(case, dt, dev, seed=i)
+            errs["rglru_scan"] = max(errs["rglru_scan"], e)
+            print(f"rglru  {str(case):30s} {str(dt)[6:]:8s} max |d| {e:.3g}")
+        for cap in SOFTCAPS:
+            ef = max(check_flash(c, dt, dev, seed=i, logit_cap=cap)
+                     for i, c in enumerate(FLASH_CASES))
+            ed = max(check_decode(c, dt, dev, seed=i, logit_cap=cap)
+                     for i, c in enumerate(DECODE_CASES))
+            errs["flash_attention"] = max(errs["flash_attention"], ef)
+            errs["decode_attention"] = max(errs["decode_attention"], ed)
+            print(f"cap {cap:4.0f} {str(dt)[6:]:8s}: FLASH_CASES max |d| {ef:.3g}, DECODE_CASES "
+                  f"max |d| {ed:.3g}")
+    xl, rg = registry.get(XLSTM_ARCH), registry.get(RG_ARCH)
+    m_main, r_main, f_rg, d_rg = recurrent_shapes(xl, rg)
+    # the serving shapes: the recurrent kernels in float32 (their dtype on
+    # the model path) at SERVE_F32_TOL; the capped attention in both dtypes
+    em = check_mlstm(m_main, torch.float32, dev, tol=SERVE_F32_TOL)
+    er = check_rglru(r_main, torch.float32, dev, tol=SERVE_F32_TOL)
+    errs["mlstm_chunk"] = max(errs["mlstm_chunk"], em)
+    errs["rglru_scan"] = max(errs["rglru_scan"], er)
+    print(f"serving shapes float32 (tol {SERVE_F32_TOL} abs + rel): mlstm {m_main} max |d| "
+          f"{em:.3g}, rglru {r_main} max |d| {er:.3g}")
+    for dt in (torch.float32, torch.bfloat16):
+        ef = check_flash(f_rg, dt, dev, logit_cap=rg.attn_softcap)
+        ed = check_decode(d_rg, dt, dev, logit_cap=rg.attn_softcap)
+        errs["flash_attention"] = max(errs["flash_attention"], ef)
+        errs["decode_attention"] = max(errs["decode_attention"], ed)
+        print(f"{RG_ARCH} shapes {str(dt)[6:]}, cap {rg.attn_softcap}: flash {f_rg} max |d| "
+              f"{ef:.3g}, decode {d_rg} max |d| {ed:.3g}")
+    t = time_recurrent(m_main, r_main, dev)
+    m_work, r_work = mlstm_work(m_main, 4), rglru_work(r_main, 4)
+    m_bound, m_by = bound(*m_work, FP32_OPS_PER_S)
+    r_bound, r_by = bound(*r_work, FP32_OPS_PER_S)
+    print(f"mlstm {m_main} float32: kernel {t['mlstm'][0]:.4f} ms, plain {t['mlstm'][1]:.4f} ms; "
+          f"{m_work[0]} bytes, {m_work[1]:.4g} flops, bound {m_bound:.4g} ms ({m_by}, float32 on "
+          f"the CUDA cores; {m_work[1] / TF32_TENSOR_OPS_PER_S * 1e3:.4g} ms on TF32 tensor "
+          f"cores); "
+          f"{m_work[1] / t['mlstm'][0] / 1e9:.2f} TFLOP/s")
+    print(f"rglru {r_main} float32: kernel {t['rglru'][0]:.4f} ms, plain {t['rglru'][1]:.4f} ms; "
+          f"{r_work[0]} bytes, bound {r_bound:.4g} ms ({r_by}); "
+          f"{r_work[0] / t['rglru'][0] / 1e9:.3f} TB/s")
+    f_t = time_flash(f_rg, dev, rg.attn_softcap)
+    # every ring slot is valid after the 4096-token prefill, as on the path
+    d_t = time_decode(d_rg, dev, valid_slots=d_rg[1], logit_cap=rg.attn_softcap)
+    f_work, d_work = flash_work(f_rg, 2), d_t[3]
+    print(f"flash {f_rg} bf16 cap {rg.attn_softcap}: kernel {f_t[0]:.4f} ms, plain "
+          f"{f_t[1]:.4f} ms; "
+          f"{f_work[1]:.4g} flops, bound {bound(*f_work, BF16_TENSOR_OPS_PER_S)[0]:.4g} ms; "
+          f"{f_work[1] / f_t[0] / 1e9:.2f} TFLOP/s")
+    print(f"decode {d_rg} bf16 cap {rg.attn_softcap}: kernel {d_t[0]:.4f} ms, plain {d_t[1]:.4f} "
+          f"ms; {d_work[0]} bytes (valid slots), bound "
+          f"{bound(*d_work, BF16_TENSOR_OPS_PER_S)[0]:.4g} ms")
+
+    phase(f"11 {XLSTM_ARCH}: GPU vs CPU at 8 layers, then full width")
+    xs = model_phase(XLSTM_ARCH, len(xl.pattern), 128, dev, (XLSTM_B, XLSTM_S))
+    n_mlstm = sum(m == "mlstm" for m, _ in xl.pattern) * xl.n_groups
+    if xs["per_prefill"]["mlstm"] != n_mlstm or xs["per_prefill"]["rglru_scan"] != 0:
+        raise AssertionError(f"{XLSTM_ARCH}: launches per prefill {xs['per_prefill']}, want "
+                             f"{n_mlstm} mlstm")
+
+    phase(f"12 {RG_ARCH}: GPU vs CPU at 5 layers, then full width")
+    rs = model_phase(RG_ARCH, len(rg.pattern) + len(rg.tail), 128, dev, (RG_B, RG_S))
+    mixers = [m for m, _ in rg.pattern] * rg.n_groups + [m for m, _ in rg.tail]
+    want = {"rglru_scan": mixers.count("rglru"), "mha": mixers.count("swa")}
+    if any(rs["per_prefill"][k] != v for k, v in want.items()) or rs["per_step"] != want["mha"]:
+        raise AssertionError(f"{RG_ARCH}: launches per prefill {rs['per_prefill']} (want {want}), "
+                             f"per decode step {rs['per_step']} (want {want['mha']})")
+
+    by_name = {r["name"]: r for r in records}
+    for name, err in errs.items():
+        if name in by_name:
+            by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+    by_name["flash_attention"]["launches"] += rs["launches"]["mha"]
+    by_name["decode_attention"]["launches"] += rs["launches"]["decode"]
+    records += [
+        {"name": "mlstm_chunk", "route": "cuda", "source": "src/repro_torch/csrc/mlstm_chunk.cu",
+         "replaces": "src/repro/kernels/mlstm/mlstm.py:94", "launches": xs["launches"]["mlstm"],
+         "max_abs_err": errs["mlstm_chunk"], "ms": t["mlstm"][0], "plain_ms": t["mlstm"][1],
+         "bound_ms": m_bound, "bound_by": m_by, "library_ms": None},
+        {"name": "rglru_scan", "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru/rglru.py:52",
+         "launches": rs["launches"]["rglru_scan"], "max_abs_err": errs["rglru_scan"],
+         "ms": t["rglru"][0], "plain_ms": t["rglru"][1], "bound_ms": r_bound, "bound_by": r_by,
+         "library_ms": None},
+    ]
+    return records
+
+
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms")
+KERNEL_NAMES = ("geo_schedule", "decode_attention", "flash_attention", "mlstm_chunk",
+                "rglru_scan")
+
+
+def kernels_line(records) -> str:
+    """The JSON line of every kernel's record; each holds all KERNEL_KEYS,
+    every kernel of the port is there, and each was launched on its path."""
+    if sorted(r["name"] for r in records) != sorted(KERNEL_NAMES):
+        raise AssertionError(f"kernel records {[r['name'] for r in records]} != {KERNEL_NAMES}")
+    for r in records:
+        if set(r) != set(KERNEL_KEYS):
+            raise AssertionError(f"{r['name']}: keys {sorted(r)} != {sorted(KERNEL_KEYS)}")
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']} was never launched on its path")
+    return json.dumps({"kernels": records})
+
+
 def main() -> int:
     phase("1 environment")
     print("python", sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
@@ -667,9 +1125,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     phase("2 build")
-    # slice 2's kernels compile beside this one and phases 3-5 (phase 6 waits)
-    pool = concurrent.futures.ThreadPoolExecutor(len(SERVE_KERNELS))
-    builds = {name: pool.submit(timed_build, name) for name in SERVE_KERNELS}
+    # the LM stack's kernels compile beside this one and phases 3-5 (phase 6 waits)
+    pool = concurrent.futures.ThreadPoolExecutor(len(LM_KERNELS))
+    builds = {name: pool.submit(timed_build, name) for name in LM_KERNELS}
     pool.shutdown(wait=False)
     t0 = time.perf_counter()
     _build.build("geo_schedule", verbose=True)
@@ -750,9 +1208,9 @@ def main() -> int:
         print(f"{p:10s} throughput {tps:9.2f} tps  avg latency {lat:8.2f} ms  "
               f"(mean of {len(rows)} seeds)")
 
-    serving_records = serving_phases(dev, builds)
+    lm_records = recurrent_phases(dev, serving_phases(dev, builds))
 
-    print(json.dumps({"kernels": [{
+    print(kernels_line([{
         "name": "geo_schedule",
         "route": "cuda",
         "source": "src/repro_torch/csrc/geo_schedule.cu",
@@ -764,7 +1222,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + serving_records}))
+    }] + lm_records))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -4,8 +4,9 @@
 // src/repro/kernels/decode_attention/decode_attention.py::decode_attention
 // (`_kernel`, a Pallas grid (B, KV, Sc/bk) whose third dimension walks the
 // cache in order, carrying the online-softmax state in VMEM scratch):
-//   out[b, h] = softmax_s(where(valid[b, s], q[b, h] . k[b, s, h / G] / sqrt(dh), -1e30))
+//   out[b, h] = softmax_s(where(valid[b, s], cap(q[b, h] . k[b, s, h / G] / sqrt(dh)), -1e30))
 //               . v[b, :, h / G]
+//   cap(s) = tanh(s / c) * c with the logit cap c > 0 (recurrentgemma's 50), else s
 // q [B,H,dh], k/v [B,Sc,KV,dh] (float32 or bfloat16, all one type),
 // valid [B,Sc] bytes -> out [B,H,dh] in q's type; arithmetic in float32.
 //
@@ -32,6 +33,8 @@
 // valid slot at all walks every chunk, as the TPU kernel does, and gives
 // the mean of v. At B = 1 this launches KV = 8 blocks and leaves most of
 // the 132 SMs idle; splitting the cache over blocks is later work.
+// The logit cap (which the TPU kernel lacks; the reference model applies it
+// after the scale and before the mask) is one tanhf per valid slot and row.
 //
 // Masked scores are the finite -1e30 of the TPU kernel, never -inf: a row
 // whose first chunk is all masked adds exp(0) = 1 terms that the next valid
@@ -74,6 +77,10 @@ __device__ __forceinline__ void fold(float* part, int lane) {
   }
 }
 
+__device__ __forceinline__ float softcap(float x, float cap) {
+  return cap > 0.0f ? tanhf(x / cap) * cap : x;
+}
+
 __host__ __device__ int warps_per_row(int g) { return g < kWarps ? kWarps / g : 1; }
 
 size_t smem_bytes(int g, int dh) {
@@ -86,7 +93,7 @@ template <typename T, int NE>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const uint8_t* __restrict__ valid, T* __restrict__ out, int H, int KV,
-              int Sc, int dh, float scale) {
+              int Sc, int dh, float scale, float cap) {
   const int b = blockIdx.x / KV, kv = blockIdx.x % KV;
   const int G = H / KV;
   const int splits = warps_per_row(G);  // warps sharing a row
@@ -143,7 +150,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       fold<2>(part, lane);
       fold<1>(part, lane);
       // past the end: no term; masked: the TPU kernel's finite -1e30
-      const float sc = !in ? -INFINITY : (ok ? part[0] * scale : kNeg);
+      const float sc = !in ? -INFINITY : (ok ? softcap(part[0] * scale, cap) : kNeg);
       float mx = sc;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
@@ -197,37 +204,40 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
 template <typename T, int NE>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
-           int H, int KV, int Sc, int dh, float scale, cudaStream_t stream) {
+           int H, int KV, int Sc, int dh, float scale, float cap, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / KV, dh);
   cudaError_t err = cudaFuncSetAttribute(decode_kernel<T, NE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   decode_kernel<T, NE><<<B * KV, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)valid, (T*)out, H, KV, Sc, dh,
-      scale);
+      scale, cap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
-              int H, int KV, int Sc, int dh, float scale, cudaStream_t st) {
-  if (dh <= 64) return launch<T, 2>(q, k, v, valid, out, B, H, KV, Sc, dh, scale, st);
-  if (dh <= 128) return launch<T, 4>(q, k, v, valid, out, B, H, KV, Sc, dh, scale, st);
-  if (dh <= 256) return launch<T, 8>(q, k, v, valid, out, B, H, KV, Sc, dh, scale, st);
+              int H, int KV, int Sc, int dh, float scale, float cap, cudaStream_t st) {
+  if (dh <= 64) return launch<T, 2>(q, k, v, valid, out, B, H, KV, Sc, dh, scale, cap, st);
+  if (dh <= 128) return launch<T, 4>(q, k, v, valid, out, B, H, KV, Sc, dh, scale, cap, st);
+  if (dh <= 256) return launch<T, 8>(q, k, v, valid, out, B, H, KV, Sc, dh, scale, cap, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Shapes are checked by the Python wrapper.
+// dtype: 0 = float32, 1 = bfloat16; cap <= 0: no logit cap. Shapes are
+// checked by the Python wrapper.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* valid, void* out, int B, int H, int KV,
-                                       int Sc, int dh, float scale, int dtype, void* stream) {
+                                       int Sc, int dh, float scale, float cap, int dtype,
+                                       void* stream) {
   if (B == 0 || H == 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV != 0 || Sc <= 0 || dh <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_dh<float>(q, k, v, valid, out, B, H, KV, Sc, dh, scale, st);
+  if (dtype == 0)
+    return launch_dh<float>(q, k, v, valid, out, B, H, KV, Sc, dh, scale, cap, st);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, valid, out, B, H, KV, Sc, dh, scale, st);
+    return launch_dh<__nv_bfloat16>(q, k, v, valid, out, B, H, KV, Sc, dh, scale, cap, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,9 @@
 // src/repro/kernels/flash_attention/flash_attention.py::flash_attention
 // (`_kernel`, a Pallas grid (B*H, S/bq, S/bk) whose third dimension walks
 // the keys in order with (acc, m, l) in VMEM scratch):
-//   out[b, h, i] = softmax_j(where(mask(i, j), q[b, h, i] . k[b, h / G, j] / sqrt(dh), -1e30))
+//   out[b, h, i] = softmax_j(where(mask(i, j), cap(q[b, h, i] . k[b, h / G, j] / sqrt(dh)), -1e30))
 //                  . v[b, h / G]
+//   cap(s) = tanh(s / c) * c with the logit cap c > 0 (recurrentgemma's 50), else s
 //   mask = (j <= i if causal) & (j // w == i // w if chunk_local, else j > i - w, if w > 0)
 // q [B,H,S,dh], k/v [B,KV,S,dh] (float32 or bfloat16, all one type) ->
 // out [B,H,S,dh] in q's type; arithmetic in float32.
@@ -30,7 +31,11 @@
 // different rows hit different banks. Key blocks that the mask empties are
 // skipped with the TPU kernel's block predicate (flash_attention.py:55-64);
 // the heaviest query blocks of a causal row are launched first. Sizes not a
-// multiple of a block are masked at the ragged edge, never padded.
+// multiple of a block are masked at the ragged edge, never padded. The logit
+// cap (which the TPU kernel lacks; the reference model applies it after the
+// scale and before the mask) is a template flag: the uncapped variant is the
+// plain kernel (a per-score `cap > 0 ?` select cost 9% at llama's prefill),
+// the capped one scales and caps each score tile in a loop of tanhf.
 //
 // Masked scores are the finite -1e30 of the TPU kernel, never -inf: a row
 // whose first needed tile is all masked adds exp(0) = 1 terms that the next
@@ -81,11 +86,11 @@ size_t smem_bytes(int dh) {
          sizeof(float) * (size_t)BQ * (kBK + 1);
 }
 
-template <typename T, int BQ, int DMAX>
+template <typename T, int BQ, int DMAX, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int H, int KV, int S, int dh, float scale, int causal,
-             int window, int chunk_local) {
+             T* __restrict__ out, int H, int KV, int S, int dh, float scale, float cap,
+             int causal, int window, int chunk_local) {
   constexpr int RQ = BQ / 16;   // query rows per thread
   constexpr int ND = DMAX / 8;  // output columns per thread
   const int nq = (S + BQ - 1) / BQ;
@@ -150,6 +155,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       }
     }
 
+    if (CAP) {  // the scaled scores, capped: tanh(s / cap) * cap
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = tanhf(s[i][j] * scale / cap) * cap;
+    }
+
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
       const int qp = q0 + ty * RQ + i;
@@ -165,7 +177,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
             if (chunk_local) ok = ok && (kp / window == qp / window);
             else ok = ok && (kp > qp - window);
           }
-          x = ok ? s[i][j] * scale : kNeg;
+          x = ok ? (CAP ? s[i][j] : s[i][j] * scale) : kNeg;
         }
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -223,47 +235,53 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 template <typename T, int BQ, int DMAX>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV, int S,
-           int dh, float scale, int causal, int window, int chunk_local, cudaStream_t stream) {
+           int dh, float scale, float cap, int causal, int window, int chunk_local,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<T, BQ>(dh);
-  auto kern = flash_kernel<T, BQ, DMAX>;
+  auto kern = cap > 0.0f ? flash_kernel<T, BQ, DMAX, true> : flash_kernel<T, BQ, DMAX, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)B * H * ((S + BQ - 1) / BQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kern<<<(unsigned)blocks, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                     (T*)out, H, KV, S, dh, scale, causal,
-                                                     window, chunk_local);
+                                                     (T*)out, H, KV, S, dh, scale, cap,
+                                                     causal, window, chunk_local);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-              int S, int dh, float scale, int causal, int window, int chunk_local,
+              int S, int dh, float scale, float cap, int causal, int window, int chunk_local,
               cudaStream_t st) {
   if (dh <= 64)
-    return launch<T, 64, 64>(q, k, v, out, B, H, KV, S, dh, scale, causal, window, chunk_local, st);
+    return launch<T, 64, 64>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+                               chunk_local, st);
   if (dh <= 128)
-    return launch<T, 64, 128>(q, k, v, out, B, H, KV, S, dh, scale, causal, window, chunk_local, st);
+    return launch<T, 64, 128>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+                               chunk_local, st);
   if (dh <= 256)
-    return launch<T, 32, 256>(q, k, v, out, B, H, KV, S, dh, scale, causal, window, chunk_local, st);
+    return launch<T, 32, 256>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+                               chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Shapes are checked by the Python wrapper.
+// dtype: 0 = float32, 1 = bfloat16; cap <= 0: no logit cap. Shapes are
+// checked by the Python wrapper.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int H, int KV, int S, int dh, float scale,
-                                      int causal, int window, int chunk_local, int dtype,
-                                      void* stream) {
+                                      float cap, int causal, int window, int chunk_local,
+                                      int dtype, void* stream) {
   if (B == 0 || H == 0 || S == 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV != 0 || dh <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_dh<float>(q, k, v, out, B, H, KV, S, dh, scale, causal, window, chunk_local, st);
+    return launch_dh<float>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+                            chunk_local, st);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, out, B, H, KV, S, dh, scale, causal, window,
+    return launch_dh<__nv_bfloat16>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
                                     chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }

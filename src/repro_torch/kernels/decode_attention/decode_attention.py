@@ -22,15 +22,17 @@ def entry():
     """The C entry point; the library is built at the first call."""
     fn = _build.load("decode_attention").decode_attention_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+        + [ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch(q, k_cache, v_cache, valid, out, scale: float) -> None:
+def launch(q, k_cache, v_cache, valid, out, scale: float, logit_cap: float) -> None:
     """Enqueue one kernel on the current stream of the tensors' device.
-    q/out [B,H,dh], caches [B,Sc,KV,dh], valid [B,Sc] bool (read as bytes)."""
+    q/out [B,H,dh], caches [B,Sc,KV,dh], valid [B,Sc] bool (read as bytes);
+    `logit_cap` <= 0: no cap."""
     B, H, dh = q.shape
     Sc, KV = k_cache.shape[1], k_cache.shape[2]
     fn = entry()
@@ -38,7 +40,7 @@ def launch(q, k_cache, v_cache, valid, out, scale: float) -> None:
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), B, H, KV, Sc, dh, scale, DTYPE_CODES[q.dtype], stream,
+            out.data_ptr(), B, H, KV, Sc, dh, scale, float(logit_cap), DTYPE_CODES[q.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")

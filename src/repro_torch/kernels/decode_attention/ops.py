@@ -6,6 +6,8 @@ back. `decode.launches` counts kernel launches (plain calls do not count),
 so a run can show that its main path went through the kernel. The kernel
 takes dh as it is (up to 256) and scales by 1/sqrt(dh) itself: the
 reference wrapper's padding of dh to 128 is a TPU matrix-unit artefact.
+`logit_cap` > 0 caps each scaled score at `tanh(s / cap) * cap` before the
+mask, as the reference model's attention does (its TPU kernel has no cap).
 """
 
 from __future__ import annotations
@@ -48,19 +50,21 @@ def _check(q, k_cache, v_cache, valid) -> None:
             raise ValueError(f"decode: {name} must be contiguous")
 
 
-def decode(q, k_cache, v_cache, valid):
+def decode(q, k_cache, v_cache, valid, *, logit_cap: float = 0.0):
     """q: [B,1,H,dh] or [B,H,dh]; caches [B,Sc,KV,dh]; valid [B,Sc] bool ->
     q's shape and dtype."""
+    if logit_cap < 0:
+        raise ValueError(f"decode: logit_cap must be >= 0, got {logit_cap}")
     squeeze = q.dim() == 4
     if squeeze:
         q = q[:, 0]
     _check(q, k_cache, v_cache, valid)
     if q.device.type == "cpu":
-        out = decode_ref(q, k_cache, v_cache, valid)
+        out = decode_ref(q, k_cache, v_cache, valid, logit_cap=logit_cap)
     elif q.device.type == "cuda":
         _cuda.entry()  # a library that cannot build or load raises before any work
         out = torch.empty_like(q)
-        _cuda.launch(q, k_cache, v_cache, valid, out, q.shape[-1] ** -0.5)
+        _cuda.launch(q, k_cache, v_cache, valid, out, q.shape[-1] ** -0.5, logit_cap)
         decode.launches += 1
     else:
         raise ValueError(f"decode: no kernel for device {q.device}")

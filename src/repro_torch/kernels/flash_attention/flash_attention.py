@@ -24,7 +24,7 @@ def entry():
     fn.argtypes = (
         [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 5
-        + [ctypes.c_float]
+        + [ctypes.c_float] * 2
         + [ctypes.c_int] * 4
         + [ctypes.c_void_p]
     )
@@ -32,9 +32,10 @@ def entry():
     return fn
 
 
-def launch(q, k, v, out, scale: float, causal: bool, window: int, chunk_local: bool) -> None:
+def launch(q, k, v, out, scale: float, causal: bool, window: int, chunk_local: bool,
+           logit_cap: float) -> None:
     """Enqueue one kernel on the current stream of the tensors' device.
-    q/out [B,H,S,dh], k/v [B,KV,S,dh]."""
+    q/out [B,H,S,dh], k/v [B,KV,S,dh]; `logit_cap` <= 0: no cap."""
     B, H, S, dh = q.shape
     KV = k.shape[1]
     fn = entry()
@@ -42,7 +43,8 @@ def launch(q, k, v, out, scale: float, causal: bool, window: int, chunk_local: b
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, S, dh, scale,
-            int(causal), int(window), int(chunk_local), DTYPE_CODES[q.dtype], stream,
+            float(logit_cap), int(causal), int(window), int(chunk_local), DTYPE_CODES[q.dtype],
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")

@@ -6,7 +6,9 @@ computes the plain version (`ref.py`). It never catches an error to fall
 back. `mha.launches` counts kernel launches (plain calls do not count). The
 kernel takes dh as it is (up to 256) and S as it is, masking the ragged
 edge: the reference wrapper's padding of dh to 128 and its shrinking of
-the block to divide S are TPU artefacts.
+the block to divide S are TPU artefacts. `logit_cap` > 0 caps each scaled
+score at `tanh(s / cap) * cap` before the mask, as the reference model's
+attention does (its TPU kernel has no cap).
 """
 
 from __future__ import annotations
@@ -40,21 +42,24 @@ def _check(q, k, v) -> None:
             raise ValueError(f"mha: {name} on {x.device}, q on {q.device}")
 
 
-def mha(q, k, v, *, causal: bool = True, window: int = 0, chunk_local: bool = False):
+def mha(q, k, v, *, causal: bool = True, window: int = 0, chunk_local: bool = False,
+        logit_cap: float = 0.0):
     """q: [B,S,H,dh]; k/v: [B,S,KV,dh] -> [B,S,H,dh] in q's dtype."""
     _check(q, k, v)
-    if window < 0:
-        raise ValueError(f"mha: window must be >= 0, got {window}")
+    if window < 0 or logit_cap < 0:
+        raise ValueError(f"mha: window and logit_cap must be >= 0, got {window}, {logit_cap}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mha: no kernel for device {q.device}")
     if q.device.type == "cuda":
         _cuda.entry()  # a library that cannot build or load raises before any work
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     if q.device.type == "cpu":
-        out = attention_ref(qt, kt, vt, causal=causal, window=window, chunk_local=chunk_local)
+        out = attention_ref(qt, kt, vt, causal=causal, window=window, chunk_local=chunk_local,
+                            logit_cap=logit_cap)
     else:
         out = torch.empty_like(qt)
-        _cuda.launch(qt, kt, vt, out, q.shape[-1] ** -0.5, causal, window, chunk_local)
+        _cuda.launch(qt, kt, vt, out, q.shape[-1] ** -0.5, causal, window, chunk_local,
+                     logit_cap)
         mha.launches += 1
     return out.transpose(1, 2)
 

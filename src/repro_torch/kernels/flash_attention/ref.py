@@ -8,14 +8,17 @@ from __future__ import annotations
 import torch
 
 
-def attention_ref(q, k, v, *, causal=True, window=0, chunk_local=False):
-    """q: [B,H,S,dh], k/v: [B,KV,S,dh] -> [B,H,S,dh] (float32 math)."""
+def attention_ref(q, k, v, *, causal=True, window=0, chunk_local=False, logit_cap=0.0):
+    """q: [B,H,S,dh], k/v: [B,KV,S,dh] -> [B,H,S,dh] (float32 math). `logit_cap`
+    > 0 caps the scaled scores before the mask (`repro.models.layers.softcap`)."""
     B, H, S, dh = q.shape
     G = H // k.shape[1]
     qf = q.float()
     kf = torch.repeat_interleave(k.float(), G, dim=1)
     vf = torch.repeat_interleave(v.float(), G, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (dh**-0.5)
+    if logit_cap > 0:
+        s = torch.tanh(s / logit_cap) * logit_cap
     qpos = torch.arange(S, device=q.device)[:, None]
     kpos = torch.arange(S, device=q.device)[None, :]
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device)

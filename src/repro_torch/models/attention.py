@@ -9,8 +9,10 @@ and their plain versions on CPU tensors. Decode caches:
   * full attention  — linear cache [B, S, kv, hd]
   * swa / cla       — ring-buffer cache [B, window, kv, hd]  (bounded state)
 
-Neither kernel has a logit softcap, so `logit_cap > 0` raises, as do the
-int8-quantized cache, MLA and cross-attention (ROADMAP.md §A item A9).
+Both kernels cap the scaled scores at `tanh(s / cap) * cap` before the
+mask when `logit_cap > 0` (recurrentgemma's `attn_softcap`), as the
+reference does. The int8-quantized cache, MLA and cross-attention raise
+(ROADMAP.md §A item A9).
 """
 
 from __future__ import annotations
@@ -23,28 +25,22 @@ from repro_torch.models.layers import apply_rope
 from repro_torch.unported import not_ported
 
 
-def _no_softcap(logit_cap: float) -> None:
-    if logit_cap > 0:
-        raise not_ported("attention logit softcapping (attn_softcap > 0)", "A9")
-
-
 def chunked_attention(q, k, v, *, causal=True, window=0, chunk_local=False, logit_cap=0.0):
     """q: [B,S,H,dh], k/v: [B,S,KV,dh] -> [B,S,H,dh].
 
     window > 0: sliding-window (swa) or same-chunk (cla when chunk_local)
     mask. The kernel skips key blocks the mask empties, so a windowed layer
     reads only the band it needs, as the reference's band slicing does."""
-    _no_softcap(logit_cap)
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError("causal attention needs q_len == kv_len")
-    return flash_ops.mha(q, k, v, causal=causal, window=window, chunk_local=chunk_local)
+    return flash_ops.mha(q, k, v, causal=causal, window=window, chunk_local=chunk_local,
+                         logit_cap=logit_cap)
 
 
 def decode_attention(q, k_cache, v_cache, valid, *, logit_cap=0.0):
     """Single-position decode. q: [B,1,H,dh]; caches [B,Sc,KV,dh];
     valid: [B,Sc] bool — which cache slots participate."""
-    _no_softcap(logit_cap)
-    return decode_ops.decode(q, k_cache, v_cache, valid)
+    return decode_ops.decode(q, k_cache, v_cache, valid, logit_cap=logit_cap)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,8 @@ reference's `astype(x.dtype)` does. The attention paths live in
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -26,7 +28,33 @@ def _gelu(x):
 
 
 def act_fn(name: str):
+    """The dense FFN's activations: PyTorch's fused forms, one kernel each,
+    rounding a bf16 result once (jax.nn rounds after each op; the FFN does
+    not amplify that difference)."""
     return {"silu": F.silu, "gelu": _gelu, "relu": F.relu}[name]
+
+
+# The recurrent blocks' activations follow jax.nn's op order in the input's
+# dtype, so a bf16 input rounds after each op where the reference's does
+# (bitwise equal to it; the fused forms differ in ~40% of bf16 outputs, and
+# the blocks' exponential gates amplify such differences over depth).
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid: 1 / (1 + exp(-x))."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu: x * sigmoid(x)."""
+    return x * sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default (tanh) form, its constants in x's dtype."""
+    c1 = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    c2 = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1 + torch.tanh(c2 * (x + c1 * (x * x * x)))))
 
 
 # ---------------------------------------------------------------------------

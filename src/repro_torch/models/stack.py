@@ -12,10 +12,13 @@ weights and caches carry across as they are (`repro_torch.interop`).
 Two entry points of the serving path:
   forward_prefill(cfg, params, batch, cache_len) -> (last_logits, cache)
   forward_decode(cfg, params, token, pos, cache) -> (logits, cache)
-Decode writes the new key and value into `cache` IN PLACE and returns it.
+Decode writes the new key and value, and the recurrent mixers' new states,
+into `cache` IN PLACE and returns it.
 
 `build_schema` covers all ten architectures. The forward passes run the
-dense GQA family (mixers gqa / swa / cla, FFN dense, bf16 KV cache);
+dense GQA family (mixers gqa / swa / cla, FFN dense, bf16 KV cache, logit
+softcapping) and the recurrent mixers (mlstm / slstm of xLSTM, rglru of
+RecurrentGemma, whose states are float32 leaves beside bf16 conv buffers);
 anything else raises `NotImplementedError` naming its ROADMAP.md §A item.
 `forward_train` is training (item A7).
 """
@@ -26,6 +29,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rg
+from repro_torch.models import xlstm as xl
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_lookup, ffn, rmsnorm
 from repro_torch.models.schema import ParamSpec, Schema
@@ -241,32 +246,47 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend != "none":
         raise not_ported(f"{cfg.name}: the {cfg.frontend} frontend", "A9")
     for mixer, fk in tuple(cfg.pattern) + tail_layers(cfg):
-        if mixer in _RECURRENT:
-            raise not_ported(f"{cfg.name}: the {mixer} mixer (kernels B4/B5)", "A8")
-        if mixer not in _ATTN:
+        if mixer not in _ATTN + _RECURRENT:
             raise not_ported(f"{cfg.name}: the {mixer} mixer", "A9")
         if fk == "moe":
             raise not_ported(f"{cfg.name}: the MoE FFN", "A9")
     if cfg.kv_cache_dtype != "bf16":
         raise not_ported(f"{cfg.name}: the {cfg.kv_cache_dtype} KV cache", "A9")
-    if cfg.attn_softcap > 0:
-        raise not_ported(f"{cfg.name}: attention logit softcapping", "A9")
 
 
-_CAST = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "wg", "wu", "wd")
+# the weights each mixer's products cast to the activations' dtype; the rest
+# (norm scales; rglru's gate weights wa, wi, ba, bi, lam; slstm's recurrent
+# r) are read as float32, so the same name (wi, bi) casts in one mixer and
+# not in another
+_ATTN_CAST = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+_MIX_CAST = {
+    **{m: _ATTN_CAST for m in _ATTN},
+    "mlstm": ("wu", "conv", "wq", "wk", "wv", "wi", "wf", "bi", "bf", "wd"),
+    "slstm": ("wzifo", "bzifo", "wd"),
+    "rglru": ("wgate", "wx", "conv", "wout"),
+}
+_FFN_CAST = ("wg", "wu", "wd")
 
 
-def cast_weights(params: dict) -> dict:
+def cast_weights(cfg: ModelConfig, params: dict) -> dict:
     """Copies of the weights every product casts to the activations' dtype
-    (`astype(x.dtype)` in the reference, `ACT_DTYPE` here) made once, so a forward does not
-    re-cast them (6.4 GB of writes a forward at llama3.2-3b). Casting is
-    round-to-nearest-even in both frameworks, so the values are bitwise
-    those of a per-call cast. Norm scales stay float32: they are read as
-    float32. Other entries are shared, not copied."""
+    (`astype(x.dtype)` in the reference, `ACT_DTYPE` here) made once, so a
+    forward does not re-cast them (6.4 GB of writes a forward at
+    llama3.2-3b). Casting is round-to-nearest-even in both frameworks, so
+    the values are bitwise those of a per-call cast. Which weights cast is
+    decided per mixer (`_MIX_CAST`); the others are shared, not copied.
+    `params` may hold any subset of the schema's names."""
+    mixers = {f"blk{j}": mixer for j, (mixer, _) in enumerate(cfg.pattern)}
+    mixers.update({f"tail{i}": mixer for i, (mixer, _) in enumerate(tail_layers(cfg))})
     out = {}
     for name, w in params.items():
-        last = name.rsplit(".", 1)[-1]
-        cast = name in ("embed", "lm_head") or last in _CAST
+        parts = name.split(".")
+        if len(parts) == 3 and parts[1] == "mix":
+            cast = parts[2] in _MIX_CAST.get(mixers.get(parts[0]), ())
+        elif len(parts) == 3 and parts[1] == "ffn":
+            cast = parts[2] in _FFN_CAST
+        else:
+            cast = name in ("embed", "lm_head")
         out[name] = w.to(ACT_DTYPE) if cast else w
     return out
 
@@ -287,8 +307,24 @@ def _layers(cfg: ModelConfig):
         yield f"tail{i}", None, mixer, fk
 
 
+def _views(tree: dict, g: int | None) -> dict:
+    """The nested dict `tree` with every leaf viewed at `[g]` (no copies)."""
+    return {k: _views(v, g) if isinstance(v, dict) else (v if g is None else v[g])
+            for k, v in tree.items()}
+
+
 def _layer_cache(cache: dict, pfx: str, g: int | None) -> dict:
-    return {k: (v if g is None else v[g]) for k, v in cache[pfx].items()}
+    """One layer's cache: views of the stacked leaves, so writes reach `cache`."""
+    return _views(cache[pfx], g)
+
+
+def _write_state(dst: dict, src: dict) -> None:
+    """Copy a recurrent mixer's new state (nested dict) into its cache views."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _write_state(dst[k], v)
+        else:
+            dst[k].copy_(v)
 
 
 def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -334,10 +370,18 @@ def _seed_to_cache(cfg, mixer, kv, cache: dict, cache_len: int) -> None:
         _ring_fill(cache["v"], v)
 
 
+_RECURRENT_BLOCK = {"mlstm": xl.mlstm_block, "slstm": xl.slstm_block, "rglru": rg.rglru_block}
+
+
 def _prefill_layer(cfg, p, pfx, mixer, fk, x, positions, cache, cache_len):
-    xn = rmsnorm(x, p[f"{pfx}.mix.ln"])
-    y, kv = attn.gqa_attn(cfg, p, pfx + ".mix", xn, positions, mixer=mixer)
-    _seed_to_cache(cfg, mixer, kv, cache, cache_len)
+    if mixer in _RECURRENT:
+        # these blocks norm internally and include their own projections
+        y, state = _RECURRENT_BLOCK[mixer](cfg, p, pfx + ".mix", x, return_state=True)
+        _write_state(cache, state)
+    else:
+        xn = rmsnorm(x, p[f"{pfx}.mix.ln"])
+        y, kv = attn.gqa_attn(cfg, p, pfx + ".mix", xn, positions, mixer=mixer)
+        _seed_to_cache(cfg, mixer, kv, cache, cache_len)
     x = x + y
     if fk != "none":
         xn = rmsnorm(x, p[f"{pfx}.ffn.ln2"])
@@ -364,8 +408,12 @@ def forward_prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int)
 
 
 def _decode_layer(cfg, p, pfx, mixer, fk, x, pos, cache):
-    xn = rmsnorm(x, p[f"{pfx}.mix.ln"])
-    y, _ = attn.gqa_decode(cfg, p, pfx + ".mix", xn, pos, cache, mixer=mixer)
+    if mixer in _RECURRENT:
+        y, state = _RECURRENT_BLOCK[mixer](cfg, p, pfx + ".mix", x, cache=cache)
+        _write_state(cache, state)
+    else:
+        xn = rmsnorm(x, p[f"{pfx}.mix.ln"])
+        y, _ = attn.gqa_decode(cfg, p, pfx + ".mix", xn, pos, cache, mixer=mixer)
     x = x + y
     if fk != "none":
         xn = rmsnorm(x, p[f"{pfx}.ffn.ln2"])
@@ -392,28 +440,52 @@ def forward_decode(cfg: ModelConfig, params: dict, token, pos, cache: dict):
 
 
 def _layer_cache_spec(cfg: ModelConfig, mixer: str, B: int, cache_len: int) -> dict:
-    cap = _cache_capacity(cfg, mixer, cache_len)
-    shape = (B, cap, cfg.n_kv_heads, cfg.hd)
-    return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
+    """One layer's cache as nested {name: (shape, dtype)}: bf16 K/V for the
+    attention mixers, float32 recurrent states and bf16 conv buffers for the
+    recurrent ones (the reference's layout)."""
+    H, D = cfg.n_heads, cfg.d_model
+    f32, bf16 = torch.float32, torch.bfloat16
+    if mixer in _ATTN:
+        cap = _cache_capacity(cfg, mixer, cache_len)
+        shape = (B, cap, cfg.n_kv_heads, cfg.hd)
+        return {"k": (shape, bf16), "v": (shape, bf16)}
+    if mixer == "mlstm":
+        dh = D // H
+        return {
+            "state": {"C": ((B, H, dh, dh), f32), "n": ((B, H, dh), f32), "m": ((B, H), f32)},
+            "conv": ((B, 3, D), bf16),
+        }
+    if mixer == "slstm":
+        leaf = ((B, H, D // H), f32)
+        return {"c": leaf, "n": leaf, "m": leaf, "h": leaf}
+    if mixer == "rglru":
+        E = int(cfg.rnn_scale * D)
+        return {"h": ((B, E), f32), "conv": ((B, cfg.rglru_conv_width - 1, E), bf16)}
+    raise ValueError(mixer)
+
+
+def _stacked(spec: dict, G: int) -> dict:
+    return {k: _stacked(v, G) if isinstance(v, dict) else ((G,) + v[0], v[1])
+            for k, v in spec.items()}
 
 
 def decode_cache_specs(cfg: ModelConfig, B: int, cache_len: int) -> dict:
-    """{"blk<j>": {"k": (shape, dtype), "v": ...}, "tail<i>": ...}; the
-    stacked blocks carry a leading [G] dim."""
+    """{"blk<j>": {"k": (shape, dtype), "v": ...}, "tail<i>": ...}, nested
+    for the recurrent mixers; the stacked blocks carry a leading [G] dim."""
     check_supported(cfg)
     G = n_groups(cfg)
     cache = {}
     for j, (mixer, _) in enumerate(cfg.pattern):
-        spec = _layer_cache_spec(cfg, mixer, B, cache_len)
-        cache[f"blk{j}"] = {k: ((G,) + s, dt) for k, (s, dt) in spec.items()}
+        cache[f"blk{j}"] = _stacked(_layer_cache_spec(cfg, mixer, B, cache_len), G)
     for i, (mixer, _) in enumerate(tail_layers(cfg)):
         cache[f"tail{i}"] = _layer_cache_spec(cfg, mixer, B, cache_len)
     return cache
 
 
+def _zeros(spec: dict, dev: torch.device) -> dict:
+    return {k: _zeros(v, dev) if isinstance(v, dict) else torch.zeros(v[0], dtype=v[1], device=dev)
+            for k, v in spec.items()}
+
+
 def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None) -> dict:
-    dev = resolve_device(device)
-    return {
-        blk: {k: torch.zeros(s, dtype=dt, device=dev) for k, (s, dt) in spec.items()}
-        for blk, spec in decode_cache_specs(cfg, B, cache_len).items()
-    }
+    return _zeros(decode_cache_specs(cfg, B, cache_len), resolve_device(device))

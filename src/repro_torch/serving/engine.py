@@ -21,8 +21,10 @@ with the same numpy admission draws, so summaries equal the reference's.
 Admission's Eq.(8)/Eq.(9) call goes through `core.scheduler.plan_dispatch`:
 the `geo_schedule` kernel on the card, one [1, fanout] row per request. Each
 `gen_done` runs one real decode step of the model on the engine's device
-(the `decode_attention` kernel on the card). The engine and its pools run on
-`device` (default: the card).
+(the `decode_attention` kernel on the card for attention layers; the
+recurrent mixers' O(1) state updates for mlstm / slstm / rglru). The engine
+and its pools (nested recurrent states included) run on `device` (default:
+the card).
 """
 
 
@@ -109,7 +111,7 @@ class GeoServingEngine:
             if params is None:
                 gen = torch.Generator(device=self.device).manual_seed(seed)
                 params = init_params(stack.build_schema(cfg), gen, self.device)
-            self.params = stack.cast_weights(params)
+            self.params = stack.cast_weights(cfg, params)
             self.decode = mdl.make_decode_step(cfg)
         self.inflight: dict = {}
 

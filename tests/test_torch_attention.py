@@ -169,14 +169,6 @@ def test_decode_attention_matches_reference():
     _close(out, ref, 2e-2)
 
 
-def test_softcap_is_not_ported():
-    q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A9"):
-        t_attn.chunked_attention(q, q, q, logit_cap=50.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A9"):
-        t_attn.decode_attention(q[:, :1], q, q, torch.ones((1, 4), dtype=torch.bool), logit_cap=50.0)
-
-
 @pytest.mark.parametrize("kernel", ["flash", "decode"])
 def test_cuda_tensor_whose_binding_fails_raises(kernel, monkeypatch):
     """On a CUDA tensor the wrapper launches the kernel or raises: a binding

@@ -36,7 +36,8 @@ def test_import_leaves_jax_and_repro_unloaded():
     assert bad == "[]", bad
 
 
-# the modules of slice 2 (the serving path of the LM stack), beside slice 1's
+# the modules of slices 2 and 3 (the serving path of the LM stack: the
+# dense GQA family, then the recurrent mixers), beside slice 1's
 SLICE_MODULES = [
     "unported.py",
     "configs/registry.py",
@@ -55,6 +56,14 @@ SLICE_MODULES = [
     "serving/kvcache.py",
     "serving/engine.py",
     "launch/serve.py",
+    "models/xlstm.py",
+    "models/rglru.py",
+    "kernels/mlstm/mlstm.py",
+    "kernels/mlstm/ops.py",
+    "kernels/mlstm/ref.py",
+    "kernels/rglru/rglru.py",
+    "kernels/rglru/ops.py",
+    "kernels/rglru/ref.py",
 ]
 
 

@@ -105,18 +105,37 @@ def _record_kernel_shapes(monkeypatch):
     seen = {"flash": [], "decode": []}
     real_mha, real_decode = fl_ops.mha, dec_ops.decode
 
-    def mha(q, k, v, *, causal=True, window=0, chunk_local=False):
+    from repro_torch.kernels.mlstm import ops as m_ops
+    from repro_torch.kernels.rglru import ops as r_ops
+
+    seen = {"flash": [], "decode": [], "cap": set(), "mlstm": [], "rglru": []}
+    real_mlstm, real_scan = m_ops.mlstm, r_ops.rglru_scan
+
+    def mha(q, k, v, *, causal=True, window=0, chunk_local=False, logit_cap=0.0):
         B, S, H, dh = q.shape
         seen["flash"].append((B, S, H, k.shape[2], dh, causal, window, chunk_local))
-        return real_mha(q, k, v, causal=causal, window=window, chunk_local=chunk_local)
+        seen["cap"].add(logit_cap)
+        return real_mha(q, k, v, causal=causal, window=window, chunk_local=chunk_local,
+                        logit_cap=logit_cap)
 
-    def decode(q, k_cache, v_cache, valid):
+    def decode(q, k_cache, v_cache, valid, *, logit_cap=0.0):
         B, Sc, KV, dh = k_cache.shape
         seen["decode"].append((B, Sc, q.shape[-2], KV, dh))
-        return real_decode(q, k_cache, v_cache, valid)
+        seen["cap"].add(logit_cap)
+        return real_decode(q, k_cache, v_cache, valid, logit_cap=logit_cap)
+
+    def mlstm(q, k, v, logi, logf):
+        seen["mlstm"].append(tuple(q.shape))
+        return real_mlstm(q, k, v, logi, logf)
+
+    def rglru_scan(log_a, b):
+        seen["rglru"].append(tuple(b.shape))
+        return real_scan(log_a, b)
 
     monkeypatch.setattr(fl_ops, "mha", mha)
     monkeypatch.setattr(dec_ops, "decode", decode)
+    monkeypatch.setattr(m_ops, "mlstm", mlstm)
+    monkeypatch.setattr(r_ops, "rglru_scan", rglru_scan)
     return seen
 
 
@@ -171,7 +190,7 @@ def test_serving_helpers_run_on_the_cpu():
         chip_smoke.check_close(torch.ones(3), torch.zeros(3), 0.05, "x")
     cfg = dataclasses.replace(registry.reduced("llama3.2-3b"), n_layers=1)
     params = stack.cast_weights(
-        init_params(stack.build_schema(cfg), torch.Generator().manual_seed(0), cpu))
+        cfg, init_params(stack.build_schema(cfg), torch.Generator().manual_seed(0), cpu))
     toks = torch.randint(0, cfg.vocab, (2, 10), generator=torch.Generator().manual_seed(1))
     out = chip_smoke.prefill_decode(cfg, params, toks, 3, 16, cpu)
     assert len(out) == 4 and all(o.shape == (2, cfg.vocab) for o in out)
@@ -216,6 +235,13 @@ ptxas info    : Used 32 registers, used 1 barriers, 3248 bytes cumulative stack 
 """
 
 
+def test_kernel_label_reads_bool_template_arguments():
+    mangled = ("_ZN51_GLOBAL__N__52ee7d0f_18_flash_attention_cu_23f0aea712flash_kernelI13__nv_"
+               "bfloat16Li32ELi256ELb1EEEvPKT_S4_S4_PS2_iiiiffiii")
+    assert chip_smoke.kernel_label(mangled) == "flash_kernel<bfloat16, 32, 256, true>"
+    assert chip_smoke.kernel_label(mangled.replace("Lb1E", "Lb0E")).endswith("256, false>")
+
+
 def test_ptxas_report_gives_a_line_per_kernel_variant():
     assert chip_smoke.ptxas_lines(PTXAS_REPORT) == [
         "geo_schedule_kernel: 29 registers, 0 B stack frame, 0 B spill stores, "
@@ -238,3 +264,169 @@ def test_wide_kernel_cases_reach_every_variant():
     assert {c[2] // c[3] for c in chip_smoke.WIDE_DECODE_CASES} >= {3, 5}
     main_dec = chip_smoke.launch_shapes(chip_smoke.serve_cfg(), 8, 2048, 4096)[1]
     assert main_dec[2] // main_dec[3] == 3  # the serving path's layout is among them
+
+
+# ---- slice 3: the recurrent mixers' phases (10-12) ---------------------------
+
+
+def test_recurrent_launch_shapes_are_the_models(monkeypatch):
+    """`chip_smoke.recurrent_shapes` gives each kernel the shapes xlstm's and
+    recurrentgemma's prefill and decode steps hand it, at the sizes of
+    phases 11-12 (checked here on the reduced configs at a small size):
+    one mlstm launch per mLSTM layer, one rglru_scan per RG-LRU layer, one
+    flash / decode launch per swa layer, each with recurrentgemma's cap."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import stack
+    from repro_torch.models.schema import init_params
+
+    xl = registry.reduced("xlstm-350m")
+    rg = dataclasses.replace(registry.reduced("recurrentgemma-9b"), window=16)  # a ring
+    monkeypatch.setattr(chip_smoke, "XLSTM_B", 2)
+    monkeypatch.setattr(chip_smoke, "XLSTM_S", 24)
+    monkeypatch.setattr(chip_smoke, "RG_B", 2)
+    monkeypatch.setattr(chip_smoke, "RG_S", 24)
+    monkeypatch.setattr(chip_smoke, "DECODE_STEPS", 2)
+    m_main, r_main, f_rg, d_rg = chip_smoke.recurrent_shapes(xl, rg)
+    for cfg in (xl, rg):
+        seen = _record_kernel_shapes(monkeypatch)
+        params = init_params(stack.build_schema(cfg), torch.Generator().manual_seed(0), "cpu")
+        toks = torch.randint(0, cfg.vocab, (2, 26), generator=torch.Generator().manual_seed(1))
+        chip_smoke.prefill_decode(cfg, params, toks, 2, 26, torch.device("cpu"))
+        mixers = [m for m, _ in cfg.pattern] * cfg.n_groups + [m for m, _ in cfg.tail]
+        assert seen["mlstm"] == [m_main] * mixers.count("mlstm")
+        assert seen["rglru"] == [r_main] * mixers.count("rglru")
+        assert seen["flash"] == [f_rg] * mixers.count("swa")
+        assert seen["decode"] == [d_rg] * (2 * mixers.count("swa"))
+        assert seen["cap"] <= {cfg.attn_softcap}
+    assert mixers.count("swa") and f_rg[6] == 16 and d_rg[1] == 16  # the ring's capacity
+
+
+def test_recurrent_serving_shapes_at_full_width():
+    from repro_torch.configs import registry
+
+    xl, rg = registry.get("xlstm-350m"), registry.get("recurrentgemma-9b")
+    m_main, r_main, f_rg, d_rg = chip_smoke.recurrent_shapes(xl, rg)
+    assert m_main == (8, 4, 2048, 256) and r_main == (4, 4096, 4096)
+    assert f_rg == (4, 4096, 16, 1, 256, True, 2048, False) and d_rg == (4, 2048, 16, 1, 256)
+    mixers = [m for m, _ in rg.pattern] * rg.n_groups + [m for m, _ in rg.tail]
+    assert (mixers.count("rglru"), mixers.count("swa")) == (26, 12)
+    assert sum(m == "mlstm" for m, _ in xl.pattern) * xl.n_groups == 21
+
+
+def test_recurrent_checks_reach_every_kernel_variant():
+    """Phase 10 reaches each template variant of the four LM kernels: head
+    dims up to 64, 128 and 256 (mlstm, and both attention kernels under a
+    cap), both dtypes, and a cap that tanh saturates."""
+    from repro_torch.configs import registry
+
+    def buckets(dims):
+        return {min(b for b in (64, 128, 256) if d <= b) for d in dims}
+
+    m_main, r_main, f_rg, d_rg = chip_smoke.recurrent_shapes(
+        registry.get("xlstm-350m"), registry.get("recurrentgemma-9b"))
+    assert buckets([c[3] for c in chip_smoke.MLSTM_CASES] + [m_main[3]]) == {64, 128, 256}
+    assert buckets([c[4] for c in chip_smoke.FLASH_CASES] + [f_rg[4]]) == {64, 128, 256}
+    assert buckets([c[4] for c in chip_smoke.DECODE_CASES] + [d_rg[4]]) == {64, 128, 256}
+    assert 50.0 in chip_smoke.SOFTCAPS  # recurrentgemma's
+    # scores ~ N(0, SCALE^2) reach 5 caps past the smallest: tanh saturates
+    assert chip_smoke.SOFTCAP_INPUT_SCALE * 3 > 5 * min(chip_smoke.SOFTCAPS) / 2
+
+
+def test_recurrent_work_counts_these_inputs():
+    nb, fl = chip_smoke.mlstm_work((2, 3, 10, 8), 4)
+    assert nb == 4 * 2 * 3 * 10 * 8 * 4 + 2 * 2 * 3 * 10 * 4 and fl == 4 * 8 * 2 * 3 * 55
+    nb, fl = chip_smoke.rglru_work((2, 10, 8), 2)
+    assert nb == 2 * 10 * 8 * (4 + 2 * 2) and fl == 3 * 2 * 10 * 8
+    ms, by = chip_smoke.bound(*chip_smoke.mlstm_work((8, 4, 2048, 256), 4))
+    assert by == "operations" and ms == pytest.approx(6.87e10 / 67e12 * 1e3, rel=1e-3)
+    ms, by = chip_smoke.bound(*chip_smoke.rglru_work((4, 4096, 4096), 4))
+    assert by == "bytes" and ms == pytest.approx(0.2404, rel=1e-3)
+
+
+def test_kernels_line_names_all_five_with_every_key():
+    rec = {k: 1.0 for k in chip_smoke.KERNEL_KEYS}
+    records = [dict(rec, name=n) for n in chip_smoke.KERNEL_NAMES]
+    line = chip_smoke.kernels_line(records)
+    assert [r["name"] for r in __import__("json").loads(line)["kernels"]] == list(
+        chip_smoke.KERNEL_NAMES)
+    assert set(chip_smoke.KERNEL_NAMES) == {"geo_schedule", "decode_attention",
+                                            "flash_attention", "mlstm_chunk", "rglru_scan"}
+    with pytest.raises(AssertionError, match="!="):
+        chip_smoke.kernels_line(records[:-1])
+    with pytest.raises(AssertionError, match="keys"):
+        chip_smoke.kernels_line(records[:-1] + [{"name": "rglru_scan"}])
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.kernels_line(records[:-1] + [dict(rec, name="rglru_scan", launches=0)])
+
+
+def test_recurrent_phases_run_on_the_cpu(monkeypatch):
+    """Phases 10-12 end to end at a tiny size on the CPU: the wrappers run
+    the plain versions, each counted as a launch would be; CUDA events,
+    device memory and the serving shapes' timings are stood in for. Checks
+    the plumbing and the records, not the kernels."""
+    import dataclasses
+    import time as _time
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    from repro_torch.kernels.flash_attention import flash_attention as f_bind
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.geo_schedule import ops as g_ops
+    from repro_torch.kernels.mlstm import ops as m_ops
+    from repro_torch.kernels.rglru import ops as r_ops
+
+    small = {n: registry.reduced(n) for n in ("xlstm-350m", "recurrentgemma-9b")}
+    small["recurrentgemma-9b"] = dataclasses.replace(small["recurrentgemma-9b"], window=32)
+    monkeypatch.setattr(registry, "get", small.__getitem__)
+    for name, value in (("XLSTM_B", 2), ("XLSTM_S", 24), ("RG_B", 2), ("RG_S", 40),
+                        ("DECODE_STEPS", 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke.router, "__defaults__", (5,))
+    for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+
+    def host_ms(fn, iters):
+        t0 = _time.perf_counter()
+        fn()
+        return (_time.perf_counter() - t0) * 1e3
+
+    monkeypatch.setattr(chip_smoke, "cuda_ms", host_ms)
+    monkeypatch.setattr(f_bind, "launch", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "time_recurrent",
+                        lambda m, r, dev: {"mlstm": (1.0, 2.0), "rglru": (1.0, 2.0)})
+    for mod, name in ((m_ops, "mlstm"), (r_ops, "rglru_scan"), (f_ops, "mha"),
+                      (d_ops, "decode"), (g_ops, "geo_schedule")):
+        real = getattr(mod, name)
+
+        def counted(*a, real=real, **k):
+            counted_fns[real.__name__].launches += 1
+            return real(*a, **k)
+
+        counted.launches, counted.__name__ = 0, real.__name__
+        monkeypatch.setattr(mod, name, counted)
+    counted_fns = {f.__name__: f for f in (m_ops.mlstm, r_ops.rglru_scan, f_ops.mha,
+                                           d_ops.decode, g_ops.geo_schedule)}
+    check = {"mlstm": chip_smoke.check_mlstm, "rglru": chip_smoke.check_rglru}
+    # the serving shapes of phase 10 shrink to what a CPU test can hold
+    monkeypatch.setattr(chip_smoke, "check_mlstm", lambda case, *a, **k: check["mlstm"](
+        tuple(min(c, 32) for c in case), *a, **k))
+    monkeypatch.setattr(chip_smoke, "check_rglru", lambda case, *a, **k: check["rglru"](
+        tuple(min(c, 32) for c in case), *a, **k))
+    monkeypatch.setattr(chip_smoke, "MLSTM_CASES", [(1, 2, 40, 16)])
+    monkeypatch.setattr(chip_smoke, "RGLRU_CASES", [(1, 40, 16)])
+    monkeypatch.setattr(chip_smoke, "FLASH_CASES", chip_smoke.FLASH_CASES[3:4])
+    monkeypatch.setattr(chip_smoke, "DECODE_CASES", chip_smoke.DECODE_CASES[:1])
+    serving = [dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
+               for n in ("decode_attention", "flash_attention")]
+    records = chip_smoke.recurrent_phases(torch.device("cpu"), serving)
+    geo = dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name="geo_schedule", launches=1)
+    chip_smoke.kernels_line([geo] + records)  # all five, every key, each launched
+    by_name = {r["name"]: r for r in records}
+    assert by_name["mlstm_chunk"]["launches"] == 2 * 7  # two prefills of 7 mLSTM layers
+    assert by_name["rglru_scan"]["launches"] == 2 * 4
+    assert by_name["flash_attention"]["launches"] == 1 + 2 * 1
+    assert by_name["decode_attention"]["launches"] > 1 + 2 * 1

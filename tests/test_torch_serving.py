@@ -74,7 +74,20 @@ def test_router_without_model_equals_reference(policy, n, rate, timeout_us):
 
 @pytest.mark.parametrize("policy", ["geotp", "fcfs"])
 def test_router_with_model_equals_reference(policy):
-    cfg_r, cfg_t = r_registry.reduced("llama3.2-3b"), t_registry.reduced("llama3.2-3b")
+    _router_with_model_equals_reference("llama3.2-3b", policy)
+
+
+@pytest.mark.parametrize("policy", ["geotp", "fcfs"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "recurrentgemma-9b"])
+def test_recurrent_router_with_model_equals_reference(policy, arch):
+    """Each generation runs one decode step of the reduced recurrent model:
+    nested float32 states and bf16 conv buffers in the pods' caches and in
+    the step's fresh cache."""
+    _router_with_model_equals_reference(arch, policy)
+
+
+def _router_with_model_equals_reference(arch, policy):
+    cfg_r, cfg_t = r_registry.reduced(arch), t_registry.reduced(arch)
     weights = {k: np.asarray(v) for k, v in
                r_init_params(r_stack.build_schema(cfg_r), jax.random.PRNGKey(0)).items()}
     er, res_r = _run(r_engine, cfg_r, policy, 20, 100.0, True)
@@ -128,12 +141,28 @@ def test_slot_pool_equals_reference():
             assert pt.cache[blk][leaf].device == CPU
 
 
+@pytest.mark.parametrize("arch", ["xlstm-350m", "recurrentgemma-9b"])
+def test_recurrent_slot_pool_equals_reference(arch):
+    """The pool's cache over all slots: the reference's nested layout,
+    float32 recurrent states, bf16 conv buffers and K/V, all zero."""
+    cfg_r, cfg_t = r_registry.reduced(arch), t_registry.reduced(arch)
+    pr, pt = RSlotPool(cfg_r, 3, 32), TSlotPool(cfg_t, 3, 32, CPU)
+    ref = jax.tree_util.tree_leaves_with_path(pr.cache)
+    got = jax.tree_util.tree_leaves_with_path(pt.cache)
+    assert [jax.tree_util.keystr(k) for k, _ in got] == [jax.tree_util.keystr(k) for k, _ in ref]
+    for (_, x), (_, y) in zip(ref, got):
+        assert tuple(y.shape) == x.shape and not y.any() and y.device == CPU
+        assert str(y.dtype).split(".")[-1] == str(x.dtype)
+
+
 @pytest.mark.parametrize(
     "argv",
     [
         ["--requests", "300", "--rate", "700", "--no-model"],
         ["--requests", "40", "--rate", "1500", "--policy", "fcfs", "--no-model"],
         ["--requests", "12", "--rate", "100", "--policy", "geotp"],
+        ["--arch", "xlstm-350m", "--requests", "10", "--rate", "100"],
+        ["--arch", "recurrentgemma-9b", "--requests", "10", "--rate", "100"],
     ],
 )
 def test_launcher_output_equals_reference(argv, tmp_path):
