@@ -30,16 +30,25 @@ Slice 2, the serving path of the LM stack (dense GQA, llama3.2-3b):
 
 6. build — `decode_attention.cu`, `flash_attention.cu`, `mlstm_chunk.cu`
    and `rglru_scan.cu`, each by its own nvcc started beside phase 2's, so
-   they compile while phases 3-5 run; ptxas's line for each variant;
+   they compile while phases 3-5 run; ptxas's line for each variant, and
+   a failure if a variant of the two attention kernels has a stack frame
+   or spills;
 7. kernels vs plain versions on the card — every FLASH_CASES / DECODE_CASES
-   row of the reference's kernel tests and the WIDE_* cases (head dims up
-   to 256, decode's G = 3 and G = 5 row layouts) in float32 and bfloat16,
-   plus the serving path's own launch shapes in float32 and bfloat16
-   (prefill B = 8 x 2048 tokens at 24/8 heads of 128; decode B = 8 over a
-   4096-slot cache with random positions; the router's decode B = 1 over 64
-   slots, slot 0 valid), within 2e-5 (f32) / 2e-2 (bf16) abs + rel;
-   CUDA-event times of the kernel, its plain version and
-   `F.scaled_dot_product_attention` (timed only, never used by the port);
+   row of the reference's kernel tests, the WIDE_* cases (head dims up
+   to 256, decode's G = 3 and G = 5 row layouts) and the EXTRA_* edge cases
+   of the redesigned kernels (S past a window and not a multiple of the
+   query block, G = 3 at dh 128, S below one tile, unaligned rows; Sc not a
+   multiple of the split, leading splits with no valid slot, a row with
+   none, B = 1 over several splits, G = 20, unaligned rows)
+   in float32 and bfloat16, plus the serving path's own launch shapes in
+   float32 and bfloat16 (prefill B = 8 x 2048 tokens at 24/8 heads of 128;
+   decode B = 8 over a 4096-slot cache with random positions; the router's
+   decode B = 1 over 64 slots, slot 0 valid), within 2e-5 (f32) / 2e-2
+   (bf16) abs + rel; in bf16 at the serving shapes and the EXTRA_* cases
+   also per query row (||d|| <= 1e-2 ||ref|| + 1e-3: sees a dropped key
+   tile) and bit for bit over two calls; CUDA-event times of the kernel,
+   its plain version and `F.scaled_dot_product_attention` (timed only,
+   never used by the port);
 8. model, GPU vs CPU — llama3.2-3b at full width cut to 2 layers, one set of
    weights drawn on the CPU and copied to the card: prefill 2 x 128 tokens,
    then 4 decode steps, logits within 0.05 abs/rel; the router
@@ -48,7 +57,8 @@ Slice 2, the serving path of the LM stack (dense GQA, llama3.2-3b):
 9. the serving path at full width — llama3.2-3b, all 28 layers, weights
    drawn on the card: (a) `make_prefill_step(cfg, 4096)` on 8 prompts of
    2048 tokens, then 64 `make_decode_step` steps, with 28 flash launches per
-   prefill and 28 decode launches per step; (b) `GeoServingEngine` geotp vs
+   prefill (every one bf16: the tensor-core kernel) and 28 decode calls per
+   step (each the split kernel and its merge); (b) `GeoServingEngine` geotp vs
    fcfs over the launcher's three pods (RTT 0/30/100 ms, 12 slots), 60
    requests, run_model=True: geotp's average latency below fcfs's, 28
    decode launches per generation and one geo_schedule launch per geotp
@@ -63,7 +73,8 @@ Slice 3, the recurrent mixers (xlstm-350m, recurrentgemma-9b):
     float32 ([8,4,2048,256], [4,4096,4096]) at 2e-5; the attention kernels
     with logit caps 50 and 5 on FLASH_CASES / DECODE_CASES and at
     recurrentgemma's shapes (flash B = 4 x 4096, 16/1 heads of 256, window
-    2048; decode B = 4 over a 2048-slot ring), cap 50, both dtypes;
+    2048; decode B = 4 over a 2048-slot ring), cap 50, both dtypes, and
+    there in bf16 per query row and bit for bit over two calls;
     CUDA-event times of the kernels and their plain versions (no PyTorch
     call computes the gated recurrence, mLSTM's signed normaliser or a
     capped softmax: no library time);
@@ -121,7 +132,7 @@ def phase(name: str) -> None:
 def kernel_label(mangled: str) -> str:
     """`decode_kernel<bfloat16, 8>` from the mangled name of a kernel
     variant (its name and its template's type, integer and bool
-    arguments)."""
+    arguments; a template whose first argument is not a type has none)."""
     i, name = (3 if mangled.startswith("_ZN") else 2), ""
     while i < len(mangled) and mangled[i].isdigit():  # <length><name> ... (namespaces)
         j = i
@@ -132,36 +143,49 @@ def kernel_label(mangled: str) -> str:
     rest = mangled[i:]
     if not rest.startswith("I"):
         return name
-    args = ["bfloat16" if rest.startswith("I13__nv_bfloat16") else "float32"]
+    args = (["bfloat16"] if rest.startswith("I13__nv_bfloat16")
+            else ["float32"] if rest.startswith("If") else [])
     args += [v if t == "i" else ("false", "true")[int(v)]
              for t, v in re.findall(r"L([ib])(\d+)E", rest)]
     return f"{name}<{', '.join(args)}>"
 
 
-def ptxas_lines(report: str) -> list[str]:
-    """One line per kernel variant of a `ptxas -v` report: registers, stack
-    frame and spill bytes (whether the variant keeps its state in
-    registers)."""
+def ptxas_entries(report: str) -> list[tuple[str, int, int, int, int]]:
+    """(variant, registers, stack frame, spill stores, spill loads) for each
+    kernel variant of a `ptxas -v` report."""
     out, label, frame = [], None, None
     for line in report.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
             label = kernel_label(m.group(1))
         elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                             r"(\d+) bytes spill loads", line):
-            frame = m.groups()
+            frame = [int(x) for x in m.groups()]
         elif (m := re.search(r"Used (\d+) registers", line)) and label and frame:
-            out.append(f"{label}: {m.group(1)} registers, {frame[0]} B stack frame, "
-                       f"{frame[1]} B spill stores, {frame[2]} B spill loads")
+            out.append((label, int(m.group(1)), *frame))
             label = frame = None
     return out
 
 
-def print_build(name: str, secs: float, note: str = "") -> None:
+def ptxas_lines(report: str) -> list[str]:
+    """One line per kernel variant of a `ptxas -v` report: registers, stack
+    frame and spill bytes (whether the variant keeps its state in
+    registers)."""
+    return [f"{label}: {regs} registers, {stack} B stack frame, {st} B spill stores, "
+            f"{ld} B spill loads" for label, regs, stack, st, ld in ptxas_entries(report)]
+
+
+def print_build(name: str, secs: float, note: str = "", strict: bool = False) -> None:
+    """The build's time and ptxas's line for each variant; `strict`: fail
+    unless every variant keeps its state in registers (no stack, no spill)."""
     from repro_torch.kernels import _build
 
     print(f"built {_build.library_path(name).relative_to(ROOT)} in {secs:.2f} s{note}")
-    for line in ptxas_lines(_build.report_path(name).read_text()):
+    report = _build.report_path(name).read_text()
+    for line in ptxas_lines(report):
         print(f"  ptxas {line}")
+    bad = [e[0] for e in ptxas_entries(report) if any(e[2:])]
+    if strict and bad:
+        raise AssertionError(f"{name}: stack frame or spills in {bad}")
 
 
 def geo_inputs(n, d, k, seed):
@@ -304,6 +328,29 @@ WIDE_FLASH_CASES = [
     (1, 130, 2, 1, 192, False, 0, False),
 ]
 WIDE_DECODE_CASES = [(2, 333, 6, 2, 128), (1, 257, 3, 1, 256), (2, 300, 10, 2, 256)]
+# per query row: ||out - ref||_2 <= ROW_RTOL ||ref||_2 + ROW_ATOL. bf16 rounding
+# of P and of the output gives 0.25-0.5% of a row's norm; a dropped 64-key
+# tile moves each late causal row of its block by 7% or more (the CPU test
+# tests/test_torch_attention_split.py), while the elementwise bf16 limit
+# (2e-2 abs + rel) is about one late row's typical output value (~0.03)
+ROW_RTOL, ROW_ATOL = 1e-2, 1e-3
+DECODE_SPLIT_SWEEP = (2, 3, 4, 6, 8, 12)  # blocks an SM that phase 7 times the decode split at
+# through the redesigned kernels' edges: flash with S not a multiple of the
+# 128-query block past a 2048 window (cap 50), G = 3 at dh 128, S shorter
+# than one key tile, a head dim whose rows are not 16-byte aligned (the
+# plain-load path), chunk-local chunks of 256 (tiles inside one chunk take
+# the unmasked path); decode with Sc not a multiple of the split, a linear
+# cache whose leading splits are all invalid ("tail"), one all-invalid row
+# beside valid ones ("dead_row"), the router's B = 1 over several splits,
+# G = 20 (two blocks of rows a head) and unaligned rows
+EXTRA_FLASH_CASES = [((1, 2100, 16, 1, 256, True, 2048, False), 50.0),
+                     ((1, 2113, 6, 2, 128, True, 0, False), 0.0),
+                     ((1, 1024, 4, 2, 128, True, 256, True), 0.0),
+                     ((2, 37, 4, 2, 64, True, 0, False), 0.0),
+                     ((1, 300, 4, 2, 36, True, 0, False), 0.0)]
+EXTRA_DECODE_CASES = [((8, 4001, 24, 8, 128), None), ((4, 2048, 16, 1, 256), "tail"),
+                      ((3, 1000, 6, 2, 128), "dead_row"), ((1, 300, 24, 8, 128), None),
+                      ((2, 700, 40, 2, 64), None), ((2, 500, 6, 2, 34), None)]
 # slice 3: the recurrent mixers (tests/kernels/test_kernels.py's cases)
 MLSTM_CASES = [(1, 2, 256, 64), (2, 4, 128, 128), (1, 1, 512, 32)]  # (B, H, S, dh)
 RGLRU_CASES = [(2, 256, 128), (1, 512, 512), (3, 128, 96)]  # (B, S, E)
@@ -347,10 +394,11 @@ def flash_inputs(case, dtype, dev, seed, scale=1.0):
             _randn((B, S, KV, dh), dtype, dev, gen))
 
 
-def decode_inputs(case, dtype, dev, seed, valid_slots=None, scale=1.0):
+def decode_inputs(case, dtype, dev, seed, valid_slots=None, scale=1.0, pattern=None):
     """q [B,H,dh] (scaled by `scale`), caches [B,Sc,KV,dh], valid [B,Sc]:
     slots <= a random pos in [1, Sc) per row, or the first `valid_slots`
-    slots."""
+    slots; `pattern` "tail": only the last Sc // 10 slots (every row), or
+    "dead_row": row 1 has no valid slot."""
     B, Sc, H, KV, dh = case
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = _randn((B, H, dh), dtype, dev, gen, scale)
@@ -359,7 +407,15 @@ def decode_inputs(case, dtype, dev, seed, valid_slots=None, scale=1.0):
         pos = torch.randint(1, Sc, (B,), generator=gen, device=dev)
     else:
         pos = torch.full((B,), valid_slots - 1, device=dev)
-    return q, k, v, torch.arange(Sc, device=dev)[None, :] <= pos[:, None]
+    slots = torch.arange(Sc, device=dev)[None, :]
+    valid = slots <= pos[:, None]
+    if pattern == "tail":
+        valid = (slots >= Sc - max(Sc // 10, 1)).expand(B, Sc).contiguous()
+    elif pattern == "dead_row":
+        valid[1] = False
+    elif pattern is not None:
+        raise ValueError(f"unknown valid pattern {pattern!r}")
+    return q, k, v, valid
 
 
 def _to_bhsd(*xs):
@@ -376,34 +432,85 @@ def check_close(out, ref, tol, label) -> float:
     return err.max().item()
 
 
-def check_flash(case, dtype, dev, seed=0, logit_cap=0.0) -> float:
-    """The kernel (through `ops.mha`) against its plain version."""
+def check_rows(out, ref, label) -> float:
+    """Per query row (the last dim is the head dim): ||out - ref||_2 <=
+    ROW_RTOL ||ref||_2 + ROW_ATOL. Returns the worst ||out - ref|| / ||ref||."""
+    out, ref = out.float(), ref.float()
+    d, r = (out - ref).norm(dim=-1), ref.norm(dim=-1)
+    bad = ~torch.isfinite(d) | (d > ROW_RTOL * r + ROW_ATOL)
+    if bool(bad.any()):
+        i = int(bad.flatten().nonzero()[0])
+        raise AssertionError(f"{label}: {int(bad.sum())} rows differ, first at flat row {i}: "
+                             f"||d|| {d.flatten()[i].item():.4g}, ||ref|| {r.flatten()[i].item():.4g} "
+                             f"(limit {ROW_RTOL} rel + {ROW_ATOL})")
+    return (d / r.clamp_min(1e-30)).max().item()
+
+
+def flash_case(case, dtype, dev, seed=0, logit_cap=0.0):
+    """(run, ref, label): run() calls the kernel through `ops.mha`; ref is
+    its plain version on the same inputs, in the model's layout."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    B, S, H, KV, dh, causal, window, cl = case
+    causal, window, cl = case[5:]
     q, k, v = flash_inputs(case, dtype, dev, seed, scale=SOFTCAP_INPUT_SCALE if logit_cap else 1.0)
     kw = dict(causal=causal, window=window, chunk_local=cl, logit_cap=logit_cap)
-    out = ops.mha(q, k, v, **kw)
-    ref = attention_ref(*_to_bhsd(q, k, v), **kw)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    return check_close(out, ref.transpose(1, 2), TOL[str(dtype)[6:]],
-                       f"flash {case} {dtype} cap {logit_cap}")
+    ref = attention_ref(*_to_bhsd(q, k, v), **kw).transpose(1, 2)
+    return lambda: ops.mha(q, k, v, **kw), ref, f"flash {case} {dtype} cap {logit_cap}"
 
 
-def check_decode(case, dtype, dev, seed=0, valid_slots=None, logit_cap=0.0) -> float:
-    """The kernel (through `ops.decode`) against its plain version."""
+def decode_case(case, dtype, dev, seed=0, valid_slots=None, logit_cap=0.0, pattern=None):
+    """(run, ref, label): run() calls the kernel through `ops.decode`; ref
+    is its plain version on the same inputs."""
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_ref
 
     q, k, v, valid = decode_inputs(case, dtype, dev, seed, valid_slots,
-                                   scale=SOFTCAP_INPUT_SCALE if logit_cap else 1.0)
-    out = ops.decode(q, k, v, valid, logit_cap=logit_cap)
+                                   scale=SOFTCAP_INPUT_SCALE if logit_cap else 1.0,
+                                   pattern=pattern)
     ref = decode_ref(q, k, v, valid, logit_cap=logit_cap)
+    return (lambda: ops.decode(q, k, v, valid, logit_cap=logit_cap), ref,
+            f"decode {case} {dtype} cap {logit_cap} {pattern or ''}")
+
+
+def check_case(run, ref, label, dtype, dev, tight=False):
+    """The kernel's output within TOL of its plain version; `tight`: also
+    per query row within ROW_RTOL, and a second call gives the same bits.
+    Returns max |d|, with `tight` (max |d|, worst row ||d|| / ||ref||)."""
+    out = run()
+    again = run() if tight else out
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    return check_close(out, ref, TOL[str(dtype)[6:]], f"decode {case} {dtype} cap {logit_cap}")
+    e = check_close(out, ref, TOL[str(dtype)[6:]], label)
+    if not tight:
+        return e
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: two calls on the same inputs differ")
+    return e, check_rows(out, ref, label)
+
+
+def check_tight(kind, case, dev, seed=0, logit_cap=0.0, valid_slots=None, pattern=None):
+    """bf16 through the kernel against its plain version on the same
+    inputs: elementwise within TOL, per row within ROW_RTOL, and a second
+    call gives the same bits. Returns (max |d|, worst row ||d|| / ||ref||)."""
+    bf16 = torch.bfloat16
+    if kind == "flash":
+        built = flash_case(case, bf16, dev, seed, logit_cap)
+    else:
+        built = decode_case(case, bf16, dev, seed, valid_slots, logit_cap, pattern)
+    return check_case(*built, bf16, dev, tight=True)
+
+
+def check_flash(case, dtype, dev, seed=0, logit_cap=0.0) -> float:
+    """The kernel (through `ops.mha`) against its plain version."""
+    return check_case(*flash_case(case, dtype, dev, seed, logit_cap), dtype, dev)
+
+
+def check_decode(case, dtype, dev, seed=0, valid_slots=None, logit_cap=0.0,
+                 pattern=None) -> float:
+    """The kernel (through `ops.decode`) against its plain version."""
+    return check_case(*decode_case(case, dtype, dev, seed, valid_slots, logit_cap, pattern),
+                      dtype, dev)
 
 
 def flash_work(case, itemsize):
@@ -453,24 +560,64 @@ def time_flash(case, dev, logit_cap=0.0):
     return k_ms, p_ms, lib_ms
 
 
+def host_us(fn, iters: int) -> float:
+    """Mean host microseconds a call over `iters` calls: the time to issue
+    them, the device left to catch up afterwards."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / iters * 1e6
+
+
 def time_decode(case, dev, valid_slots=None, logit_cap=0.0):
-    """(kernel, plain, SDPA) ms per call at one bf16 shape, and the inputs'
-    (bytes, flops). SDPA has no logit cap: with one, its time is None."""
+    """Decode at one bf16 shape, CUDA events: `ms` through the wrapper
+    `ops.decode` as the model calls it (checks, split plan, allocation and
+    both launches), `bare_ms` the C entry point with its arguments made once
+    (`ops.prepare`), `host_us` the wrapper's host time a call, `plain_ms` its
+    plain version, `library_ms` one SDPA call (None with a logit cap, which
+    SDPA lacks); `work` the inputs' (bytes, flops)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.decode_attention import decode_attention as binding
     from repro_torch.kernels.decode_attention import ops
     from repro_torch.kernels.decode_attention.ref import decode_ref
 
     B, Sc, H, KV, dh = case
     q, k, v, valid = decode_inputs(case, torch.bfloat16, dev, 1, valid_slots)
-    k_ms = cuda_ms(lambda: ops.decode(q, k, v, valid, logit_cap=logit_cap), 200)
-    p_ms = cuda_ms(lambda: decode_ref(q, k, v, valid, logit_cap=logit_cap), 50)
-    lib_ms = None
+    call = lambda: ops.decode(q, k, v, valid, logit_cap=logit_cap)  # noqa: E731
+    args = ops.prepare(q, k, v, valid, logit_cap)[1]
+    t = {"ms": cuda_ms(call, 200), "bare_ms": cuda_ms(lambda: binding.run(args), 200),
+         "host_us": host_us(call, 200),
+         "plain_ms": cuda_ms(lambda: decode_ref(q, k, v, valid, logit_cap=logit_cap), 50),
+         "library_ms": None, "work": decode_work(valid, H, KV, dh, 2)}
     if not logit_cap:
         q4, kt, vt, mask = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), valid[:, None, None]
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
-                                                                enable_gqa=True), 200)
-    return k_ms, p_ms, lib_ms, decode_work(valid, H, KV, dh, 2)
+        t["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True), 200)
+    return t
+
+
+def sweep_decode_split(cases, dev) -> dict:
+    """Prints and returns the decode kernel's bare-entry ms at each
+    blocks-an-SM target of DECODE_SPLIT_SWEEP, for each (label, case,
+    valid_slots, logit_cap) in bf16."""
+    from repro_torch.kernels.decode_attention import decode_attention as binding
+    from repro_torch.kernels.decode_attention import ops
+
+    res = {}
+    for label, case, slots, cap in cases:
+        q, k, v, valid = decode_inputs(case, torch.bfloat16, dev, 1, slots)
+        for per_sm in DECODE_SPLIT_SWEEP:
+            args = ops.prepare(q, k, v, valid, cap, per_sm)[1]
+            res[label, per_sm] = cuda_ms(lambda: binding.run(args), 200)
+        print(f"decode split {label} cap {cap:g}: bare ms by blocks an SM ({ops.sm_count(dev)} "
+              f"SMs; the wrapper's {ops.BLOCKS_PER_SM}): "
+              + ", ".join(f"{n}: {res[label, n]:.4f}" for n in DECODE_SPLIT_SWEEP))
+    return res
 
 
 def prefill_decode(cfg, params, tokens, steps, cache_len, dev):
@@ -512,6 +659,7 @@ def router(cfg, params, dev, policy, n_requests=ROUTER_REQUESTS):
 
 
 LM_KERNELS = ("decode_attention", "flash_attention", "mlstm_chunk", "rglru_scan")
+STRICT_BUILDS = ("decode_attention", "flash_attention")  # no stack frame, no spill
 
 
 def timed_build(name):
@@ -537,22 +685,29 @@ def serving_phases(dev, builds):
     for name, fut in builds.items():
         secs = fut.result()
         _build.load(name)
-        print_build(name, secs, " (nvcc started in phase 2)")
+        print_build(name, secs, " (nvcc started in phase 2)", strict=name in STRICT_BUILDS)
 
     phase("7 attention kernels vs plain versions on the card")
     cfg = serve_cfg()
     f_main, d_main = launch_shapes(cfg, PREFILL_B, PREFILL_S, SERVE_MAX_SEQ)
     _, d_router = launch_shapes(cfg, 1, 1, ROUTER_CACHE)
     err_f = err_d = 0.0
+    # bf16 also per query row and bit for bit over two calls (check_tight)
     for dt in (torch.float32, bf16):
-        for i, case in enumerate(FLASH_CASES + WIDE_FLASH_CASES):
-            e = check_flash(case, dt, dev, seed=i)
-            err_f = max(err_f, e)
-            print(f"flash  {str(case):44s} {str(dt)[6:]:8s} max |d| {e:.3g}")
-        for i, case in enumerate(DECODE_CASES + WIDE_DECODE_CASES):
-            e = check_decode(case, dt, dev, seed=i)
-            err_d = max(err_d, e)
-            print(f"decode {str(case):44s} {str(dt)[6:]:8s} max |d| {e:.3g}")
+        for kind, cases in (("flash", FLASH_CASES + WIDE_FLASH_CASES),
+                            ("decode", DECODE_CASES + WIDE_DECODE_CASES)):
+            for i, case in enumerate(cases):
+                rows = ""
+                if dt == bf16:
+                    e, r = check_tight(kind, case, dev, seed=i)
+                    rows = f", worst row ||d||/||ref|| {r:.3g}; two calls equal"
+                else:
+                    e = (check_flash if kind == "flash" else check_decode)(case, dt, dev, seed=i)
+                if kind == "flash":
+                    err_f = max(err_f, e)
+                else:
+                    err_d = max(err_d, e)
+                print(f"{kind:6s} {str(case):44s} {str(dt)[6:]:8s} max |d| {e:.3g}{rows}")
     # the serving path's own shapes in float32 too: there the kernel and its
     # plain version differ only by summation order, so 2e-5 sees a dropped
     # chunk or a wrong merge that bf16 rounding of the output would hide
@@ -563,22 +718,53 @@ def serving_phases(dev, builds):
         print(f"main shapes {str(dt)[6:]} (tol {TOL[str(dt)[6:]]} abs + rel): max |d| flash "
               f"{f_main} {e[0]:.3g}, decode {d_main} {e[1]:.3g}, router decode {d_router} "
               f"(slot 0 valid) {e[2]:.3g}")
+    # the edge cases of the redesigned kernels in float32 at 2e-5 (in bf16
+    # through check_tight below)
+    for i, (case, cap) in enumerate(EXTRA_FLASH_CASES):
+        e = check_flash(case, torch.float32, dev, seed=i, logit_cap=cap)
+        err_f = max(err_f, e)
+        print(f"flash  {str(case):44s} float32  cap {cap:g} max |d| {e:.3g}")
+    for i, (case, pat) in enumerate(EXTRA_DECODE_CASES):
+        e = check_decode(case, torch.float32, dev, seed=i, pattern=pat)
+        err_d = max(err_d, e)
+        print(f"decode {str(case):44s} float32  {pat or 'random pos'} max |d| {e:.3g}")
+    # bf16 at TOL, per query row and bit for bit over two calls, at the
+    # serving shapes and the edge cases
+    tight = [("flash", f_main, 0.0, None, None), ("decode", d_main, 0.0, None, None),
+             ("decode", d_router, 0.0, 1, None)]
+    tight += [("flash", c, cap, None, None) for c, cap in EXTRA_FLASH_CASES]
+    tight += [("decode", c, 0.0, None, pat) for c, pat in EXTRA_DECODE_CASES]
+    for kind, case, cap, slots, pat in tight:
+        e, r = check_tight(kind, case, dev, logit_cap=cap, valid_slots=slots, pattern=pat)
+        if kind == "flash":
+            err_f = max(err_f, e)
+        else:
+            err_d = max(err_d, e)
+        print(f"rows {kind:6s} {str(case):40s} bf16 cap {cap:g} {pat or ''}: max |d| {e:.3g}, "
+              f"worst row ||d||/||ref|| {r:.3g} (limit {ROW_RTOL}); two calls equal")
     f_ms, f_plain, f_lib = time_flash(f_main, dev)
     f_work = flash_work(f_main, 2)
     f_bound, f_by = bound(*f_work, BF16_TENSOR_OPS_PER_S)
     print(f"flash {f_main} bf16: kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, SDPA "
           f"{f_lib:.4f} ms; {f_work[0]} bytes, {f_work[1]:.4g} flops, bound {f_bound:.4g} ms "
           f"({f_by}); {f_work[1] / f_ms / 1e9:.2f} TFLOP/s")
-    d_ms, d_plain, d_lib, d_work = time_decode(d_main, dev)
+    d_t = time_decode(d_main, dev)
+    d_work = d_t["work"]
     d_bound, d_by = bound(*d_work, BF16_TENSOR_OPS_PER_S)
     full = 2 * d_main[0] * d_main[1] * d_main[3] * d_main[4] * 2
-    print(f"decode {d_main} bf16: kernel {d_ms:.4f} ms, plain {d_plain:.4f} ms, SDPA "
-          f"{d_lib:.4f} ms; {d_work[0]} bytes (valid slots), {d_work[1]} flops, bound "
-          f"{d_bound:.4g} ms ({d_by}); every slot's K+V: {full} bytes, "
+    print(f"decode {d_main} bf16: kernel {d_t['ms']:.4f} ms through the wrapper (host "
+          f"{d_t['host_us']:.1f} us a call), {d_t['bare_ms']:.4f} ms bare entry point; plain "
+          f"{d_t['plain_ms']:.4f} ms, SDPA {d_t['library_ms']:.4f} ms; {d_work[0]} bytes (valid "
+          f"slots), {d_work[1]} flops, bound {d_bound:.4g} ms ({d_by}), "
+          f"{d_work[0] / d_t['bare_ms'] / 1e9:.3f} TB/s bare; every slot's K+V: {full} bytes, "
           f"{full / HBM_BYTES_PER_S * 1e3:.4g} ms")
-    r_ms, r_plain, r_lib, r_work = time_decode(d_router, dev, valid_slots=1)
-    print(f"decode {d_router} bf16 (router): kernel {r_ms:.4f} ms, plain {r_plain:.4f} ms, "
-          f"SDPA {r_lib:.4f} ms, bound {bound(*r_work, BF16_TENSOR_OPS_PER_S)[0]:.4g} ms")
+    r_t = time_decode(d_router, dev, valid_slots=1)
+    print(f"decode {d_router} bf16 (router): kernel {r_t['ms']:.4f} ms through the wrapper "
+          f"(host {r_t['host_us']:.1f} us a call), {r_t['bare_ms']:.4f} ms bare; plain "
+          f"{r_t['plain_ms']:.4f} ms, SDPA {r_t['library_ms']:.4f} ms, bound "
+          f"{bound(*r_t['work'], BF16_TENSOR_OPS_PER_S)[0]:.4g} ms")
+    sweep_decode_split([(f"{d_main}, random positions", d_main, None, 0.0),
+                        (f"{d_main}, every slot valid", d_main, d_main[1], 0.0)], dev)
 
     phase("8 model at full width, 2 layers: GPU vs CPU")
     cfg2 = serve_cfg(n_layers=2)
@@ -622,7 +808,8 @@ def serving_phases(dev, builds):
                            device=dev, dtype=torch.int32)
     prefill = model.make_prefill_step(cfg, SERVE_MAX_SEQ)
     decode = model.make_decode_step(cfg)
-    fl_ops.mha.launches = dec_ops.decode.launches = geo_ops.geo_schedule.launches = 0
+    fl_ops.reset_launches()
+    dec_ops.decode.launches = geo_ops.geo_schedule.launches = 0
     pre_s = []
     for _ in range(2):  # the first call warms the libraries' plans for these shapes
         cache = None
@@ -630,8 +817,9 @@ def serving_phases(dev, builds):
         logits, cache = prefill(params, {"tokens": tokens[:, :PREFILL_S]})
         torch.cuda.synchronize()
         pre_s.append(time.perf_counter() - t0)
-    if fl_ops.mha.launches != 2 * L:
-        raise AssertionError(f"flash launches {fl_ops.mha.launches} != {L} per prefill x 2")
+    if fl_ops.mha.launches != 2 * L or fl_ops.mha.launches_by_dtype["bfloat16"] != 2 * L:
+        raise AssertionError(f"flash launches {fl_ops.mha.launches_by_dtype} != {L} bf16 (the "
+                             f"tensor-core kernel) per prefill x 2")
     finite = bool(torch.isfinite(logits.float()).all())
     step_s = []
     for t in range(PREFILL_S, PREFILL_S + DECODE_STEPS):
@@ -653,7 +841,8 @@ def serving_phases(dev, builds):
           f"{pre_s[1] * 1e3:.2f} ms (second) = {n_pre / pre_s[1]:.1f} tokens/s")
     print(f"decode B={PREFILL_B} over a {SERVE_MAX_SEQ}-slot cache: {dec_mean * 1e3:.3f} ms a "
           f"step (mean of {DECODE_STEPS}; {dec_rest * 1e3:.3f} without the first) = "
-          f"{PREFILL_B / dec_mean:.1f} tokens/s; launches flash {fl_ops.mha.launches}, "
+          f"{PREFILL_B / dec_mean:.1f} tokens/s; launches flash {fl_ops.mha.launches} "
+          f"(by dtype {fl_ops.mha.launches_by_dtype}), "
           f"decode {dec_ops.decode.launches}; logits finite")
     del cache, logits
     flash_launches = fl_ops.mha.launches
@@ -681,8 +870,9 @@ def serving_phases(dev, builds):
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/decode_attention.py:64",
-         "launches": decode_launches, "max_abs_err": err_d, "ms": d_ms, "plain_ms": d_plain,
-         "bound_ms": d_bound, "bound_by": d_by, "library_ms": d_lib},
+         "launches": decode_launches, "max_abs_err": err_d, "ms": d_t["ms"],
+         "plain_ms": d_t["plain_ms"], "bound_ms": d_bound, "bound_by": d_by,
+         "library_ms": d_t["library_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
@@ -925,6 +1115,7 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve):
     counters = (m_ops.mlstm, r_ops.rglru_scan, fl_ops.mha, dec_ops.decode)
     for c in counters:
         c.launches = 0
+    fl_ops.reset_launches()
     pre_s = []
     for _ in range(2):  # the first call warms the libraries' plans for these shapes
         cache = None
@@ -972,7 +1163,11 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve):
     if not res["geotp"]["avg_latency_ms"] < res["fcfs"]["avg_latency_ms"]:
         raise AssertionError(f"{arch}: geotp avg latency not below fcfs: {res}")
     launches = {c.__name__: c.launches for c in counters}
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if fl_ops.mha.launches_by_dtype["bfloat16"] != fl_ops.mha.launches:
+        raise AssertionError(f"{arch}: flash launches by dtype {fl_ops.mha.launches_by_dtype}: "
+                             f"every one must be bf16 (the tensor-core kernel)")
+    print(f"flash launches by dtype {fl_ops.mha.launches_by_dtype}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del params
     torch.cuda.empty_cache()
     return {"per_prefill": per_prefill, "per_step": per_step, "launches": launches,
@@ -1023,6 +1218,16 @@ def recurrent_phases(dev, records):
         errs["decode_attention"] = max(errs["decode_attention"], ed)
         print(f"{RG_ARCH} shapes {str(dt)[6:]}, cap {rg.attn_softcap}: flash {f_rg} max |d| "
               f"{ef:.3g}, decode {d_rg} max |d| {ed:.3g}")
+    # bf16 per query row and bit for bit over two calls; decode over random
+    # positions and over the full ring (the path's state after the prefill)
+    for kind, case, slots in (("flash", f_rg, None), ("decode", d_rg, None),
+                              ("decode", d_rg, d_rg[1])):
+        e, r = check_tight(kind, case, dev, logit_cap=rg.attn_softcap, valid_slots=slots)
+        name = "flash_attention" if kind == "flash" else "decode_attention"
+        errs[name] = max(errs[name], e)
+        print(f"rows {kind:6s} {str(case):40s} bf16 cap {rg.attn_softcap} "
+              f"{'full ring' if slots else ''}: max |d| {e:.3g}, worst row ||d||/||ref|| "
+              f"{r:.3g} (limit {ROW_RTOL}); two calls equal")
     t = time_recurrent(m_main, r_main, dev)
     m_work, r_work = mlstm_work(m_main, 4), rglru_work(r_main, 4)
     m_bound, m_by = bound(*m_work, FP32_OPS_PER_S)
@@ -1035,17 +1240,20 @@ def recurrent_phases(dev, records):
     print(f"rglru {r_main} float32: kernel {t['rglru'][0]:.4f} ms, plain {t['rglru'][1]:.4f} ms; "
           f"{r_work[0]} bytes, bound {r_bound:.4g} ms ({r_by}); "
           f"{r_work[0] / t['rglru'][0] / 1e9:.3f} TB/s")
+    sweep_decode_split([(f"{d_rg}, full ring", d_rg, d_rg[1], rg.attn_softcap)], dev)
     f_t = time_flash(f_rg, dev, rg.attn_softcap)
     # every ring slot is valid after the 4096-token prefill, as on the path
     d_t = time_decode(d_rg, dev, valid_slots=d_rg[1], logit_cap=rg.attn_softcap)
-    f_work, d_work = flash_work(f_rg, 2), d_t[3]
+    f_work, d_work = flash_work(f_rg, 2), d_t["work"]
     print(f"flash {f_rg} bf16 cap {rg.attn_softcap}: kernel {f_t[0]:.4f} ms, plain "
           f"{f_t[1]:.4f} ms; "
           f"{f_work[1]:.4g} flops, bound {bound(*f_work, BF16_TENSOR_OPS_PER_S)[0]:.4g} ms; "
           f"{f_work[1] / f_t[0] / 1e9:.2f} TFLOP/s")
-    print(f"decode {d_rg} bf16 cap {rg.attn_softcap}: kernel {d_t[0]:.4f} ms, plain {d_t[1]:.4f} "
-          f"ms; {d_work[0]} bytes (valid slots), bound "
-          f"{bound(*d_work, BF16_TENSOR_OPS_PER_S)[0]:.4g} ms")
+    print(f"decode {d_rg} bf16 cap {rg.attn_softcap}: kernel {d_t['ms']:.4f} ms through the "
+          f"wrapper (host {d_t['host_us']:.1f} us a call), {d_t['bare_ms']:.4f} ms bare; plain "
+          f"{d_t['plain_ms']:.4f} ms; {d_work[0]} bytes (valid slots), bound "
+          f"{bound(*d_work, BF16_TENSOR_OPS_PER_S)[0]:.4g} ms; "
+          f"{d_work[0] / d_t['bare_ms'] / 1e9:.3f} TB/s bare")
 
     phase(f"11 {XLSTM_ARCH}: GPU vs CPU at 8 layers, then full width")
     xs = model_phase(XLSTM_ARCH, len(xl.pattern), 128, dev, (XLSTM_B, XLSTM_S))

@@ -10,7 +10,7 @@
 //   cap(s) = tanh(s / c) * c with the logit cap c > 0 (recurrentgemma's 50), else s
 //   mask = (j <= i if causal) & (j // w == i // w if chunk_local, else j > i - w, if w > 0)
 // q [B,H,S,dh], k/v [B,KV,S,dh] (float32 or bfloat16, all one type) ->
-// out [B,H,S,dh] in q's type; arithmetic in float32.
+// out [B,H,S,dh] in q's type.
 //
 // Bound: 4·dh flops per unmasked (query, key) pair against 2·dh·(2H + 2KV)
 // bytes a position, so at the serving path's prefill (B = 8, H = 24, KV = 8,
@@ -18,30 +18,78 @@
 // cores' rate bounds it (2·B·H·S²·dh = 2.06e11 flops, 0.21 ms at 989
 // TFLOP/s bf16).
 //
-// Design (simple, right first): this kernel runs on the CUDA cores in
-// float32, not on the tensor cores (wgmma/TMA are later work), so it sits
-// far above that bound. One block of 128 threads per (b·h, block of 64
-// queries; 32 for dh > 128) loops over blocks of 64 keys inside the block:
-// the loop replaces the Pallas grid's sequential third dimension, and the
-// running (m, l) and the output accumulator stay in registers across it. A
-// thread owns RQ query rows x 8 key columns of each score tile and RQ rows x
-// dh/8 output columns; the 8 threads that share a row sit in one warp and
-// reduce its max and sum with shuffles. Tiles are staged in shared memory in
-// the input type with an odd word stride, so the threads of a warp reading
-// different rows hit different banks. Key blocks that the mask empties are
-// skipped with the TPU kernel's block predicate (flash_attention.py:55-64);
-// the heaviest query blocks of a causal row are launched first. Sizes not a
-// multiple of a block are masked at the ragged edge, never padded. The logit
-// cap (which the TPU kernel lacks; the reference model applies it after the
-// scale and before the mask) is a template flag: the uncapped variant is the
-// plain kernel (a per-score `cap > 0 ?` select cost 9% at llama's prefill),
-// the capped one scales and caps each score tile in a loop of tanhf.
+// Two kernels, chosen by dtype in flash_attention_launch:
 //
-// Masked scores are the finite -1e30 of the TPU kernel, never -inf: a row
-// whose first needed tile is all masked adds exp(0) = 1 terms that the next
-// real key wipes out through alpha = exp(-1e30 - m_new) = 0, where -inf
+// bfloat16 (every launch of the model path): `flash_wgmma_kernel`, both
+// products on the tensor cores. One block of two warpgroups per (b·h, 128
+// queries); each warpgroup owns 64 query rows, wgmma's M.
+// - Shared memory holds the Q tile (loaded once) and a ring of two stages of
+//   64-key K and V tiles. Loads are cp.async of 16 bytes issued by all 256
+//   threads, so tile j+1 arrives while tile j is multiplied. cp.async, not
+//   TMA: its src-size operand zero-fills the rows past S and the columns
+//   past dh in shared memory (device memory is never padded) for every dh
+//   that is a multiple of 8, and a head dim that is not (16-byte loads
+//   would be misaligned) takes a plain-load path into the same layout; a
+//   tensor map could do neither for all dh, and needs libcuda for its encoding.
+// - Every tile is stored as panels of 64 head-dim columns, 128-byte rows
+//   with the 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)),
+//   each panel 1024-byte aligned: wgmma's canonical SW128 layout. Q and K
+//   are K-major operands (SBO = 1024 bytes between 8-row groups; a k16
+//   step advances the start address by 32 bytes inside a panel). V is read
+//   as the MN-major B operand (transpose bit set, which bf16 allows): the
+//   same panels, SBO = 1024 bytes between 8-key groups, LBO = one panel.
+//   A descriptor's high word (SBO, swizzle mode) is the same for all three,
+//   an immediate of the instruction, so each descriptor costs one register.
+// - Two blocks an SM at head dims up to 128 without the cap (128 registers
+//   a thread, no spill): while one block's warpgroups run their softmax the
+//   other's products keep the tensor cores busy. Capped and dh-256
+//   variants take one.
+// - S = Q·Kᵀ is dh/16 wgmma.m64n64k16 (A and B from shared memory) into 32
+//   float32 registers a thread. The online softmax runs on those fragments:
+//   a thread holds two rows' 16 values each, and the four threads sharing a
+//   row take its max with two shuffles; the row sum stays a per-thread
+//   partial until the end. P is split in registers into two bf16 values,
+//   hi + lo, each wgmma's A operand from registers for O += P·V (two
+//   instructions a k16 step): the accumulator's fragment layout is the A
+//   operand's, so no shuffle is needed. O is dh_pad/2 float32 registers a
+//   thread (128 at dh 256).
+// - The TPU kernel's block predicate gives the contiguous range of key
+//   tiles a block needs; a warpgroup skips a tile its 64 rows do not need,
+//   and only a tile that crosses the causal diagonal, a window or chunk edge
+//   or S evaluates the per-element mask. Heaviest causal blocks first.
+// - Head dims are padded to 64, 128 or 256 columns in shared memory only;
+//   output is written for d < dh. At dh 256 the block uses 193 KB of
+//   shared memory (Q 64 KB, two K+V stages of 64 KB).
+// - Numerics: scores, softmax state and O are float32. P enters P·V as
+//   hi + lo (hi = bf16(p), lo = bf16(p - hi)): about 16 bits of P, close to
+//   the TPU kernel's and the plain version's float32 P. P rounded to one
+//   bf16 (as the reference model's `p.astype(vs.dtype)` does,
+//   src/repro/models/attention.py:98) saved one wgmma a k16 step but moved
+//   the 2-layer llama3.2-3b logits GPU vs CPU past 0.05 absolute.
+//   Exponentials are exp2f((x - m) * log2(e)) (the difference first, so a
+//   fully masked row's exp(-1e30 - (-1e30)) is exactly 1, as in the TPU
+//   kernel); the cap is the accurate tanhf, never tanh.approx (the cap
+//   multiplies its error by 50).
+//
+// float32 (the checks of chip_smoke.py only; TF32 tensor cores keep ~3
+// digits, short of the 2e-5 those checks hold): `flash_kernel`, on the CUDA
+// cores in float32, unchanged since it was written. One block of 128 threads
+// per (b·h, block of 64 queries; 32 for dh > 128) loops over blocks of 64
+// keys inside the block: the loop replaces the Pallas grid's sequential
+// third dimension, and the running (m, l) and the output accumulator stay in
+// registers across it. A thread owns RQ query rows x 8 key columns of each
+// score tile and RQ rows x dh/8 output columns; the 8 threads that share a
+// row sit in one warp and reduce its max and sum with shuffles. Tiles are
+// staged in shared memory with an odd word stride, so the threads of a warp
+// reading different rows hit different banks. The logit cap is a template
+// flag: the uncapped variant is the plain kernel (a per-score `cap > 0 ?`
+// select cost 9% at llama's prefill).
+//
+// Both: masked scores are the finite -1e30 of the TPU kernel, never -inf: a
+// row whose first needed tile is all masked adds exp(0) = 1 terms that the
+// next real key wipes out through alpha = exp(-1e30 - m_new) = 0, where -inf
 // would give NaN. Keys past the end of the sequence are -inf (no term). The
-// products use fmaf explicitly: the library is built with -fmad=false.
+// library is built with -fmad=false: products use fmaf explicitly.
 //
 // Plain C interface (loaded with ctypes): returns the first cudaError.
 
@@ -57,9 +105,7 @@ constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
 constexpr int kBK = 64;        // keys per block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // Row stride (elements) of a Q/K tile: an odd number of 4-byte words.
 template <typename T>
@@ -67,13 +113,15 @@ __host__ __device__ int tile_stride(int dh) {
   return dh + 4 / (int)sizeof(T);
 }
 
-__device__ __forceinline__ bool block_needed(int q0, int k0, int bq, int causal, int window,
-                                             int chunk_local) {
+// The TPU kernel's block predicate (flash_attention.py:55-64): does a block
+// of bq queries from q0 need the bk keys from k0?
+__device__ __forceinline__ bool tile_needed(int q0, int bq, int k0, int bk, int causal,
+                                            int window, int chunk_local) {
   bool need = true;
   if (causal) need = k0 <= q0 + bq - 1;
-  if (window > 0 && !chunk_local) need = need && (k0 + kBK - 1 > q0 - window);
+  if (window > 0 && !chunk_local) need = need && (k0 + bk - 1 > q0 - window);
   if (window > 0 && chunk_local) {
-    need = need && ((k0 + kBK - 1) / window >= q0 / window);
+    need = need && ((k0 + bk - 1) / window >= q0 / window);
     need = need && (k0 / window <= (q0 + bq - 1) / window);
   }
   return need;
@@ -127,7 +175,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 
   for (int k0 = 0; k0 < S; k0 += kBK) {
-    if (!block_needed(q0, k0, BQ, causal, window, chunk_local)) continue;
+    if (!tile_needed(q0, BQ, k0, kBK, causal, window, chunk_local)) continue;
     __syncthreads();  // the previous block's readers are done with k_s, v_s, p_s
     for (int i = tid; i < kBK * dh; i += kThreads) {
       const int r = i / dh, d = i - r * dh;
@@ -250,26 +298,428 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-              int S, int dh, float scale, float cap, int causal, int window, int chunk_local,
-              cudaStream_t st) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
+               int S, int dh, float scale, float cap, int causal, int window, int chunk_local,
+               cudaStream_t st) {
   if (dh <= 64)
-    return launch<T, 64, 64>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
-                               chunk_local, st);
+    return launch<float, 64, 64>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+                                 chunk_local, st);
   if (dh <= 128)
-    return launch<T, 64, 128>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
-                               chunk_local, st);
+    return launch<float, 64, 128>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+                                  chunk_local, st);
   if (dh <= 256)
-    return launch<T, 32, 256>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
-                               chunk_local, st);
+    return launch<float, 32, 256>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+                                  chunk_local, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma on the tensor cores
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kWgBQ = 128;     // queries a block: two warpgroups of 64 rows
+constexpr int kWgBK = 64;      // keys a tile
+constexpr int kWgThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Byte offset of 16-byte chunk c of row r in a ROWS-row tile stored as
+// panels of 64 columns (128-byte rows) with the 128-byte swizzle.
+template <int ROWS>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)((c >> 3) * ROWS * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// A wgmma shared-memory descriptor as two words. The low word holds the
+// start address and the leading byte offset (LBO), both in 16-byte units;
+// the high word the stride byte offset (SBO = 1024 bytes between 8-row
+// groups for every operand here) and the 128-byte swizzle mode, a constant
+// that the instruction takes as an immediate. Offsets added to the low word
+// stay in its 14-bit address field (shared memory ends below 2^18 bytes).
+__device__ __forceinline__ uint32_t desc_lo(uint32_t addr, uint32_t lbo) {
+  return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16);
+}
+constexpr uint32_t kDescHi = (1024 >> 4) | (1u << 30);
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// shared-memory writes of the generic proxy (cp.async, st.shared) become
+// visible to wgmma's async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// ties accumulator registers to this point of the program, so the compiler
+// neither reads them before the wgmma that writes them has been waited for
+// nor writes them after it was issued
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64x64] (+)= A[64x16] . B[16x64], A and B K-major in shared memory;
+// a_lo, b_lo: the descriptors' low words
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint32_t a_lo, uint32_t b_lo,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 hi;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %34, 0;\nmov.b32 hi, %35;\n"
+      "mov.b64 da, {%32, hi};\nmov.b64 db, {%33, hi};\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a_lo), "r"(b_lo), "r"(scale_d), "n"(kDescHi));
+}
+
+// d[64x64] += A[64x16] . B[16x64], A from registers, B MN-major in shared
+// memory; b_lo: its descriptor's low word
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint32_t b_lo) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 hi;\n.reg .b64 db;\n"
+      "setp.ne.b32 p, %37, 0;\nmov.b32 hi, %38;\nmov.b64 db, {%36, hi};\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b_lo), "r"(1), "n"(kDescHi));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// p0, p1 as two packed bf16 pairs: hi = bf16(p), lo = bf16(p - hi). p - hi
+// is exact in float32, so hi + lo keeps p to about 16 bits.
+__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(p0 - hf.x, p1 - hf.y);
+}
+
+// Copy rows [row0, row0 + ROWS) x the DP head-dim columns of a [S][dh]
+// matrix into the swizzled panels at `dst`, zero past S and past dh.
+template <int ROWS, int DP>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* __restrict__ src,
+                                          int row0, int S, int dh, bool aligned, int tid) {
+  constexpr int CPR = DP / 8;  // 16-byte chunks a row
+#pragma unroll 4
+  for (int i = tid; i < ROWS * CPR; i += kWgThreads) {
+    const int r = i / CPR, c = i - r * CPR;
+    const int gr = row0 + r, col = c * 8;
+    const uint32_t off = swz<ROWS>(r, c);
+    if (aligned) {
+      const bool in = gr < S && col < dh;
+      cp_async16(smem_u32(dst + off), in ? src + (size_t)gr * dh + col : src, in ? 16 : 0);
+    } else {  // dh % 8 != 0: rows are not 16-byte aligned
+      const int n = gr < S ? dh - col : 0;  // elements of this chunk inside the row
+      const bf16* p = src + (size_t)(gr < S ? gr : 0) * dh + col;
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t lo = 2 * e < n ? __bfloat16_as_ushort(p[2 * e]) : 0u;
+        const uint32_t hi = 2 * e + 1 < n ? __bfloat16_as_ushort(p[2 * e + 1]) : 0u;
+        w[e] = lo | (hi << 16);
+      }
+      *reinterpret_cast<uint4*>(dst + off) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+template <int DP>
+constexpr size_t wg_smem_bytes() {
+  // Q, then two stages of K and V; 1 KB to align the base to 1024 bytes
+  return (size_t)DP * 2 * (kWgBQ + 2 * 2 * kWgBK) + 1024;
+}
+
+// two blocks an SM where the registers allow it (note at the top)
+template <int DP, bool CAP>
+constexpr int wg_min_blocks() {
+  return DP <= 128 && !CAP ? 2 : 1;
+}
+
+template <int DP, bool CAP>
+__global__ void __launch_bounds__(kWgThreads, (wg_min_blocks<DP, CAP>()))
+flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ out, int H, int KV, int S,
+                   int dh, float scale, float cap, int causal, int window, int chunk_local,
+                   int aligned) {
+  constexpr int NP = DP / 64;                    // 64-column panels
+  constexpr int Q_BYTES = NP * kWgBQ * 128;
+  constexpr int T_BYTES = NP * kWgBK * 128;      // one K or V tile
+  constexpr uint32_t PANEL_Q = kWgBQ * 128, PANEL_KV = kWgBK * 128;
+  const int nq = (S + kWgBQ - 1) / kWgBQ;
+  const int bh = blockIdx.x / nq;
+  const int qi = nq - 1 - blockIdx.x % nq;  // heaviest causal blocks first
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = qi * kWgBQ;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int qw = q0 + 64 * wg;  // this warpgroup's first row
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = base;
+  unsigned char* kv_s = base + Q_BYTES;  // stage st: K at kv_s + 2 st T_BYTES, V after it
+
+  const bf16* qb = q + (size_t)bh * S * dh;
+  const bf16* kb = k + (size_t)(b * KV + kvh) * S * dh;
+  const bf16* vb = v + (size_t)(b * KV + kvh) * S * dh;
+
+  // the key tiles the block needs: a contiguous range for these masks
+  const int nk = (S + kWgBK - 1) / kWgBK;
+  int t_lo = 0, t_hi = nk;
+  while (t_lo < t_hi &&
+         !tile_needed(q0, kWgBQ, t_lo * kWgBK, kWgBK, causal, window, chunk_local))
+    ++t_lo;
+  while (t_hi > t_lo &&
+         !tile_needed(q0, kWgBQ, (t_hi - 1) * kWgBK, kWgBK, causal, window, chunk_local))
+    --t_hi;
+
+  const bool al = aligned != 0;
+  load_tile<kWgBQ, DP>(q_s, qb, q0, S, dh, al, tid);
+  if (t_lo < t_hi) {
+    load_tile<kWgBK, DP>(kv_s, kb, t_lo * kWgBK, S, dh, al, tid);
+    load_tile<kWgBK, DP>(kv_s + T_BYTES, vb, t_lo * kWgBK, S, dh, al, tid);
+  }
+  cp_async_commit();
+
+  float o[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.0f;
+  // a thread holds rows ra and ra + 8 of its warpgroup's 64
+  const int ra = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+  float m0 = kNeg, m1 = kNeg, l0 = 0.0f, l1 = 0.0f;
+  const uint32_t q_addr = smem_u32(q_s) + 64 * 128 * wg;
+
+  for (int j = t_lo; j < t_hi; ++j) {
+    const int st = (j - t_lo) & 1;
+    if (j + 1 < t_hi) {  // the next tile into the other stage
+      unsigned char* nxt = kv_s + 2 * (st ^ 1) * T_BYTES;
+      load_tile<kWgBK, DP>(nxt, kb, (j + 1) * kWgBK, S, dh, al, tid);
+      load_tile<kWgBK, DP>(nxt + T_BYTES, vb, (j + 1) * kWgBK, S, dh, al, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: Q and tile j have landed
+    fence_proxy_async();
+    __syncthreads();
+
+    const int k0 = j * kWgBK;
+    if (qw < S && tile_needed(qw, 64, k0, kWgBK, causal, window, chunk_local)) {
+      const uint32_t k_addr = smem_u32(kv_s + 2 * st * T_BYTES);
+      const uint32_t v_addr = k_addr + T_BYTES;
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+      fence_regs(s);
+      wg_fence();
+      // K-major: LBO unused (16 bytes); a k16 step is 32 bytes into a panel
+      const uint32_t qd = desc_lo(q_addr, 16), kd = desc_lo(k_addr, 16);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t qoff = ((kk >> 2) * PANEL_Q + (kk & 3) * 32) >> 4;
+        const uint32_t koff = ((kk >> 2) * PANEL_KV + (kk & 3) * 32) >> 4;
+        wgmma_ss(s, qd + qoff, kd + koff, kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(s);
+
+      // the scaled (capped) scores, masked on a tile that crosses an edge
+      const int k1 = k0 + kWgBK - 1, qe = qw + 63;
+      bool interior = k1 < S && (!causal || k1 <= qw);
+      if (window > 0)
+        interior = interior && (chunk_local ? (k0 / window == k1 / window &&
+                                               qw / window == qe / window &&
+                                               k0 / window == qw / window)
+                                            : k0 > qe - window);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = CAP ? tanhf(s[i] * scale / cap) * cap : s[i] * scale;
+        if (!interior) {
+          const int qp = qw + ra + ((i & 2) ? 8 : 0);
+          const int kp = k0 + 8 * (i >> 2) + cq + (i & 1);
+          bool ok = true;
+          if (causal) ok = kp <= qp;
+          if (window > 0) {
+            if (chunk_local) ok = ok && (kp / window == qp / window);
+            else ok = ok && (kp > qp - window);
+          }
+          x = kp >= S ? -INFINITY : (ok ? x : kNeg);
+        }
+        s[i] = x;
+      }
+
+      // online softmax on the fragments: s[4j + 0/1] row ra, s[4j + 2/3] row ra + 8
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * jj], s[4 * jj + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+      }
+#pragma unroll
+      for (int o_ = 1; o_ < 4; o_ <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = exp2f((m0 - mn0) * kLog2e), alpha1 = exp2f((m1 - mn1) * kLog2e);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        s[4 * jj] = exp2f((s[4 * jj] - mn0) * kLog2e);
+        s[4 * jj + 1] = exp2f((s[4 * jj + 1] - mn0) * kLog2e);
+        s[4 * jj + 2] = exp2f((s[4 * jj + 2] - mn1) * kLog2e);
+        s[4 * jj + 3] = exp2f((s[4 * jj + 3] - mn1) * kLog2e);
+        sum0 += s[4 * jj] + s[4 * jj + 1];
+        sum1 += s[4 * jj + 2] + s[4 * jj + 3];
+      }
+      l0 = l0 * alpha0 + sum0;  // a partial over this thread's columns
+      l1 = l1 * alpha1 + sum1;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          o[p][4 * jj] *= alpha0;
+          o[p][4 * jj + 1] *= alpha0;
+          o[p][4 * jj + 2] *= alpha1;
+          o[p][4 * jj + 3] *= alpha1;
+        }
+      }
+
+      // P as bf16 pairs hi + lo in wgmma's A fragments: k step kk covers
+      // keys 16 kk .. 16 kk + 15
+      uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], a_hi[kk][e], a_lo[kk][e]);
+      // MN-major V: LBO = one 64-column panel (kWgBK rows of 128 bytes)
+      const uint32_t vd = desc_lo(v_addr, PANEL_KV);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(o[p]);
+      wg_fence();
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t vk = vd + ((p * PANEL_KV + kk * 16 * 128) >> 4);
+          wgmma_rs(o[p], a_hi[kk], vk);
+          wgmma_rs(o[p], a_lo[kk], vk);
+        }
+      wg_commit();
+      wg_wait0();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(o[p]);
+    }
+    __syncthreads();  // every reader is done with stage st before it is refilled
+  }
+
+  // the row sums over the four threads that share a row
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+  const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qp = qw + ra + 8 * half;
+    if (qp >= S) continue;
+    const float inv = half ? inv1 : inv0;
+    bf16* orow = out + ((size_t)bh * S + qp) * dh;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int d = 64 * p + 8 * jj + cq;
+        const float x0 = o[p][4 * jj + 2 * half] * inv, x1 = o[p][4 * jj + 2 * half + 1] * inv;
+        if (d + 1 < dh && (dh & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (d < dh) orow[d] = __float2bfloat16_rn(x0);
+          if (d + 1 < dh) orow[d + 1] = __float2bfloat16_rn(x1);
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_wg(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
+              int S, int dh, float scale, float cap, int causal, int window, int chunk_local,
+              cudaStream_t stream) {
+  constexpr size_t smem = wg_smem_bytes<DP>();
+  auto kern = cap > 0.0f ? flash_wgmma_kernel<DP, true> : flash_wgmma_kernel<DP, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)B * H * ((S + kWgBQ - 1) / kWgBQ);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int aligned = dh % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  kern<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, KV, S, dh, scale, cap,
+      causal, window, chunk_local, aligned);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
+                int S, int dh, float scale, float cap, int causal, int window, int chunk_local,
+                cudaStream_t st) {
+  if (dh <= 64)
+    return launch_wg<64>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+                         chunk_local, st);
+  if (dh <= 128)
+    return launch_wg<128>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+                          chunk_local, st);
+  if (dh <= 256)
+    return launch_wg<256>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+                          chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; cap <= 0: no logit cap. Shapes are
-// checked by the Python wrapper.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); cap <= 0:
+// no logit cap. Shapes are checked by the Python wrapper.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int H, int KV, int S, int dh, float scale,
                                       float cap, int causal, int window, int chunk_local,
@@ -278,10 +728,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (KV <= 0 || H % KV != 0 || dh <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_dh<float>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
-                            chunk_local, st);
+    return launch_f32(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window, chunk_local,
+                      st);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
-                                    chunk_local, st);
+    return launch_bf16(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window, chunk_local,
+                       st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,10 +3,12 @@
 Takes the model's [B,S,H,dh] layout and hands the kernel [B,H,S,dh]. On
 CUDA tensors it launches the hand-written kernel; on CPU tensors it
 computes the plain version (`ref.py`). It never catches an error to fall
-back. `mha.launches` counts kernel launches (plain calls do not count). The
-kernel takes dh as it is (up to 256) and S as it is, masking the ragged
-edge: the reference wrapper's padding of dh to 128 and its shrinking of
-the block to divide S are TPU artefacts. `logit_cap` > 0 caps each scaled
+back. `mha.launches` counts kernel launches (plain calls do not count), and
+`mha.launches_by_dtype` splits them by dtype: bfloat16 launches run the
+tensor-core (wgmma) kernel, float32 ones the CUDA-core kernel. The kernel
+takes dh as it is (up to 256) and S as it is, masking the ragged edge:
+the reference wrapper's padding of dh to 128 and its shrinking of the
+block to divide S are TPU artefacts. `logit_cap` > 0 caps each scaled
 score at `tanh(s / cap) * cap` before the mask, as the reference model's
 attention does (its TPU kernel has no cap).
 """
@@ -61,7 +63,14 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0, chunk_local: bool = Fa
         _cuda.launch(qt, kt, vt, out, q.shape[-1] ** -0.5, causal, window, chunk_local,
                      logit_cap)
         mha.launches += 1
+        mha.launches_by_dtype[str(q.dtype)[6:]] += 1
     return out.transpose(1, 2)
 
 
-mha.launches = 0
+def reset_launches() -> None:
+    """Zero both launch counts."""
+    mha.launches = 0
+    mha.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+
+
+reset_launches()

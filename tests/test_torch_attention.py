@@ -223,3 +223,12 @@ def test_kernels_match_plain_versions_on_the_card():
             chip_smoke.check_flash(case, dtype, dev, seed=i)
         for i, case in enumerate(DECODE_CASES + chip_smoke.WIDE_DECODE_CASES):
             chip_smoke.check_decode(case, dtype, dev, seed=i)
+        for i, (case, cap) in enumerate(chip_smoke.EXTRA_FLASH_CASES):
+            chip_smoke.check_flash(case, dtype, dev, seed=i, logit_cap=cap)
+        for i, (case, pattern) in enumerate(chip_smoke.EXTRA_DECODE_CASES):
+            chip_smoke.check_decode(case, dtype, dev, seed=i, pattern=pattern)
+    # bf16 per query row, and two calls bit for bit
+    for case, cap in chip_smoke.EXTRA_FLASH_CASES:
+        chip_smoke.check_tight("flash", case, dev, logit_cap=cap)
+    for case, pattern in chip_smoke.EXTRA_DECODE_CASES:
+        chip_smoke.check_tight("decode", case, dev, pattern=pattern)

@@ -240,6 +240,12 @@ def test_kernel_label_reads_bool_template_arguments():
                "bfloat16Li32ELi256ELb1EEEvPKT_S4_S4_PS2_iiiiffiii")
     assert chip_smoke.kernel_label(mangled) == "flash_kernel<bfloat16, 32, 256, true>"
     assert chip_smoke.kernel_label(mangled.replace("Lb1E", "Lb0E")).endswith("256, false>")
+    wgmma = ("_ZN51_GLOBAL__N__52ee7d0f_18_flash_attention_cu_23f0aea718flash_wgmma_kernel"
+             "ILi256ELb1EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiffiiii")
+    assert chip_smoke.kernel_label(wgmma) == "flash_wgmma_kernel<256, true>"
+    split = ("_ZN52_GLOBAL__N__9b822bd5_19_decode_attention_cu_3848999b19decode_split_kernel"
+             "IfLi64EEEvPKT_S3_S3_PKhPfS6_S6_iiiiffii")
+    assert chip_smoke.kernel_label(split) == "decode_split_kernel<float32, 64>"
 
 
 def test_ptxas_report_gives_a_line_per_kernel_variant():
@@ -264,6 +270,71 @@ def test_wide_kernel_cases_reach_every_variant():
     assert {c[2] // c[3] for c in chip_smoke.WIDE_DECODE_CASES} >= {3, 5}
     main_dec = chip_smoke.launch_shapes(chip_smoke.serve_cfg(), 8, 2048, 4096)[1]
     assert main_dec[2] // main_dec[3] == 3  # the serving path's layout is among them
+
+
+def test_strict_build_refuses_a_stack_frame_or_spill(monkeypatch, tmp_path, capsys):
+    from repro_torch.kernels import _build
+
+    report = tmp_path / "report.txt"
+    report.write_text(PTXAS_REPORT)
+    monkeypatch.setattr(_build, "report_path", lambda name: report)
+    monkeypatch.setattr(_build, "library_path", lambda name: ROOT / "build" / f"lib{name}.so")
+    chip_smoke.print_build("decode_attention", 1.0)
+    assert "3248 B stack frame" in capsys.readouterr().out
+    with pytest.raises(AssertionError, match=r"decode_kernel<float32, 8>"):
+        chip_smoke.print_build("decode_attention", 1.0, strict=True)
+    report.write_text(PTXAS_REPORT.split("ptxas info    : Compiling entry function '_ZN52")[0])
+    chip_smoke.print_build("flash_attention", 1.0, strict=True)  # no stack, no spill: passes
+    assert set(chip_smoke.STRICT_BUILDS) == {"flash_attention", "decode_attention"}
+
+
+def test_extra_attention_cases_reach_the_redesigned_kernels_edges():
+    """Phase 7's extra cases: flash with S past a window and not a multiple
+    of the 128-query block (cap 50), G = 3 at dh 128, S below one 64-key
+    tile and rows that are not 16-byte aligned; decode with Sc not a
+    multiple of the split, leading splits with no valid slot, one row with
+    none beside valid rows, the router's B = 1 over several splits, more
+    than 16 rows a head and unaligned rows."""
+    from repro_torch.kernels.decode_attention.ops import split_plan
+
+    (f_win, cap), (f_gqa, _), (f_chunk, _), (f_short, _), (f_odd, _) = \
+        chip_smoke.EXTRA_FLASH_CASES
+    assert f_win[1] % 128 and f_win[1] > f_win[6] > 0 and cap == 50.0 and f_win[4] == 256
+    assert f_gqa[2] // f_gqa[3] == 3 and f_gqa[4] == 128 and f_gqa[1] % 128
+    # chunks of 256 hold 64-key tiles below the diagonal inside one chunk: the unmasked path
+    assert f_chunk[7] and f_chunk[6] >= 256 and f_chunk[6] % 128 == 0 and f_chunk[1] > f_chunk[6]
+    assert f_short[1] < 64 and f_odd[4] % 8  # bf16 rows of dh % 8 != 0: not 16-byte aligned
+    cpu = torch.device("cpu")
+    seen = set()
+    for case, pattern in chip_smoke.EXTRA_DECODE_CASES:
+        B, Sc, H, KV, dh = case
+        splits, per = split_plan(B, KV, Sc, 132)
+        valid = chip_smoke.decode_inputs(case, torch.float32, cpu, 0, pattern=pattern)[3]
+        if H // KV > 16:
+            seen.add("two row blocks")
+        if dh % 4:  # unaligned in float32 and bf16 alike
+            seen.add("unaligned")
+        if Sc % per:
+            seen.add("ragged split")
+        if pattern == "tail":
+            assert splits > 1 and not valid[:, :per].any() and valid.any(1).all()
+            seen.add("tail")
+        if pattern == "dead_row":
+            assert not valid[1].any() and valid[0].any() and valid[2].any()
+            seen.add("dead row")
+        if B == 1 and splits > 1:
+            seen.add("router")
+    assert seen == {"ragged split", "tail", "dead row", "router", "two row blocks", "unaligned"}
+    with pytest.raises(ValueError, match="unknown valid pattern"):
+        chip_smoke.decode_inputs((1, 8, 2, 1, 4), torch.float32, cpu, 0, pattern="nope")
+
+
+def test_tight_checks_run_on_the_cpu():
+    cpu = torch.device("cpu")
+    for case, cap in [((1, 70, 4, 2, 16, True, 32, False), 50.0)]:
+        assert chip_smoke.check_tight("flash", case, cpu, logit_cap=cap) == (0.0, 0.0)
+    for pattern in (None, "tail", "dead_row"):
+        assert chip_smoke.check_tight("decode", (3, 90, 6, 2, 16), cpu, pattern=pattern) == (0.0, 0.0)
 
 
 # ---- slice 3: the recurrent mixers' phases (10-12) ---------------------------
@@ -370,6 +441,7 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
     import time as _time
 
     from repro_torch.configs import registry
+    from repro_torch.kernels.decode_attention import decode_attention as d_bind
     from repro_torch.kernels.decode_attention import ops as d_ops
     from repro_torch.kernels.flash_attention import flash_attention as f_bind
     from repro_torch.kernels.flash_attention import ops as f_ops
@@ -396,6 +468,9 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
 
     monkeypatch.setattr(chip_smoke, "cuda_ms", host_ms)
     monkeypatch.setattr(f_bind, "launch", lambda *a, **k: None)
+    monkeypatch.setattr(d_bind, "run", lambda args: None)
+    monkeypatch.setattr(d_ops, "prepare", lambda *a, **k: (None, ()))
+    monkeypatch.setattr(d_ops, "sm_count", lambda dev: 132)
     monkeypatch.setattr(chip_smoke, "time_recurrent",
                         lambda m, r, dev: {"mlstm": (1.0, 2.0), "rglru": (1.0, 2.0)})
     for mod, name in ((m_ops, "mlstm"), (r_ops, "rglru_scan"), (f_ops, "mha"),
@@ -403,10 +478,14 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
         real = getattr(mod, name)
 
         def counted(*a, real=real, **k):
-            counted_fns[real.__name__].launches += 1
+            fn = counted_fns[real.__name__]
+            fn.launches += 1
+            if real.__name__ == "mha":  # the flash wrapper also counts by dtype
+                fn.launches_by_dtype[str(a[0].dtype)[6:]] += 1
             return real(*a, **k)
 
         counted.launches, counted.__name__ = 0, real.__name__
+        counted.launches_by_dtype = {"float32": 0, "bfloat16": 0}
         monkeypatch.setattr(mod, name, counted)
     counted_fns = {f.__name__: f for f in (m_ops.mlstm, r_ops.rglru_scan, f_ops.mha,
                                            d_ops.decode, g_ops.geo_schedule)}
