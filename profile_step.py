@@ -9,12 +9,19 @@ wall per step) and a run under `torch.profiler`. The step is branchless
 (every step issues the same ops whatever events it processes), so the
 opening window costs per step what any window does.
 
-Per lockstep step it prints the host wall, the aten ops issued, the device
-kernels run, the device busy time (union of kernel intervals) and the idle
-share; then, for each labelled part of the step (the uint32 hash / salt /
-delay helpers, the hot-table probe, the lane freeze, the two `geo_schedule`
-calls), its host time and its share of the profiled loop. The last line is
-a JSON summary. The full op tables go to `build/profile_step.txt`.
+On the card (mode "captured") the run warms the step up, captures it into
+a CUDA graph and replays it (`engine.batch.CapturedStep`); the window is
+the replays, from the first replay to the end of the run. Per replay it
+prints the host wall, the host time to issue a replay, the device kernels,
+the device busy time (union of kernel intervals) and the idle share, and
+the kernel table by name (launches a replay, device us a launch):
+`geo_schedule_kernel` must appear exactly twice a replay. On the CPU (mode
+"eager", where the tests run it) each step's ops run one by one, and it
+prints per step the host wall and aten ops issued, then for each labelled
+part of the step (the uint32 hash / salt / delay helpers, the hot-table
+probe, the lane freeze, the two `geo_schedule` calls) its host time and
+its share of the profiled loop. The last line is a JSON summary, which
+names its mode. The full op tables go to `build/profile_step.txt`.
 Needs one card; imports no JAX.
 """
 
@@ -23,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -47,7 +55,10 @@ LABELS = (
     ("repro_torch.core.engine.batch", "_omni_step", "step", False),
 )
 RUN_LABEL = "lockstep run"
-WINDOW = 128  # events per lane: 128 steps, ~5 s of card time a run
+REPLAY_LABEL = "replay of the captured step"
+GEO_KERNEL = "geo_schedule_kernel"
+WINDOW = 128  # events per lane: 128 steps (127 replays on the card)
+KERNEL_ROWS = 25  # kernel table rows printed
 
 
 def install_labels(undo: list) -> None:
@@ -110,21 +121,62 @@ def _union_us(spans) -> float:
     return busy
 
 
+def install_replay_label(undo: list) -> dict:
+    """Wrap `CapturedStep.replay` in a REPLAY_LABEL range; the returned
+    dict counts the replays it issued."""
+    from repro_torch.core.engine import batch
+
+    replay, count = batch.CapturedStep.replay, {"replays": 0}
+
+    def labelled(self, n):
+        count["replays"] += n
+        with torch.profiler.record_function(REPLAY_LABEL):
+            return replay(self, n)
+
+    undo.append((batch.CapturedStep, "replay", replay))
+    batch.CapturedStep.replay = labelled
+    return count
+
+
+def kernel_name(name: str) -> str:
+    """A device event's kernel name without its parameter list (and without
+    the anonymous namespace), or a mangled name's identifier."""
+    if m := re.match(r"_Z(?:N\d+_GLOBAL__N_\w+?)?(\d+)", name):
+        return name[m.end():m.end() + int(m.group(1))]
+    return name.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def kernel_table(kernels, steps: int) -> dict:
+    """{kernel name: launches a step, device us a launch, device us a step},
+    by total device time."""
+    by = {}
+    for e in kernels:
+        name = kernel_name(e.name)
+        n, us = by.get(name, (0, 0.0))
+        by[name] = (n + 1, us + (e.time_range.end - e.time_range.start))
+    return {name: {"per_step": n / steps, "us_per_launch": us / n, "us_per_step": us / steps}
+            for name, (n, us) in sorted(by.items(), key=lambda kv: -kv[1][1])}
+
+
 def measure(grid, window: int, device, activities, tables=None) -> dict:
     """Warm-up, unprofiled and profiled runs of `grid` for `window` events
     per lane; returns the per-step summary (device fields are None when the
-    profiler recorded no device activity)."""
-    from repro_torch.core.engine import Simulator
+    profiler recorded no device activity). On a card the step is replayed
+    from a CUDA graph and the summary covers the replays."""
+    from repro_torch.core.engine import Simulator, batch
 
+    captured = device.type == "cuda"
     undo = []
     try:
         install_labels(undo)
+        replays = install_replay_label(undo)
         timing = install_run_timer(device, undo)
         sim = Simulator.from_bank(grid.banks[0], horizon_s=2.5, warmup_s=0.5, device=device)
         sim.cfg = dataclasses.replace(sim.cfg, max_events=window)
         sim.run_grid(grid)
         sim.run_grid(grid)
-        wall_s, steps = timing["wall_s"], timing["steps"]
+        wall_s, steps, capture_s = timing["wall_s"], timing["steps"], batch.run.capture_s
+        replays["replays"] = 0
         with torch.profiler.profile(activities=activities) as prof:
             sim.run_grid(grid)
         prof_wall_s = timing["wall_s"]
@@ -141,44 +193,66 @@ def measure(grid, window: int, device, activities, tables=None) -> dict:
     if len(run_ev) != 1:
         raise AssertionError(f"expected one host '{RUN_LABEL}' range, got {len(run_ev)}")
     t_lo, t_hi = run_ev[0].time_range.start, run_ev[0].time_range.end
-    loop_host_us = t_hi - t_lo
-    in_loop = [e for e in events if t_lo <= e.time_range.start <= t_hi]
+    n = steps
+    rep_ev = [e for e in events if e.name == REPLAY_LABEL and e.device_type == cpu_t]
+    if captured:  # the window: from the first replay to the end of the run
+        n = replays["replays"]
+        if not rep_ev or n != steps - batch._WARMUP_STEPS:
+            raise AssertionError(f"{n} replays in {len(rep_ev)} ranges for {steps} steps")
+        t_lo = min(e.time_range.start for e in rep_ev)
+    win_us = t_hi - t_lo
+    in_win = [e for e in events if t_lo <= e.time_range.start <= t_hi]
     aten = [
-        e for e in in_loop
+        e for e in in_win
         if e.device_type == cpu_t and e.name.startswith("aten::")
         and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))
     ]
     # device activity, less the device-side mirrors of the labelled ranges
-    names = {RUN_LABEL} | {label for _, _, label, _ in LABELS}
-    kernels = [e for e in in_loop if e.device_type != cpu_t and e.name not in names]
+    names = {RUN_LABEL, REPLAY_LABEL} | {label for _, _, label, _ in LABELS}
+    kernels = [e for e in in_win if e.device_type != cpu_t and e.name not in names]
     out = {
+        "mode": "captured" if captured else "eager",
         "device": str(device),
         "window_events_per_lane": window,
         "steps": steps,
+        "replays": n if captured else None,
         "lanes": len(grid),
+        "capture_s": capture_s,
         "wall_ms_per_step": wall_s * 1e3 / steps,
         "profiled_wall_ms_per_step": prof_wall_s * 1e3 / steps,
-        "aten_ops_per_step": len(aten) / steps,
+        "aten_ops_per_step": len(aten) / n,
         "device_kernels_per_step": None,
         "device_busy_ms_per_step": None,
         "idle_share_profiled": None,
         "idle_share_unprofiled": None,
+        "kernels": kernel_table(kernels, n),
         "labels": {},
     }
+    if captured:
+        out["wall_ms_per_replay"] = (wall_s - capture_s) * 1e3 / n
+        out["profiled_wall_ms_per_replay"] = win_us / 1e3 / n
+        out["host_issue_us_per_replay"] = sum(
+            e.time_range.end - e.time_range.start for e in rep_ev) / n
+        geo = out["kernels"].get(GEO_KERNEL, {"per_step": 0.0})
+        if geo["per_step"] != 2.0:
+            raise AssertionError(f"{GEO_KERNEL}: {geo['per_step']} launches a replay in the "
+                                 f"trace, want 2")
     if kernels:
         busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
-        out["device_kernels_per_step"] = len(kernels) / steps
-        out["device_busy_ms_per_step"] = busy_us / 1e3 / steps
-        out["idle_share_profiled"] = 1.0 - busy_us / loop_host_us
-        out["idle_share_unprofiled"] = 1.0 - busy_us / (wall_s * 1e6)
-    for _, _, label, _ in LABELS:
-        evs = [e for e in in_loop if e.name == label and e.device_type == cpu_t]
-        host_us = sum(e.time_range.end - e.time_range.start for e in evs)
-        out["labels"][label] = {
-            "calls_per_step": len(evs) / steps,
-            "host_ms_per_step": host_us / 1e3 / steps,
-            "share_of_loop": host_us / loop_host_us,
-        }
+        unprof_us = (wall_s - capture_s if captured else wall_s) * 1e6 * n / steps
+        out["device_kernels_per_step"] = len(kernels) / n
+        out["device_busy_ms_per_step"] = busy_us / 1e3 / n
+        out["idle_share_profiled"] = 1.0 - busy_us / win_us
+        out["idle_share_unprofiled"] = 1.0 - busy_us / unprof_us
+    if not captured:  # the labelled parts run only while a step is issued op by op
+        for _, _, label, _ in LABELS:
+            evs = [e for e in in_win if e.name == label and e.device_type == cpu_t]
+            host_us = sum(e.time_range.end - e.time_range.start for e in evs)
+            out["labels"][label] = {
+                "calls_per_step": len(evs) / steps,
+                "host_ms_per_step": host_us / 1e3 / steps,
+                "share_of_loop": host_us / win_us,
+            }
     if tables is not None:
         avg = prof.key_averages()
         tables.write(avg.table(sort_by="self_cpu_time_total", row_limit=60) + "\n")
@@ -187,6 +261,36 @@ def measure(grid, window: int, device, activities, tables=None) -> dict:
                 else "self_cuda_time_total"
             tables.write(avg.table(sort_by=dev_key, row_limit=40) + "\n")
     return out
+
+
+def report(res: dict) -> None:
+    """Print the summary of `measure`, one line for each part."""
+    if res["device_busy_ms_per_step"] is None:
+        print("the profiler recorded no device activity: device busy time and idle share "
+              "not measured")
+    print(f"mode {res['mode']}: {res['steps']} steps x {res['lanes']} lanes, wall "
+          f"{res['wall_ms_per_step']:.4f} ms/step unprofiled (warm-up and capture "
+          f"{res['capture_s']:.4f} s included), {res['profiled_wall_ms_per_step']:.4f} profiled")
+    if res["mode"] == "captured":
+        print(f"{res['replays']} replays: wall {res['wall_ms_per_replay']:.4f} ms/replay "
+              f"unprofiled, {res['profiled_wall_ms_per_replay']:.4f} profiled; host issue "
+              f"{res['host_issue_us_per_replay']:.2f} us/replay")
+    print(f"per {'replay' if res['mode'] == 'captured' else 'step'}: "
+          f"{res['aten_ops_per_step']:.2f} aten ops, "
+          f"{res['device_kernels_per_step']} device kernels, "
+          f"device busy {res['device_busy_ms_per_step']} ms, "
+          f"idle share {res['idle_share_profiled']} (profiled wall) / "
+          f"{res['idle_share_unprofiled']} (unprofiled wall)")
+    for name, v in list(res["kernels"].items())[:KERNEL_ROWS]:
+        print(f"kernel {name[:60]:60s} {v['per_step']:6.2f}/step {v['us_per_launch']:9.3f} "
+              f"us/launch {v['us_per_step']:10.3f} us/step")
+    if GEO_KERNEL in res["kernels"]:
+        g = res["kernels"][GEO_KERNEL]
+        print(f"{GEO_KERNEL}: {g['per_step']:.2f} launches a step, {g['us_per_launch']:.4f} us "
+              f"device time a launch")
+    for label, v in res["labels"].items():
+        print(f"{label:26s} {v['calls_per_step']:7.2f} calls/step  "
+              f"{v['host_ms_per_step']:9.4f} host ms/step  {100 * v['share_of_loop']:6.2f}% of loop")
 
 
 def main() -> int:
@@ -206,19 +310,7 @@ def main() -> int:
     with open(out_dir / "profile_step.txt", "w") as tables:
         res = measure(main_grid(), WINDOW, torch.device("cuda"), acts, tables)
     res["card"] = smi
-    if res["device_busy_ms_per_step"] is None:
-        print("the profiler recorded no device activity: device busy time and idle share "
-              "not measured")
-    print(f"{res['steps']} steps x {res['lanes']} lanes: wall {res['wall_ms_per_step']:.4f} "
-          f"ms/step unprofiled, {res['profiled_wall_ms_per_step']:.4f} profiled; "
-          f"{res['aten_ops_per_step']:.1f} aten ops/step, "
-          f"{res['device_kernels_per_step']} device kernels/step, "
-          f"device busy {res['device_busy_ms_per_step']} ms/step, "
-          f"idle share {res['idle_share_profiled']} (profiled wall) / "
-          f"{res['idle_share_unprofiled']} (unprofiled wall)")
-    for label, v in res["labels"].items():
-        print(f"{label:26s} {v['calls_per_step']:7.2f} calls/step  "
-              f"{v['host_ms_per_step']:9.4f} host ms/step  {100 * v['share_of_loop']:6.2f}% of loop")
+    report(res)
     print(json.dumps(res))
     return 0
 

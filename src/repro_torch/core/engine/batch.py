@@ -7,6 +7,15 @@ same on a [B]-batched state: each step computes every lane's next state
 and keeps the old one where the lane is done (`min(_times_flat) >=
 horizon_us` or `iters >= max_events`), on every leaf, `iters` included.
 
+The state's tensors are the run's static buffers: a step (`step_into`)
+writes every lane's next state back into them. On the card that step is
+captured once into a CUDA graph and replayed (`CapturedStep`): the step
+is branchless and reads nothing on the host, so one recording holds all
+of its ~2,000 kernels, the two `geo_schedule` launches included, and a
+replay issues them without the Python and dispatch cost of each op. This
+is the port's counterpart of the reference's jit-compiled while loop
+(`repro.core.engine.batch`). On the CPU the same function runs eagerly.
+
 Frozen lanes are idempotent, so the host reads "all lanes done" only every
 `_CHECK_EVERY` steps (one device sync per check) instead of each step; the
 up to `_CHECK_EVERY - 1` steps past the end change nothing, and they are
@@ -15,16 +24,26 @@ counted in the steps `run` returns.
 
 from __future__ import annotations
 
+import functools
+import time
+
 import torch
 
 from repro_torch.core.workloads import BANK_ARRAYS, Bank
 from repro_torch.core.engine.omni import _omni_step
-from repro_torch.core.engine.state import SimConfig, SimState, _times_flat, tree_map
+from repro_torch.core.engine.state import (
+    SimConfig, SimState, _times_flat, tree_leaves, tree_map,
+)
+from repro_torch.kernels.geo_schedule import ops as geo_ops
 from repro_torch.unported import not_ported
 
 # steps between two host reads of "all lanes done"; safe at any value,
 # since a step leaves every frozen lane as it was
 _CHECK_EVERY = 32
+# real steps run before the capture: the first call builds and loads the
+# kernel library and copies the histogram table to the card, neither of
+# which a capture may do
+_WARMUP_STEPS = 1
 
 
 def lane_bank(bank: Bank, B: int, batched: bool) -> Bank:
@@ -50,24 +69,101 @@ def _freeze(act: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Te
     return torch.where(act.view(-1, *([1] * (old.dim() - 1))), new, old)
 
 
-def run(cfg: SimConfig, bank: Bank, state: SimState):
-    """Step every lane to the horizon (or the event budget).
+def step_into(cfg: SimConfig, bank: Bank, s: SimState) -> None:
+    """One lockstep step of every lane, written into `s`'s own tensors.
 
-    `bank` has [B]-leading array leaves (`lane_bank`). Returns (final state,
-    lockstep steps executed, idle tail steps included)."""
+    Every next leaf (the step, then the lane freeze) is computed before the
+    first `copy_`, so no buffer is overwritten while the step still reads
+    it; a leaf the step did not touch is not copied."""
+    act = _active(cfg, s)
+    nxt = _omni_step(cfg, bank, s)
+    new = tree_map(lambda n, o: _freeze(act, n, o), nxt, s)
+    for (_, n), (_, o) in zip(tree_leaves(new), tree_leaves(s)):
+        if n is not o:
+            o.copy_(n)
+
+
+class EagerStep:
+    """`step` called as it is (the CPU path)."""
+
+    warm_steps = 0
+    seconds = 0.0
+
+    def __init__(self, step):
+        self.step = step
+
+    def replay(self, n: int) -> None:
+        for _ in range(n):
+            self.step()
+
+
+class CapturedStep:
+    """`step` captured once into a CUDA graph, then replayed.
+
+    The constructor runs `step` `_WARMUP_STEPS` times for real on a side
+    stream (they are steps of the run: `warm_steps`), then captures one
+    call; `seconds` is the time of both. A capture records and runs
+    nothing, so the `geo_schedule` launches the wrapper counted while it
+    was recorded are the launches of one replay: they are taken back out of
+    the count, and `replay(n)` adds n times as many. A failed capture
+    raises; nothing steps eagerly in its place. `cuda` is the module whose
+    `Stream`, `current_stream`, `stream`, `CUDAGraph` and `graph` are used
+    (`torch.cuda`; the CPU tests pass a stand-in)."""
+
+    def __init__(self, step, cuda=torch.cuda):
+        t0 = time.perf_counter()
+        side = cuda.Stream()
+        side.wait_stream(cuda.current_stream())
+        with cuda.stream(side):
+            for _ in range(_WARMUP_STEPS):
+                step()
+        cuda.current_stream().wait_stream(side)
+        self.warm_steps = _WARMUP_STEPS
+        self.graph = cuda.CUDAGraph()
+        before = geo_ops.geo_schedule.launches
+        with cuda.graph(self.graph):
+            step()
+        self.launches = geo_ops.geo_schedule.launches - before
+        geo_ops.geo_schedule.launches = before
+        self.seconds = time.perf_counter() - t0
+
+    def replay(self, n: int) -> None:
+        for _ in range(n):
+            self.graph.replay()
+        geo_ops.geo_schedule.launches += n * self.launches
+
+
+def _stepper(step, s: SimState):
+    """How `run` calls `step`: replayed from a CUDA graph on the card,
+    eagerly on the CPU."""
+    return CapturedStep(step) if s.now.device.type == "cuda" else EagerStep(step)
+
+
+def run(cfg: SimConfig, bank: Bank, state: SimState):
+    """Step every lane to the horizon (or the event budget), in place.
+
+    `bank` has [B]-leading array leaves (`lane_bank`); `state`'s tensors
+    are updated in place and returned. Returns (final state, lockstep steps
+    executed, idle tail steps included); `run.capture_s` is the last run's
+    warm-up and capture time (0 on the CPU), part of its wall time."""
     if cfg.drain:
         raise not_ported("the windowed drain (drain=True)", "A4")
     if cfg.max_faults:
         raise not_ported("a fault schedule (max_faults > 0)", "A3")
-    s = state
+    run.capture_s = 0.0
     steps = 0
-    if not bool(_active(cfg, s).any()):
-        return s, steps
+    if not bool(_active(cfg, state).any()):
+        return state, steps
+    stepper = _stepper(functools.partial(step_into, cfg, bank, state), state)
+    run.capture_s = stepper.seconds
+    steps = stepper.warm_steps
+    n = _CHECK_EVERY - steps  # the first check after _CHECK_EVERY steps, as on the CPU
     while True:
-        for _ in range(_CHECK_EVERY):
-            act = _active(cfg, s)
-            nxt = _omni_step(cfg, bank, s)
-            s = tree_map(lambda new, old: _freeze(act, new, old), nxt, s)
-            steps += 1
-        if not bool(_active(cfg, s).any()):
-            return s, steps
+        stepper.replay(n)
+        steps += n
+        if not bool(_active(cfg, state).any()):
+            return state, steps
+        n = _CHECK_EVERY
+
+
+run.capture_s = 0.0

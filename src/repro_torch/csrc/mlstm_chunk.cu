@@ -13,13 +13,45 @@
 // in v's type; arithmetic in float32.
 //
 // Bound: 4·dh flops per (query, key) pair with j <= i (q.k and w.v) against
-// 4·dh·itemsize bytes a position, so at xlstm-350m's prefill (B = 8, H = 4,
-// S = 2048, dh = 256, float32) it does ~250 flops a byte and the float32
-// rate bounds it: 6.87e10 flops, 1.03 ms at 67 TFLOP/s on the CUDA cores
-// (0.14 ms on the TF32 tensor cores, which would round the inputs to 10
-// mantissa bits).
+// 4·dh·itemsize bytes a position. At xlstm-350m's prefill (B = 8, H = 4,
+// S = 2048, dh = 256) that is 6.87e10 flops: in bfloat16 (the serving
+// path's type) ~510 flops a byte, bounded by the tensor cores at 0.0695 ms
+// (989 TFLOP/s); in float32 1.03 ms on the CUDA cores (67 TFLOP/s).
 //
-// Design (simple, right first), flash attention's shape
+// Two kernels, chosen by dtype in mlstm_chunk_launch, as flash_attention.cu
+// chooses:
+//
+// bfloat16 (every launch of the serving path): `mlstm_wgmma_kernel`, both
+// products on the tensor cores, flash's wgmma machinery (wgmma.cuh). One
+// block of two warpgroups per (b·h, 128 queries); each warpgroup owns 64
+// query rows, wgmma's M, and walks the 64-key tiles up to its diagonal.
+// - Shared memory holds the Q tile (loaded once) and a ring of two stages of
+//   K and V tiles as 128-byte-swizzled 64-column panels (K-major Q and K,
+//   MN-major V), with the key tile's F and logi beside them; cp.async
+//   (16 bytes for the tiles, 4 for the gates) fills the next stage while
+//   the current one is multiplied, zero past S and past dh: S is taken as
+//   it is, the ragged edge masked, and head dims are padded to 64, 128 or
+//   256 in shared memory only. At dh 256 that is 194 KB: one block an SM.
+// - q·kᵀ is dh/16 wgmma.m64n64k16 (A and B from shared memory). While it
+//   runs, each thread takes the row max of D~ over its fragment's 16 keys
+//   (two rows a thread; the four threads sharing a row reduce with two
+//   shuffles): m is a running max of the rounded D~, computed as the plain
+//   version does, and the accumulator and the signed row sum are rescaled
+//   by exp(m_old - m_new) when it moves. Because exp(-m) enters the norm, m
+//   is part of the result, not only a stabiliser. Then D~ is computed again
+//   from shared memory (not kept: 32 more registers a thread at dh 256),
+//   and w = (s * scale) * exp(D~ - m) replaces the score in its register.
+// - w·V takes w as a bf16 pair hi + lo from registers (w is float32 and
+//   not bf16-exact: hi + lo keeps ~16 bits), two wgmma a k16 step, into
+//   dh_pad/2 float32 accumulators a thread (128 at dh 256).
+// - The row sum is signed and kept apart from m, per thread until the end;
+//   norm = max(|sum w|, exp(-m), 1e-30). Masks are the finite -1e30 and m
+//   starts at -1e30; the first key tile always holds key 0 <= i, so no row
+//   ends with m = -1e30. Exponentials are the accurate expf.
+//
+// float32 (the checks of chip_smoke.py and the float32 model path; TF32
+// tensor cores keep ~3 digits, short of the 2e-5 those checks hold):
+// `mlstm_kernel`, on the CUDA cores, flash attention's float32 shape
 // (csrc/flash_attention.cu): one block of 128 threads per (b·h, block of 64
 // queries; 32 for dh > 128) loops over blocks of 64 keys up to the diagonal
 // (the TPU kernel's skip `k0 <= q0 + bq - 1`): the loop replaces the Pallas
@@ -27,18 +59,16 @@
 // sum and the output accumulator stay in registers across it. A thread owns
 // RQ query rows x 8 key columns of each score tile and RQ rows x dh/8 output
 // columns; the 8 threads that share a row sit in one warp and reduce its max
-// and sum with shuffles. Tiles are staged in shared memory in the input type
-// with an odd word stride; the key tile's F and logi sit beside them. At
-// dh = 256 in float32 the tiles take 169 KB, so the block asks for dynamic
-// shared memory above 48 KB and one block fits an SM. S is taken as it is:
-// the ragged edge is masked, never padded (the TPU wrapper's halving of bq
-// until it divides S is a TPU artefact).
+// and sum with shuffles. Tiles are staged in shared memory with an odd word
+// stride; the key tile's F and logi sit beside them. At dh = 256 the tiles
+// take 169 KB, so the block asks for dynamic shared memory above 48 KB and
+// one block fits an SM.
 //
-// Numerics are the TPU kernel's: m starts at -1e30, masked entries are the
-// finite -1e30 (exp(-1e30 - m) = 0 once a real key has set m; the first key
-// block always holds key 0 <= i), the row sum is signed and kept apart from
-// the stabiliser m, and w = ((q.k) * scale) * D. The products use fmaf
-// explicitly: the library is built with -fmad=false.
+// Both keep the TPU kernel's numerics: m starts at -1e30, masked entries are
+// the finite -1e30 (exp(-1e30 - m) = 0 once a real key has set m), the row
+// sum is signed and kept apart from the stabiliser m, and
+// w = ((q.k) * scale) * D. The library is built with -fmad=false: products
+// use fmaf explicitly.
 //
 // Plain C interface (loaded with ctypes): returns the first cudaError.
 
@@ -47,6 +77,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -54,9 +86,7 @@ constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
 constexpr int kBK = 64;        // keys per block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // Row stride (elements) of a Q/K tile: an odd number of 4-byte words.
 template <typename T>
@@ -227,19 +257,285 @@ int launch(const void* q, const void* k, const void* v, const float* F, const fl
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, const float* F, const float* logi,
-              void* out, int BH, int S, int dh, float scale, cudaStream_t st) {
-  if (dh <= 64) return launch<T, 64, 64>(q, k, v, F, logi, out, BH, S, dh, scale, st);
-  if (dh <= 128) return launch<T, 64, 128>(q, k, v, F, logi, out, BH, S, dh, scale, st);
-  if (dh <= 256) return launch<T, 32, 256>(q, k, v, F, logi, out, BH, S, dh, scale, st);
+int launch_f32(const void* q, const void* k, const void* v, const float* F, const float* logi,
+               void* out, int BH, int S, int dh, float scale, cudaStream_t st) {
+  if (dh <= 64) return launch<float, 64, 64>(q, k, v, F, logi, out, BH, S, dh, scale, st);
+  if (dh <= 128) return launch<float, 64, 128>(q, k, v, F, logi, out, BH, S, dh, scale, st);
+  if (dh <= 256) return launch<float, 32, 256>(q, k, v, F, logi, out, BH, S, dh, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWgBQ = 128;  // queries a block: two warpgroups of 64 rows
+constexpr int kWgBK = 64;   // keys a tile
+
+// 4 bytes from global to shared memory, zero-filled when bytes == 0
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// F and logi of keys [k0, k0 + 64) into g (F at g, logi at g + 64), 0 past S
+__device__ __forceinline__ void load_gates(float* g, const float* __restrict__ Fb,
+                                           const float* __restrict__ lb, int k0, int S,
+                                           int tid) {
+  if (tid < 2 * kWgBK) {
+    const int c = tid & (kWgBK - 1);
+    const bool in = k0 + c < S;
+    const float* src = (tid < kWgBK ? Fb : lb) + (in ? k0 + c : 0);
+    cp_async4(smem_u32(g + tid), src, in ? 4 : 0);
+  }
+}
+
+// D~ of a query row (its F, its position) and key column c of the tile at
+// k0: (F_row - F_key) + logi_key for key <= row, else -1e30; `interior`:
+// every key of the tile is <= every row of the warpgroup
+__device__ __forceinline__ float dtilde(float f_row, int row, const float* fk, const float* lk,
+                                        int k0, int c, bool interior) {
+  const float d = f_row - fk[c] + lk[c];
+  return interior || k0 + c <= row ? d : kNeg;
+}
+
+template <int DP>
+constexpr size_t wg_smem_bytes() {
+  // Q, two stages of K and V, two stages of the key tile's F and logi; 1 KB
+  // to align the base to 1024 bytes
+  return (size_t)DP * 2 * (kWgBQ + 2 * 2 * kWgBK) + 2 * 2 * kWgBK * sizeof(float) + 1024;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+mlstm_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const float* __restrict__ F,
+                   const float* __restrict__ logi, bf16* __restrict__ out, int S, int dh,
+                   float scale, int aligned) {
+  constexpr int NP = DP / 64;                    // 64-column panels
+  constexpr int Q_BYTES = NP * kWgBQ * 128;
+  constexpr int T_BYTES = NP * kWgBK * 128;      // one K or V tile
+  constexpr uint32_t PANEL_Q = kWgBQ * 128, PANEL_KV = kWgBK * 128;
+  const int nq = (S + kWgBQ - 1) / kWgBQ;
+  const int bh = blockIdx.x / nq;
+  const int qi = nq - 1 - blockIdx.x % nq;  // the longest rows first
+  const int q0 = qi * kWgBQ;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int qw = q0 + 64 * wg;  // this warpgroup's first row
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = base;
+  unsigned char* kv_s = base + Q_BYTES;  // stage st: K at kv_s + 2 st T_BYTES, V after it
+  float* g_s = reinterpret_cast<float*>(kv_s + 4 * T_BYTES);  // stage st: F, logi at 2 st 64
+
+  const size_t row0 = (size_t)bh * S;
+  const bf16* qb = q + row0 * dh;
+  const bf16* kb = k + row0 * dh;
+  const bf16* vb = v + row0 * dh;
+  const float* Fb = F + row0;
+  const float* lb = logi + row0;
+
+  // the key tiles up to the block's last row (the TPU kernel's skip)
+  const int nt = (min(q0 + kWgBQ, S) + kWgBK - 1) / kWgBK;
+  const bool al = aligned != 0;
+  load_tile<kWgBQ, DP>(q_s, qb, q0, S, dh, al, tid);
+  load_tile<kWgBK, DP>(kv_s, kb, 0, S, dh, al, tid);
+  load_tile<kWgBK, DP>(kv_s + T_BYTES, vb, 0, S, dh, al, tid);
+  load_gates(g_s, Fb, lb, 0, S, tid);
+  cp_async_commit();
+
+  float o[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.0f;
+  // a thread holds rows r0 = qw + ra and r1 = r0 + 8 of the fragments
+  const int ra = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+  const int r0 = qw + ra, r1 = r0 + 8;
+  const float fq0 = r0 < S ? Fb[r0] : 0.0f;  // a row past the end is computed, never stored
+  const float fq1 = r1 < S ? Fb[r1] : 0.0f;
+  float m0 = kNeg, m1 = kNeg, rs0 = 0.0f, rs1 = 0.0f;
+  const uint32_t q_addr = smem_u32(q_s) + 64 * 128 * wg;
+
+  for (int j = 0; j < nt; ++j) {
+    const int st = j & 1;
+    if (j + 1 < nt) {  // the next tile into the other stage
+      unsigned char* nxt = kv_s + 2 * (st ^ 1) * T_BYTES;
+      load_tile<kWgBK, DP>(nxt, kb, (j + 1) * kWgBK, S, dh, al, tid);
+      load_tile<kWgBK, DP>(nxt + T_BYTES, vb, (j + 1) * kWgBK, S, dh, al, tid);
+      load_gates(g_s + 2 * (st ^ 1) * kWgBK, Fb, lb, (j + 1) * kWgBK, S, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: Q and tile j have landed
+    fence_proxy_async();
+    __syncthreads();
+
+    const int k0 = j * kWgBK;
+    if (qw < S && k0 <= qw + 63) {
+      const uint32_t k_addr = smem_u32(kv_s + 2 * st * T_BYTES);
+      const uint32_t v_addr = k_addr + T_BYTES;
+      const float* fk = g_s + 2 * st * kWgBK;
+      const float* lk = fk + kWgBK;
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+      fence_regs(s);
+      wg_fence();
+      // K-major: LBO unused (16 bytes); a k16 step is 32 bytes into a panel
+      const uint32_t qd = desc_lo(q_addr, 16), kd = desc_lo(k_addr, 16);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t qoff = ((kk >> 2) * PANEL_Q + (kk & 3) * 32) >> 4;
+        const uint32_t koff = ((kk >> 2) * PANEL_KV + (kk & 3) * 32) >> 4;
+        wgmma_ss(s, qd + qoff, kd + koff, kk > 0);
+      }
+      wg_commit();
+
+      // while q.k runs: the row max of D~ over the tile. s[4 jj + 0/1] is
+      // row r0, s[4 jj + 2/3] row r1, key columns 8 jj + cq + 0/1
+      const bool interior = k0 + kWgBK - 1 <= qw;
+      float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * jj + cq + e;
+          mx0 = fmaxf(mx0, dtilde(fq0, r0, fk, lk, k0, c, interior));
+          mx1 = fmaxf(mx1, dtilde(fq1, r1, fk, lk, k0, c, interior));
+        }
+      }
+#pragma unroll
+      for (int o_ = 1; o_ < 4; o_ <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      wg_wait0();
+      fence_regs(s);  // its memory clobber also makes D~ below read shared memory again
+
+      // w = (s * scale) * exp(D~ - m) in place, and its signed row sums
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * jj + cq + e;
+          float& w0 = s[4 * jj + e];
+          float& w1 = s[4 * jj + 2 + e];
+          w0 = w0 * scale * expf(dtilde(fq0, r0, fk, lk, k0, c, interior) - mn0);
+          w1 = w1 * scale * expf(dtilde(fq1, r1, fk, lk, k0, c, interior) - mn1);
+          sum0 += w0;
+          sum1 += w1;
+        }
+      }
+      rs0 = rs0 * alpha0 + sum0;  // a partial over this thread's columns
+      rs1 = rs1 * alpha1 + sum1;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          o[p][4 * jj] *= alpha0;
+          o[p][4 * jj + 1] *= alpha0;
+          o[p][4 * jj + 2] *= alpha1;
+          o[p][4 * jj + 3] *= alpha1;
+        }
+      }
+
+      // w as bf16 pairs hi + lo in wgmma's A fragments: k step kk covers
+      // keys 16 kk .. 16 kk + 15
+      uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], a_hi[kk][e], a_lo[kk][e]);
+      // MN-major V: LBO = one 64-column panel (kWgBK rows of 128 bytes)
+      const uint32_t vd = desc_lo(v_addr, PANEL_KV);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(o[p]);
+      wg_fence();
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t vk = vd + ((p * PANEL_KV + kk * 16 * 128) >> 4);
+          wgmma_rs(o[p], a_hi[kk], vk);
+          wgmma_rs(o[p], a_lo[kk], vk);
+        }
+      wg_commit();
+      wg_wait0();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(o[p]);
+    }
+    __syncthreads();  // every reader is done with stage st before it is refilled
+  }
+
+  // the signed row sums over the four threads that share a row
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, o_);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, o_);
+  }
+  const float norm0 = fmaxf(fmaxf(fabsf(rs0), expf(-m0)), 1e-30f);
+  const float norm1 = fmaxf(fmaxf(fabsf(rs1), expf(-m1)), 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qp = half ? r1 : r0;
+    if (qp >= S) continue;
+    const float norm = half ? norm1 : norm0;
+    bf16* orow = out + (row0 + qp) * dh;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int d = 64 * p + 8 * jj + cq;
+        const float x0 = o[p][4 * jj + 2 * half] / norm;
+        const float x1 = o[p][4 * jj + 2 * half + 1] / norm;
+        if (d + 1 < dh && (dh & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (d < dh) orow[d] = __float2bfloat16_rn(x0);
+          if (d + 1 < dh) orow[d + 1] = __float2bfloat16_rn(x1);
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_wg(const void* q, const void* k, const void* v, const float* F, const float* logi,
+              void* out, int BH, int S, int dh, float scale, cudaStream_t stream) {
+  constexpr size_t smem = wg_smem_bytes<DP>();
+  auto kern = mlstm_wgmma_kernel<DP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)BH * ((S + kWgBQ - 1) / kWgBQ);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int aligned = dh % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  kern<<<(unsigned)blocks, kWgThreads, smem, stream>>>((const bf16*)q, (const bf16*)k,
+                                                       (const bf16*)v, F, logi, (bf16*)out, S,
+                                                       dh, scale, aligned);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, const float* F, const float* logi,
+                void* out, int BH, int S, int dh, float scale, cudaStream_t st) {
+  if (dh <= 64) return launch_wg<64>(q, k, v, F, logi, out, BH, S, dh, scale, st);
+  if (dh <= 128) return launch_wg<128>(q, k, v, F, logi, out, BH, S, dh, scale, st);
+  if (dh <= 256) return launch_wg<256>(q, k, v, F, logi, out, BH, S, dh, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out); F and logi float32.
-// Shapes are checked by the Python wrapper.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores) for q, k, v
+// and out; F and logi float32. Shapes are checked by the Python wrapper.
 extern "C" int mlstm_chunk_launch(const void* q, const void* k, const void* v, const void* F,
                                   const void* logi, void* out, int BH, int S, int dh,
                                   float scale, int dtype, void* stream) {
@@ -248,7 +544,7 @@ extern "C" int mlstm_chunk_launch(const void* q, const void* k, const void* v, c
   cudaStream_t st = (cudaStream_t)stream;
   const float* f = (const float*)F;
   const float* li = (const float*)logi;
-  if (dtype == 0) return launch_dh<float>(q, k, v, f, li, out, BH, S, dh, scale, st);
-  if (dtype == 1) return launch_dh<__nv_bfloat16>(q, k, v, f, li, out, BH, S, dh, scale, st);
+  if (dtype == 0) return launch_f32(q, k, v, f, li, out, BH, S, dh, scale, st);
+  if (dtype == 1) return launch_bf16(q, k, v, f, li, out, BH, S, dh, scale, st);
   return (int)cudaErrorInvalidValue;
 }

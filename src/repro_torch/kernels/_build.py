@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled at first use
 into `build/kernels/` at the checkout's root (listed in `.gitignore`), under
-a file name that carries a hash of the source and the flags, so an edited
-source never loads a stale library. A verbose build keeps ptxas's report
+a file name that carries a hash of the source, of every shared header
+(`csrc/*.cuh`) and of the flags, so an edited source or header never loads
+a stale library. A verbose build keeps ptxas's report
 (registers, stack and spills of every kernel variant) beside the library
 (`report_path`). Nothing is fetched: the build needs only the CUDA
 toolkit's `nvcc`.
@@ -44,8 +45,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -4,6 +4,13 @@ On CUDA tensors it launches the hand-written kernel; on CPU tensors it
 computes the plain version (`ref.py`). It never catches an error to fall
 back. `geo_schedule.launches` counts kernel launches (plain calls do not
 count), so a run can show that its main path went through the kernel.
+
+The wrapper launches alike whether or not the current stream is being
+captured into a CUDA graph (the engine's step, `engine.batch`): outputs
+from `torch.empty` (in the graph's pool during a capture), the launch on
+`torch.cuda.current_stream()`, no host synchronisation, and the launch's
+`cudaGetLastError` checked. A launch recorded in a capture is counted
+once here; the engine's runner counts its replays.
 """
 
 from __future__ import annotations

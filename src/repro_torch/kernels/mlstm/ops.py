@@ -3,7 +3,11 @@ count.
 
 On CUDA tensors it launches the hand-written kernel; on CPU tensors it
 computes the plain version (`ref.py`). It never catches an error to fall
-back. `mlstm.launches` counts kernel launches (plain calls do not count).
+back. `mlstm.launches` counts kernel launches (plain calls do not count),
+and `mlstm.launches_by_dtype` splits them by dtype: bfloat16 launches run
+the tensor-core (wgmma) kernel, float32 ones the CUDA-core kernel. The
+kernel computes in float32 and writes h in v's dtype, so bf16 heads from
+the model are passed as they are.
 As the reference's `mlstm_chunk` does, the wrapper forms F = cumsum(logf)
 in float32, so the kernel reads two [S] gate rows per tile instead of an
 [S, S] decay matrix. The kernel takes dh as it is (up to 256) and S as it
@@ -54,7 +58,14 @@ def mlstm(q, k, v, logi, logf):
     out = torch.empty_like(vc)
     _cuda.launch(qc, kc, vc, F, logi.float().contiguous(), out, q.shape[-1] ** -0.5)
     mlstm.launches += 1
+    mlstm.launches_by_dtype[str(q.dtype)[6:]] += 1
     return out
 
 
-mlstm.launches = 0
+def reset_launches() -> None:
+    """Zero both launch counts."""
+    mlstm.launches = 0
+    mlstm.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+
+
+reset_launches()

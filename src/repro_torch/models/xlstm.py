@@ -122,13 +122,15 @@ def mlstm_block(cfg, p, prefix, x, *, cache=None, return_state: bool = False):
 
     qh, kh, vh = heads(q), heads(k), heads(v)
     if cache is None:
-        kf, vf = kh.float(), vh.float()
         li, lf = logi.transpose(1, 2), logf.transpose(1, 2)
-        h = mlstm_parallel(qh.float(), kf, vf, li, lf)
+        # the heads in their own dtype: the kernel computes in float32 and
+        # writes h in v's dtype, the rounding `.to(dt)` below applied to a
+        # float32 h (bf16 heads take the tensor-core kernel)
+        h = mlstm_parallel(qh, kh, vh, li, lf)
         new_cache = None
         if return_state:
             new_cache = {
-                "state": mlstm_final_state(kf, vf, li, lf),
+                "state": mlstm_final_state(kh.float(), vh.float(), li, lf),
                 "conv": conv_state(a, w_conv.shape[0]),
             }
     else:

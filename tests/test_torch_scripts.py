@@ -285,7 +285,7 @@ def test_strict_build_refuses_a_stack_frame_or_spill(monkeypatch, tmp_path, caps
         chip_smoke.print_build("decode_attention", 1.0, strict=True)
     report.write_text(PTXAS_REPORT.split("ptxas info    : Compiling entry function '_ZN52")[0])
     chip_smoke.print_build("flash_attention", 1.0, strict=True)  # no stack, no spill: passes
-    assert set(chip_smoke.STRICT_BUILDS) == {"flash_attention", "decode_attention"}
+    assert set(chip_smoke.STRICT_BUILDS) == {"flash_attention", "decode_attention", "mlstm_chunk"}
 
 
 def test_extra_attention_cases_reach_the_redesigned_kernels_edges():
@@ -472,7 +472,8 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(d_ops, "prepare", lambda *a, **k: (None, ()))
     monkeypatch.setattr(d_ops, "sm_count", lambda dev: 132)
     monkeypatch.setattr(chip_smoke, "time_recurrent",
-                        lambda m, r, dev: {"mlstm": (1.0, 2.0), "rglru": (1.0, 2.0)})
+                        lambda m, r, dev: {"mlstm_bf16": (1.0, 2.0), "mlstm": (1.0, 2.0),
+                                           "rglru": (1.0, 2.0)})
     for mod, name in ((m_ops, "mlstm"), (r_ops, "rglru_scan"), (f_ops, "mha"),
                       (d_ops, "decode"), (g_ops, "geo_schedule")):
         real = getattr(mod, name)
@@ -480,7 +481,7 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
         def counted(*a, real=real, **k):
             fn = counted_fns[real.__name__]
             fn.launches += 1
-            if real.__name__ == "mha":  # the flash wrapper also counts by dtype
+            if real.__name__ in ("mha", "mlstm"):  # these wrappers also count by dtype
                 fn.launches_by_dtype[str(a[0].dtype)[6:]] += 1
             return real(*a, **k)
 
