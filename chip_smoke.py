@@ -78,17 +78,26 @@ Slice 3, the recurrent mixers (xlstm-350m, recurrentgemma-9b):
 10. kernels vs plain versions on the card — `mlstm_chunk` on MLSTM_CASES at
     10 x TOL and `rglru_scan` on RGLRU_CASES at 5 x TOL (the reference
     tests' limits), both dtypes, mlstm's bf16 (tensor-core) kernel also per
-    query row and bit for bit over two calls; both again at their serving
-    shapes in float32 ([8,4,2048,256], [4,4096,4096]) at 2e-5, and mlstm
+    query row and bit for bit over two calls; the RG-LRU kernel's fused
+    entry `ops.rglru` (b formed in the kernel) against the plain
+    composition (`gated_input`, then `rglru_ref`) on RGLRU_CASES with and
+    without a carry h0, and from h0 at S = 1 and 300 at the serving width,
+    float32 and bf16 gx; its exact carry checks (torch.equal: a = 1, b = 1
+    counts t + 1, a = 0 resets; the fused op holds h0 or the last reset's
+    gx) on RGLRU_EXACT_CASES and the serving shape; both kernels again at
+    their serving shapes in float32 ([8,4,2048,256], [4,4096,4096]) at
+    2e-5, the RG-LRU entries twice bit for bit in both dtypes, and mlstm
     in bf16 there at TOL, per row and bit for bit; the attention kernels
     with logit caps 50 and 5 on FLASH_CASES / DECODE_CASES and at
     recurrentgemma's shapes (flash B = 4 x 4096, 16/1 heads of 256, window
     2048; decode B = 4 over a 2048-slot ring), cap 50, both dtypes, and
     there in bf16 per query row and bit for bit over two calls;
     CUDA-event times of the kernels and their plain versions (mlstm in
-    bf16, the serving path's type, and in float32; no PyTorch call
-    computes the gated recurrence, mLSTM's signed normaliser or a capped
-    softmax: no library time);
+    bf16, the serving path's type, and in float32; the RG-LRU contract,
+    fused op and the eager b formation plus the contract in turns, each
+    against the bound and in TB/s, and decode's S = 1 step fused vs the
+    eager update; no PyTorch call computes the gated recurrence, mLSTM's
+    signed normaliser or a capped softmax: no library time);
 11. xlstm-350m — (a) GPU vs CPU at full width cut to 8 layers (one period,
     with the sLSTM), layer by layer from the CPU's inputs: prefill 2 x 128,
     4 decode steps, every layer's output, cache leaf and the logits within
@@ -99,9 +108,10 @@ Slice 3, the recurrent mixers (xlstm-350m, recurrentgemma-9b):
     fcfs's;
 12. recurrentgemma-9b — (a) as 11a at 5 layers (one group and the tail);
     (b) all 38 layers, weights drawn and cast tensor by tensor on the card:
-    prefill 4 x 4096 (26 rglru_scan and 12 flash launches per prefill,
+    prefill 4 x 4096 (26 fused RG-LRU and 12 flash launches per prefill,
     past the 2048 window: band skip and ring wrap), 64 decode steps at
-    B = 4 (12 decode launches a step), the router geotp vs fcfs.
+    B = 4 (26 fused RG-LRU and 12 decode launches a step), the router
+    geotp vs fcfs (the same launches per step for every generation).
 
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
@@ -382,6 +392,12 @@ EXTRA_DECODE_CASES = [((8, 4001, 24, 8, 128), None), ((4, 2048, 16, 1, 256), "ta
 # slice 3: the recurrent mixers (tests/kernels/test_kernels.py's cases)
 MLSTM_CASES = [(1, 2, 256, 64), (2, 4, 128, 128), (1, 1, 512, 32)]  # (B, H, S, dh)
 RGLRU_CASES = [(2, 256, 128), (1, 512, 512), (3, 128, 96)]  # (B, S, E)
+# the RG-LRU kernel's exact carry checks: S not a multiple of its 64-step
+# chunk, S below one chunk, E not a multiple of its 128-channel tile, an E
+# whose rows are not 16-byte aligned (the per-channel load path), B x E
+# below one tile column per SM, and 4133 steps over 8 columns (65 handoffs)
+RGLRU_EXACT_CASES = [(1, 37, 96), (2, 70, 13), (2, 1000, 200), (1, 4133, 1000), (3, 130, 4096)]
+RGLRU_H0_S = (1, 300)  # sequence lengths of the checks from a carry h0
 SOFTCAPS = (50.0, 5.0)  # recurrentgemma's cap, and one that tanh saturates
 # q is scaled by 8 in the softcap checks: scores ~ N(0, 64) reach past both
 # caps (|s| / 5 up to ~6, where tanh saturates)
@@ -992,6 +1008,152 @@ def check_rglru(case, dtype, dev, seed=0, tol=None) -> float:
     return check_close(out, ref, tol or 5 * TOL[str(dtype)[6:]], f"rglru {case} {dtype}")
 
 
+def rglru_op_inputs(case, dtype, dev, seed):
+    """log_a as `rglru_inputs`, gated x ~ N(0, 1) in `dtype` [B,S,E] and a
+    carry h0 ~ N(0, 1) float32 [B,E]."""
+    B, S, E = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log_a = -torch.exp(torch.randn((B, S, E), generator=gen, device=dev)) * 0.05
+    gx = torch.randn((B, S, E), generator=gen, device=dev).to(dtype)
+    return log_a, gx, torch.randn((B, E), generator=gen, device=dev)
+
+
+def check_rglru_op(case, dtype, dev, seed=0, tol=None, h0=False) -> float:
+    """The fused op (`ops.rglru`, b formed in the kernel) against the plain
+    composition (`gated_input`, then `rglru_ref`), from the carry h0 if
+    `h0`, at the reference test's 5 x TOL unless `tol` is given."""
+    from repro_torch.kernels.rglru import ops
+    from repro_torch.kernels.rglru.ref import gated_input, rglru_ref
+
+    log_a, gx, h = rglru_op_inputs(case, dtype, dev, seed)
+    h = h if h0 else None
+    out = ops.rglru(log_a, gx, h0=h)
+    ref = rglru_ref(log_a, gated_input(log_a, gx), h)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    label = f"rglru op {case} {dtype}{' from h0' if h0 else ''}"
+    return check_close(out, ref, tol or 5 * TOL[str(dtype)[6:]], label)
+
+
+def rglru_resets(case, dev):
+    """(log_a, last): log_a = -inf at scattered (b, t, e), 0 elsewhere, and
+    the last reset at or before each t (-1 before the first), [B,S,E]."""
+    B, S, E = case
+    t = torch.arange(S, device=dev)[None, :, None]
+    e = torch.arange(E, device=dev)[None, None, :]
+    b = torch.arange(B, device=dev)[:, None, None]
+    mask = (7 * t + 3 * e + 5 * b) % 97 == 0
+    log_a = torch.where(mask, float("-inf"), 0.0)
+    last = torch.cummax(torch.where(mask, t, -1), dim=1).values
+    return log_a, last
+
+
+def check_rglru_exact(case, dtype, dev) -> None:
+    """Exact carry checks (torch.equal), whose every step is exact in
+    float32. The contract: log_a = 0 (a = 1) and b = 1 give h_t = t + 1
+    (exact below 2^24), and log_a = -inf (a = 0) at a reset r restarts h at
+    b = 1: h_t = t - r + 1. The fused op from h0: log_a = 0 makes b =
+    0 * gx, so h_t = h0; log_a = -inf makes b = gx, so h_t = gx_r."""
+    from repro_torch.kernels.rglru import ops
+
+    log_a, last = rglru_resets(case, dev)
+    t = torch.arange(case[1], device=dev)[None, :, None]
+    want = (t + 1 - last.clamp(min=0)).float().to(dtype)
+    out = ops.rglru_scan(log_a, torch.ones(case, dtype=dtype, device=dev))
+    if not torch.equal(out, want):
+        bad = (out != want).nonzero()[0].tolist()
+        raise AssertionError(f"rglru_scan exact carry {case} {dtype}: first difference at "
+                             f"{bad}: {out[tuple(bad)].item()} != {want[tuple(bad)].item()}")
+    _, gx, h0 = rglru_op_inputs(case, dtype, dev, 7)
+    held = gx.float().gather(1, last.clamp(min=0))
+    want = torch.where(last >= 0, held, h0[:, None, :]).to(dtype)
+    out = ops.rglru(log_a, gx, h0=h0)
+    if not torch.equal(out, want):
+        bad = (out != want).nonzero()[0].tolist()
+        raise AssertionError(f"rglru exact carry from h0 {case} {dtype}: first difference at "
+                             f"{bad}: {out[tuple(bad)].item()} != {want[tuple(bad)].item()}")
+
+
+def check_rglru_repeat(case, dtype, dev) -> None:
+    """Two calls of each entry on the same inputs give the same bits."""
+    from repro_torch.kernels.rglru import ops
+    from repro_torch.kernels.rglru.ref import gated_input
+
+    log_a, gx, h0 = rglru_op_inputs(case, dtype, dev, 3)
+    b = gated_input(log_a, gx)
+    for name, fn in (("rglru_scan", lambda: ops.rglru_scan(log_a, b)),
+                     ("rglru", lambda: ops.rglru(log_a, gx, h0=h0))):
+        if not torch.equal(fn(), fn()):
+            raise AssertionError(f"{name} {case} {dtype}: two calls on the same inputs differ")
+
+
+def rglru_phase(r_main, dev) -> float:
+    """Phase 10's RG-LRU checks: the contract on RGLRU_CASES at 5 x TOL, the
+    fused op against the plain composition there (with and without h0),
+    h0 at RGLRU_H0_S, both dtypes; the exact carry checks; both entries at
+    the serving shape `r_main` in float32 at SERVE_F32_TOL and twice bit
+    for bit. Returns the largest |d|."""
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(RGLRU_CASES):
+            e = check_rglru(case, dt, dev, seed=i)
+            eo = max(check_rglru_op(case, dt, dev, seed=i, h0=h) for h in (False, True))
+            err = max(err, e, eo)
+            print(f"rglru  {str(case):30s} {str(dt)[6:]:8s} max |d| {e:.3g}; fused op {eo:.3g}")
+        for i, S in enumerate(RGLRU_H0_S):
+            case = (r_main[0], S, r_main[2])
+            e = check_rglru_op(case, dt, dev, seed=10 + i, h0=True)
+            err = max(err, e)
+            print(f"rglru op from h0 {str(case):20s} {str(dt)[6:]:8s} max |d| {e:.3g}")
+        for case in RGLRU_EXACT_CASES + [r_main]:
+            check_rglru_exact(case, dt, dev)
+        print(f"rglru exact carry {str(dt)[6:]}: {RGLRU_EXACT_CASES + [r_main]} equal bit for bit")
+    e = check_rglru(r_main, torch.float32, dev, tol=SERVE_F32_TOL)
+    eo = check_rglru_op(r_main, torch.float32, dev, tol=SERVE_F32_TOL)
+    err = max(err, e, eo)
+    for dt in (torch.float32, torch.bfloat16):
+        check_rglru_repeat(r_main, dt, dev)
+    print(f"rglru {r_main} float32 (tol {SERVE_F32_TOL} abs + rel): contract max |d| {e:.3g}, "
+          f"fused op {eo:.3g}; both entries, both dtypes: two calls equal")
+    return err
+
+
+def time_rglru(case, dev) -> dict:
+    """CUDA-event ms at the serving shape in float32, in turns (each route
+    twice: A B C D E E D C B A): the contract `rglru_scan` on a formed b,
+    the fused op `rglru`, the route before the fusion (`gated_input` eager,
+    then the contract), the plain version, and `torch.add(log_a, gx)` into
+    a third tensor, which moves the same bytes (a yardstick of the rate an
+    elementwise pass reaches, not the same function); then decode's step
+    (S = 1 from h0) through the fused op and as the eager update it
+    replaced."""
+    from repro_torch.kernels.rglru import ops
+    from repro_torch.kernels.rglru.ref import gated_input, rglru_ref
+
+    log_a, gx, h0 = rglru_op_inputs(case, torch.float32, dev, 1)
+    b = gated_input(log_a, gx)
+    out = torch.empty_like(gx)
+    routes = {"scan": (lambda: ops.rglru_scan(log_a, b), 20),
+              "fused": (lambda: ops.rglru(log_a, gx), 20),
+              "eager_b_then_scan": (lambda: ops.rglru_scan(log_a, gated_input(log_a, gx)), 20),
+              "plain": (lambda: rglru_ref(log_a, b), 2),
+              "same_bytes_add": (lambda: torch.add(log_a, gx, out=out), 20)}
+    runs = {k: [] for k in routes}
+    for k in list(routes) + list(routes)[::-1]:
+        runs[k].append(cuda_ms(*routes[k]))
+    del b, gx, out
+    la1, gx1, _ = rglru_op_inputs((case[0], 1, case[2]), torch.float32, dev, 2)
+
+    def eager_step():
+        a = torch.exp(la1[:, 0])
+        return a * h0 + torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * gx1[:, 0]
+
+    for k, fn in (("decode_fused", lambda: ops.rglru(la1, gx1, h0=h0)),
+                  ("decode_eager", eager_step)):
+        runs[k] = [cuda_ms(fn, 200)]
+    return {k: sum(v) / len(v) for k, v in runs.items()} | {"runs": runs}
+
+
 def mlstm_work(case, itemsize):
     """(bytes, flops) of one launch: q, k, v read and out written once, F
     and logi read once; 4·dh flops (q.k and w.v) per (query, key <= query)
@@ -1007,23 +1169,17 @@ def rglru_work(case, itemsize):
     return B * S * E * (4 + 2 * itemsize), 3 * B * S * E
 
 
-def time_recurrent(mlstm_case, rglru_case, dev):
-    """(kernel, plain) ms per call of both kernels at their serving shapes,
-    CUDA events: mlstm in bf16 (the serving path's type: the tensor-core
-    kernel) and in float32, rglru in float32."""
+def time_mlstm(case, dev):
+    """(kernel, plain) ms per call at the serving shape, CUDA events: in
+    bf16 (the serving path's type: the tensor-core kernel) and in float32."""
     from repro_torch.kernels.mlstm import ops as m_ops
     from repro_torch.kernels.mlstm.ref import mlstm_ref
-    from repro_torch.kernels.rglru import ops as r_ops
-    from repro_torch.kernels.rglru.ref import rglru_ref
 
-    xm = mlstm_inputs(mlstm_case, torch.float32, dev, 1)
-    xb = mlstm_inputs(mlstm_case, torch.bfloat16, dev, 1)
-    xr = rglru_inputs(rglru_case, torch.float32, dev, 1)
+    xm = mlstm_inputs(case, torch.float32, dev, 1)
+    xb = mlstm_inputs(case, torch.bfloat16, dev, 1)
     return {"mlstm_bf16": (cuda_ms(lambda: m_ops.mlstm(*xb), 20),
                            cuda_ms(lambda: mlstm_ref(*xb), 3)),
-            "mlstm": (cuda_ms(lambda: m_ops.mlstm(*xm), 10), cuda_ms(lambda: mlstm_ref(*xm), 3)),
-            "rglru": (cuda_ms(lambda: r_ops.rglru_scan(*xr), 20),
-                      cuda_ms(lambda: rglru_ref(*xr), 2))}
+            "mlstm": (cuda_ms(lambda: m_ops.mlstm(*xm), 10), cuda_ms(lambda: mlstm_ref(*xm), 3))}
 
 
 def draw_weights(cfg, gen, dev):
@@ -1154,7 +1310,7 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve):
     cache_len = S + DECODE_STEPS
     prefill = model.make_prefill_step(full, cache_len)
     decode = model.make_decode_step(full)
-    counters = (m_ops.mlstm, r_ops.rglru_scan, fl_ops.mha, dec_ops.decode)
+    counters = (m_ops.mlstm, r_ops.rglru, r_ops.rglru_scan, fl_ops.mha, dec_ops.decode)
     for c in counters:
         c.launches = 0
     fl_ops.reset_launches()
@@ -1169,7 +1325,7 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve):
     per_prefill = {c.__name__: c.launches // 2 for c in counters}
     finite = bool(torch.isfinite(logits.float()).all())
     step_s = []
-    dec0 = dec_ops.decode.launches
+    before = {c.__name__: c.launches for c in counters}
     for t in range(S, S + DECODE_STEPS):
         pos = torch.full((B,), t, dtype=torch.int32, device=dev)
         t0 = time.perf_counter()
@@ -1179,13 +1335,13 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve):
         finite = finite and bool(torch.isfinite(logits.float()).all())
     if not finite:
         raise AssertionError(f"{arch}: non-finite logits on the serving path")
-    per_step = (dec_ops.decode.launches - dec0) / DECODE_STEPS
+    per_step = {c.__name__: (c.launches - before[c.__name__]) / DECODE_STEPS for c in counters}
     dec_mean = sum(step_s) / len(step_s)
     print(f"prefill {B} x {S}: {pre_s[0] * 1e3:.2f} ms (first), {pre_s[1] * 1e3:.2f} ms (second) "
           f"= {B * S / pre_s[1]:.1f} tokens/s; launches per prefill {per_prefill}")
     print(f"decode B={B}: {dec_mean * 1e3:.3f} ms a step (mean of {DECODE_STEPS}; "
           f"{sum(step_s[1:]) / (len(step_s) - 1) * 1e3:.3f} without the first) = "
-          f"{B / dec_mean:.1f} tokens/s; decode launches per step {per_step}; logits finite")
+          f"{B / dec_mean:.1f} tokens/s; launches per step {per_step}; logits finite")
     del cache, logits
     res = {}
     for pol in ("geotp", "fcfs"):
@@ -1198,9 +1354,9 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve):
             raise AssertionError(f"router {pol}: geo_schedule launches "
                                  f"{geo_ops.geo_schedule.launches} != {want_geo}")
         used = {c.__name__: c.launches - before[c.__name__] for c in counters}
-        if used["decode"] != per_step * gens:
-            raise AssertionError(f"router {pol}: decode launches {used['decode']} != "
-                                 f"{per_step} x {gens} generations")
+        if any(used[k] != n * gens for k, n in per_step.items()):
+            raise AssertionError(f"router {pol}: launches {used} != {per_step} x {gens} "
+                                 f"generations")
         print(f"router {pol}: {res[pol]} in {secs:.2f} s; {gens} generations, launches {used}, "
               f"geo_schedule {geo_ops.geo_schedule.launches}")
     if not res["geotp"]["avg_latency_ms"] < res["fcfs"]["avg_latency_ms"]:
@@ -1225,8 +1381,7 @@ def recurrent_phases(dev, records):
     from repro_torch.configs import registry
 
     phase("10 recurrent kernels and the attention kernels' logit cap vs plain versions")
-    errs = {"mlstm_chunk": 0.0, "rglru_scan": 0.0, "flash_attention": 0.0,
-            "decode_attention": 0.0}
+    errs = {"mlstm_chunk": 0.0, "flash_attention": 0.0, "decode_attention": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         for i, case in enumerate(MLSTM_CASES):
             rows = ""
@@ -1237,10 +1392,6 @@ def recurrent_phases(dev, records):
                 e = check_mlstm(case, dt, dev, seed=i)
             errs["mlstm_chunk"] = max(errs["mlstm_chunk"], e)
             print(f"mlstm  {str(case):30s} {str(dt)[6:]:8s} max |d| {e:.3g}{rows}")
-        for i, case in enumerate(RGLRU_CASES):
-            e = check_rglru(case, dt, dev, seed=i)
-            errs["rglru_scan"] = max(errs["rglru_scan"], e)
-            print(f"rglru  {str(case):30s} {str(dt)[6:]:8s} max |d| {e:.3g}")
         for cap in SOFTCAPS:
             ef = max(check_flash(c, dt, dev, seed=i, logit_cap=cap)
                      for i, c in enumerate(FLASH_CASES))
@@ -1252,15 +1403,13 @@ def recurrent_phases(dev, records):
                   f"max |d| {ed:.3g}")
     xl, rg = registry.get(XLSTM_ARCH), registry.get(RG_ARCH)
     m_main, r_main, f_rg, d_rg = recurrent_shapes(xl, rg)
-    # the serving shapes: the recurrent kernels in float32 (their dtype on
-    # the model path) at SERVE_F32_TOL; the capped attention in both dtypes
+    errs["rglru_scan"] = rglru_phase(r_main, dev)
+    # the serving shapes: mlstm in float32 at SERVE_F32_TOL and in bf16; the
+    # capped attention in both dtypes
     em = check_mlstm(m_main, torch.float32, dev, tol=SERVE_F32_TOL)
-    er = check_rglru(r_main, torch.float32, dev, tol=SERVE_F32_TOL)
     emb, rmb = check_mlstm(m_main, torch.bfloat16, dev, tol=TOL["bfloat16"], tight=True)
     errs["mlstm_chunk"] = max(errs["mlstm_chunk"], em, emb)
-    errs["rglru_scan"] = max(errs["rglru_scan"], er)
-    print(f"serving shapes float32 (tol {SERVE_F32_TOL} abs + rel): mlstm {m_main} max |d| "
-          f"{em:.3g}, rglru {r_main} max |d| {er:.3g}")
+    print(f"mlstm {m_main} float32 (tol {SERVE_F32_TOL} abs + rel): max |d| {em:.3g}")
     print(f"mlstm {m_main} bf16 (tol {TOL['bfloat16']} abs + rel): max |d| {emb:.3g}, worst row "
           f"||d||/||ref|| {rmb:.3g} (limit {ROW_RTOL}); two calls equal")
     for dt in (torch.float32, torch.bfloat16):
@@ -1280,7 +1429,8 @@ def recurrent_phases(dev, records):
         print(f"rows {kind:6s} {str(case):40s} bf16 cap {rg.attn_softcap} "
               f"{'full ring' if slots else ''}: max |d| {e:.3g}, worst row ||d||/||ref|| "
               f"{r:.3g} (limit {ROW_RTOL}); two calls equal")
-    t = time_recurrent(m_main, r_main, dev)
+    t = time_mlstm(m_main, dev)
+    tr = time_rglru(r_main, dev)
     m_work, r_work = mlstm_work(m_main, 4), rglru_work(r_main, 4)
     mb_work = mlstm_work(m_main, 2)
     m_bound, m_by = bound(*m_work, FP32_OPS_PER_S)
@@ -1296,9 +1446,18 @@ def recurrent_phases(dev, records):
           f"the CUDA cores; {m_work[1] / TF32_TENSOR_OPS_PER_S * 1e3:.4g} ms on TF32 tensor "
           f"cores); "
           f"{m_work[1] / t['mlstm'][0] / 1e9:.2f} TFLOP/s")
-    print(f"rglru {r_main} float32: kernel {t['rglru'][0]:.4f} ms, plain {t['rglru'][1]:.4f} ms; "
-          f"{r_work[0]} bytes, bound {r_bound:.4g} ms ({r_by}); "
-          f"{r_work[0] / t['rglru'][0] / 1e9:.3f} TB/s")
+    print(f"rglru {r_main} float32, {r_work[0]} bytes, bound {r_bound:.4g} ms ({r_by}); ms a "
+          f"call (each route's two runs {tr['runs']}):")
+    for k, label in (("scan", "the contract rglru_scan (b given)"),
+                     ("fused", "the fused op rglru (b formed in the kernel)"),
+                     ("eager_b_then_scan", "eager b formation, then rglru_scan"),
+                     ("plain", "plain version (a host loop over t)"),
+                     ("same_bytes_add", "torch.add(log_a, gx): the same bytes, yardstick")):
+        print(f"  {label}: {tr[k]:.4f} ms = {tr[k] / r_bound:.3f} x bound, "
+              f"{r_work[0] / tr[k] / 1e9:.3f} TB/s")
+    print(f"rglru decode step {(r_main[0], 1, r_main[2])} from h0: fused op "
+          f"{tr['decode_fused']:.5f} ms (one launch), the eager update it replaced "
+          f"{tr['decode_eager']:.5f} ms (8 launches)")
     sweep_decode_split([(f"{d_rg}, full ring", d_rg, d_rg[1], rg.attn_softcap)], dev)
     f_t = time_flash(f_rg, dev, rg.attn_softcap)
     # every ring slot is valid after the 4096-token prefill, as on the path
@@ -1317,7 +1476,8 @@ def recurrent_phases(dev, records):
     phase(f"11 {XLSTM_ARCH}: GPU vs CPU at 8 layers, then full width")
     xs = model_phase(XLSTM_ARCH, len(xl.pattern), 128, dev, (XLSTM_B, XLSTM_S))
     n_mlstm = sum(m == "mlstm" for m, _ in xl.pattern) * xl.n_groups
-    if xs["per_prefill"]["mlstm"] != n_mlstm or xs["per_prefill"]["rglru_scan"] != 0:
+    if (xs["per_prefill"]["mlstm"] != n_mlstm
+            or xs["per_prefill"]["rglru_scan"] + xs["per_prefill"]["rglru"] != 0):
         raise AssertionError(f"{XLSTM_ARCH}: launches per prefill {xs['per_prefill']}, want "
                              f"{n_mlstm} mlstm")
     if xs["mlstm_by_dtype"]["bfloat16"] != xs["launches"]["mlstm"]:
@@ -1328,10 +1488,16 @@ def recurrent_phases(dev, records):
     phase(f"12 {RG_ARCH}: GPU vs CPU at 5 layers, then full width")
     rs = model_phase(RG_ARCH, len(rg.pattern) + len(rg.tail), 128, dev, (RG_B, RG_S))
     mixers = [m for m, _ in rg.pattern] * rg.n_groups + [m for m, _ in rg.tail]
-    want = {"rglru_scan": mixers.count("rglru"), "mha": mixers.count("swa")}
-    if any(rs["per_prefill"][k] != v for k, v in want.items()) or rs["per_step"] != want["mha"]:
-        raise AssertionError(f"{RG_ARCH}: launches per prefill {rs['per_prefill']} (want {want}), "
-                             f"per decode step {rs['per_step']} (want {want['mha']})")
+    # the RG-LRU layers run the fused op in prefill and decode, never the bare contract
+    want_pre = {"rglru": mixers.count("rglru"), "rglru_scan": 0, "mha": mixers.count("swa")}
+    want_step = {"rglru": mixers.count("rglru"), "rglru_scan": 0, "decode": mixers.count("swa")}
+    if (any(rs["per_prefill"][k] != v for k, v in want_pre.items())
+            or any(rs["per_step"][k] != v for k, v in want_step.items())):
+        raise AssertionError(f"{RG_ARCH}: launches per prefill {rs['per_prefill']} (want "
+                             f"{want_pre}), per decode step {rs['per_step']} (want {want_step})")
+    print(f"{RG_ARCH}: prefill {RG_B} x {RG_S} {rs['prefill_s'] * 1e3:.2f} ms, decode "
+          f"{rs['step_s'] * 1e3:.3f} ms a step; RG-LRU launches {want_pre['rglru']} a prefill "
+          f"and {want_step['rglru']} a decode step (fused op)")
 
     by_name = {r["name"]: r for r in records}
     for name, err in errs.items():
@@ -1347,8 +1513,9 @@ def recurrent_phases(dev, records):
          "library_ms": None},
         {"name": "rglru_scan", "route": "cuda", "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru/rglru.py:52",
-         "launches": rs["launches"]["rglru_scan"], "max_abs_err": errs["rglru_scan"],
-         "ms": t["rglru"][0], "plain_ms": t["rglru"][1], "bound_ms": r_bound, "bound_by": r_by,
+         "launches": rs["launches"]["rglru"] + rs["launches"]["rglru_scan"],
+         "max_abs_err": errs["rglru_scan"], "ms": tr["scan"], "plain_ms": tr["plain"],
+         "bound_ms": r_bound, "bound_by": r_by,
          "library_ms": None},
     ]
     return records

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the bf16 tensor-core kernels
-// (flash_attention.cu, mlstm_chunk.cu): wgmma's 128-byte-swizzled
+// (flash_attention.cu, mlstm_chunk.cu; rglru_scan.cu takes only the cp.async
+// helpers): wgmma's 128-byte-swizzled
 // shared-memory layout and descriptors, cp.async loads of 16-byte chunks
 // into that layout, the wgmma instructions (m64n64k16, bf16 in, float32
 // accumulate) and the split of a float32 operand into a bf16 pair hi + lo.

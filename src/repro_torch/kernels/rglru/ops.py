@@ -1,14 +1,17 @@
-"""The RG-LRU wrappers: the gate transform, checks, allocation, launch,
-count.
+"""The RG-LRU wrappers: checks, allocation, launch, count.
 
-`rglru(log_a, gated_x)` is the reference's op: it forms
-b = sqrt(clip(1 - a², 0, 1)) · gated_x in float32 (a = exp(log_a)), casts b
-to gated_x's dtype, and scans. `rglru_scan(log_a, b)` is the kernel's
-contract: on CUDA tensors it launches the hand-written kernel, on CPU
-tensors it computes the plain version (`ref.py`); it never catches an error
-to fall back. `rglru_scan.launches` counts kernel launches (plain calls do
-not count). The kernel takes S and E as they are: the reference wrapper's
-halving of its chunk and channel blocks until they divide is a TPU artefact.
+`rglru(log_a, gated_x, h0=None)` is the reference's op: b = sqrt(clip(1 -
+a², 0, 1)) · gated_x in float32 (a = exp(log_a)), cast to gated_x's dtype,
+then the scan from the carry h0 (zero if None). On CUDA tensors one kernel
+launch does all of it (the b formation fused into the scan); on CPU tensors
+it runs the plain composition (`ref.gated_input`, then `rglru_scan`, or
+`rglru_ref` from h0). `rglru_scan(log_a, b)` is the TPU kernel's contract:
+on CUDA tensors the same kernel with b given, on CPU tensors the plain
+version (`ref.py`). Neither ever catches an error to fall back.
+`rglru.launches` and `rglru_scan.launches` count kernel launches of each
+entry (plain calls do not count). The kernel takes S and E as they are: the
+reference wrapper's halving of its chunk and channel blocks until they
+divide is a TPU artefact.
 """
 
 from __future__ import annotations
@@ -16,18 +19,33 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.rglru import rglru as _cuda
-from repro_torch.kernels.rglru.ref import rglru_ref
+from repro_torch.kernels.rglru.ref import gated_input, rglru_ref
 
 
-def _check(log_a, b) -> None:
+def _check(log_a, b, h0=None, name="rglru_scan") -> None:
     if log_a.dim() != 3 or b.shape != log_a.shape:
-        raise ValueError(f"rglru_scan: log_a and b must share [B,S,E], got "
+        raise ValueError(f"{name}: log_a and b must share [B,S,E], got "
                          f"{tuple(log_a.shape)} and {tuple(b.shape)}")
     if log_a.dtype != torch.float32 or b.dtype not in _cuda.DTYPE_CODES:
-        raise TypeError(f"rglru_scan: log_a must be float32 and b float32 or bfloat16, got "
+        raise TypeError(f"{name}: log_a must be float32 and b float32 or bfloat16, got "
                         f"{log_a.dtype} and {b.dtype}")
     if b.device != log_a.device:
-        raise ValueError(f"rglru_scan: b on {b.device}, log_a on {log_a.device}")
+        raise ValueError(f"{name}: b on {b.device}, log_a on {log_a.device}")
+    if h0 is None:
+        return
+    B, _, E = log_a.shape
+    if h0.shape != (B, E):
+        raise ValueError(f"{name}: h0 must be [B,E] = {(B, E)}, got {tuple(h0.shape)}")
+    if h0.dtype != torch.float32:
+        raise TypeError(f"{name}: h0 must be float32 (the carry), got {h0.dtype}")
+    if h0.device != log_a.device:
+        raise ValueError(f"{name}: h0 on {h0.device}, log_a on {log_a.device}")
+
+
+def _kernel_device(x, name) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    _cuda.entry()  # a library that cannot build or load raises before any work
 
 
 def rglru_scan(log_a, b):
@@ -36,9 +54,7 @@ def rglru_scan(log_a, b):
     _check(log_a, b)
     if b.device.type == "cpu":
         return rglru_ref(log_a, b)
-    if b.device.type != "cuda":
-        raise ValueError(f"rglru_scan: no kernel for device {b.device}")
-    _cuda.entry()  # a library that cannot build or load raises before any work
+    _kernel_device(b, "rglru_scan")
     la, bc = log_a.contiguous(), b.contiguous()
     out = torch.empty_like(bc)
     _cuda.launch(la, bc, out)
@@ -49,9 +65,22 @@ def rglru_scan(log_a, b):
 rglru_scan.launches = 0
 
 
-def rglru(log_a, gated_x):
-    """Full RG-LRU sequence: h_t = a_t h_{t-1} + sqrt(1 - a_t²) (i·x)_t.
-    log_a: [B,S,E] (already -c·softplus(lam)·r); gated_x = i·x."""
-    a = torch.exp(log_a.float())
-    b = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * gated_x.float()
-    return rglru_scan(log_a.float(), b.to(gated_x.dtype))
+def rglru(log_a, gated_x, h0=None):
+    """Full RG-LRU sequence: h_t = a_t h_{t-1} + sqrt(1 - a_t²) (i·x)_t,
+    h_{-1} = h0 (float32 [B,E]) or 0. log_a: [B,S,E] (already
+    -c·softplus(lam)·r); gated_x = i·x, float32 or bfloat16 -> h [B,S,E] in
+    gated_x's dtype."""
+    log_a = log_a.float()
+    _check(log_a, gated_x, h0, "rglru")
+    if gated_x.device.type == "cpu":
+        b = gated_input(log_a, gated_x)
+        return rglru_scan(log_a, b) if h0 is None else rglru_ref(log_a, b, h0)
+    _kernel_device(gated_x, "rglru")
+    la, gx = log_a.contiguous(), gated_x.contiguous()
+    out = torch.empty_like(gx)
+    _cuda.launch(la, gx, out, h0=None if h0 is None else h0.contiguous(), fused=True)
+    rglru.launches += 1
+    return out
+
+
+rglru.launches = 0

@@ -1,10 +1,20 @@
 """Plain PyTorch version of the RG-LRU kernel: a straight translation of
-`repro.kernels.rglru.ref.rglru_ref` (a sequential loop over t). The CPU path
-of the wrapper, and what `chip_smoke.py` holds the CUDA kernel against."""
+`repro.kernels.rglru.ref.rglru_ref` (a sequential loop over t), and of the
+reference op's input formation (`repro.kernels.rglru.ops.rglru`). The CPU
+path of the wrappers, and what `chip_smoke.py` holds the CUDA kernel
+against."""
 
 from __future__ import annotations
 
 import torch
+
+
+def gated_input(log_a, gated_x):
+    """b = sqrt(clip(1 - a², 0, 1)) · gated_x in float32, a = exp(log_a),
+    cast to gated_x's dtype. log_a/gated_x: [B,S,E]."""
+    a = torch.exp(log_a.float())
+    b = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * gated_x.float()
+    return b.to(gated_x.dtype)
 
 
 def rglru_ref(log_a, b, h0=None):

@@ -6,10 +6,11 @@
     log a_t = -c * softplus(Lambda) * r_t   (c = 8)
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Prefill runs the recurrence through the contract function `rglru_scan`: the
-hand-written CUDA kernel on the card (`kernels.rglru.ops`, B4), its plain
-version on CPU tensors. Decode is the O(1) elementwise update, with no
-kernel, as in the reference. The block is the Griffin recurrent block:
+Prefill and decode run the RG-LRU op through `kernels.rglru.ops.rglru`: on
+the card one launch of the hand-written CUDA kernel (B4) forms b and scans,
+on CPU tensors the plain version. Decode is the op at S = 1 from the
+cached carry h0, the reference's O(1) update. The block is the Griffin
+recurrent block:
 y = W_out( GeLU(W_gate xn) * RGLRU(conv4(W_x xn)) ).
 
 The gate weights (wa, wi, ba, bi, lam) stay float32: the reference's
@@ -62,10 +63,7 @@ def rglru_block(cfg, p, prefix, x, *, cache=None, return_state: bool = False):
         buf = torch.cat([cache["conv"], xr], dim=1)
         xc = conv_step(buf, w_conv)[:, None]
         log_a, i = _gates(p, prefix, xc)
-        a = torch.exp(log_a[:, 0])
-        b = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (i[:, 0] * xc[:, 0].float())
-        h_new = a * cache["h"] + b
-        h = h_new[:, None]
-        new_cache = {"h": h_new, "conv": buf[:, 1:]}
+        h = rglru_ops.rglru(log_a, i * xc.float(), h0=cache["h"])
+        new_cache = {"h": h[:, 0], "conv": buf[:, 1:]}
     y = h.to(dt) * gate
     return y @ p[f"{prefix}.wout"].to(dt), new_cache

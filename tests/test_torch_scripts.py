@@ -471,10 +471,12 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
     monkeypatch.setattr(d_bind, "run", lambda args: None)
     monkeypatch.setattr(d_ops, "prepare", lambda *a, **k: (None, ()))
     monkeypatch.setattr(d_ops, "sm_count", lambda dev: 132)
-    monkeypatch.setattr(chip_smoke, "time_recurrent",
-                        lambda m, r, dev: {"mlstm_bf16": (1.0, 2.0), "mlstm": (1.0, 2.0),
-                                           "rglru": (1.0, 2.0)})
-    for mod, name in ((m_ops, "mlstm"), (r_ops, "rglru_scan"), (f_ops, "mha"),
+    monkeypatch.setattr(chip_smoke, "time_mlstm",
+                        lambda m, dev: {"mlstm_bf16": (1.0, 2.0), "mlstm": (1.0, 2.0)})
+    monkeypatch.setattr(chip_smoke, "time_rglru", lambda r, dev: dict.fromkeys(
+        ("scan", "fused", "eager_b_then_scan", "plain", "same_bytes_add", "decode_fused",
+         "decode_eager"), 1.0) | {"runs": {}})
+    for mod, name in ((m_ops, "mlstm"), (r_ops, "rglru"), (f_ops, "mha"),
                       (d_ops, "decode"), (g_ops, "geo_schedule")):
         real = getattr(mod, name)
 
@@ -488,7 +490,7 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
         counted.launches, counted.__name__ = 0, real.__name__
         counted.launches_by_dtype = {"float32": 0, "bfloat16": 0}
         monkeypatch.setattr(mod, name, counted)
-    counted_fns = {f.__name__: f for f in (m_ops.mlstm, r_ops.rglru_scan, f_ops.mha,
+    counted_fns = {f.__name__: f for f in (m_ops.mlstm, r_ops.rglru, f_ops.mha,
                                            d_ops.decode, g_ops.geo_schedule)}
     check = {"mlstm": chip_smoke.check_mlstm, "rglru": chip_smoke.check_rglru}
     # the serving shapes of phase 10 shrink to what a CPU test can hold
@@ -498,6 +500,10 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
         tuple(min(c, 32) for c in case), *a, **k))
     monkeypatch.setattr(chip_smoke, "MLSTM_CASES", [(1, 2, 40, 16)])
     monkeypatch.setattr(chip_smoke, "RGLRU_CASES", [(1, 40, 16)])
+    monkeypatch.setattr(chip_smoke, "RGLRU_EXACT_CASES", chip_smoke.RGLRU_EXACT_CASES[:2])
+    rglru_phase = chip_smoke.rglru_phase
+    monkeypatch.setattr(chip_smoke, "rglru_phase", lambda case, dev: rglru_phase(
+        tuple(min(c, 32) for c in case), dev))
     monkeypatch.setattr(chip_smoke, "FLASH_CASES", chip_smoke.FLASH_CASES[3:4])
     monkeypatch.setattr(chip_smoke, "DECODE_CASES", chip_smoke.DECODE_CASES[:1])
     serving = [dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
@@ -507,6 +513,9 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
     chip_smoke.kernels_line([geo] + records)  # all five, every key, each launched
     by_name = {r["name"]: r for r in records}
     assert by_name["mlstm_chunk"]["launches"] == 2 * 7  # two prefills of 7 mLSTM layers
-    assert by_name["rglru_scan"]["launches"] == 2 * 4
+    # the fused op: 4 RG-LRU layers a prefill (two) and a decode step (two,
+    # then one a generation in the router's runs)
+    assert by_name["rglru_scan"]["launches"] > 2 * 4 + 2 * 4
+    assert by_name["rglru_scan"]["launches"] % 4 == 0
     assert by_name["flash_attention"]["launches"] == 1 + 2 * 1
     assert by_name["decode_attention"]["launches"] > 1 + 2 * 1
