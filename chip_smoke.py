@@ -113,6 +113,45 @@ Slice 3, the recurrent mixers (xlstm-350m, recurrentgemma-9b):
     B = 4 (26 fused RG-LRU and 12 decode launches a step), the router
     geotp vs fcfs (the same launches per step for every generation).
 
+Slice 7, the MoE and MLA families (mixtral-8x7b, llama4-scout, minicpm3-4b):
+
+13. flash with V heads narrower than its Q/K heads vs its plain version —
+    MLA_FLASH_CASES (dh / dv 96 / 64, 48 / 32, 192 / 128, 256 / 40;
+    causal, windowed, chunk-local, non-causal; caps 0 and 50) in both
+    dtypes, bf16 per row and bit for bit; minicpm3-4b's prefill launch
+    ([8,2048,40,96], dv 64, causal) in float32 at TOL and in bf16 per row;
+    CUDA-event times of the kernel, its plain version and SDPA on the same
+    tensors, against the tensor cores' bound;
+14. mixtral-8x7b — (a) flash and decode vs their plain versions at the
+    path's shapes (`path_shape_checks`): flash [4,4608,32,8,128] swa 4096,
+    decode over the 4096-slot ring (full, as after the prefill, and random
+    positions) and the router's B = 1 decode, in float32 at TOL and in
+    bf16 per row and bit for bit; then GPU vs CPU over one period (1 layer)
+    at full width, layer by layer from the CPU's input, within 0.05, the
+    MoE routing read on both devices and held by `routelog.compare` (a
+    token whose experts differ must be a near tie of the CPU's gates, one
+    whose kept assignments alone differ must follow such a flip in its
+    row; those are counted, at most routelog.MAX_FLIPS, and not compared);
+    (b) CUT to 16 of 32 layers (~46 GB of bf16 weights, drawn on the card
+    one layer group at a time): prefill 4 x 4608 (past the 4096 window),
+    the assignments the capacity (1.25) drops, 64 decode steps at B = 4,
+    flash / decode launches equal to the layer pattern's (16 a prefill, 16
+    a step); (c) the router geotp vs fcfs, its summaries equal to the
+    CPU's;
+15. llama4-scout — as 14 (one period = 4 layers; the path's shapes: flash
+    [2,10240,40,8,128] cla 8192 and NoPE gqa, decode over the 8192-slot
+    cla ring and the 10304-slot linear cache), CUT to 12 of 48 layers
+    (three periods, ~54 GB), prefill 2 x 10240 (past the 8192 chunk), 64
+    decode steps at B = 2 (12 flash a prefill, 12 decode a step); no
+    router (its pods' linear NoPE caches do not fit beside the weights);
+16. minicpm3-4b — as 14 (one layer), then all 62 layers uncut: prefill
+    8 x 2048 (62 flash launches at dv 64 < dh 96), 64 decode steps at
+    B = 8 (the absorbed MLA decode: plain products, no decode launch), the
+    router with `max_seq` cut to 4096 for its pods, as llama's.
+
+Phases 11-16 draw the GPU-vs-CPU check's weights on the card and copy
+them to the CPU.
+
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -120,6 +159,7 @@ The last two lines are a JSON record of the kernels and
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -390,6 +430,19 @@ EXTRA_DECODE_CASES = [((8, 4001, 24, 8, 128), None), ((4, 2048, 16, 1, 256), "ta
                       ((3, 1000, 6, 2, 128), "dead_row"), ((1, 300, 24, 8, 128), None),
                       ((2, 700, 40, 2, 64), None), ((2, 500, 6, 2, 34), None)]
 # slice 3: the recurrent mixers (tests/kernels/test_kernels.py's cases)
+# slice 7: V heads narrower than Q/K heads, (B, S, H, KV, dh, causal, window,
+# chunk_local, dv): MLA's 96 / 64 (minicpm3-4b, causal, MHA) and 48 / 32
+# (its reduced config), windowed, chunk-local and non-causal, GQA and MQA,
+# and the dh-256 variants' narrower V panels (192 / 128, 256 / 40: a dv
+# whose rows are not 16-byte aligned)
+MLA_FLASH_CASES = [
+    (2, 128, 4, 4, 96, True, 0, False, 64),
+    (2, 128, 4, 2, 48, True, 32, False, 32),
+    (1, 160, 4, 4, 48, True, 32, True, 32),
+    (1, 96, 2, 1, 96, False, 0, False, 64),
+    (1, 96, 2, 1, 192, False, 0, False, 128),
+    (1, 192, 4, 2, 256, True, 64, False, 40),
+]
 MLSTM_CASES = [(1, 2, 256, 64), (2, 4, 128, 128), (1, 1, 512, 32)]  # (B, H, S, dh)
 RGLRU_CASES = [(2, 256, 128), (1, 512, 512), (3, 128, 96)]  # (B, S, E)
 # the RG-LRU kernel's exact carry checks: S not a multiple of its 64-step
@@ -417,8 +470,13 @@ def launch_shapes(cfg, batch, seq, cache_len, mixer=None):
     """The shapes the model gives each kernel: flash (B, S, H, KV, dh,
     causal, window, chunk_local) per prefill layer, decode (B, Sc, H, KV,
     dh) per decode layer of the attention mixer `mixer` (default: the
-    pattern's first; every attention layer of a config alike)."""
+    pattern's first; every attention layer of a config alike). MLA's
+    prefill gives flash every head's K (KV = H) at dh = nope + rope and V at
+    dv = v_hd (a ninth entry); its decode is plain products (None)."""
     mixer = mixer or cfg.pattern[0][0]
+    if mixer == "mla":
+        dh = cfg.nope_head_dim + cfg.rope_head_dim
+        return (batch, seq, cfg.n_heads, cfg.n_heads, dh, True, 0, False, cfg.v_hd), None
     window = cfg.window if mixer in ("swa", "cla") else 0
     cap = min(cfg.window, cache_len) if window else cache_len
     flash = (batch, seq, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True, window, mixer == "cla")
@@ -429,13 +487,19 @@ def _randn(shape, dtype, dev, gen, scale=1.0):
     return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
 
+def flash_dims(case):
+    """(B, S, H, KV, dh, causal, window, chunk_local, dv) of a flash case;
+    a case of eight leaves V's head dim at dh, a ninth entry sets dv (MLA)."""
+    return tuple(case) + (case[4],) * (9 - len(case))
+
+
 def flash_inputs(case, dtype, dev, seed, scale=1.0):
-    """q [B,S,H,dh], k/v [B,S,KV,dh] in the model's layout; q scaled by
-    `scale`."""
-    B, S, H, KV, dh = case[:5]
+    """q [B,S,H,dh], k [B,S,KV,dh], v [B,S,KV,dv] in the model's layout; q
+    scaled by `scale`."""
+    B, S, H, KV, dh, *_, dv = flash_dims(case)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return (_randn((B, S, H, dh), dtype, dev, gen, scale), _randn((B, S, KV, dh), dtype, dev, gen),
-            _randn((B, S, KV, dh), dtype, dev, gen))
+            _randn((B, S, KV, dv), dtype, dev, gen))
 
 
 def decode_inputs(case, dtype, dev, seed, valid_slots=None, scale=1.0, pattern=None):
@@ -496,10 +560,18 @@ def flash_case(case, dtype, dev, seed=0, logit_cap=0.0):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    causal, window, cl = case[5:]
+    B, S, H, KV, dh, causal, window, cl, dv = flash_dims(case)
     q, k, v = flash_inputs(case, dtype, dev, seed, scale=SOFTCAP_INPUT_SCALE if logit_cap else 1.0)
     kw = dict(causal=causal, window=window, chunk_local=cl, logit_cap=logit_cap)
-    ref = attention_ref(*_to_bhsd(q, k, v), **kw).transpose(1, 2)
+    # one (batch row, KV head) at a time: a launch's [B,H,S,S] float32
+    # scores are 34 GB at llama4-scout's prefill, and softmax holds three
+    G = H // KV
+    ref = q.new_empty((B, S, H, dv))
+    for b in range(B):
+        for n in range(KV):
+            h = slice(n * G, (n + 1) * G)
+            part = _to_bhsd(q[b:b + 1, :, h], k[b:b + 1, :, n:n + 1], v[b:b + 1, :, n:n + 1])
+            ref[b:b + 1, :, h] = attention_ref(*part, **kw).transpose(1, 2)
     return lambda: ops.mha(q, k, v, **kw), ref, f"flash {case} {dtype} cap {logit_cap}"
 
 
@@ -559,8 +631,8 @@ def check_decode(case, dtype, dev, seed=0, valid_slots=None, logit_cap=0.0,
 
 def flash_work(case, itemsize):
     """(bytes, flops) of one launch: q, k, v read and out written once;
-    4·dh flops (QK^T and PV) per (query, key) pair the mask keeps."""
-    B, S, H, KV, dh, causal, window, cl = case
+    2·(dh + dv) flops (QK^T and PV) per (query, key) pair the mask keeps."""
+    B, S, H, KV, dh, causal, window, cl, dv = flash_dims(case)
     qpos = torch.arange(S)[:, None]
     kpos = torch.arange(S)[None, :]
     keep = torch.ones((S, S), dtype=torch.bool)
@@ -569,7 +641,8 @@ def flash_work(case, itemsize):
     if window:
         keep &= (kpos // window == qpos // window) if cl else (kpos > qpos - window)
     pairs = int(keep.sum())
-    return B * S * (2 * H + 2 * KV) * dh * itemsize, 4 * dh * B * H * pairs
+    return (B * S * ((H + KV) * dh + (KV + H) * dv) * itemsize,
+            2 * (dh + dv) * B * H * pairs)
 
 
 def decode_work(valid, H, KV, dh, itemsize):
@@ -590,9 +663,9 @@ def time_flash(case, dev, logit_cap=0.0):
     from repro_torch.kernels.flash_attention import flash_attention as binding
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    B, S, H, KV, dh, causal, window, cl = case
+    B, S, H, KV, dh, causal, window, cl, dv = flash_dims(case)
     qt, kt, vt = _to_bhsd(*flash_inputs(case, torch.bfloat16, dev, 1))
-    out = torch.empty_like(qt)
+    out = qt.new_empty((B, H, S, dv))
     k_ms = cuda_ms(lambda: binding.launch(qt, kt, vt, out, dh**-0.5, causal, window, cl,
                                           logit_cap), 10)
     p_ms = cuda_ms(lambda: attention_ref(qt, kt, vt, causal=causal, window=window,
@@ -684,14 +757,15 @@ def prefill_decode(cfg, params, tokens, steps, cache_len, dev):
 
 
 def router(cfg, params, dev, policy, n_requests=ROUTER_REQUESTS):
-    """GeoServingEngine over the launcher's three pods on `dev`. Returns
-    (summary, stats, seconds, admits)."""
+    """GeoServingEngine over the launcher's three pods on `dev`, a decode
+    step of `params` a generation (None: no model). Returns (summary,
+    stats, seconds, admits)."""
     from repro_torch.serving.engine import GeoServingEngine, PodConfig, synthetic_workload
 
     pods = [PodConfig(rtt_us=0, n_slots=12), PodConfig(rtt_us=30_000, n_slots=12),
             PodConfig(rtt_us=100_000, n_slots=12)]
     t0 = time.perf_counter()
-    eng = GeoServingEngine(cfg, pods, policy=policy, run_model=True, device=dev,
+    eng = GeoServingEngine(cfg, pods, policy=policy, run_model=params is not None, device=dev,
                            params=params)
     reqs = synthetic_workload(n_requests, len(pods), rate_per_s=ROUTER_RATE)
     for r in reqs:
@@ -938,6 +1012,7 @@ RECURRENT_TOL = 0.08  # bf16 recurrent stacks (tests/models/test_archs.py)
 # so the reference's float32 TOL (a tenth of the cases' limits) sees a
 # dropped key block, a wrong rescale or a skipped step
 SERVE_F32_TOL = 2e-5
+SLICE_BYTES = 4 << 30  # `draw_weights` draws a stacked tensor layer by layer past 4 GiB of float32
 
 
 def recurrent_shapes(xl, rg):
@@ -1186,14 +1261,27 @@ def draw_weights(cfg, gen, dev):
     """`init_params` then `cast_weights`, tensor by tensor in the schema's
     sorted order (the same draws as one `init_params` call), so the float32
     copies of all the weights never exist at once (37.6 GB at
-    recurrentgemma-9b)."""
+    recurrentgemma-9b). A stacked tensor whose float32 copy is larger than
+    SLICE_BYTES is drawn and cast one layer group at a time into its cast
+    tensor (mixtral-8x7b's stacked experts are 30 GB each in float32 at 16
+    layers; no earlier phase has one, and its draws differ from one
+    `init_params` call)."""
     from repro_torch.models import stack
     from repro_torch.models.schema import init_params
 
     schema = stack.build_schema(cfg)
     out = {}
     for name in sorted(schema):
-        out.update(stack.cast_weights(cfg, init_params({name: schema[name]}, gen, dev)))
+        spec = schema[name]
+        if spec.axes[0] != "layers" or 4 * int(np.prod(spec.shape)) <= SLICE_BYTES:
+            out.update(stack.cast_weights(cfg, init_params({name: spec}, gen, dev)))
+            continue
+        one = dataclasses.replace(spec, shape=spec.shape[1:], axes=spec.axes[1:])
+        for g in range(spec.shape[0]):
+            part = stack.cast_weights(cfg, init_params({name: one}, gen, dev))[name]
+            if g == 0:
+                out[name] = part.new_empty(spec.shape)
+            out[name][g] = part
     return out
 
 
@@ -1218,8 +1306,18 @@ def layerwise(cfg, params, tokens, steps, cache_len, dev, tol=RECURRENT_TOL):
     inputs: a free-running bf16 xLSTM stack amplifies an ulp of difference
     between two GEMMs past any fixed limit within a few layers. Checks every
     layer's output, every cache leaf and the logits within `tol` abs + rel;
-    returns the largest |gpu - cpu| of each kind."""
-    from repro_torch.models import stack
+    returns the largest |gpu - cpu| of each kind.
+
+    A MoE layer's routing is read on both devices and held by
+    `routelog.compare` with the CPU's as the reference: a token whose
+    experts differ must be a near tie of the CPU's gates (cuBLAS and the CPU
+    round the router's bf16 product or its input differently there), one
+    whose kept assignments alone differ must follow such a flip in its row.
+    Those tokens are counted, never compared (`worst["flips"]` and
+    `worst["kept_only"]` of `worst["decisions"]`; more than
+    routelog.MAX_FLIPS of them fails), and every other token's output is
+    held at `tol`."""
+    from repro_torch.models import routelog, stack
     from repro_torch.models.layers import embed_lookup, rmsnorm
 
     cpu = torch.device("cpu")
@@ -1227,10 +1325,24 @@ def layerwise(cfg, params, tokens, steps, cache_len, dev, tol=RECURRENT_TOL):
     B, n = tokens.shape
     S = n - steps
     caches = {d: stack.init_cache(cfg, B, cache_len, d) for d in devs}
-    worst = {"hidden": 0.0, "cache": 0.0, "logits": 0.0}
+    worst = {"hidden": 0.0, "cache": 0.0, "logits": 0.0, "flips": 0, "kept_only": 0,
+             "decisions": 0}
+    log = routelog.RouteLog()
 
     def compare(kind, a, b, label):
-        worst[kind] = max(worst[kind], check_close(a.cpu(), b, tol, label))
+        a = a.cpu()
+        if kind == "hidden" and log.calls:  # a MoE layer, run on the CPU first
+            if len(log.calls) != 2:
+                raise AssertionError(f"{label}: {len(log.calls)} MoE routings on two devices")
+            r_cpu, r_dev = log.calls
+            log.calls = []
+            agree, flips, kept_only = routelog.compare(
+                (r_cpu.topi, r_cpu.kept, r_cpu.gates), (r_dev.topi.cpu(), r_dev.kept.cpu()), label)
+            worst["decisions"] += agree.numel()
+            worst["flips"] += flips
+            worst["kept_only"] += kept_only
+            a, b = a[agree], b[agree]
+        worst[kind] = max(worst[kind], check_close(a, b, tol, label))
 
     def head(x):
         out = {d: stack._head(params[d], rmsnorm(x.to(d), params[d]["final_ln"])) for d in devs}
@@ -1238,62 +1350,77 @@ def layerwise(cfg, params, tokens, steps, cache_len, dev, tol=RECURRENT_TOL):
 
     x = embed_lookup(params[cpu]["embed"], tokens[:, :S], stack.ACT_DTYPE)
     positions = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
-    for pfx, g, mixer, fk in stack._layers(cfg):
-        out = {d: stack._prefill_layer(cfg, stack._layer(params[d], pfx, g), pfx, mixer, fk,
-                                       x.to(d), positions.to(d),
-                                       stack._layer_cache(caches[d], pfx, g), cache_len)
-               for d in devs}
-        compare("hidden", out[dev], out[cpu], f"prefill {pfx}[{g}] {mixer} output")
-        x = out[cpu]
-    compare("logits", *head(x[:, -1]), "prefill logits")
-    for (name, a), (_, b) in zip(_leaf_items(caches[dev]), _leaf_items(caches[cpu])):
-        compare("cache", a, b, f"prefill cache {name}")
-    for t in range(S, n):
-        x = embed_lookup(params[cpu]["embed"], tokens[:, t], stack.ACT_DTYPE)[:, None]
-        pos = torch.full((B,), t, dtype=torch.int32)
+    with log:
         for pfx, g, mixer, fk in stack._layers(cfg):
-            views = {d: stack._layer_cache(caches[d], pfx, g) for d in devs}
-            _copy_tree(views[dev], views[cpu])  # the GPU's layer starts from the CPU's state
-            out = {d: stack._decode_layer(cfg, stack._layer(params[d], pfx, g), pfx, mixer, fk,
-                                          x.to(d), pos.to(d), views[d]) for d in devs}
-            compare("hidden", out[dev], out[cpu], f"decode {t} {pfx}[{g}] {mixer} output")
-            for (name, a), (_, b) in zip(_leaf_items(views[dev]), _leaf_items(views[cpu])):
-                compare("cache", a, b, f"decode {t} {pfx}[{g}] cache {name}")
+            out = {d: stack._prefill_layer(cfg, stack._layer(params[d], pfx, g), pfx, mixer, fk,
+                                           x.to(d), positions.to(d),
+                                           stack._layer_cache(caches[d], pfx, g), cache_len)
+                   for d in devs}
+            compare("hidden", out[dev], out[cpu], f"prefill {pfx}[{g}] {mixer} output")
             x = out[cpu]
-        compare("logits", *head(x[:, 0]), f"decode {t} logits")
+        compare("logits", *head(x[:, -1]), "prefill logits")
+        for (name, a), (_, b) in zip(_leaf_items(caches[dev]), _leaf_items(caches[cpu])):
+            compare("cache", a, b, f"prefill cache {name}")
+        for t in range(S, n):
+            x = embed_lookup(params[cpu]["embed"], tokens[:, t], stack.ACT_DTYPE)[:, None]
+            pos = torch.full((B,), t, dtype=torch.int32)
+            for pfx, g, mixer, fk in stack._layers(cfg):
+                views = {d: stack._layer_cache(caches[d], pfx, g) for d in devs}
+                _copy_tree(views[dev], views[cpu])  # the GPU's layer starts from the CPU's state
+                out = {d: stack._decode_layer(cfg, stack._layer(params[d], pfx, g), pfx, mixer, fk,
+                                              x.to(d), pos.to(d), views[d]) for d in devs}
+                compare("hidden", out[dev], out[cpu], f"decode {t} {pfx}[{g}] {mixer} output")
+                for (name, a), (_, b) in zip(_leaf_items(views[dev]), _leaf_items(views[cpu])):
+                    compare("cache", a, b, f"decode {t} {pfx}[{g}] cache {name}")
+                x = out[cpu]
+            compare("logits", *head(x[:, 0]), f"decode {t} logits")
+    differ = worst["flips"] + worst["kept_only"]
+    if differ > routelog.MAX_FLIPS * max(worst["decisions"], 1):
+        raise AssertionError(f"{differ} of {worst['decisions']} MoE routing decisions differ "
+                             f"between the devices (limit {routelog.MAX_FLIPS} of them)")
     return worst
 
 
-def model_phase(arch, n_layers_cpu, prompt, dev, serve):
+def model_phase(arch, n_layers_cpu, prompt, dev, serve, *, full=None, tol=RECURRENT_TOL,
+                with_router=True):
     """GPU vs CPU at `n_layers_cpu` layers (one period plus the tail),
-    layer by layer; then the model at full width: prefill `serve` = (B, S)
-    twice, DECODE_STEPS decode steps, and the router geotp vs fcfs. Returns
-    the measured numbers and the kernel launch counts of the full-width
-    run (counts set to 0 just before it and read just after)."""
+    layer by layer within `tol`, the weights drawn on the card and copied to
+    the CPU; then the model at full width (`full`, a cut of the registry's
+    config where it must be): prefill `serve` = (B, S) twice, DECODE_STEPS
+    decode steps, and (`with_router`) the router geotp vs fcfs over pods of
+    `full`. Returns the measured numbers and the kernel launch counts of
+    the full-width run (counts set to 0 just before it and read just after),
+    and the MoE assignments the first prefill dropped (its routing recorded;
+    the second prefill, the timed one, runs without the recorder)."""
     from repro_torch.configs import registry
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.kernels.geo_schedule import ops as geo_ops
     from repro_torch.kernels.mlstm import ops as m_ops
     from repro_torch.kernels.rglru import ops as r_ops
-    from repro_torch.models import model, stack
+    from repro_torch.models import model, routelog, stack
     from repro_torch.models.schema import param_count
 
     cpu = torch.device("cpu")
-    full = registry.get(arch)
+    full = full or registry.get(arch)
     cfg_s = dataclasses.replace(full, n_layers=n_layers_cpu)
     t0 = time.perf_counter()
-    w_cpu = draw_weights(cfg_s, torch.Generator().manual_seed(0), cpu)
-    params = {cpu: w_cpu, dev: {k: x.to(dev) for k, x in w_cpu.items()}}
+    params = {dev: draw_weights(cfg_s, torch.Generator(device=dev).manual_seed(0), dev)}
+    params[cpu] = {k: x.cpu() for k, x in params[dev].items()}
     print(f"{arch} x {n_layers_cpu} layers at full width ({param_count(stack.build_schema(cfg_s))} "
-          f"parameters): weights drawn on the CPU and copied in {time.perf_counter() - t0:.2f} s")
+          f"parameters): weights drawn on the card and copied to the CPU in "
+          f"{time.perf_counter() - t0:.2f} s")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, full.vocab, (2, prompt + 4)))
     t0 = time.perf_counter()
-    worst = layerwise(cfg_s, params, tokens, 4, prompt + 8, dev)
+    worst = layerwise(cfg_s, params, tokens, 4, prompt + 8, dev, tol)
+    flips = (f"; MoE routing decisions that differ between cuBLAS and the CPU, of "
+             f"{worst['decisions']}: {worst['flips']} expert flips at near ties, "
+             f"{worst['kept_only']} kept / dropped only (those tokens' outputs not compared)"
+             if worst["decisions"] else "")
     print(f"layer by layer, prefill 2 x {prompt} + 4 decode steps ({time.perf_counter() - t0:.2f} "
           f"s): max |gpu - cpu| hidden {worst['hidden']:.4g}, cache leaves {worst['cache']:.4g}, "
-          f"logits {worst['logits']:.4g} (limit {RECURRENT_TOL} abs + rel)")
-    del params, w_cpu
+          f"logits {worst['logits']:.4g} (limit {tol} abs + rel){flips}")
+    del params
 
     B, S = serve
     torch.cuda.empty_cache()
@@ -1303,8 +1430,10 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve):
     params = draw_weights(full, gen, dev)
     torch.cuda.synchronize()
     n_par = param_count(stack.build_schema(full))
-    print(f"{arch} at full width: {n_par} parameters drawn on the card and cast tensor by tensor "
-          f"in {time.perf_counter() - t0:.2f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    n_bytes = sum(x.numel() * x.element_size() for x in params.values())
+    print(f"{arch} at full width, {full.n_layers} layers: {n_par} parameters ({n_bytes} bytes) "
+          f"drawn on the card and cast tensor by tensor in {time.perf_counter() - t0:.2f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
     tokens = torch.randint(0, full.vocab, (B, S + DECODE_STEPS), generator=gen, device=dev,
                            dtype=torch.int32)
     cache_len = S + DECODE_STEPS
@@ -1315,13 +1444,18 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve):
         c.launches = 0
     fl_ops.reset_launches()
     m_ops.reset_launches()
-    pre_s = []
-    for _ in range(2):  # the first call warms the libraries' plans for these shapes
+    pre_s, log = [], routelog.RouteLog()
+    # the first call warms the libraries' plans for these shapes and records
+    # the routing; the second is timed
+    for record in (log, contextlib.nullcontext()):
         cache = None
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": tokens[:, :S]})
+        with record:
+            logits, cache = prefill(params, {"tokens": tokens[:, :S]})
         torch.cuda.synchronize()
         pre_s.append(time.perf_counter() - t0)
+    dropped = log.dropped()
+    del log
     per_prefill = {c.__name__: c.launches // 2 for c in counters}
     finite = bool(torch.isfinite(logits.float()).all())
     step_s = []
@@ -1337,14 +1471,17 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve):
         raise AssertionError(f"{arch}: non-finite logits on the serving path")
     per_step = {c.__name__: (c.launches - before[c.__name__]) / DECODE_STEPS for c in counters}
     dec_mean = sum(step_s) / len(step_s)
+    moe = (f"; MoE assignments dropped past the capacity {dropped} of "
+           f"{B * S * full.top_k * full.n_layers} (capacity factor {full.capacity_factor})"
+           if full.n_experts else "")
     print(f"prefill {B} x {S}: {pre_s[0] * 1e3:.2f} ms (first), {pre_s[1] * 1e3:.2f} ms (second) "
-          f"= {B * S / pre_s[1]:.1f} tokens/s; launches per prefill {per_prefill}")
+          f"= {B * S / pre_s[1]:.1f} tokens/s; launches per prefill {per_prefill}{moe}")
     print(f"decode B={B}: {dec_mean * 1e3:.3f} ms a step (mean of {DECODE_STEPS}; "
           f"{sum(step_s[1:]) / (len(step_s) - 1) * 1e3:.3f} without the first) = "
           f"{B / dec_mean:.1f} tokens/s; launches per step {per_step}; logits finite")
     del cache, logits
     res = {}
-    for pol in ("geotp", "fcfs"):
+    for pol in ("geotp", "fcfs") if with_router else ():
         before = {c.__name__: c.launches for c in counters}
         geo_ops.geo_schedule.launches = 0
         res[pol], stats, secs, admits = router(full, params, dev, pol)
@@ -1357,21 +1494,27 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve):
         if any(used[k] != n * gens for k, n in per_step.items()):
             raise AssertionError(f"router {pol}: launches {used} != {per_step} x {gens} "
                                  f"generations")
-        print(f"router {pol}: {res[pol]} in {secs:.2f} s; {gens} generations, launches {used}, "
-              f"geo_schedule {geo_ops.geo_schedule.launches}")
-    if not res["geotp"]["avg_latency_ms"] < res["fcfs"]["avg_latency_ms"]:
+        # the router's clock is simulated: its summary is the CPU's without a model
+        want = router(registry.reduced(arch), None, cpu, pol)[0]
+        if res[pol] != want:
+            raise AssertionError(f"router {pol}: {res[pol]} != the CPU's {want}")
+        print(f"router {pol}: {res[pol]} in {secs:.2f} s (equal to the CPU's); {gens} "
+              f"generations, launches {used}, geo_schedule {geo_ops.geo_schedule.launches}")
+    if res and not res["geotp"]["avg_latency_ms"] < res["fcfs"]["avg_latency_ms"]:
         raise AssertionError(f"{arch}: geotp avg latency not below fcfs: {res}")
     launches = {c.__name__: c.launches for c in counters}
     if fl_ops.mha.launches_by_dtype["bfloat16"] != fl_ops.mha.launches:
         raise AssertionError(f"{arch}: flash launches by dtype {fl_ops.mha.launches_by_dtype}: "
                              f"every one must be bf16 (the tensor-core kernel)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"flash launches by dtype {fl_ops.mha.launches_by_dtype}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{peak:.2f} GiB")
     del params
     torch.cuda.empty_cache()
     return {"per_prefill": per_prefill, "per_step": per_step, "launches": launches,
             "mlstm_by_dtype": dict(m_ops.mlstm.launches_by_dtype),
-            "prefill_s": pre_s[1], "step_s": dec_mean, "worst": worst}
+            "prefill_s": pre_s[1], "step_s": dec_mean, "worst": worst, "dropped": dropped,
+            "router": res, "peak_gib": peak}
 
 
 def recurrent_phases(dev, records):
@@ -1521,6 +1664,177 @@ def recurrent_phases(dev, records):
     return records
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the MoE and MLA families (mixtral-8x7b, llama4-scout, minicpm3-4b)
+# ---------------------------------------------------------------------------
+
+MIXTRAL_ARCH, LLAMA4_ARCH, MINICPM_ARCH = "mixtral-8x7b", "llama4-scout-17b-a16e", "minicpm3-4b"
+# depth cuts: the full models do not fit one card (mixtral's experts alone are
+# ~45 B parameters, ~90 GB in bf16; llama4's ~218 GB)
+MIXTRAL_LAYERS = 16  # of 32: ~2.86 GB a layer in bf16, ~46 GB of weights
+LLAMA4_LAYERS = 12  # of 48: three whole periods (3 cla + 1 NoPE gqa), ~54 GB
+MIXTRAL_B, MIXTRAL_S = 4, 4608  # past the 4096 window: the ring wraps, the band skip runs
+LLAMA4_B, LLAMA4_S = 2, 10240  # past the 8192 chunk: chunk-local masking bites
+MINICPM_B, MINICPM_S = 8, 2048
+MINICPM_MAX_SEQ = 4096  # cut from 32768 for the pods' caches, as llama's
+MOE_CPU_PROMPT = 128  # the GPU-vs-CPU period's prompt (2 x 128, then 4 decode steps)
+MLA_SOFTCAPS = (0.0, 50.0)
+
+
+def mla_flash_phase(dev) -> tuple:
+    """Phase 13: flash with V heads narrower than its Q/K heads against the
+    plain version: MLA_FLASH_CASES in both dtypes with and without a cap
+    (bf16 per row and bit for bit), minicpm3-4b's prefill launch in float32
+    at TOL and bf16 per row; times there. Returns (max |d|, the timing)."""
+    from repro_torch.configs import registry
+
+    phase("13 flash_attention with V heads narrower than Q/K (MLA) vs plain version")
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(MLA_FLASH_CASES):
+            for cap in MLA_SOFTCAPS:
+                rows = ""
+                if dt == torch.bfloat16:
+                    e, r = check_tight("flash", case, dev, seed=i, logit_cap=cap)
+                    rows = f", worst row ||d||/||ref|| {r:.3g}; two calls equal"
+                else:
+                    e = check_flash(case, dt, dev, seed=i, logit_cap=cap)
+                err = max(err, e)
+                print(f"flash  {str(case):50s} {str(dt)[6:]:8s} cap {cap:g} max |d| {e:.3g}{rows}")
+    mini = registry.get(MINICPM_ARCH)
+    f_mla, _ = launch_shapes(mini, MINICPM_B, MINICPM_S, MINICPM_S + DECODE_STEPS)
+    e32 = check_flash(f_mla, torch.float32, dev)
+    e16, r16 = check_tight("flash", f_mla, dev)
+    err = max(err, e32, e16)
+    print(f"{MINICPM_ARCH} prefill shape {f_mla}: float32 max |d| {e32:.3g} (tol "
+          f"{TOL['float32']}), bf16 max |d| {e16:.3g}, worst row ||d||/||ref|| {r16:.3g} (limit "
+          f"{ROW_RTOL}); two calls equal")
+    k_ms, p_ms, lib_ms = time_flash(f_mla, dev)
+    work = flash_work(f_mla, 2)
+    b_ms, b_by = bound(*work, BF16_TENSOR_OPS_PER_S)
+    print(f"flash {f_mla} bf16 (dh {f_mla[4]}, dv {f_mla[8]}): kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, SDPA on the same tensors {lib_ms:.4f} ms; {work[0]} bytes, "
+          f"{work[1]:.4g} flops, bound {b_ms:.4g} ms ({b_by}); {work[1] / k_ms / 1e9:.2f} TFLOP/s")
+    return err, {"case": f_mla, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                 "bound_ms": b_ms, "bound_by": b_by}
+
+
+def want_launches(cfg) -> tuple:
+    """(per prefill, per decode step) launches of flash and decode that the
+    layer pattern implies: one flash a gqa / swa / cla / mla layer, one
+    decode a gqa / swa / cla layer (MLA's decode is plain products)."""
+    mixers = [m for m, _ in cfg.pattern] * cfg.n_groups + [m for m, _ in cfg.tail]
+    attn = sum(m in ("gqa", "swa", "cla") for m in mixers)
+    none = {"mlstm": 0, "rglru": 0, "rglru_scan": 0}
+    return ({"mha": attn + mixers.count("mla"), "decode": 0, **none},
+            {"mha": 0, "decode": attn, **none})
+
+
+def first_decode_valid(mixer, S, Sc) -> int:
+    """Valid slots of a decode launch at position S over an Sc-slot cache:
+    the slots <= S of a linear cache or a swa ring, those of S's chunk in
+    a cla ring (`attention.gqa_decode`'s mask)."""
+    return (S % Sc if mixer == "cla" else min(S, Sc - 1)) + 1
+
+
+def path_shape_checks(full, serve, dev, with_router) -> tuple:
+    """The attention kernels against their plain versions at the shapes the
+    full-width run gives them, for each gqa / swa / cla mixer of the pattern
+    (MLA's prefill launch is phase 13's; its decode is plain products):
+    flash at the prefill, decode over the cache at the first decode step
+    (its valid slots: a full swa ring past the window, a cla ring's
+    current chunk, a linear cache up to the position) and over random
+    positions; with the router, its B = 1 decode over ROUTER_CACHE slots
+    (slot 0 valid). float32 at TOL (there kernel and plain version differ
+    only by summation order), bf16 at TOL, per query row and bit for bit
+    over two calls. Returns max |d| of (flash, decode)."""
+    B, S = serve
+    cases = []
+    for mixer in dict.fromkeys(m for m, _ in full.pattern):
+        if mixer not in ("gqa", "swa", "cla"):  # MLA's prefill launch: phase 13
+            continue
+        f, d = launch_shapes(full, B, S, S + DECODE_STEPS, mixer=mixer)
+        cases += [("flash", f, None, mixer),
+                  ("decode", d, first_decode_valid(mixer, S, d[1]), mixer),
+                  ("decode", d, None, mixer)]
+        if with_router:
+            cases.append(("decode", launch_shapes(full, 1, 1, ROUTER_CACHE, mixer=mixer)[1], 1,
+                          f"{mixer}, router"))
+    err = {"flash": 0.0, "decode": 0.0}
+    for kind, case, slots, label in cases:
+        if kind == "flash":
+            e32 = check_flash(case, torch.float32, dev)
+        else:
+            e32 = check_decode(case, torch.float32, dev, valid_slots=slots)
+        e16, r16 = check_tight(kind, case, dev, valid_slots=slots)
+        err[kind] = max(err[kind], e32, e16)
+        valid = "" if kind == "flash" else f", {slots or 'random'} valid slots"
+        print(f"path shape {kind:6s} {str(case):44s} ({label}{valid}): float32 max |d| {e32:.3g} "
+              f"(tol {TOL['float32']}), bf16 max |d| {e16:.3g}, worst row ||d||/||ref|| "
+              f"{r16:.3g} (limit {ROW_RTOL}); two calls equal")
+    return err["flash"], err["decode"]
+
+
+def serve_phase(num, arch, full, serve, dev, with_router=True, cut=None):
+    """Phases 14-16: the attention kernels at the path's shapes, GPU vs CPU
+    over one period at full width, then `full` at (B, S) = `serve`, then
+    (`with_router`) the router. Checks the launches against the layer
+    pattern's. Returns model_phase's record with the shape checks' max |d|
+    under "err"."""
+    phase(f"{num} {arch}: attention at the path's shapes, GPU vs CPU over one period at full "
+          f"width, then {full.n_layers} layers")
+    for line in cut or ():
+        print(f"CUT: {line}")
+    err = path_shape_checks(full, serve, dev, with_router)
+    res = model_phase(arch, full.period + len(full.tail), MOE_CPU_PROMPT, dev, serve, full=full,
+                      tol=LOGIT_TOL, with_router=with_router)
+    pre, step = want_launches(full)
+    if (any(res["per_prefill"][k] != v for k, v in pre.items())
+            or any(res["per_step"][k] != v for k, v in step.items())):
+        raise AssertionError(f"{arch}: launches per prefill {res['per_prefill']} (want {pre}), "
+                             f"per decode step {res['per_step']} (want {step})")
+    B, S = serve
+    print(f"{arch}: prefill {B} x {S} {res['prefill_s'] * 1e3:.2f} ms = "
+          f"{B * S / res['prefill_s']:.1f} tokens/s, decode {res['step_s'] * 1e3:.3f} ms a step; "
+          f"flash {pre['mha']} a prefill, decode {step['decode']} a step (the pattern's); peak "
+          f"device memory {res['peak_gib']:.2f} GiB")
+    return dict(res, err=err)
+
+
+def moe_mla_phases(dev, records):
+    """Phases 13-16. Folds the MLA flash checks and the new paths' flash
+    and decode launches into the attention kernels' records."""
+    from repro_torch.configs import registry
+
+    err_f, mla_t = mla_flash_phase(dev)
+    runs = {}
+    reg = registry.get(MIXTRAL_ARCH)
+    mx = dataclasses.replace(reg, n_layers=MIXTRAL_LAYERS)
+    runs[MIXTRAL_ARCH] = serve_phase(14, MIXTRAL_ARCH, mx, (MIXTRAL_B, MIXTRAL_S), dev, cut=[
+        f"n_layers {mx.n_layers} (registry: {reg.n_layers}): {reg.n_layers} layers of 8 experts "
+        f"are ~90 GB of bf16 weights; the router's pods hold {mx.n_layers} layers too"])
+    reg = registry.get(LLAMA4_ARCH)
+    l4 = dataclasses.replace(reg, n_layers=LLAMA4_LAYERS)
+    runs[LLAMA4_ARCH] = serve_phase(15, LLAMA4_ARCH, l4, (LLAMA4_B, LLAMA4_S), dev,
+                                    with_router=False, cut=[
+        f"n_layers {l4.n_layers} (registry: {reg.n_layers}), three whole periods: "
+        f"{reg.n_layers} layers of 16 experts are ~218 GB of bf16 weights; no router phase "
+        f"(its pods' linear NoPE caches would not fit beside the weights)"])
+    reg = registry.get(MINICPM_ARCH)
+    mini = dataclasses.replace(reg, max_seq=MINICPM_MAX_SEQ)
+    runs[MINICPM_ARCH] = serve_phase(16, MINICPM_ARCH, mini, (MINICPM_B, MINICPM_S), dev, cut=[
+        f"max_seq {mini.max_seq} (registry: {reg.max_seq}) for the router's pods' caches, as "
+        f"llama's"])
+    by_name = {r["name"]: r for r in records}
+    fl, dec = by_name["flash_attention"], by_name["decode_attention"]
+    fl["max_abs_err"] = max(fl["max_abs_err"], err_f, *(r["err"][0] for r in runs.values()))
+    dec["max_abs_err"] = max(dec["max_abs_err"], *(r["err"][1] for r in runs.values()))
+    for res in runs.values():
+        fl["launches"] += res["launches"]["mha"]
+        dec["launches"] += res["launches"]["decode"]
+    return records, runs, mla_t
+
+
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 KERNEL_NAMES = ("geo_schedule", "decode_attention", "flash_attention", "mlstm_chunk",
@@ -1660,6 +1974,7 @@ def main() -> int:
     geo_dev_ms = profile_replays(grid, dev)
 
     lm_records = recurrent_phases(dev, serving_phases(dev, builds))
+    lm_records = moe_mla_phases(dev, lm_records)[0]
 
     print(kernels_line([{
         "name": "geo_schedule",

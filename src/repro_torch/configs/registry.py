@@ -205,6 +205,7 @@ LLAMA4_SCOUT = register(
             ("gqa", "moe"),
         ),
         window=8192,
+        irope=True,
         n_experts=16,
         top_k=1,
         rope_theta=500_000.0,

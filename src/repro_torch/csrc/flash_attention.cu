@@ -9,8 +9,11 @@
 //                  . v[b, h / G]
 //   cap(s) = tanh(s / c) * c with the logit cap c > 0 (recurrentgemma's 50), else s
 //   mask = (j <= i if causal) & (j // w == i // w if chunk_local, else j > i - w, if w > 0)
-// q [B,H,S,dh], k/v [B,KV,S,dh] (float32 or bfloat16, all one type) ->
-// out [B,H,S,dh] in q's type.
+// q [B,H,S,dh], k [B,KV,S,dh], v [B,KV,S,dv] with dv <= dh (float32 or
+// bfloat16, all one type) -> out [B,H,S,dv] in q's type. dv < dh is MLA's
+// prefill (minicpm3-4b: dh 96 = nope 64 + rope 32, dv 64): V's tile, the
+// P·V product's N and the output's columns follow dv, so V is read as it is
+// (padding it to dh in device memory would read 50% more V at that shape).
 //
 // Bound: 4·dh flops per unmasked (query, key) pair against 2·dh·(2H + 2KV)
 // bytes a position, so at the serving path's prefill (B = 8, H = 24, KV = 8,
@@ -43,7 +46,9 @@
 // - Two blocks an SM at head dims up to 128 without the cap (128 registers
 //   a thread, no spill): while one block's warpgroups run their softmax the
 //   other's products keep the tensor cores busy. Capped and dh-256
-//   variants take one.
+//   variants take one. A variant for dv < dh (NARROW) holds dv in a
+//   register of its own; the others use dh for it (dv == dh), so the
+//   variants without MLA compile as they did before dv existed.
 // - S = Q·Kᵀ is dh/16 wgmma.m64n64k16 (A and B from shared memory) into 32
 //   float32 registers a thread. The online softmax runs on those fragments:
 //   a thread holds two rows' 16 values each, and the four threads sharing a
@@ -57,9 +62,11 @@
 //   tiles a block needs; a warpgroup skips a tile its 64 rows do not need,
 //   and only a tile that crosses the causal diagonal, a window or chunk edge
 //   or S evaluates the per-element mask. Heaviest causal blocks first.
-// - Head dims are padded to 64, 128 or 256 columns in shared memory only;
-//   output is written for d < dh. At dh 256 the block uses 193 KB of
-//   shared memory (Q 64 KB, two K+V stages of 64 KB).
+// - Head dims are padded to 64, 128 or 256 columns in shared memory only
+//   (DP for Q and K, DPV for V, DPV <= DP); output is written for d < dv.
+//   At dh = dv = 256 the block uses 193 KB of shared memory (Q 64 KB, two
+//   K+V stages of 64 KB); at MLA's dh 96 / dv 64, 81 KB (Q 32 KB, K 16 KB
+//   and V 8 KB a stage), and O is 32 registers a thread instead of 64.
 // - Numerics: scores, softmax state and O are float32. P enters P·V as
 //   hi + lo (hi = bf16(p), lo = bf16(p - hi)): about 16 bits of P, close to
 //   the TPU kernel's and the plain version's float32 P. P rounded to one
@@ -130,17 +137,18 @@ __device__ __forceinline__ bool tile_needed(int q0, int bq, int k0, int bk, int 
 }
 
 template <typename T, int BQ>
-size_t smem_bytes(int dh) {
+size_t smem_bytes(int dh, int dv) {
   const int ts = tile_stride<T>(dh);
-  return sizeof(T) * ((size_t)BQ * ts + (size_t)kBK * ts + (size_t)kBK * dh) +
+  return sizeof(T) * ((size_t)BQ * ts + (size_t)kBK * ts + (size_t)kBK * dv) +
          sizeof(float) * (size_t)BQ * (kBK + 1);
 }
 
-template <typename T, int BQ, int DMAX, bool CAP>
+template <typename T, int BQ, int DMAX, bool CAP, bool NARROW>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int H, int KV, int S, int dh, float scale, float cap,
-             int causal, int window, int chunk_local) {
+             T* __restrict__ out, int H, int KV, int S, int dh, int dv_arg, float scale,
+             float cap, int causal, int window, int chunk_local) {
+  const int dv = NARROW ? dv_arg : dh;  // one live register fewer where dv == dh
   constexpr int RQ = BQ / 16;   // query rows per thread
   constexpr int ND = DMAX / 8;  // output columns per thread
   const int nq = (S + BQ - 1) / BQ;
@@ -154,13 +162,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);  // [BQ][ts]
   T* k_s = q_s + BQ * ts;                   // [64][ts]
-  T* v_s = k_s + kBK * ts;                  // [64][dh]
-  float* p_s = reinterpret_cast<float*>(v_s + kBK * dh);  // [BQ][65]
+  T* v_s = k_s + kBK * ts;                  // [64][dv]
+  float* p_s = reinterpret_cast<float*>(v_s + kBK * dv);  // [BQ][65]
 
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   const T* qb = q + (size_t)bh * S * dh;
   const T* kb = k + (size_t)(b * KV + kvh) * S * dh;
-  const T* vb = v + (size_t)(b * KV + kvh) * S * dh;
+  const T* vb = v + (size_t)(b * KV + kvh) * S * dv;
 
   for (int i = tid; i < BQ * dh; i += kThreads) {
     const int r = i / dh, d = i - r * dh;
@@ -181,9 +189,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     __syncthreads();  // the previous block's readers are done with k_s, v_s, p_s
     for (int i = tid; i < kBK * dh; i += kThreads) {
       const int r = i / dh, d = i - r * dh;
-      const bool in = k0 + r < S;
-      k_s[r * ts + d] = in ? kb[(size_t)(k0 + r) * dh + d] : T(0.0f);
-      v_s[r * dh + d] = in ? vb[(size_t)(k0 + r) * dh + d] : T(0.0f);
+      k_s[r * ts + d] = k0 + r < S ? kb[(size_t)(k0 + r) * dh + d] : T(0.0f);
+    }
+    for (int i = tid; i < kBK * dv; i += kThreads) {
+      const int r = i / dv, d = i - r * dv;
+      v_s[r * dv + d] = k0 + r < S ? vb[(size_t)(k0 + r) * dv + d] : T(0.0f);
     }
     __syncthreads();
 
@@ -192,7 +202,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
+    // NARROW (dv < dh, float32 checks only) holds dv as well: a shorter
+    // unroll keeps it in registers
+#pragma unroll(NARROW ? 2 : 4)
     for (int d = 0; d < dh; ++d) {
       float kx[8];
 #pragma unroll
@@ -258,7 +270,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int j = 0; j < ND; ++j) {
         const int d = tx + 8 * j;
-        vx[j] = d < dh ? to_f32(v_s[kk * dh + d]) : 0.0f;
+        vx[j] = d < dv ? to_f32(v_s[kk * dv + d]) : 0.0f;
       }
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
@@ -274,44 +286,47 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int qp = q0 + ty * RQ + i;
     if (qp >= S) continue;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
-    T* orow = out + ((size_t)bh * S + qp) * dh;
+    T* orow = out + ((size_t)bh * S + qp) * dv;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
       const int d = tx + 8 * j;
-      if (d < dh) store(orow + d, acc[i][j] * inv);
+      if (d < dv) store(orow + d, acc[i][j] * inv);
     }
   }
 }
 
 template <typename T, int BQ, int DMAX>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV, int S,
-           int dh, float scale, float cap, int causal, int window, int chunk_local,
+           int dh, int dv, float scale, float cap, int causal, int window, int chunk_local,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, BQ>(dh);
-  auto kern = cap > 0.0f ? flash_kernel<T, BQ, DMAX, true> : flash_kernel<T, BQ, DMAX, false>;
+  const size_t smem = smem_bytes<T, BQ>(dh, dv);
+  auto kern = dv == dh ? (cap > 0.0f ? flash_kernel<T, BQ, DMAX, true, false>
+                                     : flash_kernel<T, BQ, DMAX, false, false>)
+                       : (cap > 0.0f ? flash_kernel<T, BQ, DMAX, true, true>
+                                     : flash_kernel<T, BQ, DMAX, false, true>);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)B * H * ((S + BQ - 1) / BQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kern<<<(unsigned)blocks, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                     (T*)out, H, KV, S, dh, scale, cap,
+                                                     (T*)out, H, KV, S, dh, dv, scale, cap,
                                                      causal, window, chunk_local);
   return (int)cudaGetLastError();
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-               int S, int dh, float scale, float cap, int causal, int window, int chunk_local,
-               cudaStream_t st) {
+               int S, int dh, int dv, float scale, float cap, int causal, int window,
+               int chunk_local, cudaStream_t st) {
   if (dh <= 64)
-    return launch<float, 64, 64>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+    return launch<float, 64, 64>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
                                  chunk_local, st);
   if (dh <= 128)
-    return launch<float, 64, 128>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
-                                  chunk_local, st);
+    return launch<float, 64, 128>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
+                                  window, chunk_local, st);
   if (dh <= 256)
-    return launch<float, 32, 256>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
-                                  chunk_local, st);
+    return launch<float, 32, 256>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
+                                  window, chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -323,27 +338,33 @@ constexpr int kWgBQ = 128;     // queries a block: two warpgroups of 64 rows
 constexpr int kWgBK = 64;      // keys a tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DP>
+template <int DP, int DPV>
 constexpr size_t wg_smem_bytes() {
   // Q, then two stages of K and V; 1 KB to align the base to 1024 bytes
-  return (size_t)DP * 2 * (kWgBQ + 2 * 2 * kWgBK) + 1024;
+  return (size_t)2 * (DP * kWgBQ + 2 * kWgBK * (DP + DPV)) + 1024;
 }
 
-// two blocks an SM where the registers allow it (note at the top)
-template <int DP, bool CAP>
+// two blocks an SM where the registers allow it (note at the top); a
+// NARROW variant (dv < dh) with as many V panels as Q/K panels holds dv in
+// one more register than 128 leave, so it takes one
+template <int DP, int DPV, bool NARROW, bool CAP>
 constexpr int wg_min_blocks() {
-  return DP <= 128 && !CAP ? 2 : 1;
+  return DP <= 128 && !CAP && !(NARROW && DPV == DP) ? 2 : 1;
 }
 
-template <int DP, bool CAP>
-__global__ void __launch_bounds__(kWgThreads, (wg_min_blocks<DP, CAP>()))
+template <int DP, int DPV, bool NARROW, bool CAP>
+__global__ void __launch_bounds__(kWgThreads, (wg_min_blocks<DP, DPV, NARROW, CAP>()))
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out, int H, int KV, int S,
-                   int dh, float scale, float cap, int causal, int window, int chunk_local,
-                   int aligned) {
-  constexpr int NP = DP / 64;                    // 64-column panels
+                   int dh, int dv_arg, float scale, float cap, int causal, int window,
+                   int chunk_local, int aligned) {
+  const int dv = NARROW ? dv_arg : dh;  // not NARROW: dv == dh, no register of its own
+  constexpr int NP = DP / 64;                    // 64-column panels of Q and K
+  constexpr int NPV = DPV / 64;                  // of V and O
   constexpr int Q_BYTES = NP * kWgBQ * 128;
-  constexpr int T_BYTES = NP * kWgBK * 128;      // one K or V tile
+  constexpr int T_BYTES = NP * kWgBK * 128;      // one K tile
+  constexpr int V_BYTES = NPV * kWgBK * 128;     // one V tile
+  constexpr int STAGE = T_BYTES + V_BYTES;
   constexpr uint32_t PANEL_Q = kWgBQ * 128, PANEL_KV = kWgBK * 128;
   const int nq = (S + kWgBQ - 1) / kWgBQ;
   const int bh = blockIdx.x / nq;
@@ -357,11 +378,11 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* q_s = base;
-  unsigned char* kv_s = base + Q_BYTES;  // stage st: K at kv_s + 2 st T_BYTES, V after it
+  unsigned char* kv_s = base + Q_BYTES;  // stage st: K at kv_s + st STAGE, V after it
 
   const bf16* qb = q + (size_t)bh * S * dh;
   const bf16* kb = k + (size_t)(b * KV + kvh) * S * dh;
-  const bf16* vb = v + (size_t)(b * KV + kvh) * S * dh;
+  const bf16* vb = v + (size_t)(b * KV + kvh) * S * dv;
 
   // the key tiles the block needs: a contiguous range for these masks
   const int nk = (S + kWgBK - 1) / kWgBK;
@@ -377,13 +398,13 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<kWgBQ, DP>(q_s, qb, q0, S, dh, al, tid);
   if (t_lo < t_hi) {
     load_tile<kWgBK, DP>(kv_s, kb, t_lo * kWgBK, S, dh, al, tid);
-    load_tile<kWgBK, DP>(kv_s + T_BYTES, vb, t_lo * kWgBK, S, dh, al, tid);
+    load_tile<kWgBK, DPV>(kv_s + T_BYTES, vb, t_lo * kWgBK, S, dv, al, tid);
   }
   cp_async_commit();
 
-  float o[NP][32];
+  float o[NPV][32];
 #pragma unroll
-  for (int p = 0; p < NP; ++p)
+  for (int p = 0; p < NPV; ++p)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[p][i] = 0.0f;
   // a thread holds rows ra and ra + 8 of its warpgroup's 64
@@ -394,9 +415,9 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = t_lo; j < t_hi; ++j) {
     const int st = (j - t_lo) & 1;
     if (j + 1 < t_hi) {  // the next tile into the other stage
-      unsigned char* nxt = kv_s + 2 * (st ^ 1) * T_BYTES;
+      unsigned char* nxt = kv_s + (st ^ 1) * STAGE;
       load_tile<kWgBK, DP>(nxt, kb, (j + 1) * kWgBK, S, dh, al, tid);
-      load_tile<kWgBK, DP>(nxt + T_BYTES, vb, (j + 1) * kWgBK, S, dh, al, tid);
+      load_tile<kWgBK, DPV>(nxt + T_BYTES, vb, (j + 1) * kWgBK, S, dv, al, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // all but the newest group: Q and tile j have landed
@@ -405,7 +426,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     const int k0 = j * kWgBK;
     if (qw < S && tile_needed(qw, 64, k0, kWgBK, causal, window, chunk_local)) {
-      const uint32_t k_addr = smem_u32(kv_s + 2 * st * T_BYTES);
+      const uint32_t k_addr = smem_u32(kv_s + st * STAGE);
       const uint32_t v_addr = k_addr + T_BYTES;
       float s[32];
 #pragma unroll
@@ -478,7 +499,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l0 = l0 * alpha0 + sum0;  // a partial over this thread's columns
       l1 = l1 * alpha1 + sum1;
 #pragma unroll
-      for (int p = 0; p < NP; ++p) {
+      for (int p = 0; p < NPV; ++p) {
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           o[p][4 * jj] *= alpha0;
@@ -499,10 +520,10 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // MN-major V: LBO = one 64-column panel (kWgBK rows of 128 bytes)
       const uint32_t vd = desc_lo(v_addr, PANEL_KV);
 #pragma unroll
-      for (int p = 0; p < NP; ++p) fence_regs(o[p]);
+      for (int p = 0; p < NPV; ++p) fence_regs(o[p]);
       wg_fence();
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
+      for (int p = 0; p < NPV; ++p)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const uint32_t vk = vd + ((p * PANEL_KV + kk * 16 * 128) >> 4);
@@ -512,7 +533,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wg_commit();
       wg_wait0();
 #pragma unroll
-      for (int p = 0; p < NP; ++p) fence_regs(o[p]);
+      for (int p = 0; p < NPV; ++p) fence_regs(o[p]);
     }
     __syncthreads();  // every reader is done with stage st before it is refilled
   }
@@ -529,53 +550,79 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qp = qw + ra + 8 * half;
     if (qp >= S) continue;
     const float inv = half ? inv1 : inv0;
-    bf16* orow = out + ((size_t)bh * S + qp) * dh;
+    bf16* orow = out + ((size_t)bh * S + qp) * dv;
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
+    for (int p = 0; p < NPV; ++p) {
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const int d = 64 * p + 8 * jj + cq;
         const float x0 = o[p][4 * jj + 2 * half] * inv, x1 = o[p][4 * jj + 2 * half + 1] * inv;
-        if (d + 1 < dh && (dh & 1) == 0) {
+        if (d + 1 < dv && (dv & 1) == 0) {
           *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(x0, x1);
         } else {
-          if (d < dh) orow[d] = __float2bfloat16_rn(x0);
-          if (d + 1 < dh) orow[d + 1] = __float2bfloat16_rn(x1);
+          if (d < dv) orow[d] = __float2bfloat16_rn(x0);
+          if (d + 1 < dv) orow[d + 1] = __float2bfloat16_rn(x1);
         }
       }
     }
   }
 }
 
-template <int DP>
+template <int DP, int DPV, bool NARROW>
 int launch_wg(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-              int S, int dh, float scale, float cap, int causal, int window, int chunk_local,
-              cudaStream_t stream) {
-  constexpr size_t smem = wg_smem_bytes<DP>();
-  auto kern = cap > 0.0f ? flash_wgmma_kernel<DP, true> : flash_wgmma_kernel<DP, false>;
+              int S, int dh, int dv, float scale, float cap, int causal, int window,
+              int chunk_local, cudaStream_t stream) {
+  constexpr size_t smem = wg_smem_bytes<DP, DPV>();
+  auto kern = cap > 0.0f ? flash_wgmma_kernel<DP, DPV, NARROW, true>
+                         : flash_wgmma_kernel<DP, DPV, NARROW, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)B * H * ((S + kWgBQ - 1) / kWgBQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const int aligned = dh % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  const int aligned = dh % 8 == 0 && dv % 8 == 0 &&
+                      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   kern<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, KV, S, dh, scale, cap,
-      causal, window, chunk_local, aligned);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, KV, S, dh, dv, scale,
+      cap, causal, window, chunk_local, aligned);
   return (int)cudaGetLastError();
 }
 
+// V's panels by dv, at most Q/K's DP; dv == dh takes the variant without dv
+template <int DP>
+int launch_dp(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
+              int S, int dh, int dv, float scale, float cap, int causal, int window,
+              int chunk_local, cudaStream_t st) {
+  if (dv == dh)
+    return launch_wg<DP, DP, false>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
+                                    window, chunk_local, st);
+  if (dv <= 64)
+    return launch_wg<DP, 64, true>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
+                                   window, chunk_local, st);
+  if constexpr (DP >= 128) {
+    if (dv <= 128)
+      return launch_wg<DP, 128, true>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
+                                      window, chunk_local, st);
+  }
+  if constexpr (DP >= 256) {
+    if (dv <= 256)
+      return launch_wg<DP, 256, true>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
+                                      window, chunk_local, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-                int S, int dh, float scale, float cap, int causal, int window, int chunk_local,
-                cudaStream_t st) {
+                int S, int dh, int dv, float scale, float cap, int causal, int window,
+                int chunk_local, cudaStream_t st) {
   if (dh <= 64)
-    return launch_wg<64>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+    return launch_dp<64>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
                          chunk_local, st);
   if (dh <= 128)
-    return launch_wg<128>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+    return launch_dp<128>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
                           chunk_local, st);
   if (dh <= 256)
-    return launch_wg<256>(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window,
+    return launch_dp<256>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
                           chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -583,19 +630,20 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); cap <= 0:
-// no logit cap. Shapes are checked by the Python wrapper.
+// no logit cap; dv: V's head dim, 0 < dv <= dh. Shapes are checked by the
+// Python wrapper.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int H, int KV, int S, int dh, float scale,
+                                      int B, int H, int KV, int S, int dh, int dv, float scale,
                                       float cap, int causal, int window, int chunk_local,
                                       int dtype, void* stream) {
   if (B == 0 || H == 0 || S == 0) return (int)cudaGetLastError();
-  if (KV <= 0 || H % KV != 0 || dh <= 0) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || dh <= 0 || dv <= 0 || dv > dh) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_f32(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window, chunk_local,
-                      st);
+    return launch_f32(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
+                      chunk_local, st);
   if (dtype == 1)
-    return launch_bf16(q, k, v, out, B, H, KV, S, dh, scale, cap, causal, window, chunk_local,
-                       st);
+    return launch_bf16(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
+                       chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }

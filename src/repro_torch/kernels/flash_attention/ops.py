@@ -1,6 +1,8 @@
 """The flash-attention wrapper: layout, checks, allocation, launch, count.
 
-Takes the model's [B,S,H,dh] layout and hands the kernel [B,H,S,dh]. On
+Takes the model's [B,S,H,dh] layout and hands the kernel [B,H,S,dh]. V's
+head dim dv may be narrower than the Q/K head dim dh (MLA: 64 vs 96); the
+output then has dv columns, and the scale stays dh^-0.5. On
 CUDA tensors it launches the hand-written kernel; on CPU tensors it
 computes the plain version (`ref.py`). It never catches an error to fall
 back. `mha.launches` counts kernel launches (plain calls do not count), and
@@ -24,14 +26,15 @@ MAX_HEAD_DIM = 256
 
 
 def _check(q, k, v) -> None:
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"mha: q must be [B,S,H,dh] and k/v [B,S,KV,dh], got "
-                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"mha: q must be [B,S,H,dh], k [B,S,KV,dh] and v [B,S,KV,dv], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)} and {tuple(v.shape)}")
     B, S, H, dh = q.shape
-    KV = k.shape[2]
-    if k.shape != (B, S, KV, dh) or v.shape != k.shape:
-        raise ValueError(f"mha: k/v must be [B,S,KV,dh] = {(B, S, KV, dh)} (the kernel "
-                         f"needs q_len == kv_len), got {tuple(k.shape)} and {tuple(v.shape)}")
+    KV, dv = k.shape[2], v.shape[3]
+    if k.shape != (B, S, KV, dh) or v.shape[:3] != (B, S, KV) or not 0 < dv <= dh:
+        raise ValueError(f"mha: k must be [B,S,KV,dh] = {(B, S, KV, dh)} and v [B,S,KV,dv] "
+                         f"with 0 < dv <= dh (the kernel needs q_len == kv_len), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
     if KV == 0 or H % KV:
         raise ValueError(f"mha: H = {H} must be a multiple of KV = {KV}")
     if not 0 < dh <= MAX_HEAD_DIM:
@@ -46,7 +49,7 @@ def _check(q, k, v) -> None:
 
 def mha(q, k, v, *, causal: bool = True, window: int = 0, chunk_local: bool = False,
         logit_cap: float = 0.0):
-    """q: [B,S,H,dh]; k/v: [B,S,KV,dh] -> [B,S,H,dh] in q's dtype."""
+    """q: [B,S,H,dh], k: [B,S,KV,dh], v: [B,S,KV,dv] -> [B,S,H,dv] in q's dtype."""
     _check(q, k, v)
     if window < 0 or logit_cap < 0:
         raise ValueError(f"mha: window and logit_cap must be >= 0, got {window}, {logit_cap}")
@@ -59,7 +62,7 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0, chunk_local: bool = Fa
         out = attention_ref(qt, kt, vt, causal=causal, window=window, chunk_local=chunk_local,
                             logit_cap=logit_cap)
     else:
-        out = torch.empty_like(qt)
+        out = qt.new_empty(qt.shape[:3] + (v.shape[-1],))
         _cuda.launch(qt, kt, vt, out, q.shape[-1] ** -0.5, causal, window, chunk_local,
                      logit_cap)
         mha.launches += 1

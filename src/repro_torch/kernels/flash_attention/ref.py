@@ -9,8 +9,9 @@ import torch
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, chunk_local=False, logit_cap=0.0):
-    """q: [B,H,S,dh], k/v: [B,KV,S,dh] -> [B,H,S,dh] (float32 math). `logit_cap`
-    > 0 caps the scaled scores before the mask (`repro.models.layers.softcap`)."""
+    """q: [B,H,S,dh], k: [B,KV,S,dh], v: [B,KV,S,dv] (dv <= dh) -> [B,H,S,dv]
+    (float32 math; the scale is dh^-0.5). `logit_cap` > 0 caps the scaled
+    scores before the mask (`repro.models.layers.softcap`)."""
     B, H, S, dh = q.shape
     G = H // k.shape[1]
     qf = q.float()

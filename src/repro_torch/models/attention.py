@@ -1,6 +1,6 @@
-"""Attention mixers of the dense GQA family: full, sliding-window (swa) and
-chunked-local (cla), for prefill and for decode over a KV cache (port of
-`repro.models.attention`).
+"""Attention mixers: the dense GQA family — full, sliding-window (swa) and
+chunked-local (cla) — and MLA, for prefill and for decode over a KV cache
+(port of `repro.models.attention`).
 
 The two contract functions of the reference — `chunked_attention` (prefill)
 and `decode_attention` (decode) — run the hand-written CUDA kernels on the
@@ -8,11 +8,16 @@ card (`kernels.flash_attention.ops.mha`, `kernels.decode_attention.ops.decode`)
 and their plain versions on CPU tensors. Decode caches:
   * full attention  — linear cache [B, S, kv, hd]
   * swa / cla       — ring-buffer cache [B, window, kv, hd]  (bounded state)
+  * mla             — compressed latent cache c_kv [B, S, kv_lora] and
+                      k_rope [B, S, rope_dim] (linear)
 
 Both kernels cap the scaled scores at `tanh(s / cap) * cap` before the
 mask when `logit_cap > 0` (recurrentgemma's `attn_softcap`), as the
-reference does. The int8-quantized cache, MLA and cross-attention raise
-(ROADMAP.md §A item A9).
+reference does. MLA's prefill goes through the flash kernel with V heads
+narrower than its Q/K heads (64 vs 96 at minicpm3-4b); its absorbed decode
+is plain products, as in the reference. A model with `cfg.irope` (llama4)
+takes no RoPE on its global `gqa` layers. The int8-quantized cache and
+cross-attention raise (ROADMAP.md §A item A9).
 """
 
 from __future__ import annotations
@@ -21,12 +26,12 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.unported import not_ported
 
 
 def chunked_attention(q, k, v, *, causal=True, window=0, chunk_local=False, logit_cap=0.0):
-    """q: [B,S,H,dh], k/v: [B,S,KV,dh] -> [B,S,H,dh].
+    """q: [B,S,H,dh], k: [B,S,KV,dh], v: [B,S,KV,dv] (dv <= dh) -> [B,S,H,dv].
 
     window > 0: sliding-window (swa) or same-chunk (cla when chunk_local)
     mask. The kernel skips key blocks the mask empties, so a windowed layer
@@ -39,7 +44,7 @@ def chunked_attention(q, k, v, *, causal=True, window=0, chunk_local=False, logi
 
 def decode_attention(q, k_cache, v_cache, valid, *, logit_cap=0.0):
     """Single-position decode. q: [B,1,H,dh]; caches [B,Sc,KV,dh];
-    valid: [B,Sc] bool — which cache slots participate."""
+    valid: [B,Sc] bool — which cache slots participate. -> [B,1,H,dh]."""
     return decode_ops.decode(q, k_cache, v_cache, valid, logit_cap=logit_cap)
 
 
@@ -53,7 +58,13 @@ def _proj(x, w):
     return (x @ w.to(x.dtype).reshape(w.shape[0], -1)).reshape(*x.shape[:2], *w.shape[1:])
 
 
-def gqa_project_qkv(cfg, p, prefix, x, positions):
+def use_rope(cfg, mixer: str) -> bool:
+    """iRoPE: a model with `cfg.irope` (llama4) takes no RoPE on its global
+    (`gqa`) layers; the reference tests the name for the same rule."""
+    return not (cfg.irope and mixer == "gqa")
+
+
+def gqa_project_qkv(cfg, p, prefix, x, positions, rope=True):
     q = _proj(x, p[f"{prefix}.wq"])
     k = _proj(x, p[f"{prefix}.wk"])
     v = _proj(x, p[f"{prefix}.wv"])
@@ -61,8 +72,9 @@ def gqa_project_qkv(cfg, p, prefix, x, positions):
         q = q + p[f"{prefix}.bq"].to(x.dtype)
         k = k + p[f"{prefix}.bk"].to(x.dtype)
         v = v + p[f"{prefix}.bv"].to(x.dtype)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -75,7 +87,7 @@ def _out_proj(o, wo):
 def gqa_attn(cfg, p, prefix, x, positions, *, mixer: str, causal=True):
     """Prefill GQA. Returns (out, (k, v)) — k/v for cache construction."""
     window = cfg.window if mixer in ("swa", "cla") else 0
-    q, k, v = gqa_project_qkv(cfg, p, prefix, x, positions)
+    q, k, v = gqa_project_qkv(cfg, p, prefix, x, positions, use_rope(cfg, mixer))
     o = chunked_attention(
         q, k, v, causal=causal, window=window, chunk_local=(mixer == "cla"),
         logit_cap=cfg.attn_softcap,
@@ -91,7 +103,7 @@ def gqa_decode(cfg, p, prefix, x, pos, cache, *, mixer: str):
     if cfg.kv_cache_dtype != "bf16":
         raise not_ported(f"the {cfg.kv_cache_dtype} KV cache", "A9")
     B = x.shape[0]
-    q, k, v = gqa_project_qkv(cfg, p, prefix, x, pos[:, None])
+    q, k, v = gqa_project_qkv(cfg, p, prefix, x, pos[:, None], use_rope(cfg, mixer))
     k_cache, v_cache = cache["k"], cache["v"]
     Sc = k_cache.shape[1]
     slot = (pos % Sc).long()  # ring position (== pos for linear caches, Sc >= max_seq)
@@ -108,3 +120,68 @@ def gqa_decode(cfg, p, prefix, x, pos, cache, *, mixer: str):
         valid = slots <= pos[:, None]
     o = decode_attention(q, k_cache, v_cache, valid, logit_cap=cfg.attn_softcap)
     return _out_proj(o, p[f"{prefix}.wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(cfg, p, prefix, x, positions):
+    cq = rmsnorm(x @ p[f"{prefix}.wq_a"].to(x.dtype), p[f"{prefix}.q_norm"])
+    q = _proj(cq, p[f"{prefix}.wq_b"])  # [B,S,H,nope+rope]
+    q_rope = apply_rope(q[..., cfg.nope_head_dim :], positions, cfg.rope_theta)
+    return q[..., : cfg.nope_head_dim], q_rope
+
+
+def _mla_latent(cfg, p, prefix, x, positions):
+    ckv = x @ p[f"{prefix}.wkv_a"].to(x.dtype)
+    c_kv = rmsnorm(ckv[..., : cfg.kv_lora_rank], p[f"{prefix}.kv_norm"])
+    k_rope = apply_rope(ckv[..., None, cfg.kv_lora_rank :], positions, cfg.rope_theta)
+    return c_kv, k_rope  # [B,S,kv_lora], [B,S,1,rope]
+
+
+def mla_attn(cfg, p, prefix, x, positions):
+    """Prefill MLA (direct form): per-head K = [W_uk c_kv, k_rope] and V =
+    W_uv c_kv, through the flash kernel with dh = nope + rope and dv = v_hd.
+    Returns (out, (c_kv, k_rope)) — the compressed cache's contents."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(cfg, p, prefix, x, positions)
+    c_kv, k_rope = _mla_latent(cfg, p, prefix, x, positions)
+    kv = _proj(c_kv, p[f"{prefix}.wkv_b"])  # [B,S,H,nope+v]
+    k = torch.cat([kv[..., : cfg.nope_head_dim],
+                   k_rope.expand(B, S, H, cfg.rope_head_dim)], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    o = chunked_attention(q, k, kv[..., cfg.nope_head_dim :], causal=True)
+    return _out_proj(o, p[f"{prefix}.wo"]), (c_kv, k_rope[:, :, 0])
+
+
+def mla_decode(cfg, p, prefix, x, pos, cache):
+    """Absorbed-matrix MLA decode over the compressed cache dict(c_kv
+    [B,Sc,kv_lora], k_rope [B,Sc,rope]), written IN PLACE at `pos`:
+
+      score_h = (W_uk_h^T q_nope_h) . c_kv + q_rope_h . k_rope
+
+    the two score products summed in x's dtype, then float32 x
+    (nope + rope)^-0.5, the `valid` mask's finite -1e30, softmax, and
+    (P . c_kv) W_uv — plain products, as in the reference."""
+    B = x.shape[0]
+    nope = cfg.nope_head_dim
+    q_nope, q_rope = _mla_q(cfg, p, prefix, x, pos[:, None])  # [B,1,H,*]
+    c_new, kr_new = _mla_latent(cfg, p, prefix, x, pos[:, None])
+    ckv, kr = cache["c_kv"], cache["k_rope"]
+    Sc = ckv.shape[1]
+    bidx, slot = torch.arange(B, device=x.device), pos.long()
+    ckv[bidx, slot] = c_new[:, 0].to(ckv.dtype)
+    kr[bidx, slot] = kr_new[:, 0, 0].to(kr.dtype)
+    wkv_b = p[f"{prefix}.wkv_b"].to(x.dtype)  # [r,H,nope+v]
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], wkv_b[..., :nope])  # absorbed q
+    s = torch.einsum("bhr,bsr->bhs", q_lat, ckv) + torch.einsum("bhk,bsk->bhs", q_rope[:, 0], kr)
+    s = s.float() * (cfg.nope_head_dim + cfg.rope_head_dim) ** -0.5
+    valid = torch.arange(Sc, device=x.device)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, :], s, -1e30)
+    pr = torch.softmax(s, dim=-1).to(x.dtype)
+    o = torch.einsum("bhr,rhk->bhk", torch.einsum("bhs,bsr->bhr", pr, ckv), wkv_b[..., nope:])
+    wo = p[f"{prefix}.wo"].to(x.dtype)
+    return (o.reshape(B, -1) @ wo.reshape(-1, wo.shape[-1]))[:, None], cache

@@ -1,7 +1,10 @@
 """Unified model configuration covering all ten assigned architectures.
 
 The port's own copy of `repro.models.config` (the port imports nothing of
-`repro`); `tests/test_torch_models.py` holds every field equal.
+`repro`); `tests/test_torch_models.py` holds every field the reference has
+equal. One field is the port's own: `irope`, which the reference decides
+from the model's name (`src/repro/models/attention.py`: llama4 takes no
+RoPE on its global `gqa` layers).
 
 A model is a stack of `n_layers` blocks. Blocks repeat with period
 `len(pattern)`; each pattern entry names a (mixer, ffn) pair:
@@ -40,6 +43,7 @@ class ModelConfig:
     tail: tuple = ()  # extra layers after the scanned groups (n_layers % period)
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    irope: bool = False  # iRoPE: no RoPE on the global ("gqa") layers
     window: int = 4096  # swa/cla window or chunk
     norm: str = "rmsnorm"
     act: str = "silu"

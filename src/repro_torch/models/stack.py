@@ -16,10 +16,13 @@ Decode writes the new key and value, and the recurrent mixers' new states,
 into `cache` IN PLACE and returns it.
 
 `build_schema` covers all ten architectures. The forward passes run the
-dense GQA family (mixers gqa / swa / cla, FFN dense, bf16 KV cache, logit
-softcapping) and the recurrent mixers (mlstm / slstm of xLSTM, rglru of
-RecurrentGemma, whose states are float32 leaves beside bf16 conv buffers);
-anything else raises `NotImplementedError` naming its ROADMAP.md §A item.
+dense GQA family (mixers gqa / swa / cla, bf16 KV cache, logit
+softcapping), MLA (minicpm3-4b; its compressed latent cache), the dense
+and MoE FFNs (mixtral-8x7b, llama4-scout with iRoPE) and the recurrent
+mixers (mlstm / slstm of xLSTM, rglru of RecurrentGemma, whose states are
+float32 leaves beside bf16 conv buffers); encoder-decoder models, the
+modality frontends and the int8 KV cache raise `NotImplementedError`
+naming ROADMAP.md §A item A9.
 `forward_train` is training (item A7).
 """
 
@@ -235,6 +238,7 @@ def build_schema(cfg: ModelConfig) -> Schema:
 # ---------------------------------------------------------------------------
 
 _ATTN = ("gqa", "swa", "cla")
+_MLA = ("mla",)
 _RECURRENT = ("mlstm", "slstm", "rglru")
 
 
@@ -245,27 +249,26 @@ def check_supported(cfg: ModelConfig) -> None:
         raise not_ported(f"{cfg.name}: encoder-decoder models", "A9")
     if cfg.frontend != "none":
         raise not_ported(f"{cfg.name}: the {cfg.frontend} frontend", "A9")
-    for mixer, fk in tuple(cfg.pattern) + tail_layers(cfg):
-        if mixer not in _ATTN + _RECURRENT:
-            raise not_ported(f"{cfg.name}: the {mixer} mixer", "A9")
-        if fk == "moe":
-            raise not_ported(f"{cfg.name}: the MoE FFN", "A9")
+    for mixer, _ in tuple(cfg.pattern) + tail_layers(cfg):
+        if mixer not in _ATTN + _MLA + _RECURRENT:
+            raise ValueError(f"{cfg.name}: unknown mixer {mixer!r}")
     if cfg.kv_cache_dtype != "bf16":
         raise not_ported(f"{cfg.name}: the {cfg.kv_cache_dtype} KV cache", "A9")
 
 
 # the weights each mixer's products cast to the activations' dtype; the rest
-# (norm scales; rglru's gate weights wa, wi, ba, bi, lam; slstm's recurrent
-# r) are read as float32, so the same name (wi, bi) casts in one mixer and
-# not in another
+# (norm scales, MLA's q_norm / kv_norm among them; rglru's gate weights wa,
+# wi, ba, bi, lam; slstm's recurrent r) are read as float32, so the same
+# name (wi, bi) casts in one mixer and not in another
 _ATTN_CAST = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 _MIX_CAST = {
     **{m: _ATTN_CAST for m in _ATTN},
+    "mla": ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo"),
     "mlstm": ("wu", "conv", "wq", "wk", "wv", "wi", "wf", "bi", "bf", "wd"),
     "slstm": ("wzifo", "bzifo", "wd"),
     "rglru": ("wgate", "wx", "conv", "wout"),
 }
-_FFN_CAST = ("wg", "wu", "wd")
+_FFN_CAST = ("wg", "wu", "wd", "router", "we_g", "we_u", "we_d")  # dense, then MoE
 
 
 def cast_weights(cfg: ModelConfig, params: dict) -> dict:
@@ -354,18 +357,21 @@ def _ring_fill(buf: torch.Tensor, k: torch.Tensor) -> None:
     buf[:, slots] = k[:, S - w :].to(buf.dtype)
 
 
-def _seed_to_cache(cfg, mixer, kv, cache: dict, cache_len: int) -> None:
-    """Write a prefill's k/v [B,S,KV,hd] into one layer's zeroed cache views:
-    a linear cache holds positions 0..S-1 then zeros, a ring buffer the last
-    `cap` positions (the reference pads / ring-fills new arrays)."""
-    k, v = kv
+def _seed_to_cache(cfg, mixer, seed, cache: dict, cache_len: int) -> None:
+    """Write a prefill's k/v [B,S,KV,hd] (MLA: c_kv [B,S,kv_lora], k_rope
+    [B,S,rope]) into one layer's zeroed cache views: a linear cache holds
+    positions 0..S-1 then zeros, a ring buffer the last `cap` positions
+    (the reference pads / ring-fills new arrays)."""
+    names = ("c_kv", "k_rope") if mixer in _MLA else ("k", "v")
     cap = _cache_capacity(cfg, mixer, cache_len)
     if cap == cache_len:  # linear cache, zero-padded to capacity
-        if k.shape[1] > cache_len:
-            raise ValueError(f"prompt of {k.shape[1]} tokens exceeds cache_len {cache_len}")
-        cache["k"][:, : k.shape[1]] = k.to(cache["k"].dtype)
-        cache["v"][:, : v.shape[1]] = v.to(cache["v"].dtype)
+        S = seed[0].shape[1]
+        if S > cache_len:
+            raise ValueError(f"prompt of {S} tokens exceeds cache_len {cache_len}")
+        for name, x in zip(names, seed):
+            cache[name][:, :S] = x.to(cache[name].dtype)
     else:
+        k, v = seed
         _ring_fill(cache["k"], k)
         _ring_fill(cache["v"], v)
 
@@ -380,8 +386,11 @@ def _prefill_layer(cfg, p, pfx, mixer, fk, x, positions, cache, cache_len):
         _write_state(cache, state)
     else:
         xn = rmsnorm(x, p[f"{pfx}.mix.ln"])
-        y, kv = attn.gqa_attn(cfg, p, pfx + ".mix", xn, positions, mixer=mixer)
-        _seed_to_cache(cfg, mixer, kv, cache, cache_len)
+        if mixer in _MLA:
+            y, seed = attn.mla_attn(cfg, p, pfx + ".mix", xn, positions)
+        else:
+            y, seed = attn.gqa_attn(cfg, p, pfx + ".mix", xn, positions, mixer=mixer)
+        _seed_to_cache(cfg, mixer, seed, cache, cache_len)
     x = x + y
     if fk != "none":
         xn = rmsnorm(x, p[f"{pfx}.ffn.ln2"])
@@ -413,7 +422,10 @@ def _decode_layer(cfg, p, pfx, mixer, fk, x, pos, cache):
         _write_state(cache, state)
     else:
         xn = rmsnorm(x, p[f"{pfx}.mix.ln"])
-        y, _ = attn.gqa_decode(cfg, p, pfx + ".mix", xn, pos, cache, mixer=mixer)
+        if mixer in _MLA:
+            y, _ = attn.mla_decode(cfg, p, pfx + ".mix", xn, pos, cache)
+        else:
+            y, _ = attn.gqa_decode(cfg, p, pfx + ".mix", xn, pos, cache, mixer=mixer)
     x = x + y
     if fk != "none":
         xn = rmsnorm(x, p[f"{pfx}.ffn.ln2"])
@@ -441,14 +453,18 @@ def forward_decode(cfg: ModelConfig, params: dict, token, pos, cache: dict):
 
 def _layer_cache_spec(cfg: ModelConfig, mixer: str, B: int, cache_len: int) -> dict:
     """One layer's cache as nested {name: (shape, dtype)}: bf16 K/V for the
-    attention mixers, float32 recurrent states and bf16 conv buffers for the
-    recurrent ones (the reference's layout)."""
+    attention mixers, MLA's bf16 latent c_kv and k_rope (linear), float32
+    recurrent states and bf16 conv buffers for the recurrent ones (the
+    reference's layout)."""
     H, D = cfg.n_heads, cfg.d_model
     f32, bf16 = torch.float32, torch.bfloat16
     if mixer in _ATTN:
         cap = _cache_capacity(cfg, mixer, cache_len)
         shape = (B, cap, cfg.n_kv_heads, cfg.hd)
         return {"k": (shape, bf16), "v": (shape, bf16)}
+    if mixer in _MLA:
+        return {"c_kv": ((B, cache_len, cfg.kv_lora_rank), bf16),
+                "k_rope": ((B, cache_len, cfg.rope_head_dim), bf16)}
     if mixer == "mlstm":
         dh = D // H
         return {

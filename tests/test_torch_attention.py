@@ -155,6 +155,32 @@ def test_chunked_attention_matches_reference(window, chunk_local, causal):
     _close(out, ref, 2e-2)
 
 
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("case", chip_smoke.MLA_FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_with_narrower_v_matches_reference(case, dtype, cap):
+    """V heads narrower than Q/K heads (MLA: dv 64 / dh 96, and 32 / 48 at
+    reduced width), causal, windowed and chunk-local, with and without a
+    cap: the wrapper's CPU path (the plain version) against the reference's
+    `chunked_attention` on the same inputs, [B,S,H,dv] out, scale dh^-0.5.
+    The reference reads a band of 2 x window keys for a chunk-local query
+    chunk; its `q_chunk` of 32 (at most the window) keeps that band exact
+    (ROADMAP.md §C, C5). bf16 at 2e-2 (the reference rounds P to bf16)."""
+    B, S, H, KV, dh, causal, window, cl, dv = case
+    rng = np.random.default_rng(5)
+    (jq, q), (jk, k), (jv, v) = (
+        _both(rng.standard_normal(shape, np.float32), dtype)
+        for shape in ((B, S, H, dh), (B, S, KV, dh), (B, S, KV, dv))
+    )
+    kw = dict(causal=causal, window=window, chunk_local=cl, logit_cap=cap)
+    out = t_attn.chunked_attention(q, k, v, **kw)
+    assert out.shape == (B, S, H, dv) and out.dtype == q.dtype
+    plain = attention_ref(*(x.transpose(1, 2) for x in (q, k, v)), **kw)
+    assert torch.equal(out, plain.transpose(1, 2))
+    ref = r_attn.chunked_attention(jq, jk, jv, q_chunk=32, **kw)
+    _close(out, ref, TOL[dtype] if dtype == "float32" else 2e-2)
+
+
 def test_decode_attention_matches_reference():
     B, Sc, H, KV, dh = 3, 80, 6, 2, 32
     rng = np.random.default_rng(4)
@@ -205,6 +231,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         t_flash.mha(big, big, big)
     with pytest.raises(ValueError, match="q_len == kv_len"):
         t_flash.mha(q, torch.zeros((1, 9, 4, 32)), torch.zeros((1, 9, 4, 32)))
+    kv = torch.zeros((1, 8, 4, 32))
+    with pytest.raises(ValueError, match="dv <= dh"):  # V wider than Q/K
+        t_flash.mha(q, kv, torch.zeros((1, 8, 4, 48)))
+    with pytest.raises(ValueError, match="dv <= dh"):  # V's heads or length differ from K's
+        t_flash.mha(q, kv, torch.zeros((1, 8, 2, 32)))
+    with pytest.raises(TypeError, match="share float32 or bfloat16"):
+        t_flash.mha(q, kv, torch.zeros((1, 8, 4, 16), dtype=torch.bfloat16))
     cache = torch.zeros((1, 8, 2, 32))
     with pytest.raises(ValueError, match="valid must be bool"):
         t_dec.decode(q[:, 0], cache, cache, torch.ones((1, 8)))
@@ -227,6 +260,8 @@ def test_kernels_match_plain_versions_on_the_card():
             chip_smoke.check_flash(case, dtype, dev, seed=i, logit_cap=cap)
         for i, (case, pattern) in enumerate(chip_smoke.EXTRA_DECODE_CASES):
             chip_smoke.check_decode(case, dtype, dev, seed=i, pattern=pattern)
+        for i, case in enumerate(chip_smoke.MLA_FLASH_CASES):  # V narrower than Q/K
+            chip_smoke.check_flash(case, dtype, dev, seed=i)
     # bf16 per query row, and two calls bit for bit
     for case, cap in chip_smoke.EXTRA_FLASH_CASES:
         chip_smoke.check_tight("flash", case, dev, logit_cap=cap)

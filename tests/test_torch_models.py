@@ -1,5 +1,6 @@
 """The port's model stack against the reference: configs, schema, layers,
-and prefill / decode of the dense GQA family and the recurrent families.
+and prefill / decode of the dense GQA family, MLA, the MoE models and the
+recurrent families.
 
 Tolerances: the registry, the schema and the embedding are exact. Layers
 are held at 1e-6 in float32 and one bf16 ulp (2**-7 relative) in bf16. The
@@ -15,6 +16,10 @@ reference's own input and cache, at 0.08) and free-running in float32
 One bf16 ulp on 0.1% of the reference's own embedding entries moves its
 logits by 0.34 and its matrix memories by 0.4 beyond the 0.08 limit, so no
 implementation short of bitwise XLA:CPU arithmetic stays within it.
+
+The MoE stacks' routing is compared as well: equal in float32; in bf16 a
+top-k decision at an exact tie of the reference's gates may go the other
+way (MOE_CASES below), and those tokens are counted, not compared.
 """
 
 import dataclasses
@@ -36,6 +41,7 @@ from repro_torch import interop
 from repro_torch.configs import registry as t_registry
 from repro_torch.models import layers as t_layers
 from repro_torch.models import model as t_model
+from repro_torch.models import routelog
 from repro_torch.models import stack as t_stack
 from repro_torch.models.config import LM_SHAPES as T_SHAPES
 from repro_torch.models.schema import init_params as t_init_params
@@ -55,10 +61,15 @@ def test_registry_names_and_shapes():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_and_reduced_equal_reference(arch):
+    """Every field the reference has is equal; the port's one field of its
+    own, `irope`, holds the rule the reference decides from the name."""
     for get in ("get", "reduced"):
         r_cfg = getattr(r_registry, get)(arch)
         t_cfg = getattr(t_registry, get)(arch)
-        assert dataclasses.asdict(t_cfg) == dataclasses.asdict(r_cfg), (arch, get)
+        r_fields, t_fields = dataclasses.asdict(r_cfg), dataclasses.asdict(t_cfg)
+        assert set(t_fields) - set(r_fields) == {"irope"}, (arch, get)
+        assert {k: t_fields[k] for k in r_fields} == r_fields, (arch, get)
+        assert t_cfg.irope == r_cfg.name.startswith("llama4"), (arch, get)
         for prop in ("hd", "v_hd", "period", "n_groups", "has_mla", "is_encdec",
                      "sub_quadratic", "long_context_capable"):
             assert getattr(t_cfg, prop) == getattr(r_cfg, prop), (arch, get, prop)
@@ -168,8 +179,10 @@ def _leaves(tree, prefix=""):
 
 
 def _leaf_dtype(name):
-    """The port's cache dtypes: bf16 K/V and conv buffers, float32 states."""
-    return torch.bfloat16 if name.rsplit(".", 1)[-1] in ("k", "v", "conv") else torch.float32
+    """The port's cache dtypes: bf16 K/V, MLA latents and conv buffers,
+    float32 states."""
+    bf16 = ("k", "v", "c_kv", "k_rope", "conv")
+    return torch.bfloat16 if name.rsplit(".", 1)[-1] in bf16 else torch.float32
 
 
 def _tol(cfg):
@@ -187,6 +200,22 @@ STACK_CASES = {
     # 16-slot ring under the cap
     "recurrentgemma-9b": ("recurrentgemma-9b", {}, 40, 48),
     "recurrentgemma-9b-ring": ("recurrentgemma-9b", dict(window=16), 40, 48),
+    # MoE (reduced: 4 experts; mixtral top-2 over swa, llama4 top-1 over 3
+    # cla + 1 NoPE gqa). The reduced configs' capacity factor 8.0 drops
+    # nothing; 1.0 drops assignments in the prefill. window=16: the swa ring
+    # wraps at S = 40. llama4 at window=24: two chunks in the prefill, the
+    # ring wraps, decode starts mid-chunk, and the NoPE layers bite; the
+    # reference's chunk-local band is exact only for S <= 2 x window at
+    # these lengths (ROADMAP.md §C, C5), so its window 16 would hold the
+    # port to the reference's dropped keys. llama4 without drops is held
+    # layer by layer (MOE_CASES below)
+    "mixtral-8x7b": ("mixtral-8x7b", {}, 40, 48),
+    "mixtral-8x7b-ring": ("mixtral-8x7b", dict(window=16), 40, 48),
+    "mixtral-8x7b-drops": ("mixtral-8x7b", dict(capacity_factor=1.0), 40, 48),
+    "llama4-scout-drops": ("llama4-scout-17b-a16e", dict(window=24, capacity_factor=1.0), 40, 48),
+    # MLA: the flash kernel's plain version with dv 32 < dh 48, the absorbed
+    # decode over the compressed latent cache
+    "minicpm3-4b": ("minicpm3-4b", {}, 40, 48),
 }
 # held layer by layer (bf16) and free-running in float32 below
 LAYERWISE_CASES = {
@@ -312,6 +341,186 @@ def test_layers_match_reference_on_its_own_inputs(case):
             x_r = y_r
 
 
+# The MoE stacks layer by layer. A routing decision is a discontinuous
+# function of the bf16 activations: where two experts' gates nearly tie, an
+# ulp of difference in the layer's attention output (the port's kernels keep
+# P in float32 where the reference rounds it to bf16) picks the other expert.
+# So in bf16 each layer runs on the reference's input, the routing of both
+# sides is read, every token whose routing differs must be such a near tie
+# or a capacity shift after one (`routelog.compare`), and the
+# layer's output is held at 0.05 on the tokens whose routing agrees (the
+# chip phase's rule); in float32 the stack runs free and the routing must be
+# equal on every layer. llama4-scout-ring is held only here: its bf16 stack
+# flips one top-1 decision (a near tie) and the flipped token moves the
+# last position's prefill logits past the 0.05 limit of STACK_CASES.
+MOE_CASES = {
+    "mixtral-8x7b-ring": STACK_CASES["mixtral-8x7b-ring"],
+    "mixtral-8x7b-drops": STACK_CASES["mixtral-8x7b-drops"],
+    "llama4-scout-ring": ("llama4-scout-17b-a16e", dict(window=24), 40, 48),
+    "llama4-scout-drops": STACK_CASES["llama4-scout-drops"],
+}
+@pytest.fixture
+def route_log():
+    """`routelog.RouteLog` installed for one test: the port's routing
+    (moe_route's results), layer by layer."""
+    with routelog.RouteLog() as log:
+        yield log
+
+
+def _pop_route(log):
+    """The routing of the one MoE layer just run (`layers.Routing`)."""
+    route = log.calls.pop()
+    assert not log.calls
+    return route
+
+
+def _reference_ffn_input(cfg, p, pfx, mixer, x, positions=None, pos=None, cache=None):
+    """The reference layer's FFN input (prefill: `positions`; decode: `pos`
+    and the layer's cache), from its own functions."""
+    from repro.models import attention as r_attn
+
+    xn = r_layers.rmsnorm(x, p[f"{pfx}.mix.ln"])
+    if cache is None:
+        y, _ = r_attn.gqa_attn(cfg, p, pfx + ".mix", xn, positions, mixer=mixer)
+    else:
+        y, _ = r_attn.gqa_decode(cfg, p, pfx + ".mix", xn, pos, cache, mixer=mixer)
+    return r_layers.rmsnorm(x + y, p[f"{pfx}.ffn.ln2"])
+
+
+def _hold_routed(label, y_t, y_r, route_t, route_r, tol):
+    """Hold y on the tokens whose routing agrees; every token whose routing
+    differs must be explained by `routelog.compare`'s rules (a near tie of
+    the reference's gates, or a kept / dropped shift after such a flip).
+    Returns (decisions, differing tokens)."""
+    ref = tuple(torch.from_numpy(np.array(a)) for a in route_r)
+    agree = routelog.compare(ref, (route_t.topi, route_t.kept), label)[0].numpy()
+    _close(y_t.float().numpy()[agree], np.asarray(y_r, np.float32)[agree], label, tol)
+    return agree.size, int((~agree).sum())
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_layers_match_reference_on_its_own_inputs(case, route_log):
+    """Each layer of the port's bf16 MoE stack, prefill then two decode
+    steps, on the reference's input (and, decoding, its cache): routing
+    read on both sides, differing tokens near ties and at most
+    routelog.MAX_FLIPS of the decisions, outputs of the agreeing tokens and
+    every cache leaf within 0.05."""
+    from test_torch_moe import reference_routing
+
+    cfg_r, cfg_t, S, cache_len = _cfgs(case, MOE_CASES)
+    weights = _weights(cfg_r)
+    p_t = t_stack.cast_weights(cfg_t, interop.params_from_numpy(weights, CPU))
+    B = 2
+    toks = np.random.default_rng(6).integers(0, cfg_r.vocab, (B, S + 2)).astype(np.int32)
+    positions = jnp.asarray(np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S)))
+    x_r = r_layers.embed_lookup(jnp.asarray(weights["embed"]), jnp.asarray(toks[:, :S]))
+    cache_t = t_stack.init_cache(cfg_t, B, cache_len, CPU)
+    caches_r, n, flips = {}, 0, 0
+    route = jax.jit(lambda p, h, pfx: reference_routing(cfg_r, p, h, pfx + ".ffn"),
+                    static_argnums=2)
+    for pfx, g, mixer, fk in t_stack._layers(cfg_t):
+        p_r = {k: jnp.asarray(v) for k, v in _layer_params(weights, pfx, g).items()}
+        y_r, caches_r[pfx] = jax.jit(lambda p, x, pfx=pfx, mixer=mixer, fk=fk:
+                                     r_stack._prefill_layer(cfg_r, p, pfx, mixer, fk, x,
+                                                            positions, cache_len))(p_r, x_r)
+        h_r = jax.jit(lambda p, x, pfx=pfx, mixer=mixer: _reference_ffn_input(
+            cfg_r, p, pfx, mixer, x, positions=positions))(p_r, x_r)
+        views = t_stack._layer_cache(cache_t, pfx, g)
+        y_t = t_stack._prefill_layer(cfg_t, t_stack._layer(p_t, pfx, g), pfx, mixer, fk,
+                                     interop.params_from_numpy({"x": np.asarray(x_r)})["x"],
+                                     torch.from_numpy(np.asarray(positions).copy()), views,
+                                     cache_len)
+        d = _hold_routed(f"{case} prefill {pfx}", y_t, y_r, _pop_route(route_log),
+                         route(p_r, h_r, pfx), LOGIT_TOL)
+        n, flips = n + d[0], flips + d[1]
+        for name, ref in _leaves(caches_r[pfx]):
+            _close(dict(_leaves(views))[name].float().numpy(), ref,
+                   f"{case} prefill {pfx} cache {name}")
+        x_r = y_r
+    for t in (S, S + 1):
+        pos = jnp.full((B,), t, jnp.int32)
+        x_r = r_layers.embed_lookup(jnp.asarray(weights["embed"]), jnp.asarray(toks[:, t]))[:, None]
+        for pfx, g, mixer, fk in t_stack._layers(cfg_t):
+            p_r = {k: jnp.asarray(v) for k, v in _layer_params(weights, pfx, g).items()}
+            views = t_stack._layer_cache(cache_t, pfx, g)
+            for (_, dst), (_, src) in zip(_leaves(views), _leaves(caches_r[pfx])):
+                dst.copy_(interop.cache_from_numpy({"x": np.asarray(src)})["x"])
+            h_r = jax.jit(lambda p, x, c, pfx=pfx, mixer=mixer: _reference_ffn_input(
+                cfg_r, p, pfx, mixer, x, pos=pos, cache=c))(p_r, x_r, caches_r[pfx])
+            y_r, caches_r[pfx] = jax.jit(lambda p, x, c, pfx=pfx, mixer=mixer, fk=fk:
+                                         r_stack._decode_layer(cfg_r, p, pfx, mixer, fk, x, pos,
+                                                               c))(p_r, x_r, caches_r[pfx])
+            y_t = t_stack._decode_layer(cfg_t, t_stack._layer(p_t, pfx, g), pfx, mixer, fk,
+                                        interop.params_from_numpy({"x": np.asarray(x_r)})["x"],
+                                        torch.from_numpy(np.array(pos)), views)
+            d = _hold_routed(f"{case} decode {t} {pfx}", y_t, y_r, _pop_route(route_log),
+                             route(p_r, h_r, pfx), LOGIT_TOL)
+            n, flips = n + d[0], flips + d[1]
+            for name, ref in _leaves(caches_r[pfx]):
+                _close(dict(_leaves(views))[name].float().numpy(), ref,
+                       f"{case} decode {t} {pfx} cache {name}")
+            x_r = y_r
+    print(f"{case}: {flips} of {n} routing decisions differ (near ties)")
+    assert flips <= routelog.MAX_FLIPS * n, (flips, n)
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_stack_free_running_in_float32_matches_reference(case, route_log):
+    """The whole reduced MoE stack free-running in float32 activations and
+    weights, prefill then two decode steps each on its own cache: the
+    routing (experts and kept assignments) equal on every layer, every
+    layer's output within 1e-4 abs + rel."""
+    from test_torch_moe import reference_routing
+
+    cfg_r, cfg_t, S, cache_len = _cfgs(case, MOE_CASES)
+    weights = _weights(cfg_r)
+    p_t = interop.params_from_numpy(weights, CPU)  # float32: no bf16 copies
+    B, tol = 2, 1e-4
+    toks = np.random.default_rng(6).integers(0, cfg_r.vocab, (B, S + 2)).astype(np.int32)
+    positions = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S))
+
+    def embed(ids):
+        return (r_layers.embed_lookup(jnp.asarray(weights["embed"]), jnp.asarray(ids), jnp.float32),
+                t_layers.embed_lookup(p_t["embed"], torch.from_numpy(ids), torch.float32))
+
+    def check(label, p_r, pfx, h_r):
+        topi_r, kept_r, _ = reference_routing(cfg_r, p_r, h_r, pfx + ".ffn")
+        route = _pop_route(route_log)
+        np.testing.assert_array_equal(route.topi.numpy(), np.asarray(topi_r), err_msg=label)
+        np.testing.assert_array_equal(route.kept.numpy(), np.asarray(kept_r), err_msg=label)
+
+    x_r, x_t = embed(toks[:, :S])
+    # K/V in float32 as well, as the reference's float32 prefill pads them
+    cache_t = {blk: {n: x.float() for n, x in c.items()}
+               for blk, c in t_stack.init_cache(cfg_t, B, cache_len, CPU).items()}
+    caches_r = {}
+    for pfx, g, mixer, fk in t_stack._layers(cfg_t):
+        p_r = {k: jnp.asarray(v) for k, v in _layer_params(weights, pfx, g).items()}
+        h_r = _reference_ffn_input(cfg_r, p_r, pfx, mixer, x_r, positions=jnp.asarray(positions))
+        x_r, caches_r[pfx] = r_stack._prefill_layer(cfg_r, p_r, pfx, mixer, fk, x_r,
+                                                    jnp.asarray(positions), cache_len)
+        x_t = t_stack._prefill_layer(cfg_t, t_stack._layer(p_t, pfx, g), pfx, mixer, fk, x_t,
+                                     torch.from_numpy(positions.copy()),
+                                     t_stack._layer_cache(cache_t, pfx, g), cache_len)
+        check(f"{case} prefill {pfx} routing", p_r, pfx, h_r)
+        _close(x_t.numpy(), x_r, f"{case} prefill {pfx} out", tol)
+    for t in (S, S + 1):
+        pos = np.full(B, t, np.int32)
+        x_r, x_t = embed(toks[:, t])
+        x_r, x_t = x_r[:, None], x_t[:, None]
+        for pfx, g, mixer, fk in t_stack._layers(cfg_t):
+            p_r = {k: jnp.asarray(v) for k, v in _layer_params(weights, pfx, g).items()}
+            h_r = _reference_ffn_input(cfg_r, p_r, pfx, mixer, x_r, pos=jnp.asarray(pos),
+                                       cache=caches_r[pfx])
+            x_r, caches_r[pfx] = r_stack._decode_layer(cfg_r, p_r, pfx, mixer, fk, x_r,
+                                                       jnp.asarray(pos), caches_r[pfx])
+            x_t = t_stack._decode_layer(cfg_t, t_stack._layer(p_t, pfx, g), pfx, mixer, fk,
+                                        x_t, torch.from_numpy(pos),
+                                        t_stack._layer_cache(cache_t, pfx, g))
+            check(f"{case} decode {t} {pfx} routing", p_r, pfx, h_r)
+            _close(x_t.numpy(), x_r, f"{case} decode {t} {pfx} out", tol)
+
+
 def test_xlstm_stack_free_running_in_float32_matches_reference():
     """The whole reduced xLSTM stack (7 mLSTM + 1 sLSTM) free-running in
     float32 activations and weights, prefill then two decode steps each on
@@ -403,9 +612,6 @@ def test_cast_weights_decides_per_mixer():
 @pytest.mark.parametrize(
     "arch,changes,item",
     [
-        ("minicpm3-4b", {}, "A9"),  # mla
-        ("mixtral-8x7b", {}, "A9"),  # moe
-        ("llama4-scout-17b-a16e", {}, "A9"),  # moe
         ("seamless-m4t-large-v2", {}, "A9"),  # encoder-decoder + audio frontend
         ("internvl2-26b", {}, "A9"),  # vision frontend
         ("llama3.2-3b", {"kv_cache_dtype": "int8"}, "A9"),
@@ -423,9 +629,56 @@ def test_unported_mixers_and_options_raise(arch, changes, item):
         t_stack.forward_decode(cfg, {}, z, z, {})
 
 
-def test_moe_ffn_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A9"):
-        t_layers.ffn(t_registry.reduced("mixtral-8x7b"), {}, "f", "moe", torch.zeros((1, 2, 8)))
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-a16e", "minicpm3-4b"])
+def test_moe_and_mla_configs_are_supported(arch):
+    for cfg in (t_registry.get(arch), t_registry.reduced(arch)):
+        t_stack.check_supported(cfg)
+    cache = t_stack.init_cache(t_registry.reduced(arch), 2, 8, CPU)
+    assert all(not x.any() for _, x in _leaves(cache))
+
+
+def test_irope_skips_rope_on_llama4_global_layers_only():
+    """iRoPE as a config property: llama4's `gqa` layers take no RoPE, its
+    `cla` layers and every other model's `gqa` layers do. A prefill on
+    shifted positions changes q and k exactly where RoPE applies."""
+    from repro_torch.models import attention as t_attn
+
+    rng = np.random.default_rng(3)
+    for arch, mixer, rope in [("llama4-scout-17b-a16e", "gqa", False),
+                              ("llama4-scout-17b-a16e", "cla", True),
+                              ("llama3.2-3b", "gqa", True)]:
+        cfg = t_registry.reduced(arch)
+        assert t_attn.use_rope(cfg, mixer) == rope
+        w = {f"m.{n}": torch.from_numpy(0.1 * rng.standard_normal(s, np.float32))
+             for n, s in (("wq", (cfg.d_model, cfg.n_heads, cfg.hd)),
+                          ("wk", (cfg.d_model, cfg.n_kv_heads, cfg.hd)),
+                          ("wv", (cfg.d_model, cfg.n_kv_heads, cfg.hd)))}
+        x = torch.from_numpy(rng.standard_normal((1, 5, cfg.d_model), np.float32))
+        pos = torch.arange(5, dtype=torch.int32)[None]
+        q0, k0, _ = t_attn.gqa_project_qkv(cfg, w, "m", x, pos, t_attn.use_rope(cfg, mixer))
+        q1, k1, _ = t_attn.gqa_project_qkv(cfg, w, "m", x, pos + 7, t_attn.use_rope(cfg, mixer))
+        assert torch.equal(q0, q1) == (not rope) and torch.equal(k0, k1) == (not rope), arch
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-a16e", "minicpm3-4b"])
+def test_interop_carries_moe_and_mla_leaves(arch):
+    """The reference's MoE / MLA parameters and its MLA cache cross as they
+    are: every name, shape and value (bf16 cache leaves bit for bit), and
+    back."""
+    cfg_r = r_registry.reduced(arch)
+    weights = _weights(cfg_r)
+    p_t = interop.params_from_numpy(weights, CPU)
+    assert set(p_t) == set(weights)
+    for name, x in weights.items():
+        assert p_t[name].dtype == torch.float32 and np.array_equal(p_t[name].numpy(), x), name
+    toks = np.random.default_rng(1).integers(0, cfg_r.vocab, (2, 12)).astype(np.int32)
+    _, cache_r = r_stack.forward_prefill(cfg_r, {k: jnp.asarray(v) for k, v in weights.items()},
+                                         {"tokens": jnp.asarray(toks)}, 16)
+    cache_t = interop.cache_from_numpy(jax.tree.map(np.asarray, cache_r), CPU)
+    back = dict(_leaves(interop.cache_to_numpy(cache_t)))
+    for name, ref in _leaves(cache_r):
+        assert dict(_leaves(cache_t))[name].dtype == _leaf_dtype(name), name
+        assert np.array_equal(back[name], np.asarray(ref, np.float32)), name
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):

@@ -3,6 +3,7 @@ kernel at the launch shapes the lockstep step really gives it, and
 `profile_step.py` accounts a profiled window correctly (run here on the CPU,
 where it records host activity only). Both refuse to run without a card."""
 
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -113,7 +114,8 @@ def _record_kernel_shapes(monkeypatch):
 
     def mha(q, k, v, *, causal=True, window=0, chunk_local=False, logit_cap=0.0):
         B, S, H, dh = q.shape
-        seen["flash"].append((B, S, H, k.shape[2], dh, causal, window, chunk_local))
+        dv = (v.shape[3],) if v.shape[3] != dh else ()  # V narrower than Q/K (MLA)
+        seen["flash"].append((B, S, H, k.shape[2], dh, causal, window, chunk_local) + dv)
         seen["cap"].add(logit_cap)
         return real_mha(q, k, v, causal=causal, window=window, chunk_local=chunk_local,
                         logit_cap=logit_cap)
@@ -139,10 +141,12 @@ def _record_kernel_shapes(monkeypatch):
     return seen
 
 
-@pytest.mark.parametrize("arch,window", [("llama3.2-3b", None), ("h2o-danube-3-4b", 16)])
+@pytest.mark.parametrize("arch,window", [("llama3.2-3b", None), ("h2o-danube-3-4b", 16),
+                                         ("mixtral-8x7b", 16), ("minicpm3-4b", None)])
 def test_serving_launch_shapes_are_the_models(arch, window, monkeypatch):
     """`chip_smoke.launch_shapes` gives each kernel the shapes the model's
-    prefill and decode steps hand it (one launch a layer)."""
+    prefill and decode steps hand it (one launch a layer; MLA: flash with
+    every head's K and V narrower than Q/K, no decode kernel)."""
     import dataclasses
 
     from repro_torch.configs import registry
@@ -159,7 +163,7 @@ def test_serving_launch_shapes_are_the_models(arch, window, monkeypatch):
     chip_smoke.prefill_decode(cfg, params, toks, 2, cache_len, torch.device("cpu"))
     flash, dec = chip_smoke.launch_shapes(cfg, B, S, cache_len)
     assert seen["flash"] == [flash] * cfg.n_layers
-    assert seen["decode"] == [dec] * (2 * cfg.n_layers)
+    assert seen["decode"] == ([dec] * (2 * cfg.n_layers) if dec else [])
 
 
 def test_serving_main_shapes_and_router_cache():
@@ -270,6 +274,20 @@ def test_wide_kernel_cases_reach_every_variant():
     assert {c[2] // c[3] for c in chip_smoke.WIDE_DECODE_CASES} >= {3, 5}
     main_dec = chip_smoke.launch_shapes(chip_smoke.serve_cfg(), 8, 2048, 4096)[1]
     assert main_dec[2] // main_dec[3] == 3  # the serving path's layout is among them
+
+
+def test_narrow_v_cases_reach_every_v_variant():
+    """Phase 13's cases reach every bf16 variant whose V panels are fewer
+    than its Q/K panels ((dh, dv) padded to 64 / 128 / 256), and MLA's
+    shape at minicpm3-4b's width: dh 96 = 64 + 32, dv 64."""
+    from repro_torch.configs import registry
+
+    pad = lambda d: 64 if d <= 64 else 128 if d <= 128 else 256  # noqa: E731
+    got = {(pad(c[4]), pad(c[8])) for c in chip_smoke.MLA_FLASH_CASES}
+    assert got >= {(128, 64), (256, 64), (256, 128)} and all(c[8] < c[4] for c in
+                                                             chip_smoke.MLA_FLASH_CASES)
+    mla, dec = chip_smoke.launch_shapes(registry.get("minicpm3-4b"), 8, 2048, 2112)
+    assert mla == (8, 2048, 40, 40, 96, True, 0, False, 64) and dec is None
 
 
 def test_strict_build_refuses_a_stack_frame_or_spill(monkeypatch, tmp_path, capsys):
@@ -519,3 +537,116 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
     assert by_name["rglru_scan"]["launches"] % 4 == 0
     assert by_name["flash_attention"]["launches"] == 1 + 2 * 1
     assert by_name["decode_attention"]["launches"] > 1 + 2 * 1
+
+
+@pytest.mark.parametrize("arch,serve,want", [
+    ("mixtral-8x7b", (4, 4608), [
+        ("flash", (4, 4608, 32, 8, 128, True, 4096, False), None),
+        ("decode", (4, 4096, 32, 8, 128), 4096),  # the ring, full past the window
+        ("decode", (4, 4096, 32, 8, 128), None),
+        ("decode", (1, 64, 32, 8, 128), 1)]),  # the router's step
+    ("llama4-scout-17b-a16e", (2, 10240), [
+        ("flash", (2, 10240, 40, 8, 128, True, 8192, True), None),
+        ("decode", (2, 8192, 40, 8, 128), 2049),  # the cla ring: position 10240's chunk
+        ("decode", (2, 8192, 40, 8, 128), None),
+        ("flash", (2, 10240, 40, 8, 128, True, 0, False), None),  # NoPE gqa
+        ("decode", (2, 10304, 40, 8, 128), 10241),  # linear
+        ("decode", (2, 10304, 40, 8, 128), None)]),
+    ("minicpm3-4b", (8, 2048), [])])  # MLA: phase 13's shape, plain decode
+def test_path_shape_checks_take_the_serving_shapes(arch, serve, want, monkeypatch):
+    """Phases 14-16 hold flash and decode at each shape the full-width run
+    gives them (the config's own widths and windows), decode over the
+    valid slots of the first decode step and over random positions, and
+    the router's B = 1 step, in float32 and bf16."""
+    from repro_torch.configs import registry
+
+    seen = []
+    monkeypatch.setattr(chip_smoke, "check_flash",
+                        lambda case, dt, dev: seen.append(("flash", case, None, str(dt))) or 0.0)
+    monkeypatch.setattr(chip_smoke, "check_decode", lambda case, dt, dev, valid_slots: seen.append(
+        ("decode", case, valid_slots, str(dt))) or 0.0)
+    monkeypatch.setattr(chip_smoke, "check_tight", lambda kind, case, dev, valid_slots: seen.append(
+        (kind, case, valid_slots, "tight")) or (0.0, 0.0))
+    cfg = registry.get(arch)
+    if arch.startswith("llama4"):
+        cfg = dataclasses.replace(cfg, n_layers=chip_smoke.LLAMA4_LAYERS)
+    chip_smoke.path_shape_checks(cfg, serve, torch.device("cpu"), not arch.startswith("llama4"))
+    assert seen == [(*w, how) for w in want for how in ("torch.float32", "tight")]
+
+
+def test_moe_mla_phases_run_on_the_cpu(monkeypatch):
+    """Phases 13-16 end to end at a tiny size on the CPU (reduced mixtral
+    cut to 2 layers with a 16-slot ring, llama4's one period with a 24-token
+    chunk, minicpm3's reduced MLA): the wrappers run the plain versions,
+    each counted as a launch would be; CUDA events and device memory are
+    stood in for. Checks the plumbing, the launch counts against the layer
+    pattern, the routing comparison and the records, not the kernels."""
+    import dataclasses
+    import time as _time
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    from repro_torch.kernels.flash_attention import flash_attention as f_bind
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.geo_schedule import ops as g_ops
+    from repro_torch.models import layers
+
+    small = {n: registry.reduced(n) for n in ("mixtral-8x7b", "llama4-scout-17b-a16e",
+                                              "minicpm3-4b")}
+    small["mixtral-8x7b"] = dataclasses.replace(small["mixtral-8x7b"], window=16,
+                                                capacity_factor=1.25)
+    small["llama4-scout-17b-a16e"] = dataclasses.replace(small["llama4-scout-17b-a16e"],
+                                                         window=24, capacity_factor=1.25)
+    monkeypatch.setattr(registry, "get", small.__getitem__)
+    for name, value in (("MIXTRAL_LAYERS", 2), ("LLAMA4_LAYERS", 4), ("MIXTRAL_B", 2),
+                        ("MIXTRAL_S", 40), ("LLAMA4_B", 2), ("LLAMA4_S", 40), ("MINICPM_B", 2),
+                        ("MINICPM_S", 24), ("MINICPM_MAX_SEQ", 64), ("MOE_CPU_PROMPT", 24),
+                        ("DECODE_STEPS", 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke.router, "__defaults__", (5,))
+    for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+
+    def host_ms(fn, iters):
+        t0 = _time.perf_counter()
+        fn()
+        return (_time.perf_counter() - t0) * 1e3
+
+    monkeypatch.setattr(chip_smoke, "cuda_ms", host_ms)
+    monkeypatch.setattr(f_bind, "launch", lambda *a, **k: None)
+    for mod, name in ((f_ops, "mha"), (d_ops, "decode"), (g_ops, "geo_schedule")):
+        real = getattr(mod, name)
+
+        def counted(*a, real=real, **k):
+            fn = counted_fns[real.__name__]
+            fn.launches += 1
+            if real.__name__ == "mha":
+                fn.launches_by_dtype[str(a[0].dtype)[6:]] += 1
+            return real(*a, **k)
+
+        counted.launches, counted.__name__ = 0, real.__name__
+        counted.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+        monkeypatch.setattr(mod, name, counted)
+    counted_fns = {f.__name__: f for f in (f_ops.mha, d_ops.decode, g_ops.geo_schedule)}
+    route = layers.moe_route
+    monkeypatch.setattr(chip_smoke, "MLA_FLASH_CASES", chip_smoke.MLA_FLASH_CASES[1:2])
+    serving = [dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
+               for n in ("decode_attention", "flash_attention")]
+    records, runs, mla = chip_smoke.moe_mla_phases(torch.device("cpu"), serving)
+    assert layers.moe_route is route  # the RouteLog put the real one back
+    assert mla["case"] == (2, 24, 4, 4, 48, True, 0, False, 32)  # MLA: dh 48, dv 32
+    by_name = {r["name"]: r for r in records}
+    mx, l4, mc = (runs[a] for a in ("mixtral-8x7b", "llama4-scout-17b-a16e", "minicpm3-4b"))
+    assert mx["per_prefill"]["mha"] == 2 and mx["per_step"]["decode"] == 2
+    assert l4["per_prefill"]["mha"] == 4 and l4["per_step"]["decode"] == 4 and not l4["router"]
+    assert mc["per_prefill"]["mha"] == 1 and mc["per_step"]["decode"] == 0 and mc["router"]
+    # one device: the routing is equal
+    assert mx["worst"]["decisions"] > 0 and mx["worst"]["flips"] == mx["worst"]["kept_only"] == 0
+    assert all(0 <= e < 2e-2 for r in runs.values() for e in r["err"])  # the path-shape checks
+    assert mx["dropped"] > 0 and l4["dropped"] > 0 and mc["dropped"] == 0
+    want = 1 + sum(r["launches"]["mha"] for r in runs.values())
+    assert by_name["flash_attention"]["launches"] == want
+    assert by_name["decode_attention"]["launches"] == 1 + mx["launches"]["decode"] + l4[
+        "launches"]["decode"]

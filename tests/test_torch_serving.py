@@ -86,6 +86,15 @@ def test_recurrent_router_with_model_equals_reference(policy, arch):
     _router_with_model_equals_reference(arch, policy)
 
 
+@pytest.mark.parametrize("policy", ["geotp", "fcfs"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-a16e", "minicpm3-4b"])
+def test_moe_and_mla_router_with_model_equals_reference(policy, arch):
+    """Each generation runs one decode step of the reduced MoE model
+    (mixtral: top-2 over a swa ring; llama4: top-1, chunk-local and NoPE
+    layers) or MLA model (minicpm3: the compressed latent cache)."""
+    _router_with_model_equals_reference(arch, policy)
+
+
 def _router_with_model_equals_reference(arch, policy):
     cfg_r, cfg_t = r_registry.reduced(arch), t_registry.reduced(arch)
     weights = {k: np.asarray(v) for k, v in
@@ -155,6 +164,21 @@ def test_recurrent_slot_pool_equals_reference(arch):
         assert str(y.dtype).split(".")[-1] == str(x.dtype)
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-a16e", "minicpm3-4b"])
+def test_moe_and_mla_slot_pool_equals_reference(arch):
+    """The pool's cache over all slots: rings for swa / cla, a linear
+    NoPE `gqa` cache (llama4), MLA's bf16 latent c_kv and k_rope, all zero,
+    in the reference's layout."""
+    cfg_r, cfg_t = r_registry.reduced(arch), t_registry.reduced(arch)
+    pr, pt = RSlotPool(cfg_r, 3, 32), TSlotPool(cfg_t, 3, 32, CPU)
+    ref = jax.tree_util.tree_leaves_with_path(pr.cache)
+    got = jax.tree_util.tree_leaves_with_path(pt.cache)
+    assert [jax.tree_util.keystr(k) for k, _ in got] == [jax.tree_util.keystr(k) for k, _ in ref]
+    for (_, x), (_, y) in zip(ref, got):
+        assert tuple(y.shape) == x.shape and not y.any() and y.device == CPU
+        assert str(y.dtype).split(".")[-1] == str(x.dtype)
+
+
 @pytest.mark.parametrize(
     "argv",
     [
@@ -163,6 +187,9 @@ def test_recurrent_slot_pool_equals_reference(arch):
         ["--requests", "12", "--rate", "100", "--policy", "geotp"],
         ["--arch", "xlstm-350m", "--requests", "10", "--rate", "100"],
         ["--arch", "recurrentgemma-9b", "--requests", "10", "--rate", "100"],
+        ["--arch", "mixtral-8x7b", "--requests", "10", "--rate", "100"],
+        ["--arch", "llama4-scout-17b-a16e", "--requests", "10", "--rate", "100"],
+        ["--arch", "minicpm3-4b", "--requests", "10", "--rate", "100"],
     ],
 )
 def test_launcher_output_equals_reference(argv, tmp_path):
