@@ -149,7 +149,47 @@ Slice 7, the MoE and MLA families (mixtral-8x7b, llama4-scout, minicpm3-4b):
     B = 8 (the absorbed MLA decode: plain products, no decode launch), the
     router with `max_seq` cut to 4096 for its pods, as llama's.
 
-Phases 11-16 draw the GPU-vs-CPU check's weights on the card and copy
+Slice 8, the vision frontend, the encoder-decoder and the int8 KV cache
+(internvl2-26b, seamless-m4t-large-v2, h2o-danube-3-4b):
+
+17. kernels vs plain versions on the card — flash's cross route (Sk != S,
+    non-causal) on CROSS_CASES (Sq below one warpgroup's 64 rows, Sk below
+    and across one 64-key tile, Sq past one 128-query block and above Sk,
+    dh 64 / 120 / 128 / 256) and seamless's cross launch CROSS_MAIN
+    (8 x 32 decoder tokens over 1,024 frames, 16/16 heads of 64); flash at
+    seamless's encoder shape (non-causal) and at h2o's prefill
+    ([8,4608,32,8,120], swa 4096: dh 120); decode at seamless's cross step
+    (1,024 valid slots); decode's int8 entry on INT8_DECODE_CASES (h2o's
+    ring of 4,096 with every slot valid and at random positions, llama's
+    linear cache, edges) — each in float32 at TOL and in bf16 at TOL, per
+    query row and bit for bit over two calls, the int8 entry also bit for
+    bit the same dtype's entry on the `_kv_dequantize`d cache; decode over
+    an empty memory (Sc = 0): zeros, no launch; CUDA-event times of the
+    cross route (SDPA on the same tensors), h2o's flash and the int8 entry
+    (the bf16 entry on the dequantized cache beside it; no library call
+    reads an int8 cache), each against its bound;
+18. internvl2-26b — (a) flash and decode at the path's shapes, then GPU vs
+    CPU over one layer at full width, layer by layer, 64 patch embeddings
+    ahead of the prompt, within 0.05; (b) all 48 layers uncut (39.8 GB of
+    bf16 weights, drawn on the card one layer group at a time): prefill
+    4 x (1,280 patches + 768 tokens) into a 4,096-slot cache, 64 decode
+    steps, 48 flash launches a prefill and 48 decode calls a step; (c) the
+    router geotp vs fcfs, summaries equal to the CPU's, `max_seq` cut to
+    2,048 for its pods;
+19. seamless-m4t-large-v2 — (a) as 18a over one encoder and one decoder
+    layer, 64 frames (the encoder's layers held too, the decoder's on the
+    CPU's encoder output); (b) 24 + 24 layers uncut: 8 x 1,024 stub fbank
+    frames of 160 and 32 decoder tokens, cache 256, 64 decode steps, 72
+    flash launches a prefill (24 encoder, 24 decoder, 24 on the cross
+    route) and 48 decode calls a step (24 self, 24 cross); (c) the router
+    over pods with an empty encoder memory (its cross step zeros without a
+    launch), `max_seq` cut to 4,096; (d) h2o-danube-3-4b at full size, one
+    set of weights with the bf16 and the int8 cache: prefill 8 x 4,608
+    (past the 4,096 window: the ring wraps), logits equal bit for bit, 16
+    decode steps of each, the int8 logits within 0.05 of the bf16 run's
+    largest, 24 int8 decode launches a step.
+
+Phases 11-19 draw the GPU-vs-CPU check's weights on the card and copy
 them to the CPU.
 
 The last two lines are a JSON record of the kernels and
@@ -212,6 +252,8 @@ def kernel_label(mangled: str) -> str:
             else ["float32"] if rest.startswith("If") else [])
     args += [v if t == "i" else ("false", "true")[int(v)]
              for t, v in re.findall(r"L([ib])(\d+)E", rest)]
+    if re.search(r"L[ib]\d+EaE", rest):  # a trailing int8_t (signed char): the int8 cache
+        args.append("int8")
     return f"{name}<{', '.join(args)}>"
 
 
@@ -677,6 +719,17 @@ def time_flash(case, dev, logit_cap=0.0):
     return k_ms, p_ms, lib_ms
 
 
+def time_flash_kernel(case, dev, iters=10) -> float:
+    """The bf16 kernel's ms per launch at one shape, CUDA events."""
+    from repro_torch.kernels.flash_attention import flash_attention as binding
+
+    B, S, H, KV, dh, causal, window, cl, dv = flash_dims(case)
+    qt, kt, vt = _to_bhsd(*flash_inputs(case, torch.bfloat16, dev, 1))
+    out = qt.new_empty((B, H, S, dv))
+    return cuda_ms(lambda: binding.launch(qt, kt, vt, out, dh**-0.5, causal, window, cl, 0.0),
+                   iters)
+
+
 def host_us(fn, iters: int) -> float:
     """Mean host microseconds a call over `iters` calls: the time to issue
     them, the device left to catch up afterwards."""
@@ -735,6 +788,139 @@ def sweep_decode_split(cases, dev) -> dict:
               f"SMs; the wrapper's {ops.BLOCKS_PER_SM}): "
               + ", ".join(f"{n}: {res[label, n]:.4f}" for n in DECODE_SPLIT_SWEEP))
     return res
+
+
+# ---------------------------------------------------------------------------
+# slice 8: flash with a key length of its own, decode over an int8 cache
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, KV, dh) of flash's cross route (non-causal, Sk != Sq):
+# seamless-m4t's decoder-over-frames shape (32 tokens over 1,024 frames,
+# 16/16 heads of 64) is CROSS_MAIN; the others are ragged edges: Sq below
+# one 64-row warpgroup, Sk below and across one 64-key tile, Sq past one
+# 128-query block and above Sk, grouped heads, dh 120 and 256
+CROSS_CASES = [(2, 5, 37, 4, 2, 64), (1, 63, 64, 2, 1, 64), (2, 70, 65, 4, 4, 120),
+               (1, 200, 33, 6, 2, 256), (2, 130, 1000, 8, 2, 128)]
+# (B, Sc, H, KV, dh, valid slots or None: random positions) of the int8
+# entry: h2o-danube-3-4b's ring after a prefill past its window (every slot
+# valid) and at random positions, llama3.2-3b's linear cache, and edges
+# (Sc ragged, dh not a multiple of the 16-byte load, G = 20)
+INT8_DECODE_CASES = [(8, 4096, 32, 8, 120, 4096), (8, 4096, 32, 8, 120, None),
+                     (8, 4096, 24, 8, 128, None), (3, 1000, 6, 2, 34, None),
+                     (2, 700, 40, 2, 64, None), (1, 64, 32, 8, 120, 1)]
+
+
+def cross_inputs(case, dtype, dev, seed):
+    """q [B,Sq,H,dh], k/v [B,Sk,KV,dh] in the model's layout."""
+    B, Sq, Sk, H, KV, dh = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (_randn((B, Sq, H, dh), dtype, dev, gen), _randn((B, Sk, KV, dh), dtype, dev, gen),
+            _randn((B, Sk, KV, dh), dtype, dev, gen))
+
+
+def cross_case(case, dtype, dev, seed=0):
+    """(run, ref, label) of flash's cross route: run() through `ops.mha`
+    (causal=False, Sk != Sq), ref its plain version on the same inputs."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = cross_inputs(case, dtype, dev, seed)
+    ref = attention_ref(*_to_bhsd(q, k, v), causal=False).transpose(1, 2)
+    return lambda: ops.mha(q, k, v, causal=False), ref, f"flash cross {case} {dtype}"
+
+
+def check_cross(case, dtype, dev, seed=0, tight=False):
+    """The cross route against its plain version: TOL; `tight` (bf16): per
+    query row and bit for bit over two calls as `check_tight`."""
+    return check_case(*cross_case(case, dtype, dev, seed), dtype, dev, tight=tight)
+
+
+def cross_work(case, itemsize):
+    """(bytes, flops) of one cross launch: q, k, v read and out written
+    once; 4·dh flops per (query, key) pair (every pair: no mask)."""
+    B, Sq, Sk, H, KV, dh = case
+    return (B * (2 * Sq * H + 2 * Sk * KV) * dh * itemsize, 4 * dh * B * H * Sq * Sk)
+
+
+def time_cross(case, dev):
+    """(kernel, plain, SDPA) ms per call of the cross route in bf16, CUDA
+    events; SDPA on the same tensors computes the same function."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as binding
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, Sq, Sk, H, KV, dh = case
+    qt, kt, vt = _to_bhsd(*cross_inputs(case, torch.bfloat16, dev, 1))
+    out = qt.new_empty((B, H, Sq, dh))
+    return (cuda_ms(lambda: binding.launch(qt, kt, vt, out, dh**-0.5, False, 0, False, 0.0), 50),
+            cuda_ms(lambda: attention_ref(qt, kt, vt, causal=False), 10),
+            cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True), 50))
+
+
+def int8_inputs(case, dtype, dev, seed):
+    """q [B,H,dh] in `dtype`, an int8 cache [B,Sc,KV,dh] with its float32
+    scales [B,Sc,KV] (bf16 K/V drawn and quantized as the model quantizes
+    them), valid [B,Sc] (`decode_inputs`' positions)."""
+    from repro_torch.models.attention import _kv_quantize
+
+    B, Sc, H, KV, dh, slots = case
+    q, k, v, valid = decode_inputs((B, Sc, H, KV, dh), torch.bfloat16, dev, seed, slots)
+    (k8, ks), (v8, vs) = _kv_quantize(k), _kv_quantize(v)
+    return q.to(dtype), k8, v8, ks, vs, valid
+
+
+def check_decode_int8(case, dev, dtype=torch.bfloat16, seed=0):
+    """The int8 entry (through `ops.decode`) against its plain version
+    (`_kv_dequantize`, then the plain decode) at TOL, bf16 also per query
+    row; a second call gives the same bits; and bit for bit what the same
+    dtype's entry gives on the dequantized cache (on the card only: after
+    the load it is the same arithmetic). Returns (max |d|, worst row or
+    None)."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_int8_ref, kv_dequantize
+
+    q, k8, v8, ks, vs, valid = int8_inputs(case, dtype, dev, seed)
+    label = f"decode int8 {case} {dtype}"
+    run = lambda: ops.decode(q, k8, v8, valid, k_scale=ks, v_scale=vs)  # noqa: E731
+    ref = decode_int8_ref(q, k8, v8, ks, vs, valid)
+    e = check_case(run, ref, label, dtype, dev, tight=dtype == torch.bfloat16)
+    e, rows = e if isinstance(e, tuple) else (e, None)
+    if dev.type == "cuda":
+        deq = ops.decode(q, kv_dequantize(k8, ks, dtype), kv_dequantize(v8, vs, dtype), valid)
+        if not torch.equal(run(), deq):
+            raise AssertionError(f"{label}: not bit for bit the {dtype} entry on the "
+                                 f"dequantized cache")
+    return e, rows
+
+
+def int8_work(valid, H, KV, dh, itemsize):
+    """(bytes, operations) of one int8 decode call: the valid slots' int8 K
+    and V and their float32 scales, q, the mask and out, each moved once;
+    4·dh flops per (query head, valid slot) and one multiply per K and V
+    element dequantized."""
+    n_valid = int(valid.sum())
+    B, Sc = valid.shape
+    nbytes = 2 * n_valid * KV * (dh + 4) + 2 * B * H * dh * itemsize + B * Sc
+    return nbytes, 4 * dh * H * n_valid + 2 * n_valid * KV * dh
+
+
+def time_decode_int8(case, dev):
+    """The int8 entry at one shape (bf16 q), CUDA events: `ms` through the
+    wrapper as the model calls it, `plain_ms` its plain version, `bf16_ms`
+    the bf16 entry on the dequantized cache (the same arithmetic, twice the
+    bytes); `work` the inputs' (bytes, operations). No PyTorch call reads an
+    int8 cache: no library time."""
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import decode_int8_ref, kv_dequantize
+
+    B, Sc, H, KV, dh, _ = case
+    q, k8, v8, ks, vs, valid = int8_inputs(case, torch.bfloat16, dev, 1)
+    kd, vd = kv_dequantize(k8, ks, q.dtype), kv_dequantize(v8, vs, q.dtype)
+    return {"ms": cuda_ms(lambda: ops.decode(q, k8, v8, valid, k_scale=ks, v_scale=vs), 200),
+            "plain_ms": cuda_ms(lambda: decode_int8_ref(q, k8, v8, ks, vs, valid), 20),
+            "bf16_ms": cuda_ms(lambda: ops.decode(q, kd, vd, valid), 200),
+            "work": int8_work(valid, H, KV, dh, 2)}
 
 
 def prefill_decode(cfg, params, tokens, steps, cache_len, dev):
@@ -1298,7 +1484,23 @@ def _copy_tree(dst, src):
         d.copy_(s)
 
 
-def layerwise(cfg, params, tokens, steps, cache_len, dev, tol=RECURRENT_TOL):
+def front_batch(cfg, tokens, n_front, gen, dev):
+    """The prefill batch of `tokens` [B,S]: a vision model's `n_front` patch
+    embeddings ahead of them, an encoder-decoder's `n_front` frames with
+    them as its decoder tokens (stub frontends: bf16 N(0, 1) rows of
+    `frontend_dim`, drawn from `gen` on `dev`). Returns (batch, the decode
+    positions' offset: the patches a vision prompt holds before its
+    tokens)."""
+    B = tokens.shape[0]
+    if cfg.frontend == "none":
+        return {"tokens": tokens}, 0
+    rows = _randn((B, n_front, cfg.frontend_dim), torch.bfloat16, dev, gen)
+    if cfg.is_encdec:
+        return {"frames": rows, "dec_tokens": tokens}, 0
+    return {"patches": rows, "tokens": tokens}, n_front
+
+
+def layerwise(cfg, params, tokens, steps, cache_len, dev, tol=RECURRENT_TOL, front=None):
     """GPU vs CPU layer by layer: prefill tokens[:, :-steps], then decode
     the last `steps` tokens, every layer run on both devices from the CPU's
     input (hidden state, and for decode the CPU's cache of that layer), so
@@ -1307,6 +1509,11 @@ def layerwise(cfg, params, tokens, steps, cache_len, dev, tol=RECURRENT_TOL):
     between two GEMMs past any fixed limit within a few layers. Checks every
     layer's output, every cache leaf and the logits within `tol` abs + rel;
     returns the largest |gpu - cpu| of each kind.
+
+    `front` (CPU tensors): a vision model's {"patches"}, embedded ahead of
+    the tokens; an encoder-decoder's {"frames"}, whose encoder layers are
+    held the same way, and whose decoder layers on both devices take the
+    CPU's encoder output as their memory.
 
     A MoE layer's routing is read on both devices and held by
     `routelog.compare` with the CPU's as the reference: a token whose
@@ -1324,7 +1531,7 @@ def layerwise(cfg, params, tokens, steps, cache_len, dev, tol=RECURRENT_TOL):
     devs = (cpu, dev)
     B, n = tokens.shape
     S = n - steps
-    caches = {d: stack.init_cache(cfg, B, cache_len, d) for d in devs}
+    front = front or {}
     worst = {"hidden": 0.0, "cache": 0.0, "logits": 0.0, "flips": 0, "kept_only": 0,
              "decisions": 0}
     log = routelog.RouteLog()
@@ -1348,13 +1555,29 @@ def layerwise(cfg, params, tokens, steps, cache_len, dev, tol=RECURRENT_TOL):
         out = {d: stack._head(params[d], rmsnorm(x.to(d), params[d]["final_ln"])) for d in devs}
         return out[dev], out[cpu]
 
-    x = embed_lookup(params[cpu]["embed"], tokens[:, :S], stack.ACT_DTYPE)
-    positions = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+    enc_out = None
     with log:
+        if cfg.is_encdec:
+            x, pos_e = stack._embed_inputs(cfg, params[cpu], {"frames": front["frames"]})
+            for g in range(cfg.n_enc_layers):
+                out = {d: stack._encoder_layer(cfg, stack._layer(params[d], "eblk0", g), x.to(d),
+                                               pos_e.to(d)) for d in devs}
+                compare("hidden", out[dev], out[cpu], f"encoder eblk0[{g}] output")
+                x = out[cpu]
+            out = {d: rmsnorm(x.to(d), params[d]["enc_final_ln"]) for d in devs}
+            compare("hidden", out[dev], out[cpu], "encoder output")
+            enc_out = out[cpu]
+            front = {}
+        x, positions = stack._embed_inputs(cfg, params[cpu], {**front, "tokens": tokens[:, :S]})
+        offset = positions.shape[1] - S  # a vision prompt's patches
+        enc_len = 0 if enc_out is None else enc_out.shape[1]
+        caches = {d: stack.init_cache(cfg, B, cache_len, d, enc_len=enc_len) for d in devs}
+        mem = {d: None if enc_out is None else enc_out.to(d) for d in devs}
         for pfx, g, mixer, fk in stack._layers(cfg):
             out = {d: stack._prefill_layer(cfg, stack._layer(params[d], pfx, g), pfx, mixer, fk,
                                            x.to(d), positions.to(d),
-                                           stack._layer_cache(caches[d], pfx, g), cache_len)
+                                           stack._layer_cache(caches[d], pfx, g), cache_len,
+                                           mem[d])
                    for d in devs}
             compare("hidden", out[dev], out[cpu], f"prefill {pfx}[{g}] {mixer} output")
             x = out[cpu]
@@ -1363,7 +1586,7 @@ def layerwise(cfg, params, tokens, steps, cache_len, dev, tol=RECURRENT_TOL):
             compare("cache", a, b, f"prefill cache {name}")
         for t in range(S, n):
             x = embed_lookup(params[cpu]["embed"], tokens[:, t], stack.ACT_DTYPE)[:, None]
-            pos = torch.full((B,), t, dtype=torch.int32)
+            pos = torch.full((B,), offset + t, dtype=torch.int32)
             for pfx, g, mixer, fk in stack._layers(cfg):
                 views = {d: stack._layer_cache(caches[d], pfx, g) for d in devs}
                 _copy_tree(views[dev], views[cpu])  # the GPU's layer starts from the CPU's state
@@ -1382,16 +1605,20 @@ def layerwise(cfg, params, tokens, steps, cache_len, dev, tol=RECURRENT_TOL):
 
 
 def model_phase(arch, n_layers_cpu, prompt, dev, serve, *, full=None, tol=RECURRENT_TOL,
-                with_router=True):
-    """GPU vs CPU at `n_layers_cpu` layers (one period plus the tail),
-    layer by layer within `tol`, the weights drawn on the card and copied to
-    the CPU; then the model at full width (`full`, a cut of the registry's
-    config where it must be): prefill `serve` = (B, S) twice, DECODE_STEPS
-    decode steps, and (`with_router`) the router geotp vs fcfs over pods of
-    `full`. Returns the measured numbers and the kernel launch counts of
-    the full-width run (counts set to 0 just before it and read just after),
-    and the MoE assignments the first prefill dropped (its routing recorded;
-    the second prefill, the timed one, runs without the recorder)."""
+                with_router=True, front=0, cache_len=None, cpu_cfg=None):
+    """GPU vs CPU at `n_layers_cpu` layers (one period plus the tail; or
+    `cpu_cfg`), layer by layer within `tol`, the weights drawn on the card
+    and copied to the CPU; then the model at full width (`full`, a cut of
+    the registry's config where it must be): prefill `serve` = (B, S)
+    twice, DECODE_STEPS decode steps, and (`with_router`) the router geotp
+    vs fcfs over pods of `full`. A frontend's model takes `front` patches
+    (vision, ahead of the S tokens) or frames (the encoder's, S decoder
+    tokens) in the full-width run, FRONT_CPU in the check's;
+    `cache_len` defaults to the prompt plus the decode steps. Returns the
+    measured numbers and the kernel launch counts of the full-width run
+    (counts set to 0 just before it and read just after), and the MoE
+    assignments the first prefill dropped (its routing recorded; the second
+    prefill, the timed one, runs without the recorder)."""
     from repro_torch.configs import registry
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fl_ops
@@ -1403,7 +1630,7 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve, *, full=None, tol=RECURR
 
     cpu = torch.device("cpu")
     full = full or registry.get(arch)
-    cfg_s = dataclasses.replace(full, n_layers=n_layers_cpu)
+    cfg_s = cpu_cfg or dataclasses.replace(full, n_layers=n_layers_cpu)
     t0 = time.perf_counter()
     params = {dev: draw_weights(cfg_s, torch.Generator(device=dev).manual_seed(0), dev)}
     params[cpu] = {k: x.cpu() for k, x in params[dev].items()}
@@ -1411,14 +1638,20 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve, *, full=None, tol=RECURR
           f"parameters): weights drawn on the card and copied to the CPU in "
           f"{time.perf_counter() - t0:.2f} s")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, full.vocab, (2, prompt + 4)))
+    n_cpu = FRONT_CPU if full.frontend != "none" else 0
+    batch_cpu, off_cpu = front_batch(full, tokens, n_cpu, torch.Generator().manual_seed(1), cpu)
+    batch_cpu.pop("tokens", None), batch_cpu.pop("dec_tokens", None)
     t0 = time.perf_counter()
-    worst = layerwise(cfg_s, params, tokens, 4, prompt + 8, dev, tol)
+    worst = layerwise(cfg_s, params, tokens, 4, off_cpu + prompt + 8, dev, tol, front=batch_cpu)
     flips = (f"; MoE routing decisions that differ between cuBLAS and the CPU, of "
              f"{worst['decisions']}: {worst['flips']} expert flips at near ties, "
              f"{worst['kept_only']} kept / dropped only (those tokens' outputs not compared)"
              if worst["decisions"] else "")
-    print(f"layer by layer, prefill 2 x {prompt} + 4 decode steps ({time.perf_counter() - t0:.2f} "
-          f"s): max |gpu - cpu| hidden {worst['hidden']:.4g}, cache leaves {worst['cache']:.4g}, "
+    fed = (f" after {n_cpu} patch embeddings" if full.frontend == "vision" else
+           f" over {n_cpu} frames" if full.is_encdec else "")
+    print(f"layer by layer, prefill 2 x {prompt}{fed} + 4 decode steps "
+          f"({time.perf_counter() - t0:.2f} s): max |gpu - cpu| hidden {worst['hidden']:.4g}, "
+          f"cache leaves {worst['cache']:.4g}, "
           f"logits {worst['logits']:.4g} (limit {tol} abs + rel){flips}")
     del params
 
@@ -1436,7 +1669,8 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve, *, full=None, tol=RECURR
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
     tokens = torch.randint(0, full.vocab, (B, S + DECODE_STEPS), generator=gen, device=dev,
                            dtype=torch.int32)
-    cache_len = S + DECODE_STEPS
+    batch, offset = front_batch(full, tokens[:, :S], front, gen, dev)
+    cache_len = cache_len or offset + S + DECODE_STEPS
     prefill = model.make_prefill_step(full, cache_len)
     decode = model.make_decode_step(full)
     counters = (m_ops.mlstm, r_ops.rglru, r_ops.rglru_scan, fl_ops.mha, dec_ops.decode)
@@ -1444,6 +1678,7 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve, *, full=None, tol=RECURR
         c.launches = 0
     fl_ops.reset_launches()
     m_ops.reset_launches()
+    dec_ops.reset_launches()
     pre_s, log = [], routelog.RouteLog()
     # the first call warms the libraries' plans for these shapes and records
     # the routing; the second is timed
@@ -1451,17 +1686,19 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve, *, full=None, tol=RECURR
         cache = None
         t0 = time.perf_counter()
         with record:
-            logits, cache = prefill(params, {"tokens": tokens[:, :S]})
+            logits, cache = prefill(params, batch)
         torch.cuda.synchronize()
         pre_s.append(time.perf_counter() - t0)
     dropped = log.dropped()
     del log
     per_prefill = {c.__name__: c.launches // 2 for c in counters}
+    cross = fl_ops.mha.cross_launches
+    del batch
     finite = bool(torch.isfinite(logits.float()).all())
     step_s = []
     before = {c.__name__: c.launches for c in counters}
     for t in range(S, S + DECODE_STEPS):
-        pos = torch.full((B,), t, dtype=torch.int32, device=dev)
+        pos = torch.full((B,), offset + t, dtype=torch.int32, device=dev)
         t0 = time.perf_counter()
         logits, cache = decode(params, tokens[:, t], pos, cache)
         torch.cuda.synchronize()
@@ -1474,15 +1711,25 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve, *, full=None, tol=RECURR
     moe = (f"; MoE assignments dropped past the capacity {dropped} of "
            f"{B * S * full.top_k * full.n_layers} (capacity factor {full.capacity_factor})"
            if full.n_experts else "")
-    print(f"prefill {B} x {S}: {pre_s[0] * 1e3:.2f} ms (first), {pre_s[1] * 1e3:.2f} ms (second) "
-          f"= {B * S / pre_s[1]:.1f} tokens/s; launches per prefill {per_prefill}{moe}")
+    n_tok = B * (front + S)  # a vision prompt's patches or the encoder's frames count too
+    what = (f" ({front} patches + {S} tokens a row)" if full.frontend == "vision" else
+            f" ({front} frames + {S} decoder tokens a row)" if full.is_encdec else "")
+    print(f"prefill {B} x {S}{what}: {pre_s[0] * 1e3:.2f} ms (first), {pre_s[1] * 1e3:.2f} ms "
+          f"(second) = {n_tok / pre_s[1]:.1f} tokens/s; launches per prefill {per_prefill} (cross "
+          f"route {cross // 2}){moe}")
     print(f"decode B={B}: {dec_mean * 1e3:.3f} ms a step (mean of {DECODE_STEPS}; "
           f"{sum(step_s[1:]) / (len(step_s) - 1) * 1e3:.3f} without the first) = "
           f"{B / dec_mean:.1f} tokens/s; launches per step {per_step}; logits finite")
     del cache, logits
     res = {}
+    # an encoder-decoder's router step decodes over its pods' empty memory:
+    # the cross step is zeros without a launch (counted as an empty call)
+    per_gen = dict(per_step)
+    if full.is_encdec:
+        per_gen["decode"] -= full.n_layers
     for pol in ("geotp", "fcfs") if with_router else ():
         before = {c.__name__: c.launches for c in counters}
+        empty = dec_ops.decode.empty_calls
         geo_ops.geo_schedule.launches = 0
         res[pol], stats, secs, admits = router(full, params, dev, pol)
         gens = len(stats.occ_us)
@@ -1491,9 +1738,12 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve, *, full=None, tol=RECURR
             raise AssertionError(f"router {pol}: geo_schedule launches "
                                  f"{geo_ops.geo_schedule.launches} != {want_geo}")
         used = {c.__name__: c.launches - before[c.__name__] for c in counters}
-        if any(used[k] != n * gens for k, n in per_step.items()):
-            raise AssertionError(f"router {pol}: launches {used} != {per_step} x {gens} "
+        if any(used[k] != n * gens for k, n in per_gen.items()):
+            raise AssertionError(f"router {pol}: launches {used} != {per_gen} x {gens} "
                                  f"generations")
+        empty = dec_ops.decode.empty_calls - empty
+        if empty != (full.n_layers * gens if full.is_encdec else 0):
+            raise AssertionError(f"router {pol}: {empty} decode calls over an empty memory")
         # the router's clock is simulated: its summary is the CPU's without a model
         want = router(registry.reduced(arch), None, cpu, pol)[0]
         if res[pol] != want:
@@ -1512,8 +1762,11 @@ def model_phase(arch, n_layers_cpu, prompt, dev, serve, *, full=None, tol=RECURR
     del params
     torch.cuda.empty_cache()
     return {"per_prefill": per_prefill, "per_step": per_step, "launches": launches,
+            "cross": fl_ops.mha.cross_launches,
+            "decode_by_cache": dict(dec_ops.decode.launches_by_cache),
             "mlstm_by_dtype": dict(m_ops.mlstm.launches_by_dtype),
             "prefill_s": pre_s[1], "step_s": dec_mean, "worst": worst, "dropped": dropped,
+            "tokens_per_s": n_tok / pre_s[1],
             "router": res, "peak_gib": peak}
 
 
@@ -1722,12 +1975,15 @@ def mla_flash_phase(dev) -> tuple:
 def want_launches(cfg) -> tuple:
     """(per prefill, per decode step) launches of flash and decode that the
     layer pattern implies: one flash a gqa / swa / cla / mla layer, one
-    decode a gqa / swa / cla layer (MLA's decode is plain products)."""
+    decode a gqa / swa / cla layer (MLA's decode is plain products); an
+    encoder-decoder adds one flash an encoder layer and, in every decoder
+    layer, a cross-attention: one flash a prefill, one decode a step."""
     mixers = [m for m, _ in cfg.pattern] * cfg.n_groups + [m for m, _ in cfg.tail]
     attn = sum(m in ("gqa", "swa", "cla") for m in mixers)
+    cross = cfg.n_layers if cfg.is_encdec else 0
     none = {"mlstm": 0, "rglru": 0, "rglru_scan": 0}
-    return ({"mha": attn + mixers.count("mla"), "decode": 0, **none},
-            {"mha": 0, "decode": attn, **none})
+    return ({"mha": attn + mixers.count("mla") + cfg.n_enc_layers + cross, "decode": 0, **none},
+            {"mha": 0, "decode": attn + cross, **none})
 
 
 def first_decode_valid(mixer, S, Sc) -> int:
@@ -1737,7 +1993,7 @@ def first_decode_valid(mixer, S, Sc) -> int:
     return (S % Sc if mixer == "cla" else min(S, Sc - 1)) + 1
 
 
-def path_shape_checks(full, serve, dev, with_router) -> tuple:
+def path_shape_checks(full, serve, dev, with_router, front=0, cache_len=None) -> tuple:
     """The attention kernels against their plain versions at the shapes the
     full-width run gives them, for each gqa / swa / cla mixer of the pattern
     (MLA's prefill launch is phase 13's; its decode is plain products):
@@ -1747,13 +2003,18 @@ def path_shape_checks(full, serve, dev, with_router) -> tuple:
     positions; with the router, its B = 1 decode over ROUTER_CACHE slots
     (slot 0 valid). float32 at TOL (there kernel and plain version differ
     only by summation order), bf16 at TOL, per query row and bit for bit
-    over two calls. Returns max |d| of (flash, decode)."""
+    over two calls. A vision model's prefill holds `front` patches ahead of
+    the S tokens; `cache_len` defaults to the prompt plus DECODE_STEPS (an
+    encoder-decoder's encoder and cross shapes are phase 17's). Returns max
+    |d| of (flash, decode)."""
     B, S = serve
+    if full.frontend == "vision":
+        S += front
     cases = []
     for mixer in dict.fromkeys(m for m, _ in full.pattern):
         if mixer not in ("gqa", "swa", "cla"):  # MLA's prefill launch: phase 13
             continue
-        f, d = launch_shapes(full, B, S, S + DECODE_STEPS, mixer=mixer)
+        f, d = launch_shapes(full, B, S, cache_len or S + DECODE_STEPS, mixer=mixer)
         cases += [("flash", f, None, mixer),
                   ("decode", d, first_decode_valid(mixer, S, d[1]), mixer),
                   ("decode", d, None, mixer)]
@@ -1775,19 +2036,21 @@ def path_shape_checks(full, serve, dev, with_router) -> tuple:
     return err["flash"], err["decode"]
 
 
-def serve_phase(num, arch, full, serve, dev, with_router=True, cut=None):
-    """Phases 14-16: the attention kernels at the path's shapes, GPU vs CPU
-    over one period at full width, then `full` at (B, S) = `serve`, then
-    (`with_router`) the router. Checks the launches against the layer
+def serve_phase(num, arch, full, serve, dev, with_router=True, cut=None, **kw):
+    """Phases 14-16, 18-19: the attention kernels at the path's shapes, GPU
+    vs CPU over one period at full width, then `full` at (B, S) = `serve`,
+    then (`with_router`) the router; `kw` goes to model_phase (a frontend's
+    `front`, `cache_len`, `cpu_cfg`). Checks the launches against the layer
     pattern's. Returns model_phase's record with the shape checks' max |d|
     under "err"."""
     phase(f"{num} {arch}: attention at the path's shapes, GPU vs CPU over one period at full "
           f"width, then {full.n_layers} layers")
     for line in cut or ():
         print(f"CUT: {line}")
-    err = path_shape_checks(full, serve, dev, with_router)
+    err = path_shape_checks(full, serve, dev, with_router, kw.get("front", 0),
+                            kw.get("cache_len"))
     res = model_phase(arch, full.period + len(full.tail), MOE_CPU_PROMPT, dev, serve, full=full,
-                      tol=LOGIT_TOL, with_router=with_router)
+                      tol=LOGIT_TOL, with_router=with_router, **kw)
     pre, step = want_launches(full)
     if (any(res["per_prefill"][k] != v for k, v in pre.items())
             or any(res["per_step"][k] != v for k, v in step.items())):
@@ -1795,7 +2058,7 @@ def serve_phase(num, arch, full, serve, dev, with_router=True, cut=None):
                              f"per decode step {res['per_step']} (want {step})")
     B, S = serve
     print(f"{arch}: prefill {B} x {S} {res['prefill_s'] * 1e3:.2f} ms = "
-          f"{B * S / res['prefill_s']:.1f} tokens/s, decode {res['step_s'] * 1e3:.3f} ms a step; "
+          f"{res['tokens_per_s']:.1f} tokens/s, decode {res['step_s'] * 1e3:.3f} ms a step; "
           f"flash {pre['mha']} a prefill, decode {step['decode']} a step (the pattern's); peak "
           f"device memory {res['peak_gib']:.2f} GiB")
     return dict(res, err=err)
@@ -1835,10 +2098,244 @@ def moe_mla_phases(dev, records):
     return records, runs, mla_t
 
 
+# ---------------------------------------------------------------------------
+# slice 8: internvl2-26b (vision frontend), seamless-m4t-large-v2
+# (encoder-decoder, cross-attention), the int8 KV cache
+# ---------------------------------------------------------------------------
+
+INTERNVL_ARCH, SEAMLESS_ARCH, H2O_ARCH = "internvl2-26b", "seamless-m4t-large-v2", "h2o-danube-3-4b"
+# InternVL2's dynamic resolution: 4 tiles of 448^2 and a thumbnail at 256
+# tokens each = 1,280 patch embeddings, then 768 text tokens: S = 2,048
+INTERNVL_B, INTERNVL_P, INTERNVL_T, INTERNVL_CACHE = 4, 1280, 768, 4096
+INTERNVL_MAX_SEQ = 2048  # the router's pods: 3 x 12 slots x 48 layers at 2,048 = 14.5 GB
+# ~20 s of speech at the stacked-fbank rate: 1,024 frames of 160; 32 decoder tokens
+SEAMLESS_B, SEAMLESS_FRAMES, SEAMLESS_DEC, SEAMLESS_CACHE = 8, 1024, 32, 256
+SEAMLESS_MAX_SEQ = 4096  # the router's pods, as llama's
+H2O_B, H2O_S, INT8_STEPS = 8, 4608, 16  # past the 4,096 window: the ring wraps
+FRONT_CPU = 64  # patches / frames of the GPU-vs-CPU checks (phases 18a, 19a)
+INT8_REL = 0.05  # tests/models/test_int8_cache.py: decode logits, relative to their largest
+CROSS_MAIN = (SEAMLESS_B, SEAMLESS_DEC, SEAMLESS_FRAMES, 16, 16, 64)  # seamless's cross launch
+
+
+def slice8_kernel_phase(dev) -> dict:
+    """Phase 17: flash's cross route on CROSS_CASES and CROSS_MAIN, flash at
+    seamless's encoder shape (non-causal) and h2o-danube-3-4b's prefill
+    (dh 120, swa 4096), decode at seamless's cross step (every slot valid),
+    the int8 entry on INT8_DECODE_CASES (h2o's ring and llama's linear
+    cache at B = 8 over 4,096 slots), each in float32 at TOL and in bf16 at
+    TOL, per query row and bit for bit over two calls, the int8 entry also
+    bit for bit the bf16 entry on the dequantized cache; decode over an
+    empty memory (zeros, no launch); then CUDA-event times against the
+    bounds. Returns the max |d| and timings."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+
+    phase("17 flash with a key length of its own, flash at dh 120, decode over an int8 cache "
+          "and over an empty memory vs plain versions")
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = {"cross": 0.0, "flash": 0.0, "decode": 0.0, "int8": 0.0}
+    for i, case in enumerate(CROSS_CASES + [CROSS_MAIN]):
+        e32 = check_cross(case, f32, dev, seed=i)
+        e16, r16 = check_cross(case, bf16, dev, seed=i, tight=True)
+        err["cross"] = max(err["cross"], e32, e16)
+        print(f"flash cross (B, Sq, Sk, H, KV, dh) {str(case):28s}: float32 max |d| {e32:.3g}, "
+              f"bf16 max |d| {e16:.3g}, worst row ||d||/||ref|| {r16:.3g}; two calls equal")
+    sm = registry.get(SEAMLESS_ARCH)
+    h2o = registry.get(H2O_ARCH)
+    enc = (SEAMLESS_B, SEAMLESS_FRAMES, sm.n_heads, sm.n_kv_heads, sm.hd, False, 0, False)
+    f_h2o, d_h2o = launch_shapes(h2o, H2O_B, H2O_S, H2O_S + INT8_STEPS)
+    x_dec = (SEAMLESS_B, SEAMLESS_FRAMES, sm.n_heads, sm.n_kv_heads, sm.hd)
+    for kind, case, slots, label in (("flash", enc, None, "seamless encoder"),
+                                     ("flash", f_h2o, None, "h2o prefill"),
+                                     ("decode", x_dec, SEAMLESS_FRAMES, "seamless cross step")):
+        e32 = (check_flash(case, f32, dev) if kind == "flash"
+               else check_decode(case, f32, dev, valid_slots=slots))
+        e16, r16 = check_tight(kind, case, dev, valid_slots=slots)
+        err[kind] = max(err[kind], e32, e16)
+        print(f"{kind} {case} ({label}): float32 max |d| {e32:.3g}, bf16 max |d| {e16:.3g}, "
+              f"worst row {r16:.3g}; two calls equal")
+    for i, case in enumerate(INT8_DECODE_CASES):
+        e32, _ = check_decode_int8(case, dev, f32, seed=i)
+        e16, r16 = check_decode_int8(case, dev, bf16, seed=i)
+        err["int8"] = max(err["int8"], e32, e16)
+        same = ("; bit for bit the same dtype's entry on the dequantized cache"
+                if dev.type == "cuda" else "")
+        print(f"decode int8 (B, Sc, H, KV, dh, valid) {str(case):30s}: float32 max |d| {e32:.3g}, "
+              f"bf16 max |d| {e16:.3g}, worst row {r16:.3g}; two calls equal{same}")
+    launches, empty = dec_ops.decode.launches, dec_ops.decode.empty_calls
+    q = torch.randn((SEAMLESS_B, sm.n_heads, sm.hd), device=dev).to(bf16)
+    none = torch.zeros((SEAMLESS_B, 0, sm.n_kv_heads, sm.hd), dtype=bf16, device=dev)
+    z = dec_ops.decode(q, none, none, torch.ones((SEAMLESS_B, 0), dtype=torch.bool, device=dev))
+    if (z.shape != q.shape or bool(z.any()) or dec_ops.decode.launches != launches
+            or dec_ops.decode.empty_calls != empty + 1):
+        raise AssertionError("decode over an empty memory: not zeros without a launch")
+    print("decode over an empty memory (Sc = 0): zeros of q's shape, no launch (an empty call)")
+
+    t = {}
+    c_ms, c_plain, c_lib = time_cross(CROSS_MAIN, dev)
+    c_work = cross_work(CROSS_MAIN, 2)
+    c_bound, c_by = bound(*c_work, BF16_TENSOR_OPS_PER_S)
+    t["cross"] = {"ms": c_ms, "plain_ms": c_plain, "library_ms": c_lib, "bound_ms": c_bound,
+                  "bound_by": c_by}
+    print(f"flash cross {CROSS_MAIN} bf16: kernel {c_ms:.4f} ms, plain {c_plain:.4f} ms, SDPA "
+          f"{c_lib:.4f} ms; {c_work[0]} bytes, {c_work[1]:.4g} flops, bound {c_bound:.4g} ms "
+          f"({c_by}), {c_work[0] / c_ms / 1e9:.3f} TB/s")
+    h_ms = time_flash_kernel(f_h2o, dev)
+    h_work = flash_work(f_h2o, 2)
+    h_bound, h_by = bound(*h_work, BF16_TENSOR_OPS_PER_S)
+    print(f"flash {f_h2o} bf16 (h2o prefill, dh 120): kernel {h_ms:.4f} ms; {h_work[1]:.4g} "
+          f"flops, bound {h_bound:.4g} ms ({h_by}), {h_work[1] / h_ms / 1e9:.2f} TFLOP/s (the "
+          f"plain version's [B,H,S,S] scores need 65 GB here, and SDPA takes no sliding "
+          f"window: neither is timed)")
+    i8 = time_decode_int8(INT8_DECODE_CASES[0], dev)
+    i_bound, i_by = bound(*i8["work"], BF16_TENSOR_OPS_PER_S)
+    t["int8"] = {"ms": i8["ms"], "plain_ms": i8["plain_ms"], "library_ms": None,
+                 "bound_ms": i_bound, "bound_by": i_by}
+    print(f"decode int8 {INT8_DECODE_CASES[0]} (h2o's full ring): {i8['ms']:.4f} ms through the "
+          f"wrapper, plain {i8['plain_ms']:.4f} ms, the bf16 entry on the dequantized cache "
+          f"{i8['bf16_ms']:.4f} ms; {i8['work'][0]} bytes, bound {i_bound:.4g} ms ({i_by}), "
+          f"{i8['work'][0] / i8['ms'] / 1e9:.3f} TB/s; no PyTorch call reads an int8 cache")
+    i8l = time_decode_int8(INT8_DECODE_CASES[2], dev)
+    print(f"decode int8 {INT8_DECODE_CASES[2]} (llama's linear cache, random positions): "
+          f"{i8l['ms']:.4f} ms, plain {i8l['plain_ms']:.4f} ms, bf16 entry {i8l['bf16_ms']:.4f} "
+          f"ms, bound {bound(*i8l['work'], BF16_TENSOR_OPS_PER_S)[0]:.4g} ms")
+    return {"err": err, "times": t}
+
+
+def int8_phase(dev) -> dict:
+    """Phase 19d: h2o-danube-3-4b at full size from one set of weights, its
+    bf16 and int8 caches: prefill H2O_B x H2O_S (past the window: the ring
+    wraps) equal logits bit for bit (the prefill attends over bf16 K/V in
+    both), then INT8_STEPS decode steps of each, the int8 logits within
+    INT8_REL of the bf16 run's largest, and one int8 decode launch a layer
+    a step."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.models import model
+
+    phase(f"19d {H2O_ARCH}: the int8 KV cache against bf16 at full size")
+    cfgs = {"bf16": registry.get(H2O_ARCH)}
+    cfgs["int8"] = dataclasses.replace(cfgs["bf16"], kv_cache_dtype="int8")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = draw_weights(cfgs["bf16"], gen, dev)
+    B, S = H2O_B, H2O_S
+    tokens = torch.randint(0, cfgs["bf16"].vocab, (B, S + INT8_STEPS), generator=gen,
+                           device=dev, dtype=torch.int32)
+    L = cfgs["bf16"].n_layers
+    fl_ops.reset_launches()
+    dec_ops.reset_launches()
+    logits, caches, pre_s = {}, {}, {}
+    for name, cfg in cfgs.items():
+        prefill = model.make_prefill_step(cfg, S + INT8_STEPS)
+        for _ in range(2):  # the second call is timed
+            caches[name] = None
+            t0 = time.perf_counter()
+            logits[name], caches[name] = prefill(params, {"tokens": tokens[:, :S]})
+            torch.cuda.synchronize()
+            pre_s[name] = time.perf_counter() - t0
+    if not torch.equal(logits["bf16"], logits["int8"]):
+        raise AssertionError("int8 prefill logits differ from the bf16 run's")
+    k = caches["int8"]["blk0"]["k"]
+    if k.dtype != torch.int8 or k.shape[2] != cfgs["int8"].window:
+        raise AssertionError(f"int8 cache leaf {k.dtype} {tuple(k.shape)}: not an int8 ring")
+    flash = fl_ops.mha.launches
+    step_s = {"bf16": [], "int8": []}
+    worst = 0.0
+    decode = {n: model.make_decode_step(c) for n, c in cfgs.items()}
+    for t in range(S, S + INT8_STEPS):
+        pos = torch.full((B,), t, dtype=torch.int32, device=dev)
+        for name in cfgs:
+            t0 = time.perf_counter()
+            logits[name], _ = decode[name](params, tokens[:, t], pos, caches[name])
+            torch.cuda.synchronize()
+            step_s[name].append(time.perf_counter() - t0)
+        a, b = logits["bf16"].float(), logits["int8"].float()
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError(f"int8 decode {t}: non-finite logits")
+        rel = ((a - b).abs().max() / a.abs().max().clamp_min(1e-9)).item()
+        worst = max(worst, rel)
+        if rel >= INT8_REL:
+            raise AssertionError(f"int8 decode {t}: logits {rel:.4g} of the bf16 run's largest "
+                                 f"away (limit {INT8_REL})")
+    by = dec_ops.decode.launches_by_cache
+    if by["int8"] != L * INT8_STEPS or by["bfloat16"] != L * INT8_STEPS:
+        raise AssertionError(f"decode launches {by} != {L} x {INT8_STEPS} of each cache")
+    if flash != 4 * L or fl_ops.mha.launches_by_dtype["bfloat16"] != 4 * L:
+        raise AssertionError(f"flash launches {fl_ops.mha.launches_by_dtype} != 4 prefills x {L}")
+    ms = {n: sum(v) / len(v) * 1e3 for n, v in step_s.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"prefill {B} x {S} (past the {cfgs['int8'].window} window): bf16 "
+          f"{pre_s['bf16'] * 1e3:.2f} ms = {B * S / pre_s['bf16']:.1f} tokens/s, int8 "
+          f"{pre_s['int8'] * 1e3:.2f} ms = {B * S / pre_s['int8']:.1f} tokens/s; logits equal bit "
+          f"for bit")
+    print(f"decode B={B}, {INT8_STEPS} steps: bf16 {ms['bf16']:.3f} ms a step, int8 "
+          f"{ms['int8']:.3f} ms a step; int8 logits within {worst:.4g} of the bf16 run's largest "
+          f"(limit {INT8_REL}); decode launches by cache {by} ({L} a step each); peak device "
+          f"memory {peak:.2f} GiB")
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return {"int8": by["int8"], "bf16": by["bfloat16"], "flash": flash, "prefill_s": pre_s,
+            "step_ms": ms, "rel": worst, "peak_gib": peak}
+
+
+def slice8_phases(dev, records):
+    """Phases 17-19. Adds the records of flash's cross route and decode's
+    int8 entry, and folds the new paths' bf16 flash and decode launches and
+    phase 17's checks into the attention kernels' records."""
+    from repro_torch.configs import registry
+
+    k17 = slice8_kernel_phase(dev)
+    runs = {}
+    reg = registry.get(INTERNVL_ARCH)
+    ivl = dataclasses.replace(reg, max_seq=INTERNVL_MAX_SEQ)
+    runs[INTERNVL_ARCH] = serve_phase(
+        18, INTERNVL_ARCH, ivl, (INTERNVL_B, INTERNVL_T), dev, front=INTERNVL_P,
+        cache_len=INTERNVL_CACHE, cut=[
+            f"max_seq {ivl.max_seq} (registry: {reg.max_seq}) for the router's pods' caches "
+            f"(3 x 12 slots x {ivl.n_layers} layers: 14.5 GB at 2,048, 29 GB at 4,096, beside "
+            f"39.8 GB of weights); the serve run's own cache holds {INTERNVL_CACHE} slots"])
+    reg = registry.get(SEAMLESS_ARCH)
+    sm = dataclasses.replace(reg, max_seq=SEAMLESS_MAX_SEQ)
+    runs[SEAMLESS_ARCH] = serve_phase(
+        19, SEAMLESS_ARCH, sm, (SEAMLESS_B, SEAMLESS_DEC), dev, front=SEAMLESS_FRAMES,
+        cache_len=SEAMLESS_CACHE, cpu_cfg=dataclasses.replace(sm, n_layers=1, n_enc_layers=1),
+        cut=[f"max_seq {sm.max_seq} (registry: {reg.max_seq}) for the router's pods' caches, as "
+             f"llama's"])
+    i8 = int8_phase(dev)
+    by_name = {r["name"]: r for r in records}
+    fl, dec = by_name["flash_attention"], by_name["decode_attention"]
+    err = k17["err"]
+    fl["max_abs_err"] = max(fl["max_abs_err"], err["flash"], *(r["err"][0] for r in runs.values()))
+    dec["max_abs_err"] = max(dec["max_abs_err"], err["decode"],
+                             *(r["err"][1] for r in runs.values()))
+    for res in runs.values():
+        fl["launches"] += res["launches"]["mha"] - res["cross"]
+        dec["launches"] += res["decode_by_cache"]["bfloat16"]
+    fl["launches"] += i8["flash"]
+    dec["launches"] += i8["bf16"]
+    cross = runs[SEAMLESS_ARCH]["cross"]
+    want = 2 * registry.get(SEAMLESS_ARCH).n_layers
+    if cross != want:  # the timed and the warm-up prefill
+        raise AssertionError(f"flash cross-route launches {cross} != {want}")
+    records.append(dict({"name": "flash_attention_cross", "route": "cuda",
+                         "source": "src/repro_torch/csrc/flash_attention.cu",
+                         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
+                         "launches": cross, "max_abs_err": err["cross"]}, **k17["times"]["cross"]))
+    records.append(dict({"name": "decode_attention_int8", "route": "cuda",
+                         "source": "src/repro_torch/csrc/decode_attention.cu",
+                         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:64",
+                         "launches": i8["int8"], "max_abs_err": err["int8"]},
+                        **k17["times"]["int8"]))
+    return records, runs, i8
+
+
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 KERNEL_NAMES = ("geo_schedule", "decode_attention", "flash_attention", "mlstm_chunk",
-                "rglru_scan")
+                "rglru_scan", "flash_attention_cross", "decode_attention_int8")
 
 
 def kernels_line(records) -> str:
@@ -1975,6 +2472,7 @@ def main() -> int:
 
     lm_records = recurrent_phases(dev, serving_phases(dev, builds))
     lm_records = moe_mla_phases(dev, lm_records)[0]
+    lm_records = slice8_phases(dev, lm_records)[0]
 
     print(kernels_line([{
         "name": "geo_schedule",

@@ -10,6 +10,21 @@
 // q [B,H,dh], k/v [B,Sc,KV,dh] (float32 or bfloat16, all one type),
 // valid [B,Sc] bytes -> out [B,H,dh] in q's type; arithmetic in float32.
 //
+// A second entry reads an int8-quantized cache (the reference model's
+// `kv_cache_dtype="int8"`, src/repro/models/attention.py:170-220): k/v
+// [B,Sc,KV,dh] int8 and float32 scales [B,Sc,KV], one per (slot, head).
+// Each element is dequantized as it is loaded, exactly as the reference's
+// `_kv_dequantize` does it (float32 product q8 * scale, then rounded to q's
+// type), into the same shared-memory layout the bf16 path fills; from
+// there on it runs the same code, so it gives bit for bit what the bf16
+// entry gives on the dequantized cache, while reading 1 byte an element
+// (plus 4 a row of dh) instead of 2. Its loads go through registers, not
+// cp.async (which cannot convert): with a bf16 q (the model's) a thread
+// fetches its share of chunk c + 1 before the scores of chunk c and
+// dequantizes it into the other stage after chunk c's P.V, so the loads
+// overlap one chunk's work; a float32 q (the checks only) dequantizes each
+// chunk as it lands, in the loop of the bf16 path.
+//
 // Bound: decode reads the whole (valid part of the) cache once and does 4
 // flops per cache element and query head: ~1.5 flops a byte read at llama's
 // serving shape (B = 8, Sc = 4096, KV = 8, G = 3, dh = 128, bf16), ~24 at
@@ -145,6 +160,102 @@ struct Plan {
   static_assert(NS * STAGE >= (int)sizeof(float) * kRows * DH, "no room for the units' sums");
 };
 
+// The int8 cache's loads. fetch_q8: the first n (<= VE) bytes of the int8
+// row at p as VE / 4 words, zero after them (`vec`: VE-aligned and all
+// inside the row, one load). dequant16: those bytes as the 16 bytes of
+// shared memory the bf16 path would hold, VE elements of T, each the
+// float32 product q8 * scale rounded to T (the reference's
+// `_kv_dequantize`), zero after the first n.
+template <int VE>
+__device__ __forceinline__ void fetch_q8(const int8_t* p, int n, bool vec,
+                                         uint32_t (&w)[VE / 4]) {
+  if (vec) {
+    if constexpr (VE == 8) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      w[0] = x.x;
+      w[1] = x.y;
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < VE / 4; ++i) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * i + e < n) x |= (uint32_t)(uint8_t)p[4 * i + e] << (8 * e);
+    w[i] = x;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 dequant16(const uint32_t (&w)[16 / sizeof(T) / 4], int n,
+                                           float scale) {
+  constexpr int VE = 16 / (int)sizeof(T);
+  float x[VE];
+#pragma unroll
+  for (int e = 0; e < VE; ++e) x[e] = (float)(int8_t)((w[e / 4] >> (8 * (e % 4))) & 0xffu);
+  uint32_t o[4];
+  if constexpr (VE == 8) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t lo = 2 * e < n ? __bfloat16_as_ushort(__float2bfloat16_rn(x[2 * e] * scale))
+                                    : 0u;
+      const uint32_t hi = 2 * e + 1 < n
+                              ? __bfloat16_as_ushort(__float2bfloat16_rn(x[2 * e + 1] * scale))
+                              : 0u;
+      o[e] = lo | (hi << 16);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = e < n ? __float_as_uint(x[e] * scale) : 0u;
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// load_q8: 16 bytes of shared memory holding VE elements of T: the first
+// n of the int8 row at p dequantized (float32 product q8 * scale rounded to T, as
+// `_kv_dequantize`), zero after them. `vec`: the VE bytes are VE-aligned
+// and all inside the row, so one load takes them.
+template <typename T>
+__device__ __forceinline__ uint4 load_q8(const int8_t* p, int n, bool vec, float scale) {
+  constexpr int VE = 16 / (int)sizeof(T);
+  int8_t x[VE];
+  if (vec) {
+    if constexpr (VE == 8) {
+      const uint2 w = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[e] = (int8_t)((w.x >> (8 * e)) & 0xffu);
+        x[4 + e] = (int8_t)((w.y >> (8 * e)) & 0xffu);
+      }
+    } else {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = (int8_t)((w >> (8 * e)) & 0xffu);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VE; ++e) x[e] = e < n ? p[e] : (int8_t)0;
+  }
+  uint32_t w[4];
+  if constexpr (VE == 8) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t lo = 2 * e < n ? __bfloat16_as_ushort(__float2bfloat16_rn(
+                                          (float)x[2 * e] * scale)) : 0u;
+      const uint32_t hi = 2 * e + 1 < n ? __bfloat16_as_ushort(__float2bfloat16_rn(
+                                              (float)x[2 * e + 1] * scale)) : 0u;
+      w[e] = lo | (hi << 16);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[e] = e < n ? __float_as_uint((float)x[e] * scale) : 0u;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(bytes)
@@ -154,14 +265,18 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// grid: x = (b * KV + kv head) * row groups + row group, y = split
-template <typename T, int DH>
+// grid: x = (b * KV + kv head) * row groups + row group, y = split.
+// C: the cache's element type, T or int8_t (then k_sc / v_sc are its
+// float32 scales [B,Sc,KV]; unused otherwise).
+template <typename T, int DH, typename C>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k, const C* __restrict__ v,
+                    const float* __restrict__ k_sc, const float* __restrict__ v_sc,
                     const uint8_t* __restrict__ valid, float* __restrict__ part_m,
                     float* __restrict__ part_l, float* __restrict__ part_acc, int H, int KV,
                     int Sc, int dh, float scale, float cap, int per, int aligned) {
   using P = Plan<T, DH>;
+  constexpr bool kQ8 = sizeof(C) == 1;
   const int G = H / KV, nrg = (G + kRows - 1) / kRows;
   const int rgi = blockIdx.x % nrg, bkv = blockIdx.x / nrg;
   const int b = bkv / KV, kv = bkv % KV;
@@ -231,8 +346,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int nneed = *nlist_s;
 
   const size_t slot = (size_t)KV * dh;  // elements between two cache slots
-  const T* kb = k + (size_t)b * Sc * slot + (size_t)kv * dh;
-  const T* vb = v + (size_t)b * Sc * slot + (size_t)kv * dh;
+  const C* kb = k + (size_t)b * Sc * slot + (size_t)kv * dh;
+  const C* vb = v + (size_t)b * Sc * slot + (size_t)kv * dh;
   auto load = [&](int c, int st) {
     unsigned char* ks = stage0 + st * P::STAGE;
     unsigned char* vs = ks + kChunk * P::KROW;
@@ -243,7 +358,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       const size_t off = (size_t)(in ? s : s_lo) * slot + col;
       unsigned char* kd = ks + r * P::KROW + cg * 16;
       unsigned char* vd = vs + r * P::VROW + cg * 16;
-      if (aligned) {
+      if constexpr (kQ8) {  // dequantized as it lands (a float32 q: no prefetch, below)
+        const int n = in ? min(P::VE, dh - col) : 0;
+        const size_t si = ((size_t)b * Sc + (in ? s : s_lo)) * KV + kv;
+        const float ksc = n > 0 ? k_sc[si] : 0.0f, vsc = n > 0 ? v_sc[si] : 0.0f;
+        const bool vec = aligned && n == P::VE;
+        *reinterpret_cast<uint4*>(kd) = load_q8<T>(kb + off, n, vec, ksc);
+        *reinterpret_cast<uint4*>(vd) = load_q8<T>(vb + off, n, vec, vsc);
+      } else if (aligned) {
         const int bytes = in && col < dh ? 16 : 0;
         cp_async16((uint32_t)__cvta_generic_to_shared(kd), kb + (bytes ? off : 0), bytes);
         cp_async16((uint32_t)__cvta_generic_to_shared(vd), vb + (bytes ? off : 0), bytes);
@@ -252,6 +374,53 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         *reinterpret_cast<uint4*>(kd) = load_partial(kb + off, n);
         *reinterpret_cast<uint4*>(vd) = load_partial(vb + off, n);
       }
+    }
+  };
+
+  // The int8 cache with a bf16 q (the model's): each thread's share of a
+  // chunk (IT items of VE bytes of K and of V, and their scales) is fetched
+  // into registers before the scores of the chunk before it, and
+  // dequantized into its stage after them, so the loads of chunk c + 1
+  // overlap the work on chunk c. A float32 q (the checks only) has twice
+  // the items a thread, which do not fit beside its sums: it takes `load`,
+  // each chunk dequantized as it lands.
+  constexpr bool kPrefetch = kQ8 && sizeof(T) == 2;
+  constexpr int IT = kPrefetch ? kChunk * P::NCG / kThreads : 1;
+  uint32_t rk[IT][P::VE / 4], rv[IT][P::VE / 4];
+  float rks[IT], rvs[IT];
+  auto q8_item = [&](int c, int j, int& r, int& cg, int& n, size_t& off, size_t& si) {
+    const int i = tid + j * kThreads;
+    r = i / P::NCG;
+    cg = i - r * P::NCG;
+    const int s = s_lo + kChunk * c + r, col = cg * P::VE;
+    const bool in = s < s_hi;
+    n = in ? min(P::VE, dh - col) : 0;
+    off = (size_t)(in ? s : s_lo) * slot + col;
+    si = ((size_t)b * Sc + (in ? s : s_lo)) * KV + kv;
+  };
+  auto fetch_chunk = [&](int c) {
+#pragma unroll
+    for (int j = 0; j < IT; ++j) {
+      int r, cg, n;
+      size_t off, si;
+      q8_item(c, j, r, cg, n, off, si);
+      const bool vec = aligned && n == P::VE;
+      rks[j] = n > 0 ? k_sc[si] : 0.0f;
+      rvs[j] = n > 0 ? v_sc[si] : 0.0f;
+      fetch_q8<P::VE>(reinterpret_cast<const int8_t*>(kb) + off, n, vec, rk[j]);
+      fetch_q8<P::VE>(reinterpret_cast<const int8_t*>(vb) + off, n, vec, rv[j]);
+    }
+  };
+  auto put_chunk = [&](int c, int st) {
+    unsigned char* ks = stage0 + st * P::STAGE;
+    unsigned char* vs = ks + kChunk * P::KROW;
+#pragma unroll
+    for (int j = 0; j < IT; ++j) {
+      int r, cg, n;
+      size_t off, si;
+      q8_item(c, j, r, cg, n, off, si);
+      *reinterpret_cast<uint4*>(ks + r * P::KROW + cg * 16) = dequant16<T>(rk[j], n, rks[j]);
+      *reinterpret_cast<uint4*>(vs + r * P::VROW + cg * 16) = dequant16<T>(rv[j], n, rvs[j]);
     }
   };
 
@@ -273,18 +442,29 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int e = 0; e < P::VE; ++e) acc[i][e] = 0.0f;
 
   // a ring of NS stages: chunk it + NS - 1 loads while chunk it is used
+  if constexpr (kPrefetch) {
+    if (nneed > 0) {
+      fetch_chunk(list_s[0]);
+      put_chunk(list_s[0], 0);
+    }
+  } else {
 #pragma unroll
-  for (int i = 0; i < P::NS - 1; ++i) {
-    if (i < nneed) load(list_s[i], i);
-    cp_async_commit();
+    for (int i = 0; i < P::NS - 1; ++i) {
+      if (i < nneed) load(list_s[i], i);
+      cp_async_commit();
+    }
   }
   for (int it = 0; it < nneed; ++it) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(P::NS - 2) : "memory");
+    if constexpr (!kPrefetch) asm volatile("cp.async.wait_group %0;\n" ::"n"(P::NS - 2) : "memory");
     // chunk it has landed for every thread, and every thread is done with
     // chunk it - 1: its stage, P and alpha can be overwritten
     __syncthreads();
-    if (it + P::NS - 1 < nneed) load(list_s[it + P::NS - 1], (it + P::NS - 1) % P::NS);
-    cp_async_commit();
+    if constexpr (kPrefetch) {
+      if (it + 1 < nneed) fetch_chunk(list_s[it + 1]);  // into registers, in flight
+    } else {
+      if (it + P::NS - 1 < nneed) load(list_s[it + P::NS - 1], (it + P::NS - 1) % P::NS);
+      cp_async_commit();
+    }
     const int c = list_s[it];
     const unsigned char* ks = stage0 + (it % P::NS) * P::STAGE;
 
@@ -369,6 +549,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         }
       }
     }
+    // the int8 cache: chunk it + 1 into the stage chunk it - 1 used (every
+    // thread passed this iteration's barrier, so none reads it any more)
+    if constexpr (kPrefetch) {
+      if (it + 1 < nneed) put_chunk(list_s[it + 1], (it + 1) % P::NS);
+    }
   }
 
   // this split's partials: row r = b H + kv G + g0 + g, at (r * splits + split)
@@ -434,27 +619,28 @@ decode_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ 
   }
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, const void* valid, void* out,
-           void* scratch, int B, int H, int KV, int Sc, int dh, float scale, float cap,
-           int splits, int per, cudaStream_t stream) {
+template <typename T, int DH, typename C>
+int launch(const void* q, const void* k, const void* v, const void* k_sc, const void* v_sc,
+           const void* valid, void* out, void* scratch, int B, int H, int KV, int Sc, int dh,
+           float scale, float cap, int splits, int per, cudaStream_t stream) {
   using P = Plan<T, DH>;
   const int G = H / KV, nrg = (G + kRows - 1) / kRows;
   const long long bx = (long long)B * KV * nrg;
   if (bx > 0x7fffffffLL || splits > kMaxSplits) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<T, DH>,
+  cudaError_t err = cudaFuncSetAttribute(decode_split_kernel<T, DH, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)P::BYTES);
   if (err != cudaSuccess) return (int)err;
+  // whole 16-byte rows of T (int8: VE-byte groups) at aligned addresses
   const int aligned = dh % P::VE == 0 &&
-                      ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
+                      ((uintptr_t)k | (uintptr_t)v) % (P::VE * sizeof(C)) == 0;
   const size_t rows = (size_t)B * H;
   float* pm = (float*)scratch;
   float* pl = pm + rows * splits;
   float* pacc = pl + rows * splits;
-  decode_split_kernel<T, DH><<<dim3((unsigned)bx, splits), kThreads, P::BYTES, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)valid, pm, pl, pacc, H, KV, Sc, dh,
-      scale, cap, per, aligned);
+  decode_split_kernel<T, DH, C><<<dim3((unsigned)bx, splits), kThreads, P::BYTES, stream>>>(
+      (const T*)q, (const C*)k, (const C*)v, (const float*)k_sc, (const float*)v_sc,
+      (const uint8_t*)valid, pm, pl, pacc, H, KV, Sc, dh, scale, cap, per, aligned);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (rows > 0x7fffffffULL) return (int)cudaErrorInvalidConfiguration;
@@ -463,20 +649,29 @@ int launch(const void* q, const void* k, const void* v, const void* valid, void*
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, const void* valid, void* out,
-              void* scratch, int B, int H, int KV, int Sc, int dh, float scale, float cap,
-              int splits, int per, cudaStream_t st) {
+template <typename T, typename C>
+int launch_dh(const void* q, const void* k, const void* v, const void* k_sc, const void* v_sc,
+              const void* valid, void* out, void* scratch, int B, int H, int KV, int Sc, int dh,
+              float scale, float cap, int splits, int per, cudaStream_t st) {
   if (dh <= 64)
-    return launch<T, 64>(q, k, v, valid, out, scratch, B, H, KV, Sc, dh, scale, cap, splits,
-                         per, st);
+    return launch<T, 64, C>(q, k, v, k_sc, v_sc, valid, out, scratch, B, H, KV, Sc, dh, scale,
+                            cap, splits, per, st);
   if (dh <= 128)
-    return launch<T, 128>(q, k, v, valid, out, scratch, B, H, KV, Sc, dh, scale, cap, splits,
-                          per, st);
+    return launch<T, 128, C>(q, k, v, k_sc, v_sc, valid, out, scratch, B, H, KV, Sc, dh, scale,
+                             cap, splits, per, st);
   if (dh <= 256)
-    return launch<T, 256>(q, k, v, valid, out, scratch, B, H, KV, Sc, dh, scale, cap, splits,
-                          per, st);
+    return launch<T, 256, C>(q, k, v, k_sc, v_sc, valid, out, scratch, B, H, KV, Sc, dh, scale,
+                             cap, splits, per, st);
   return (int)cudaErrorInvalidValue;
+}
+
+int check_plan(int B, int H, int KV, int Sc, int dh, int splits, int per) {
+  if (KV <= 0 || H % KV != 0 || Sc <= 0 || dh <= 0) return (int)cudaErrorInvalidValue;
+  if (per <= 0 || per % kChunk != 0 || per > kChunk * kMaxChunks || splits <= 0 ||
+      (long long)splits * per < Sc ||
+      (long long)(splits - 1) * per >= Sc)
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
@@ -489,17 +684,35 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        int H, int KV, int Sc, int dh, float scale, float cap,
                                        int splits, int per, int dtype, void* stream) {
   if (B == 0 || H == 0) return (int)cudaGetLastError();
-  if (KV <= 0 || H % KV != 0 || Sc <= 0 || dh <= 0) return (int)cudaErrorInvalidValue;
-  if (per <= 0 || per % kChunk != 0 || per > kChunk * kMaxChunks || splits <= 0 ||
-      (long long)splits * per < Sc ||
-      (long long)(splits - 1) * per >= Sc)
-    return (int)cudaErrorInvalidValue;
+  if (const int err = check_plan(B, H, KV, Sc, dh, splits, per)) return err;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_dh<float>(q, k, v, valid, out, scratch, B, H, KV, Sc, dh, scale, cap, splits,
-                            per, st);
+    return launch_dh<float, float>(q, k, v, nullptr, nullptr, valid, out, scratch, B, H, KV, Sc,
+                                   dh, scale, cap, splits, per, st);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, valid, out, scratch, B, H, KV, Sc, dh, scale, cap,
-                                    splits, per, st);
+    return launch_dh<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, valid, out,
+                                                   scratch, B, H, KV, Sc, dh, scale, cap,
+                                                   splits, per, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 cache: k/v [B,Sc,KV,dh] int8, k_scale / v_scale [B,Sc,KV]
+// float32; dtype is q's and out's (0 = float32, 1 = bfloat16), the type
+// each element is dequantized to. The rest as decode_attention_launch.
+extern "C" int decode_attention_int8_launch(const void* q, const void* k, const void* v,
+                                            const void* k_scale, const void* v_scale,
+                                            const void* valid, void* out, void* scratch, int B,
+                                            int H, int KV, int Sc, int dh, float scale,
+                                            float cap, int splits, int per, int dtype,
+                                            void* stream) {
+  if (B == 0 || H == 0) return (int)cudaGetLastError();
+  if (const int err = check_plan(B, H, KV, Sc, dh, splits, per)) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_dh<float, int8_t>(q, k, v, k_scale, v_scale, valid, out, scratch, B, H, KV,
+                                    Sc, dh, scale, cap, splits, per, st);
+  if (dtype == 1)
+    return launch_dh<__nv_bfloat16, int8_t>(q, k, v, k_scale, v_scale, valid, out, scratch, B,
+                                            H, KV, Sc, dh, scale, cap, splits, per, st);
   return (int)cudaErrorInvalidValue;
 }

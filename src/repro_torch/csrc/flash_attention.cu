@@ -9,8 +9,12 @@
 //                  . v[b, h / G]
 //   cap(s) = tanh(s / c) * c with the logit cap c > 0 (recurrentgemma's 50), else s
 //   mask = (j <= i if causal) & (j // w == i // w if chunk_local, else j > i - w, if w > 0)
-// q [B,H,S,dh], k [B,KV,S,dh], v [B,KV,S,dv] with dv <= dh (float32 or
-// bfloat16, all one type) -> out [B,H,S,dv] in q's type. dv < dh is MLA's
+// q [B,H,S,dh], k [B,KV,Sk,dh], v [B,KV,Sk,dv] with dv <= dh (float32 or
+// bfloat16, all one type) -> out [B,H,S,dv] in q's type. Sk == S except
+// for cross-attention (no causal or window mask: an encoder-decoder's
+// decoder tokens against the encoder's frames), which the CROSS variants
+// take: queries run over S, key tiles over Sk, and each ragged edge is
+// masked against its own length. dv < dh is MLA's
 // prefill (minicpm3-4b: dh 96 = nope 64 + rope 32, dv 64): V's tile, the
 // P·V product's N and the output's columns follow dv, so V is read as it is
 // (padding it to dh in device memory would read 50% more V at that shape).
@@ -143,12 +147,13 @@ size_t smem_bytes(int dh, int dv) {
          sizeof(float) * (size_t)BQ * (kBK + 1);
 }
 
-template <typename T, int BQ, int DMAX, bool CAP, bool NARROW>
+template <typename T, int BQ, int DMAX, bool CAP, bool NARROW, bool CROSS>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int H, int KV, int S, int dh, int dv_arg, float scale,
-             float cap, int causal, int window, int chunk_local) {
+             T* __restrict__ out, int H, int KV, int S, int Sk_arg, int dh, int dv_arg,
+             float scale, float cap, int causal, int window, int chunk_local) {
   const int dv = NARROW ? dv_arg : dh;  // one live register fewer where dv == dh
+  const int Sk = CROSS ? Sk_arg : S;    // keys: the queries' S unless CROSS
   constexpr int RQ = BQ / 16;   // query rows per thread
   constexpr int ND = DMAX / 8;  // output columns per thread
   const int nq = (S + BQ - 1) / BQ;
@@ -167,8 +172,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   const T* qb = q + (size_t)bh * S * dh;
-  const T* kb = k + (size_t)(b * KV + kvh) * S * dh;
-  const T* vb = v + (size_t)(b * KV + kvh) * S * dv;
+  const T* kb = k + (size_t)(b * KV + kvh) * Sk * dh;
+  const T* vb = v + (size_t)(b * KV + kvh) * Sk * dv;
 
   for (int i = tid; i < BQ * dh; i += kThreads) {
     const int r = i / dh, d = i - r * dh;
@@ -184,16 +189,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int j = 0; j < ND; ++j) acc[i][j] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < S; k0 += kBK) {
+  for (int k0 = 0; k0 < Sk; k0 += kBK) {
     if (!tile_needed(q0, BQ, k0, kBK, causal, window, chunk_local)) continue;
     __syncthreads();  // the previous block's readers are done with k_s, v_s, p_s
     for (int i = tid; i < kBK * dh; i += kThreads) {
       const int r = i / dh, d = i - r * dh;
-      k_s[r * ts + d] = k0 + r < S ? kb[(size_t)(k0 + r) * dh + d] : T(0.0f);
+      k_s[r * ts + d] = k0 + r < Sk ? kb[(size_t)(k0 + r) * dh + d] : T(0.0f);
     }
     for (int i = tid; i < kBK * dv; i += kThreads) {
       const int r = i / dv, d = i - r * dv;
-      v_s[r * dv + d] = k0 + r < S ? vb[(size_t)(k0 + r) * dv + d] : T(0.0f);
+      v_s[r * dv + d] = k0 + r < Sk ? vb[(size_t)(k0 + r) * dv + d] : T(0.0f);
     }
     __syncthreads();
 
@@ -231,8 +236,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int kp = k0 + tx + 8 * j;
-        float x = -INFINITY;  // past the end of the sequence: no term
-        if (kp < S) {
+        float x = -INFINITY;  // past the end of the keys: no term
+        if (kp < Sk) {
           bool ok = true;
           if (causal) ok = kp <= qp;
           if (window > 0) {
@@ -295,38 +300,39 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-template <typename T, int BQ, int DMAX>
+template <typename T, int BQ, int DMAX, bool CROSS>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV, int S,
-           int dh, int dv, float scale, float cap, int causal, int window, int chunk_local,
-           cudaStream_t stream) {
+           int Sk, int dh, int dv, float scale, float cap, int causal, int window,
+           int chunk_local, cudaStream_t stream) {
   const size_t smem = smem_bytes<T, BQ>(dh, dv);
-  auto kern = dv == dh ? (cap > 0.0f ? flash_kernel<T, BQ, DMAX, true, false>
-                                     : flash_kernel<T, BQ, DMAX, false, false>)
-                       : (cap > 0.0f ? flash_kernel<T, BQ, DMAX, true, true>
-                                     : flash_kernel<T, BQ, DMAX, false, true>);
+  auto kern = dv == dh ? (cap > 0.0f ? flash_kernel<T, BQ, DMAX, true, false, CROSS>
+                                     : flash_kernel<T, BQ, DMAX, false, false, CROSS>)
+                       : (cap > 0.0f ? flash_kernel<T, BQ, DMAX, true, true, CROSS>
+                                     : flash_kernel<T, BQ, DMAX, false, true, CROSS>);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)B * H * ((S + BQ - 1) / BQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kern<<<(unsigned)blocks, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                     (T*)out, H, KV, S, dh, dv, scale, cap,
+                                                     (T*)out, H, KV, S, Sk, dh, dv, scale, cap,
                                                      causal, window, chunk_local);
   return (int)cudaGetLastError();
 }
 
+template <bool CROSS>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-               int S, int dh, int dv, float scale, float cap, int causal, int window,
+               int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
                int chunk_local, cudaStream_t st) {
   if (dh <= 64)
-    return launch<float, 64, 64>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
-                                 chunk_local, st);
+    return launch<float, 64, 64, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+                                        causal, window, chunk_local, st);
   if (dh <= 128)
-    return launch<float, 64, 128>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
-                                  window, chunk_local, st);
+    return launch<float, 64, 128, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+                                         causal, window, chunk_local, st);
   if (dh <= 256)
-    return launch<float, 32, 256>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
-                                  window, chunk_local, st);
+    return launch<float, 32, 256, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+                                         causal, window, chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -346,19 +352,21 @@ constexpr size_t wg_smem_bytes() {
 
 // two blocks an SM where the registers allow it (note at the top); a
 // NARROW variant (dv < dh) with as many V panels as Q/K panels holds dv in
-// one more register than 128 leave, so it takes one
-template <int DP, int DPV, bool NARROW, bool CAP>
+// one more register than 128 leave, so it takes one, and so does a CROSS
+// variant (Sk of its own) with 128 V columns (64 registers of O)
+template <int DP, int DPV, bool NARROW, bool CAP, bool CROSS>
 constexpr int wg_min_blocks() {
-  return DP <= 128 && !CAP && !(NARROW && DPV == DP) ? 2 : 1;
+  return DP <= 128 && !CAP && !(NARROW && DPV == DP) && !(CROSS && DPV == 128) ? 2 : 1;
 }
 
-template <int DP, int DPV, bool NARROW, bool CAP>
-__global__ void __launch_bounds__(kWgThreads, (wg_min_blocks<DP, DPV, NARROW, CAP>()))
+template <int DP, int DPV, bool NARROW, bool CAP, bool CROSS>
+__global__ void __launch_bounds__(kWgThreads, (wg_min_blocks<DP, DPV, NARROW, CAP, CROSS>()))
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ out, int H, int KV, int S,
-                   int dh, int dv_arg, float scale, float cap, int causal, int window,
-                   int chunk_local, int aligned) {
+                   int Sk_arg, int dh, int dv_arg, float scale, float cap, int causal,
+                   int window, int chunk_local, int aligned) {
   const int dv = NARROW ? dv_arg : dh;  // not NARROW: dv == dh, no register of its own
+  const int Sk = CROSS ? Sk_arg : S;    // keys: the queries' S unless CROSS
   constexpr int NP = DP / 64;                    // 64-column panels of Q and K
   constexpr int NPV = DPV / 64;                  // of V and O
   constexpr int Q_BYTES = NP * kWgBQ * 128;
@@ -381,11 +389,11 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   unsigned char* kv_s = base + Q_BYTES;  // stage st: K at kv_s + st STAGE, V after it
 
   const bf16* qb = q + (size_t)bh * S * dh;
-  const bf16* kb = k + (size_t)(b * KV + kvh) * S * dh;
-  const bf16* vb = v + (size_t)(b * KV + kvh) * S * dv;
+  const bf16* kb = k + (size_t)(b * KV + kvh) * Sk * dh;
+  const bf16* vb = v + (size_t)(b * KV + kvh) * Sk * dv;
 
   // the key tiles the block needs: a contiguous range for these masks
-  const int nk = (S + kWgBK - 1) / kWgBK;
+  const int nk = (Sk + kWgBK - 1) / kWgBK;
   int t_lo = 0, t_hi = nk;
   while (t_lo < t_hi &&
          !tile_needed(q0, kWgBQ, t_lo * kWgBK, kWgBK, causal, window, chunk_local))
@@ -397,8 +405,8 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool al = aligned != 0;
   load_tile<kWgBQ, DP>(q_s, qb, q0, S, dh, al, tid);
   if (t_lo < t_hi) {
-    load_tile<kWgBK, DP>(kv_s, kb, t_lo * kWgBK, S, dh, al, tid);
-    load_tile<kWgBK, DPV>(kv_s + T_BYTES, vb, t_lo * kWgBK, S, dv, al, tid);
+    load_tile<kWgBK, DP>(kv_s, kb, t_lo * kWgBK, Sk, dh, al, tid);
+    load_tile<kWgBK, DPV>(kv_s + T_BYTES, vb, t_lo * kWgBK, Sk, dv, al, tid);
   }
   cp_async_commit();
 
@@ -416,8 +424,8 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = (j - t_lo) & 1;
     if (j + 1 < t_hi) {  // the next tile into the other stage
       unsigned char* nxt = kv_s + (st ^ 1) * STAGE;
-      load_tile<kWgBK, DP>(nxt, kb, (j + 1) * kWgBK, S, dh, al, tid);
-      load_tile<kWgBK, DPV>(nxt + T_BYTES, vb, (j + 1) * kWgBK, S, dv, al, tid);
+      load_tile<kWgBK, DP>(nxt, kb, (j + 1) * kWgBK, Sk, dh, al, tid);
+      load_tile<kWgBK, DPV>(nxt + T_BYTES, vb, (j + 1) * kWgBK, Sk, dv, al, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // all but the newest group: Q and tile j have landed
@@ -447,7 +455,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       // the scaled (capped) scores, masked on a tile that crosses an edge
       const int k1 = k0 + kWgBK - 1, qe = qw + 63;
-      bool interior = k1 < S && (!causal || k1 <= qw);
+      bool interior = k1 < Sk && (!causal || k1 <= qw);
       if (window > 0)
         interior = interior && (chunk_local ? (k0 / window == k1 / window &&
                                                qw / window == qe / window &&
@@ -465,7 +473,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (chunk_local) ok = ok && (kp / window == qp / window);
             else ok = ok && (kp > qp - window);
           }
-          x = kp >= S ? -INFINITY : (ok ? x : kNeg);
+          x = kp >= Sk ? -INFINITY : (ok ? x : kNeg);
         }
         s[i] = x;
       }
@@ -568,13 +576,13 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DP, int DPV, bool NARROW>
+template <int DP, int DPV, bool NARROW, bool CROSS>
 int launch_wg(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-              int S, int dh, int dv, float scale, float cap, int causal, int window,
+              int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
               int chunk_local, cudaStream_t stream) {
   constexpr size_t smem = wg_smem_bytes<DP, DPV>();
-  auto kern = cap > 0.0f ? flash_wgmma_kernel<DP, DPV, NARROW, true>
-                         : flash_wgmma_kernel<DP, DPV, NARROW, false>;
+  auto kern = cap > 0.0f ? flash_wgmma_kernel<DP, DPV, NARROW, true, CROSS>
+                         : flash_wgmma_kernel<DP, DPV, NARROW, false, CROSS>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -583,67 +591,77 @@ int launch_wg(const void* q, const void* k, const void* v, void* out, int B, int
   const int aligned = dh % 8 == 0 && dv % 8 == 0 &&
                       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   kern<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, KV, S, dh, dv, scale,
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, KV, S, Sk, dh, dv, scale,
       cap, causal, window, chunk_local, aligned);
   return (int)cudaGetLastError();
 }
 
 // V's panels by dv, at most Q/K's DP; dv == dh takes the variant without dv
-template <int DP>
+template <int DP, bool CROSS>
 int launch_dp(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-              int S, int dh, int dv, float scale, float cap, int causal, int window,
+              int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
               int chunk_local, cudaStream_t st) {
   if (dv == dh)
-    return launch_wg<DP, DP, false>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
-                                    window, chunk_local, st);
+    return launch_wg<DP, DP, false, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+                                           causal, window, chunk_local, st);
   if (dv <= 64)
-    return launch_wg<DP, 64, true>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
-                                   window, chunk_local, st);
+    return launch_wg<DP, 64, true, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+                                          causal, window, chunk_local, st);
   if constexpr (DP >= 128) {
     if (dv <= 128)
-      return launch_wg<DP, 128, true>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
-                                      window, chunk_local, st);
+      return launch_wg<DP, 128, true, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+                                             causal, window, chunk_local, st);
   }
   if constexpr (DP >= 256) {
     if (dv <= 256)
-      return launch_wg<DP, 256, true>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal,
-                                      window, chunk_local, st);
+      return launch_wg<DP, 256, true, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+                                             causal, window, chunk_local, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+template <bool CROSS>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-                int S, int dh, int dv, float scale, float cap, int causal, int window,
+                int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
                 int chunk_local, cudaStream_t st) {
   if (dh <= 64)
-    return launch_dp<64>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
-                         chunk_local, st);
+    return launch_dp<64, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+                                window, chunk_local, st);
   if (dh <= 128)
-    return launch_dp<128>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
-                          chunk_local, st);
+    return launch_dp<128, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+                                 window, chunk_local, st);
   if (dh <= 256)
-    return launch_dp<256>(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
-                          chunk_local, st);
+    return launch_dp<256, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+                                 window, chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); cap <= 0:
-// no logit cap; dv: V's head dim, 0 < dv <= dh. Shapes are checked by the
-// Python wrapper.
+// no logit cap; dv: V's head dim, 0 < dv <= dh; S queries against Sk keys,
+// Sk != S only without the causal and window masks (cross-attention), where
+// the CROSS variants take the key count as an argument of its own. Shapes
+// are checked by the Python wrapper.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int H, int KV, int S, int dh, int dv, float scale,
-                                      float cap, int causal, int window, int chunk_local,
-                                      int dtype, void* stream) {
+                                      int B, int H, int KV, int S, int Sk, int dh, int dv,
+                                      float scale, float cap, int causal, int window,
+                                      int chunk_local, int dtype, void* stream) {
   if (B == 0 || H == 0 || S == 0) return (int)cudaGetLastError();
-  if (KV <= 0 || H % KV != 0 || dh <= 0 || dv <= 0 || dv > dh) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0 || dh <= 0 || dv <= 0 || dv > dh || Sk <= 0)
+    return (int)cudaErrorInvalidValue;
+  const bool cross = Sk != S;
+  if (cross && (causal || window > 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_f32(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
-                      chunk_local, st);
+    return cross ? launch_f32<true>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+                                    window, chunk_local, st)
+                 : launch_f32<false>(q, k, v, out, B, H, KV, S, S, dh, dv, scale, cap, causal,
+                                     window, chunk_local, st);
   if (dtype == 1)
-    return launch_bf16(q, k, v, out, B, H, KV, S, dh, dv, scale, cap, causal, window,
-                       chunk_local, st);
+    return cross ? launch_bf16<true>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+                                     window, chunk_local, st)
+                 : launch_bf16<false>(q, k, v, out, B, H, KV, S, S, dh, dv, scale, cap, causal,
+                                      window, chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,10 +4,15 @@ On CUDA tensors it launches the hand-written kernel; on CPU tensors it
 computes the plain version (`ref.py`). It never catches an error to fall
 back. `decode.launches` counts kernel calls (plain calls do not count), so
 a run can show that its main path went through the kernel; one call is two
-CUDA launches, the split kernel and its merge. `split_plan` cuts the cache
-into splits from the shapes and the card's SM count alone (the host never
-reads `valid`), and `prepare` allocates the float32 partials the merge
-reads. The kernel takes dh as it is (up to 256) and scales by 1/sqrt(dh)
+CUDA launches, the split kernel and its merge. `decode.launches_by_cache`
+splits them by the cache's dtype: an int8 cache (float32 scales beside it,
+`k_scale` / `v_scale`) goes to its own entry point, which dequantizes each
+element as it loads it. A cache of no slots (Sc = 0: an encoder-decoder's
+cross step over an empty encoder memory) gives zeros, the reference's
+value of an empty sum, without a launch: `decode.empty_calls` counts
+those. `split_plan` cuts the cache into splits from the shapes and the
+card's SM count alone (the host never reads `valid`), and `prepare`
+allocates the float32 partials the merge reads. The kernel takes dh as it is (up to 256) and scales by 1/sqrt(dh)
 itself: the reference wrapper's padding of dh to 128 is a TPU matrix-unit
 artefact.
 `logit_cap` > 0 caps each scaled score at `tanh(s / cap) * cap` before the
@@ -21,7 +26,7 @@ import functools
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention as _cuda
-from repro_torch.kernels.decode_attention.ref import decode_ref
+from repro_torch.kernels.decode_attention.ref import decode_int8_ref, decode_ref
 
 MAX_HEAD_DIM = 256
 CHUNK = 32  # cache slots the kernel streams at a time: a split holds whole chunks
@@ -53,7 +58,7 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check(q, k_cache, v_cache, valid) -> None:
+def _check(q, k_cache, v_cache, valid, k_scale=None, v_scale=None) -> None:
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError(
             f"decode: q must be [B,H,dh] and caches [B,Sc,KV,dh], got "
@@ -73,10 +78,22 @@ def _check(q, k_cache, v_cache, valid) -> None:
         raise ValueError(f"decode: H = {H} must be a multiple of KV = {KV}")
     if not 0 < dh <= MAX_HEAD_DIM:
         raise ValueError(f"decode: head dim {dh} outside 1..{MAX_HEAD_DIM}")
-    if q.dtype not in _cuda.DTYPE_CODES or {k_cache.dtype, v_cache.dtype} != {q.dtype}:
-        raise TypeError(f"decode: q, k, v must share float32 or bfloat16, got "
-                        f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache), ("valid", valid)):
+    int8 = k_cache.dtype == torch.int8
+    if q.dtype not in _cuda.DTYPE_CODES or (
+            {k_cache.dtype, v_cache.dtype} != ({torch.int8} if int8 else {q.dtype})):
+        raise TypeError(f"decode: q must be float32 or bfloat16 and the caches q's dtype or "
+                        f"both int8; got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+    scales = (("k_scale", k_scale), ("v_scale", v_scale))
+    if int8:
+        for name, x in scales:
+            if x is None or x.shape != (B, Sc, KV) or x.dtype != torch.float32:
+                raise ValueError(f"decode: an int8 cache needs float32 {name} [B,Sc,KV] = "
+                                 f"{(B, Sc, KV)}, got "
+                                 f"{None if x is None else (x.dtype, tuple(x.shape))}")
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError("decode: scales go with an int8 cache only")
+    named = (("q", q), ("k_cache", k_cache), ("v_cache", v_cache), ("valid", valid))
+    for name, x in named + (scales if int8 else ()):
         if x.device != q.device:
             raise ValueError(f"decode: {name} on {x.device}, q on {q.device}")
         if not x.is_contiguous():
@@ -84,38 +101,60 @@ def _check(q, k_cache, v_cache, valid) -> None:
 
 
 def prepare(q, k_cache, v_cache, valid, logit_cap: float = 0.0,
-            per_sm: int = BLOCKS_PER_SM) -> tuple:
-    """The kernel's call on checked CUDA inputs (q [B,H,dh]): (out, args),
-    where `_cuda.run(args)` enqueues the split kernel and its merge into
-    out. Plans the split for the device (`split_plan`) and allocates out
-    and the float32 partials."""
+            per_sm: int = BLOCKS_PER_SM, k_scale=None, v_scale=None) -> tuple:
+    """The kernel's call on checked CUDA inputs (q [B,H,dh], Sc >= 1):
+    (out, args), where `_cuda.run(args)` enqueues the split kernel and its
+    merge into out (the int8 entry point when `k_scale` is given). Plans
+    the split for the device (`split_plan`) and allocates out and the
+    float32 partials."""
     B, H, dh = q.shape
     splits, per = split_plan(B, k_cache.shape[2], k_cache.shape[1], sm_count(q.device), per_sm)
     out = torch.empty_like(q)
     scratch = torch.empty(B * H * splits * (dh + 2), dtype=torch.float32, device=q.device)
+    if k_scale is not None:
+        return out, _cuda.launch_args_int8(q, k_cache, v_cache, k_scale, v_scale, valid, out,
+                                           scratch, dh**-0.5, logit_cap, splits, per)
     return out, _cuda.launch_args(q, k_cache, v_cache, valid, out, scratch, dh**-0.5, logit_cap,
                                   splits, per)
 
 
-def decode(q, k_cache, v_cache, valid, *, logit_cap: float = 0.0):
-    """q: [B,1,H,dh] or [B,H,dh]; caches [B,Sc,KV,dh]; valid [B,Sc] bool ->
-    q's shape and dtype."""
+def decode(q, k_cache, v_cache, valid, *, logit_cap: float = 0.0, k_scale=None, v_scale=None):
+    """q: [B,1,H,dh] or [B,H,dh]; caches [B,Sc,KV,dh] in q's dtype, or int8
+    with float32 `k_scale` / `v_scale` [B,Sc,KV]; valid [B,Sc] bool -> q's
+    shape and dtype. Sc = 0 gives zeros without a launch."""
     if logit_cap < 0:
         raise ValueError(f"decode: logit_cap must be >= 0, got {logit_cap}")
     squeeze = q.dim() == 4
     if squeeze:
         q = q[:, 0]
-    _check(q, k_cache, v_cache, valid)
-    if q.device.type == "cpu":
-        out = decode_ref(q, k_cache, v_cache, valid, logit_cap=logit_cap)
-    elif q.device.type == "cuda":
+    _check(q, k_cache, v_cache, valid, k_scale, v_scale)
+    int8 = k_cache.dtype == torch.int8
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode: no kernel for device {q.device}")
+    if k_cache.shape[1] == 0:  # an empty memory: the empty sum, on every device
+        out = torch.zeros_like(q)
+        decode.empty_calls += 1
+    elif q.device.type == "cpu":
+        if int8:
+            out = decode_int8_ref(q, k_cache, v_cache, k_scale, v_scale, valid,
+                                  logit_cap=logit_cap)
+        else:
+            out = decode_ref(q, k_cache, v_cache, valid, logit_cap=logit_cap)
+    else:
         _cuda.entry()  # a library that cannot build or load raises before any work
-        out, args = prepare(q, k_cache, v_cache, valid, logit_cap)
+        out, args = prepare(q, k_cache, v_cache, valid, logit_cap, k_scale=k_scale,
+                            v_scale=v_scale)
         _cuda.run(args)
         decode.launches += 1
-    else:
-        raise ValueError(f"decode: no kernel for device {q.device}")
+        decode.launches_by_cache["int8" if int8 else str(q.dtype)[6:]] += 1
     return out[:, None] if squeeze else out
 
 
-decode.launches = 0
+def reset_launches() -> None:
+    """Zero the launch counts and the count of empty calls."""
+    decode.launches = 0
+    decode.launches_by_cache = {"float32": 0, "bfloat16": 0, "int8": 0}
+    decode.empty_calls = 0
+
+
+reset_launches()

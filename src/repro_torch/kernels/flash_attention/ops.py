@@ -5,9 +5,11 @@ head dim dv may be narrower than the Q/K head dim dh (MLA: 64 vs 96); the
 output then has dv columns, and the scale stays dh^-0.5. On
 CUDA tensors it launches the hand-written kernel; on CPU tensors it
 computes the plain version (`ref.py`). It never catches an error to fall
-back. `mha.launches` counts kernel launches (plain calls do not count), and
-`mha.launches_by_dtype` splits them by dtype: bfloat16 launches run the
-tensor-core (wgmma) kernel, float32 ones the CUDA-core kernel. The kernel
+back. `mha.launches` counts kernel launches (plain calls do not count),
+`mha.launches_by_dtype` splits them by dtype (bfloat16 launches run the
+tensor-core (wgmma) kernel, float32 ones the CUDA-core kernel) and
+`mha.cross_launches` counts those with a key length of their own (Sk != S:
+an encoder-decoder's cross-attention, the kernel's CROSS variants). The kernel
 takes dh as it is (up to 256) and S as it is, masking the ragged edge:
 the reference wrapper's padding of dh to 128 and its shrinking of the
 block to divide S are TPU artefacts. `logit_cap` > 0 caps each scaled
@@ -27,14 +29,15 @@ MAX_HEAD_DIM = 256
 
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"mha: q must be [B,S,H,dh], k [B,S,KV,dh] and v [B,S,KV,dv], got "
+        raise ValueError(f"mha: q must be [B,S,H,dh], k [B,Sk,KV,dh] and v [B,Sk,KV,dv], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)} and {tuple(v.shape)}")
     B, S, H, dh = q.shape
-    KV, dv = k.shape[2], v.shape[3]
-    if k.shape != (B, S, KV, dh) or v.shape[:3] != (B, S, KV) or not 0 < dv <= dh:
-        raise ValueError(f"mha: k must be [B,S,KV,dh] = {(B, S, KV, dh)} and v [B,S,KV,dv] "
-                         f"with 0 < dv <= dh (the kernel needs q_len == kv_len), got "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    Sk, KV, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (k.shape != (B, Sk, KV, dh) or v.shape[:3] != (B, Sk, KV) or not 0 < dv <= dh
+            or Sk == 0):
+        raise ValueError(f"mha: k must be [B,Sk,KV,dh] = {(B, Sk, KV, dh)} with Sk > 0 and v "
+                         f"[B,Sk,KV,dv] with 0 < dv <= dh, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
     if KV == 0 or H % KV:
         raise ValueError(f"mha: H = {H} must be a multiple of KV = {KV}")
     if not 0 < dh <= MAX_HEAD_DIM:
@@ -49,10 +52,16 @@ def _check(q, k, v) -> None:
 
 def mha(q, k, v, *, causal: bool = True, window: int = 0, chunk_local: bool = False,
         logit_cap: float = 0.0):
-    """q: [B,S,H,dh], k: [B,S,KV,dh], v: [B,S,KV,dv] -> [B,S,H,dv] in q's dtype."""
+    """q: [B,S,H,dh], k: [B,Sk,KV,dh], v: [B,Sk,KV,dv] -> [B,S,H,dv] in q's
+    dtype. Sk != S (cross-attention) only with causal=False and window=0,
+    as the reference's `chunked_attention` asserts."""
     _check(q, k, v)
     if window < 0 or logit_cap < 0:
         raise ValueError(f"mha: window and logit_cap must be >= 0, got {window}, {logit_cap}")
+    cross = k.shape[1] != q.shape[1]
+    if cross and (causal or window):
+        raise ValueError(f"mha: causal or windowed attention needs q_len == kv_len, got "
+                         f"{q.shape[1]} and {k.shape[1]}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mha: no kernel for device {q.device}")
     if q.device.type == "cuda":
@@ -67,13 +76,15 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0, chunk_local: bool = Fa
                      logit_cap)
         mha.launches += 1
         mha.launches_by_dtype[str(q.dtype)[6:]] += 1
+        mha.cross_launches += cross
     return out.transpose(1, 2)
 
 
 def reset_launches() -> None:
-    """Zero both launch counts."""
+    """Zero the launch counts."""
     mha.launches = 0
     mha.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+    mha.cross_launches = 0
 
 
 reset_launches()

@@ -9,10 +9,12 @@ import torch
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, chunk_local=False, logit_cap=0.0):
-    """q: [B,H,S,dh], k: [B,KV,S,dh], v: [B,KV,S,dv] (dv <= dh) -> [B,H,S,dv]
-    (float32 math; the scale is dh^-0.5). `logit_cap` > 0 caps the scaled
-    scores before the mask (`repro.models.layers.softcap`)."""
-    B, H, S, dh = q.shape
+    """q: [B,H,Sq,dh], k: [B,KV,Sk,dh], v: [B,KV,Sk,dv] (dv <= dh) -> [B,H,Sq,dv]
+    (float32 math; the scale is dh^-0.5). Sq != Sk is cross-attention, which
+    the callers run without the causal and window masks. `logit_cap` > 0 caps
+    the scaled scores before the mask (`repro.models.layers.softcap`)."""
+    B, H, Sq, dh = q.shape
+    Sk = k.shape[2]
     G = H // k.shape[1]
     qf = q.float()
     kf = torch.repeat_interleave(k.float(), G, dim=1)
@@ -20,9 +22,9 @@ def attention_ref(q, k, v, *, causal=True, window=0, chunk_local=False, logit_ca
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (dh**-0.5)
     if logit_cap > 0:
         s = torch.tanh(s / logit_cap) * logit_cap
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kpos <= qpos
     if window:

@@ -6,6 +6,9 @@
 
 Runs the arch's reduced config, as the reference launcher does; the engine
 and the model's decode steps run on `--device` (default: the card).
+`--arch` takes every registry config (`repro_torch.configs.registry`):
+internvl2-26b and seamless-m4t-large-v2 among them, the encoder-decoder
+decoding against its pods' empty encoder memory as the reference's does.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import json
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--arch", default="llama3.2-3b", help="a registry config's name")
     ap.add_argument("--requests", type=int, default=400)
     ap.add_argument("--rate", type=float, default=400.0)
     ap.add_argument("--policy", default="both", choices=["geotp", "fcfs", "both"])

@@ -10,14 +10,21 @@ and their plain versions on CPU tensors. Decode caches:
   * swa / cla       — ring-buffer cache [B, window, kv, hd]  (bounded state)
   * mla             — compressed latent cache c_kv [B, S, kv_lora] and
                       k_rope [B, S, rope_dim] (linear)
+  * int8 (`kv_cache_dtype="int8"`) — the gqa / swa / cla caches as int8
+                      with float32 scales k_scale / v_scale [B, cap, kv], one
+                      per (token, head); the decode kernel reads them as int8
+  * cross           — an encoder-decoder's cross K/V over the encoder's
+                      frames [B, M, kv, hd], every slot valid (M = 0: an
+                      empty memory, whose attention is zeros)
 
 Both kernels cap the scaled scores at `tanh(s / cap) * cap` before the
 mask when `logit_cap > 0` (recurrentgemma's `attn_softcap`), as the
 reference does. MLA's prefill goes through the flash kernel with V heads
 narrower than its Q/K heads (64 vs 96 at minicpm3-4b); its absorbed decode
 is plain products, as in the reference. A model with `cfg.irope` (llama4)
-takes no RoPE on its global `gqa` layers. The int8-quantized cache and
-cross-attention raise (ROADMAP.md §A item A9).
+takes no RoPE on its global `gqa` layers. Cross-attention (no RoPE, no
+bias) runs its prefill through the flash kernel with a key length of its
+own, and its decode step through the decode kernel.
 """
 
 from __future__ import annotations
@@ -25,27 +32,30 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.ref import kv_dequantize
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope, rmsnorm
-from repro_torch.unported import not_ported
 
 
 def chunked_attention(q, k, v, *, causal=True, window=0, chunk_local=False, logit_cap=0.0):
-    """q: [B,S,H,dh], k: [B,S,KV,dh], v: [B,S,KV,dv] (dv <= dh) -> [B,S,H,dv].
+    """q: [B,S,H,dh], k: [B,Sk,KV,dh], v: [B,Sk,KV,dv] (dv <= dh) -> [B,S,H,dv].
 
     window > 0: sliding-window (swa) or same-chunk (cla when chunk_local)
     mask. The kernel skips key blocks the mask empties, so a windowed layer
-    reads only the band it needs, as the reference's band slicing does."""
+    reads only the band it needs, as the reference's band slicing does.
+    Sk != S (cross-attention) needs causal=False and no window."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError("causal attention needs q_len == kv_len")
     return flash_ops.mha(q, k, v, causal=causal, window=window, chunk_local=chunk_local,
                          logit_cap=logit_cap)
 
 
-def decode_attention(q, k_cache, v_cache, valid, *, logit_cap=0.0):
-    """Single-position decode. q: [B,1,H,dh]; caches [B,Sc,KV,dh];
-    valid: [B,Sc] bool — which cache slots participate. -> [B,1,H,dh]."""
-    return decode_ops.decode(q, k_cache, v_cache, valid, logit_cap=logit_cap)
+def decode_attention(q, k_cache, v_cache, valid, *, logit_cap=0.0, k_scale=None, v_scale=None):
+    """Single-position decode. q: [B,1,H,dh]; caches [B,Sc,KV,dh] in q's
+    dtype, or int8 with float32 scales [B,Sc,KV]; valid: [B,Sc] bool —
+    which cache slots participate. -> [B,1,H,dh]."""
+    scales = {} if k_scale is None else {"k_scale": k_scale, "v_scale": v_scale}
+    return decode_ops.decode(q, k_cache, v_cache, valid, logit_cap=logit_cap, **scales)
 
 
 # ---------------------------------------------------------------------------
@@ -95,21 +105,48 @@ def gqa_attn(cfg, p, prefix, x, positions, *, mixer: str, causal=True):
     return _out_proj(o, p[f"{prefix}.wo"]), (k, v)
 
 
+def _kv_quantize(x: torch.Tensor):
+    """Per-(token, head) symmetric int8 quantization, the reference's
+    `_kv_quantize`: x [..., hd] -> (int8 [..., hd], float32 scale [...]).
+    scale = max(max|x| / 127, 1e-8); q = clip(round(x / scale), -127, 127),
+    rounding half to even as `jnp.round` does and dividing (not multiplying
+    by 1 / scale), so equal inputs give the reference's bits."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+# the reference's `_kv_dequantize` (q8 [B,S,KV,hd], scale [B,S,KV] -> the
+# float32 product in `dtype`); the decode kernel does the same on load
+_kv_dequantize = kv_dequantize
+
+
 def gqa_decode(cfg, p, prefix, x, pos, cache, *, mixer: str):
     """One-token decode step. cache: dict(k, v) of [B,Sc,KV,hd] views, ring
-    buffers for swa/cla. The new key and value are written into the cache
-    IN PLACE (the reference returns new arrays); the returned dict holds the
-    same tensors."""
-    if cfg.kv_cache_dtype != "bf16":
-        raise not_ported(f"the {cfg.kv_cache_dtype} KV cache", "A9")
+    buffers for swa/cla; with `kv_cache_dtype="int8"` k and v are int8 and
+    dict(k_scale, v_scale) holds their float32 scales [B,Sc,KV]. The new key
+    and value (quantized, for int8) are written into the cache IN PLACE (the
+    reference returns new arrays); the returned dict holds the same
+    tensors. The decode kernel reads an int8 cache as it is, dequantizing
+    as it loads (the reference dequantizes the whole cache to bf16 first:
+    the same values)."""
     B = x.shape[0]
     q, k, v = gqa_project_qkv(cfg, p, prefix, x, pos[:, None], use_rope(cfg, mixer))
     k_cache, v_cache = cache["k"], cache["v"]
     Sc = k_cache.shape[1]
     slot = (pos % Sc).long()  # ring position (== pos for linear caches, Sc >= max_seq)
     bidx = torch.arange(B, device=x.device)
-    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
+    scales = {}
+    if cfg.kv_cache_dtype == "int8":
+        for name, new in (("k", k), ("v", v)):
+            q8, sc = _kv_quantize(new[:, 0])
+            cache[name][bidx, slot] = q8
+            cache[f"{name}_scale"][bidx, slot] = sc
+            scales[f"{name}_scale"] = cache[f"{name}_scale"]
+    else:
+        k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
     slots = torch.arange(Sc, device=x.device)[None, :]
     if mixer == "cla":
         # ring slot s holds absolute position chunk_start + s only when
@@ -118,8 +155,34 @@ def gqa_decode(cfg, p, prefix, x, pos, cache, *, mixer: str):
     else:
         # full (linear) and swa (ring): every written slot participates
         valid = slots <= pos[:, None]
-    o = decode_attention(q, k_cache, v_cache, valid, logit_cap=cfg.attn_softcap)
+    o = decode_attention(q, k_cache, v_cache, valid, logit_cap=cfg.attn_softcap, **scales)
     return _out_proj(o, p[f"{prefix}.wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn(cfg, p, prefix, x, enc_out):
+    """Encoder-decoder cross-attention at prefill (full, no RoPE on the
+    memory, no bias): x [B,S,D] against enc_out [B,M,D]. Returns (out,
+    (k, v)): the memory's K/V [B,M,KV,hd], position-independent, which the
+    decode cache keeps (the reference computes the same product twice)."""
+    q = _proj(x, p[f"{prefix}.wq"])
+    k = _proj(enc_out, p[f"{prefix}.wk"])
+    v = _proj(enc_out, p[f"{prefix}.wv"])
+    o = chunked_attention(q, k, v, causal=False)
+    return _out_proj(o, p[f"{prefix}.wo"]), (k, v)
+
+
+def cross_decode(cfg, p, prefix, x, xk, xv):
+    """One decode step's cross-attention: x [B,1,D] against the cached
+    memory K/V [B,M,KV,hd], every slot valid. M = 0 (the router's empty
+    memory) gives zeros, as the reference's softmax over no slots does."""
+    q = _proj(x, p[f"{prefix}.wq"])
+    valid = torch.ones((x.shape[0], xk.shape[1]), dtype=torch.bool, device=x.device)
+    return _out_proj(decode_attention(q, xk, xv, valid), p[f"{prefix}.wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,24 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return ((xf * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def norm(cfg, x, scale, bias=None):
+    """`cfg.norm`'s normalisation. The forward passes call `rmsnorm`
+    directly, as the reference's do: neither reads `cfg.norm`, so
+    seamless-m4t's `norm="layernorm"` runs RMSNorm in both (ROADMAP §C, C7)."""
+    if cfg.norm == "layernorm":
+        return layernorm(x, scale, bias if bias is not None else torch.zeros_like(scale))
+    return rmsnorm(x, scale)
+
+
 def _gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default form
 

@@ -17,6 +17,10 @@ from repro_torch.models.config import ModelConfig
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int):
+    """prefill_step(params, batch) -> (last_logits, cache). batch: {"tokens"};
+    a vision model's {"patches" [B,P,frontend_dim], "tokens"}; an
+    encoder-decoder's {"frames" [B,M,frontend_dim], "dec_tokens"}."""
+
     def prefill_step(params, batch):
         return stack.forward_prefill(cfg, params, batch, cache_len)
 

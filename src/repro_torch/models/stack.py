@@ -15,15 +15,22 @@ Two entry points of the serving path:
 Decode writes the new key and value, and the recurrent mixers' new states,
 into `cache` IN PLACE and returns it.
 
-`build_schema` covers all ten architectures. The forward passes run the
-dense GQA family (mixers gqa / swa / cla, bf16 KV cache, logit
-softcapping), MLA (minicpm3-4b; its compressed latent cache), the dense
-and MoE FFNs (mixtral-8x7b, llama4-scout with iRoPE) and the recurrent
-mixers (mlstm / slstm of xLSTM, rglru of RecurrentGemma, whose states are
-float32 leaves beside bf16 conv buffers); encoder-decoder models, the
-modality frontends and the int8 KV cache raise `NotImplementedError`
-naming ROADMAP.md §A item A9.
-`forward_train` is training (item A7).
+`build_schema` and the forward passes cover all ten architectures: the
+dense GQA family (mixers gqa / swa / cla, logit softcapping), MLA
+(minicpm3-4b; its compressed latent cache), the dense and MoE FFNs
+(mixtral-8x7b, llama4-scout with iRoPE), the recurrent mixers (mlstm /
+slstm of xLSTM, rglru of RecurrentGemma, whose states are float32 leaves
+beside bf16 conv buffers), the vision frontend (internvl2-26b: patch
+embeddings projected by `frontend_proj` ahead of the tokens), the
+encoder-decoder with its audio frontend (seamless-m4t: a non-causal
+encoder over the projected frames, cross-attention in every decoder
+layer, whose cache holds the memory's K/V beside the self-attention's) and
+the int8 KV cache (`kv_cache_dtype="int8"`: int8 K/V and float32 scales).
+`forward_train` is training (ROADMAP.md §A item A7).
+
+The prefill batch: {"tokens"}; a vision model {"patches" [B,P,frontend_dim],
+"tokens"} (positions 0..P+T-1 over both); an encoder-decoder
+{"frames" [B,M,frontend_dim], "dec_tokens"}.
 """
 
 from __future__ import annotations
@@ -37,7 +44,6 @@ from repro_torch.models import xlstm as xl
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_lookup, ffn, rmsnorm
 from repro_torch.models.schema import ParamSpec, Schema
-from repro_torch.unported import not_ported
 
 # the activations' dtype, as in the reference: embeddings are looked up in it
 # and every product casts its weights to it
@@ -243,17 +249,15 @@ _RECURRENT = ("mlstm", "slstm", "rglru")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` (naming its ROADMAP item) for anything in
-    `cfg` the port's forward passes do not run yet."""
-    if cfg.is_encdec:
-        raise not_ported(f"{cfg.name}: encoder-decoder models", "A9")
-    if cfg.frontend != "none":
-        raise not_ported(f"{cfg.name}: the {cfg.frontend} frontend", "A9")
+    """Raise `ValueError` for a mixer, frontend or cache type `cfg` names
+    that the model family does not have (every registry config passes)."""
     for mixer, _ in tuple(cfg.pattern) + tail_layers(cfg):
         if mixer not in _ATTN + _MLA + _RECURRENT:
             raise ValueError(f"{cfg.name}: unknown mixer {mixer!r}")
-    if cfg.kv_cache_dtype != "bf16":
-        raise not_ported(f"{cfg.name}: the {cfg.kv_cache_dtype} KV cache", "A9")
+    if cfg.frontend not in ("none", "vision", "audio"):
+        raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}")
+    if cfg.kv_cache_dtype not in ("bf16", "int8"):
+        raise ValueError(f"{cfg.name}: unknown KV cache dtype {cfg.kv_cache_dtype!r}")
 
 
 # the weights each mixer's products cast to the activations' dtype; the rest
@@ -277,10 +281,12 @@ def cast_weights(cfg: ModelConfig, params: dict) -> dict:
     forward does not re-cast them (6.4 GB of writes a forward at
     llama3.2-3b). Casting is round-to-nearest-even in both frameworks, so
     the values are bitwise those of a per-call cast. Which weights cast is
-    decided per mixer (`_MIX_CAST`); the others are shared, not copied.
-    `params` may hold any subset of the schema's names."""
+    decided per mixer (`_MIX_CAST`; the encoder's `eblk0` layers are gqa, a
+    decoder layer's cross-attention `x` casts as gqa does); the others are
+    shared, not copied. `params` may hold any subset of the schema's names."""
     mixers = {f"blk{j}": mixer for j, (mixer, _) in enumerate(cfg.pattern)}
     mixers.update({f"tail{i}": mixer for i, (mixer, _) in enumerate(tail_layers(cfg))})
+    mixers["eblk0"] = "gqa"
     out = {}
     for name, w in params.items():
         parts = name.split(".")
@@ -288,8 +294,10 @@ def cast_weights(cfg: ModelConfig, params: dict) -> dict:
             cast = parts[2] in _MIX_CAST.get(mixers.get(parts[0]), ())
         elif len(parts) == 3 and parts[1] == "ffn":
             cast = parts[2] in _FFN_CAST
+        elif len(parts) == 3 and parts[1] == "x":
+            cast = parts[2] in _ATTN_CAST
         else:
-            cast = name in ("embed", "lm_head")
+            cast = name in ("embed", "lm_head", "frontend_proj")
         out[name] = w.to(ACT_DTYPE) if cast else w
     return out
 
@@ -361,8 +369,13 @@ def _seed_to_cache(cfg, mixer, seed, cache: dict, cache_len: int) -> None:
     """Write a prefill's k/v [B,S,KV,hd] (MLA: c_kv [B,S,kv_lora], k_rope
     [B,S,rope]) into one layer's zeroed cache views: a linear cache holds
     positions 0..S-1 then zeros, a ring buffer the last `cap` positions
-    (the reference pads / ring-fills new arrays)."""
+    (the reference pads / ring-fills new arrays). An int8 cache takes each
+    position quantized per (token, head), and its scales beside it, padded
+    or ring-filled alike."""
     names = ("c_kv", "k_rope") if mixer in _MLA else ("k", "v")
+    if mixer in _ATTN and cfg.kv_cache_dtype == "int8":
+        (kq, ks), (vq, vs) = (attn._kv_quantize(x) for x in seed)
+        names, seed = ("k", "v", "k_scale", "v_scale"), (kq, vq, ks, vs)
     cap = _cache_capacity(cfg, mixer, cache_len)
     if cap == cache_len:  # linear cache, zero-padded to capacity
         S = seed[0].shape[1]
@@ -371,62 +384,117 @@ def _seed_to_cache(cfg, mixer, seed, cache: dict, cache_len: int) -> None:
         for name, x in zip(names, seed):
             cache[name][:, :S] = x.to(cache[name].dtype)
     else:
-        k, v = seed
-        _ring_fill(cache["k"], k)
-        _ring_fill(cache["v"], v)
+        for name, x in zip(names, seed):
+            _ring_fill(cache[name], x)
 
 
 _RECURRENT_BLOCK = {"mlstm": xl.mlstm_block, "slstm": xl.slstm_block, "rglru": rg.rglru_block}
 
 
-def _prefill_layer(cfg, p, pfx, mixer, fk, x, positions, cache, cache_len):
+def _prefill_layer(cfg, p, pfx, mixer, fk, x, positions, cache, cache_len, enc_out=None):
+    """One decoder layer at prefill, its cache views filled in place. With
+    `enc_out` (an encoder-decoder) the layer's cache is {"self": the
+    mixer's, "xk", "xv": the memory's cross K/V [B,M,KV,hd]} and a
+    cross-attention block follows the mixer."""
+    self_cache = cache["self"] if enc_out is not None else cache
     if mixer in _RECURRENT:
         # these blocks norm internally and include their own projections
         y, state = _RECURRENT_BLOCK[mixer](cfg, p, pfx + ".mix", x, return_state=True)
-        _write_state(cache, state)
+        _write_state(self_cache, state)
     else:
         xn = rmsnorm(x, p[f"{pfx}.mix.ln"])
         if mixer in _MLA:
             y, seed = attn.mla_attn(cfg, p, pfx + ".mix", xn, positions)
         else:
             y, seed = attn.gqa_attn(cfg, p, pfx + ".mix", xn, positions, mixer=mixer)
-        _seed_to_cache(cfg, mixer, seed, cache, cache_len)
+        _seed_to_cache(cfg, mixer, seed, self_cache, cache_len)
     x = x + y
+    if enc_out is not None:
+        xn = rmsnorm(x, p[f"{pfx}.x.ln"])
+        y, (xk, xv) = attn.cross_attn(cfg, p, f"{pfx}.x", xn, enc_out)
+        x = x + y
+        cache["xk"].copy_(xk)
+        cache["xv"].copy_(xv)
     if fk != "none":
         xn = rmsnorm(x, p[f"{pfx}.ffn.ln2"])
         x = x + ffn(cfg, p, f"{pfx}.ffn", fk, xn)
     return x
 
 
+def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
+    """Token embedding, with the frontend stub's: a vision model's patch
+    embeddings projected by `frontend_proj` (in bf16) ahead of the tokens,
+    an audio model's frames projected alone. Returns (x [B,S,D], positions
+    [B,S] = 0..S-1)."""
+    if cfg.frontend == "vision":
+        emb = batch["patches"].to(ACT_DTYPE) @ params["frontend_proj"].to(ACT_DTYPE)
+        x = torch.cat([emb, embed_lookup(params["embed"], batch["tokens"], ACT_DTYPE)], dim=1)
+    elif cfg.frontend == "audio" and "frames" in batch:
+        x = batch["frames"].to(ACT_DTYPE) @ params["frontend_proj"].to(ACT_DTYPE)
+    else:
+        x = embed_lookup(params["embed"], batch["tokens"], ACT_DTYPE)
+    B, S = x.shape[:2]
+    return x, torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+
+
+def _encoder_layer(cfg, p, x, positions):
+    """One encoder layer (`eblk0`): gqa, non-causal, with RoPE, then the
+    dense FFN."""
+    xn = rmsnorm(x, p["eblk0.mix.ln"])
+    y, _ = attn.gqa_attn(cfg, p, "eblk0.mix", xn, positions, mixer="gqa", causal=False)
+    x = x + y
+    return x + ffn(cfg, p, "eblk0.ffn", "dense", rmsnorm(x, p["eblk0.ffn.ln2"]))
+
+
+def _run_encoder(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """The encoder over batch["frames"] (the audio frontend's projection),
+    `n_enc_layers` layers, then its final norm. Returns enc_out [B,M,D]."""
+    x, positions = _embed_inputs(cfg, params, batch)
+    for g in range(cfg.n_enc_layers):
+        x = _encoder_layer(cfg, _layer(params, "eblk0", g), x, positions)
+    return rmsnorm(x, params["enc_final_ln"])
+
+
 def forward_prefill(cfg: ModelConfig, params: dict, batch: dict, cache_len: int):
-    """Prefill: full forward + decode-ready cache. batch["tokens"]: [B,S]
-    int. Returns (last_logits [B,V], cache)."""
+    """Prefill: full forward + decode-ready cache. batch: {"tokens" [B,S]
+    int}, a vision model's {"patches", "tokens"} or an encoder-decoder's
+    {"frames", "dec_tokens"}. Returns (last_logits [B,V], cache)."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    x = embed_lookup(params["embed"], tokens, ACT_DTYPE)
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    cache = init_cache(cfg, B, cache_len, device=x.device)
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = _run_encoder(cfg, params, batch)
+        x, positions = _embed_inputs(cfg, params, {"tokens": batch["dec_tokens"]})
+    else:
+        x, positions = _embed_inputs(cfg, params, batch)
+    enc_len = 0 if enc_out is None else enc_out.shape[1]
+    cache = init_cache(cfg, x.shape[0], cache_len, device=x.device, enc_len=enc_len)
     for pfx, g, mixer, fk in _layers(cfg):
         x = _prefill_layer(
             cfg, _layer(params, pfx, g), pfx, mixer, fk, x, positions,
-            _layer_cache(cache, pfx, g), cache_len,
+            _layer_cache(cache, pfx, g), cache_len, enc_out,
         )
     x = rmsnorm(x, params["final_ln"])
     return _head(params, x[:, -1]), cache
 
 
 def _decode_layer(cfg, p, pfx, mixer, fk, x, pos, cache):
+    """One decoder layer's decode step, its cache views updated in place
+    (an encoder-decoder's: the mixer's under "self", then cross-attention
+    over the cached memory K/V)."""
+    self_cache = cache["self"] if "self" in cache else cache
     if mixer in _RECURRENT:
-        y, state = _RECURRENT_BLOCK[mixer](cfg, p, pfx + ".mix", x, cache=cache)
-        _write_state(cache, state)
+        y, state = _RECURRENT_BLOCK[mixer](cfg, p, pfx + ".mix", x, cache=self_cache)
+        _write_state(self_cache, state)
     else:
         xn = rmsnorm(x, p[f"{pfx}.mix.ln"])
         if mixer in _MLA:
-            y, _ = attn.mla_decode(cfg, p, pfx + ".mix", xn, pos, cache)
+            y, _ = attn.mla_decode(cfg, p, pfx + ".mix", xn, pos, self_cache)
         else:
-            y, _ = attn.gqa_decode(cfg, p, pfx + ".mix", xn, pos, cache, mixer=mixer)
+            y, _ = attn.gqa_decode(cfg, p, pfx + ".mix", xn, pos, self_cache, mixer=mixer)
     x = x + y
+    if "self" in cache:
+        xn = rmsnorm(x, p[f"{pfx}.x.ln"])
+        x = x + attn.cross_decode(cfg, p, f"{pfx}.x", xn, cache["xk"], cache["xv"])
     if fk != "none":
         xn = rmsnorm(x, p[f"{pfx}.ffn.ln2"])
         x = x + ffn(cfg, p, f"{pfx}.ffn", fk, xn)
@@ -434,8 +502,9 @@ def _decode_layer(cfg, p, pfx, mixer, fk, x, pos, cache):
 
 
 def forward_decode(cfg: ModelConfig, params: dict, token, pos, cache: dict):
-    """One decode step. token/pos: [B] int. Returns (logits [B,V], cache),
-    the cache updated in place."""
+    """One decode step. token/pos: [B] int (an encoder-decoder's decoder
+    token; a vision model's next text token at position P + T). Returns
+    (logits [B,V], cache), the cache updated in place."""
     check_supported(cfg)
     x = embed_lookup(params["embed"], token, ACT_DTYPE)[:, None]  # [B,1,D]
     for pfx, g, mixer, fk in _layers(cfg):
@@ -453,14 +522,19 @@ def forward_decode(cfg: ModelConfig, params: dict, token, pos, cache: dict):
 
 def _layer_cache_spec(cfg: ModelConfig, mixer: str, B: int, cache_len: int) -> dict:
     """One layer's cache as nested {name: (shape, dtype)}: bf16 K/V for the
-    attention mixers, MLA's bf16 latent c_kv and k_rope (linear), float32
-    recurrent states and bf16 conv buffers for the recurrent ones (the
-    reference's layout)."""
+    attention mixers (int8 K/V and float32 scales [B,cap,KV] with
+    `kv_cache_dtype="int8"`), MLA's bf16 latent c_kv and k_rope (linear),
+    float32 recurrent states and bf16 conv buffers for the recurrent ones
+    (the reference's layout)."""
     H, D = cfg.n_heads, cfg.d_model
     f32, bf16 = torch.float32, torch.bfloat16
     if mixer in _ATTN:
         cap = _cache_capacity(cfg, mixer, cache_len)
         shape = (B, cap, cfg.n_kv_heads, cfg.hd)
+        if cfg.kv_cache_dtype == "int8":
+            i8 = torch.int8
+            return {"k": (shape, i8), "v": (shape, i8), "k_scale": (shape[:3], f32),
+                    "v_scale": (shape[:3], f32)}
         return {"k": (shape, bf16), "v": (shape, bf16)}
     if mixer in _MLA:
         return {"c_kv": ((B, cache_len, cfg.kv_lora_rank), bf16),
@@ -485,16 +559,27 @@ def _stacked(spec: dict, G: int) -> dict:
             for k, v in spec.items()}
 
 
-def decode_cache_specs(cfg: ModelConfig, B: int, cache_len: int) -> dict:
+def decode_cache_specs(cfg: ModelConfig, B: int, cache_len: int, enc_len: int = 0) -> dict:
     """{"blk<j>": {"k": (shape, dtype), "v": ...}, "tail<i>": ...}, nested
-    for the recurrent mixers; the stacked blocks carry a leading [G] dim."""
+    for the recurrent mixers; the stacked blocks carry a leading [G] dim.
+    An encoder-decoder's layer holds {"self": that, "xk", "xv": bf16
+    [B,enc_len,KV,hd]} (enc_len = 0: an empty memory, as the reference's
+    router decodes)."""
     check_supported(cfg)
     G = n_groups(cfg)
+
+    def spec(mixer):
+        s = _layer_cache_spec(cfg, mixer, B, cache_len)
+        if cfg.is_encdec:
+            xkv = ((B, enc_len, cfg.n_kv_heads, cfg.hd), torch.bfloat16)
+            s = {"self": s, "xk": xkv, "xv": xkv}
+        return s
+
     cache = {}
     for j, (mixer, _) in enumerate(cfg.pattern):
-        cache[f"blk{j}"] = _stacked(_layer_cache_spec(cfg, mixer, B, cache_len), G)
+        cache[f"blk{j}"] = _stacked(spec(mixer), G)
     for i, (mixer, _) in enumerate(tail_layers(cfg)):
-        cache[f"tail{i}"] = _layer_cache_spec(cfg, mixer, B, cache_len)
+        cache[f"tail{i}"] = spec(mixer)
     return cache
 
 
@@ -503,5 +588,5 @@ def _zeros(spec: dict, dev: torch.device) -> dict:
             for k, v in spec.items()}
 
 
-def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None) -> dict:
-    return _zeros(decode_cache_specs(cfg, B, cache_len), resolve_device(device))
+def init_cache(cfg: ModelConfig, B: int, cache_len: int, device=None, enc_len: int = 0) -> dict:
+    return _zeros(decode_cache_specs(cfg, B, cache_len, enc_len), resolve_device(device))

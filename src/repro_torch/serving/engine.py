@@ -174,7 +174,9 @@ class GeoServingEngine:
 
     def _gen_done(self, req: Request, pod: int):
         if self.run_model:
-            # one real decode step stands in for the generation tick batch
+            # one real decode step stands in for the generation tick batch;
+            # an encoder-decoder's runs its cross step over an empty memory
+            # (enc_len = 0: zeros, no launch), as the reference's does
             tok = torch.zeros((1,), dtype=torch.int32, device=self.device)
             pos = torch.zeros((1,), dtype=torch.int32, device=self.device)
             cache = stack.init_cache(self.cfg, 1, 64, self.device)

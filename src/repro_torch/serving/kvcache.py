@@ -4,7 +4,9 @@
 Slots are the serving analogue of the paper's record locks: a request holds
 its slots from reservation until release, and the *occupancy window* is the
 lock-contention span the GeoTP router minimizes. The pool's cache lives on
-the pool's device.
+the pool's device: the config's own layout, int8 K/V and their scales for
+`kv_cache_dtype="int8"`, and for an encoder-decoder the cross K/V of an
+empty memory (enc_len = 0), as the reference's pool holds them.
 """
 
 from __future__ import annotations

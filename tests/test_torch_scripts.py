@@ -435,19 +435,23 @@ def test_recurrent_work_counts_these_inputs():
 
 
 def test_kernels_line_names_all_five_with_every_key():
+    """The five kernels, and the two entries slice 8 added: flash's cross
+    route and decode's int8 cache, each a record of its own."""
     rec = {k: 1.0 for k in chip_smoke.KERNEL_KEYS}
     records = [dict(rec, name=n) for n in chip_smoke.KERNEL_NAMES]
     line = chip_smoke.kernels_line(records)
     assert [r["name"] for r in __import__("json").loads(line)["kernels"]] == list(
         chip_smoke.KERNEL_NAMES)
     assert set(chip_smoke.KERNEL_NAMES) == {"geo_schedule", "decode_attention",
-                                            "flash_attention", "mlstm_chunk", "rglru_scan"}
+                                            "flash_attention", "mlstm_chunk", "rglru_scan",
+                                            "flash_attention_cross", "decode_attention_int8"}
     with pytest.raises(AssertionError, match="!="):
         chip_smoke.kernels_line(records[:-1])
+    last = chip_smoke.KERNEL_NAMES[-1]
     with pytest.raises(AssertionError, match="keys"):
-        chip_smoke.kernels_line(records[:-1] + [{"name": "rglru_scan"}])
+        chip_smoke.kernels_line(records[:-1] + [{"name": last}])
     with pytest.raises(AssertionError, match="never launched"):
-        chip_smoke.kernels_line(records[:-1] + [dict(rec, name="rglru_scan", launches=0)])
+        chip_smoke.kernels_line(records[:-1] + [dict(rec, name=last, launches=0)])
 
 
 def test_recurrent_phases_run_on_the_cpu(monkeypatch):
@@ -527,8 +531,10 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
     serving = [dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
                for n in ("decode_attention", "flash_attention")]
     records = chip_smoke.recurrent_phases(torch.device("cpu"), serving)
-    geo = dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name="geo_schedule", launches=1)
-    chip_smoke.kernels_line([geo] + records)  # all five, every key, each launched
+    geo, cross, int8 = (dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
+                        for n in ("geo_schedule", "flash_attention_cross",
+                                  "decode_attention_int8"))
+    chip_smoke.kernels_line([geo] + records + [cross, int8])  # every key, each launched
     by_name = {r["name"]: r for r in records}
     assert by_name["mlstm_chunk"]["launches"] == 2 * 7  # two prefills of 7 mLSTM layers
     # the fused op: 4 RG-LRU layers a prefill (two) and a decode step (two,
@@ -650,3 +656,183 @@ def test_moe_mla_phases_run_on_the_cpu(monkeypatch):
     assert by_name["flash_attention"]["launches"] == want
     assert by_name["decode_attention"]["launches"] == 1 + mx["launches"]["decode"] + l4[
         "launches"]["decode"]
+
+
+# ---- slice 8: the frontends, the encoder-decoder, the int8 cache (17-19) -----
+
+
+def _count_launches(monkeypatch):
+    """Stand-ins for the attention wrappers that count each call as its
+    kernel launch would count on the card (flash by dtype and cross route,
+    decode by cache dtype; a decode over no slots launches nothing)."""
+    from repro_torch.kernels.decode_attention import ops as d_ops
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.geo_schedule import ops as g_ops
+
+    real = {"mha": f_ops.mha, "decode": d_ops.decode, "geo_schedule": g_ops.geo_schedule}
+
+    def mha(q, k, v, **kw):
+        mha.launches += 1
+        mha.launches_by_dtype[str(q.dtype)[6:]] += 1
+        mha.cross_launches += k.shape[1] != q.shape[1]
+        return real["mha"](q, k, v, **kw)
+
+    def decode(q, k_cache, v_cache, valid, **kw):
+        if k_cache.shape[1]:
+            decode.launches += 1
+            decode.launches_by_cache["int8" if k_cache.dtype == torch.int8
+                                     else str(q.dtype)[6:]] += 1
+        return real["decode"](q, k_cache, v_cache, valid, **kw)
+
+    def geo_schedule(*a, **k):
+        geo_schedule.launches += 1
+        return real["geo_schedule"](*a, **k)
+
+    geo_schedule.launches = 0
+    monkeypatch.setattr(f_ops, "mha", mha)
+    monkeypatch.setattr(d_ops, "decode", decode)
+    monkeypatch.setattr(g_ops, "geo_schedule", geo_schedule)
+    f_ops.reset_launches()
+    d_ops.reset_launches()
+    return mha, decode
+
+
+def _stand_in_the_card(monkeypatch):
+    import time as _time
+
+    for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+
+    def host_ms(fn, iters):
+        t0 = _time.perf_counter()
+        fn()
+        return (_time.perf_counter() - t0) * 1e3
+
+    monkeypatch.setattr(chip_smoke, "cuda_ms", host_ms)
+
+
+def test_slice8_phases_run_on_the_cpu(monkeypatch):
+    """Phases 17-19 end to end at a tiny size on the CPU (reduced internvl2
+    with 8 patches, seamless with 24 frames and one encoder and decoder
+    layer in the GPU-vs-CPU check, h2o with a 32-slot ring past which its
+    prefill of 40 wraps): the wrappers run the plain versions, each call
+    counted as its launch would be; CUDA events and device memory are stood
+    in for. Checks the plumbing, the launch counts against the layer
+    pattern (the encoder's and the cross-attention's included), the
+    router's empty-memory decode, the int8 run's limits and the records."""
+    from repro_torch.configs import registry
+
+    small = {n: registry.reduced(n) for n in ("internvl2-26b", "seamless-m4t-large-v2",
+                                              "h2o-danube-3-4b")}
+    small["h2o-danube-3-4b"] = dataclasses.replace(small["h2o-danube-3-4b"], window=32)
+    monkeypatch.setattr(registry, "get", small.__getitem__)
+    for name, value in (("INTERNVL_B", 2), ("INTERNVL_P", 8), ("INTERNVL_T", 16),
+                        ("INTERNVL_CACHE", 48), ("INTERNVL_MAX_SEQ", 64), ("SEAMLESS_B", 2),
+                        ("SEAMLESS_FRAMES", 24), ("SEAMLESS_DEC", 8), ("SEAMLESS_CACHE", 32),
+                        ("SEAMLESS_MAX_SEQ", 64), ("H2O_B", 2), ("H2O_S", 40), ("INT8_STEPS", 2),
+                        ("FRONT_CPU", 8), ("MOE_CPU_PROMPT", 16), ("DECODE_STEPS", 2),
+                        ("CROSS_MAIN", (2, 8, 24, 4, 4, 32)),
+                        ("CROSS_CASES", chip_smoke.CROSS_CASES[:1]),
+                        ("INT8_DECODE_CASES", [(2, 64, 4, 2, 30, 64), (2, 50, 6, 2, 16, None),
+                                               (1, 40, 4, 4, 32, None)])):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke.router, "__defaults__", (5,))
+    _stand_in_the_card(monkeypatch)
+    from repro_torch.kernels.flash_attention import flash_attention as f_bind
+
+    monkeypatch.setattr(f_bind, "launch", lambda *a, **k: None)
+    mha, decode = _count_launches(monkeypatch)
+    serving = [dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
+               for n in ("decode_attention", "flash_attention")]
+    records, runs, i8 = chip_smoke.slice8_phases(torch.device("cpu"), serving)
+    by_name = {r["name"]: r for r in records}
+    assert set(by_name) == {"decode_attention", "flash_attention", "flash_attention_cross",
+                            "decode_attention_int8"}
+    iv, sm = runs["internvl2-26b"], runs["seamless-m4t-large-v2"]
+    L = small["seamless-m4t-large-v2"].n_layers
+    E = small["seamless-m4t-large-v2"].n_enc_layers
+    assert iv["per_prefill"]["mha"] == 1 and iv["per_step"]["decode"] == 1 and iv["router"]
+    assert sm["per_prefill"]["mha"] == E + 2 * L and sm["per_step"]["decode"] == 2 * L
+    assert sm["cross"] == 2 * L and iv["cross"] == 0 and sm["router"]
+    assert by_name["flash_attention_cross"]["launches"] == 2 * L
+    H = small["h2o-danube-3-4b"].n_layers
+    assert i8["int8"] == i8["bf16"] == H * 2 and i8["flash"] == 4 * H and i8["rel"] < 0.05
+    assert by_name["decode_attention_int8"]["launches"] == i8["int8"]
+    assert by_name["decode_attention_int8"]["library_ms"] is None
+    assert by_name["flash_attention_cross"]["library_ms"] >= 0
+    assert all(set(r) == set(chip_smoke.KERNEL_KEYS) for r in records)
+    want_fl = 1 + sum(r["launches"]["mha"] - r["cross"] for r in runs.values()) + i8["flash"]
+    assert by_name["flash_attention"]["launches"] == want_fl
+    want_dec = 1 + sum(r["decode_by_cache"]["bfloat16"] for r in runs.values()) + i8["bf16"]
+    assert by_name["decode_attention"]["launches"] == want_dec
+
+
+def test_slice8_cases_reach_the_new_routes_edges():
+    """Phase 17's cases: the cross route with Sq below one 64-row
+    warpgroup, Sk below and across one 64-key tile, Sq past one 128-query
+    block and above Sk, and seamless's shape; the int8 entry at h2o's full
+    ring and llama's linear cache at B = 8 over 4,096 slots, a head dim that
+    is not a multiple of the 16-byte load, G = 20, and the router's B = 1."""
+    from repro_torch.configs import registry
+
+    cross = chip_smoke.CROSS_CASES
+    assert any(c[1] < 64 for c in cross) and any(c[2] < 64 for c in cross)
+    assert any(c[2] % 64 and c[2] > 64 for c in cross) and any(c[1] > 128 > c[2] for c in cross)
+    assert {c[5] for c in cross} >= {64, 120, 256}
+    sm = registry.get("seamless-m4t-large-v2")
+    assert chip_smoke.CROSS_MAIN == (8, 32, 1024, sm.n_heads, sm.n_kv_heads, sm.hd)
+    h2o = registry.get("h2o-danube-3-4b")
+    ring = (8, h2o.window, h2o.n_heads, h2o.n_kv_heads, h2o.hd)
+    cases = chip_smoke.INT8_DECODE_CASES
+    assert (*ring, h2o.window) in cases and (*ring, None) in cases
+    assert (8, 4096, 24, 8, 128, None) in cases  # llama3.2-3b's linear cache
+    assert any(c[4] % 8 for c in cases) and any(c[2] // c[3] > 16 for c in cases)
+    assert any(c[0] == 1 and c[5] == 1 for c in cases)
+    assert chip_smoke.H2O_S > h2o.window  # the int8 ring wraps in the prefill
+
+
+def test_encdec_and_vision_launches_and_batches():
+    """`want_launches` for an encoder-decoder adds an encoder layer's flash
+    and a decoder layer's cross flash and cross decode; `front_batch`
+    builds each family's prefill batch, with a vision model's decode
+    positions after its patches."""
+    from repro_torch.configs import registry
+
+    sm = registry.get("seamless-m4t-large-v2")
+    pre, step = chip_smoke.want_launches(sm)
+    assert pre["mha"] == 72 and step["decode"] == 48  # 24 + 24 + 24; 24 self + 24 cross
+    iv = registry.get("internvl2-26b")
+    pre, step = chip_smoke.want_launches(iv)
+    assert pre["mha"] == 48 and step["decode"] == 48
+    toks = torch.zeros((2, 5), dtype=torch.int32)
+    gen, cpu = torch.Generator().manual_seed(0), torch.device("cpu")
+    b, off = chip_smoke.front_batch(iv, toks, 7, gen, cpu)
+    assert set(b) == {"patches", "tokens"} and b["patches"].shape == (2, 7, 3200) and off == 7
+    b, off = chip_smoke.front_batch(sm, toks, 9, gen, cpu)
+    assert set(b) == {"frames", "dec_tokens"} and b["frames"].shape == (2, 9, 160) and off == 0
+    assert chip_smoke.front_batch(registry.get("llama3.2-3b"), toks, 0, gen, cpu) == (
+        {"tokens": toks}, 0)
+
+
+def test_int8_and_cross_work_count_these_inputs():
+    nb, fl = chip_smoke.cross_work((2, 3, 10, 4, 2, 8), 2)
+    assert nb == 2 * (2 * 3 * 4 + 2 * 10 * 2) * 8 * 2 and fl == 4 * 8 * 2 * 4 * 3 * 10
+    valid = torch.zeros((2, 16), dtype=torch.bool)
+    valid[0, :5] = True
+    valid[1, :1] = True
+    nb, fl = chip_smoke.int8_work(valid, 6, 2, 8, 2)
+    assert nb == 2 * 6 * 2 * (8 + 4) + 2 * 2 * 6 * 8 * 2 + 2 * 16
+    assert fl == 4 * 8 * 6 * 6 + 2 * 6 * 2 * 8
+    ms, by = chip_smoke.bound(*chip_smoke.cross_work(chip_smoke.CROSS_MAIN, 2),
+                              chip_smoke.BF16_TENSOR_OPS_PER_S)
+    assert by == "bytes" and ms == pytest.approx(34603008 / 3.35e12 * 1e3)
+
+
+def test_kernel_label_names_the_int8_variant():
+    mangled = ("_ZN52_GLOBAL__N__9b822bd5_19_decode_attention_cu_3848999b19decode_split_kernel"
+               "I13__nv_bfloat16Li128EaEEvPKT_PKT1_S7_PKfSA_PKhPfSD_SD_iiiiffii")
+    assert chip_smoke.kernel_label(mangled) == "decode_split_kernel<bfloat16, 128, int8>"
+    same = mangled.replace("Li128EaE", "Li128ES1_E")
+    assert chip_smoke.kernel_label(same) == "decode_split_kernel<bfloat16, 128>"

@@ -179,6 +179,23 @@ def test_moe_and_mla_slot_pool_equals_reference(arch):
         assert str(y.dtype).split(".")[-1] == str(x.dtype)
 
 
+@pytest.mark.parametrize("arch,changes", [("internvl2-26b", {}), ("seamless-m4t-large-v2", {}),
+                                          ("h2o-danube-3-4b", {"kv_cache_dtype": "int8"})])
+def test_frontend_encdec_and_int8_slot_pool_equals_reference(arch, changes):
+    """The pool's cache: the vision model's plain K/V, the encoder-decoder's
+    {"self", "xk", "xv"} with an empty memory (enc_len = 0), int8 K/V with
+    float32 scales; all zero, in the reference's layout and dtypes."""
+    cfg_r = dataclasses.replace(r_registry.reduced(arch), **changes)
+    cfg_t = dataclasses.replace(t_registry.reduced(arch), **changes)
+    pr, pt = RSlotPool(cfg_r, 3, 32), TSlotPool(cfg_t, 3, 32, CPU)
+    ref = jax.tree_util.tree_leaves_with_path(pr.cache)
+    got = jax.tree_util.tree_leaves_with_path(pt.cache)
+    assert [jax.tree_util.keystr(k) for k, _ in got] == [jax.tree_util.keystr(k) for k, _ in ref]
+    for (_, x), (_, y) in zip(ref, got):
+        assert tuple(y.shape) == x.shape and not y.any() and y.device == CPU
+        assert str(y.dtype).split(".")[-1] == str(x.dtype)
+
+
 @pytest.mark.parametrize(
     "argv",
     [
@@ -190,6 +207,8 @@ def test_moe_and_mla_slot_pool_equals_reference(arch):
         ["--arch", "mixtral-8x7b", "--requests", "10", "--rate", "100"],
         ["--arch", "llama4-scout-17b-a16e", "--requests", "10", "--rate", "100"],
         ["--arch", "minicpm3-4b", "--requests", "10", "--rate", "100"],
+        ["--arch", "internvl2-26b", "--requests", "10", "--rate", "100"],
+        ["--arch", "seamless-m4t-large-v2", "--requests", "10", "--rate", "100"],
     ],
 )
 def test_launcher_output_equals_reference(argv, tmp_path):
