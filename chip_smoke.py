@@ -17,9 +17,14 @@ Phases (any failure raises; the script then exits non-zero):
    issue rate of one eager call: checks, allocation, the ctypes launch)
    and of the plain version at those two launch shapes;
 4. end to end, GPU vs CPU — all 12 presets (YCSB, T = 16, D = 4, paper
-   RTTs, jitter 30, 1 s horizon) through `Simulator.run_grid` on both
-   devices, the card's run as a captured step replayed from a CUDA graph;
-   every final `SimState` leaf and the step count must be equal;
+   RTTs, jitter 30, 1 s horizon) through `Simulator(drain=False).run_grid`
+   (the single-event step `_omni_step`) on both devices, the card's run as
+   a captured step replayed from a CUDA graph; every final `SimState` leaf
+   and the step count must be equal;
+4b. the same with the windowed drain (`drain=True`, the default: the step
+   is `fused._omni_window`): GPU == CPU on every leaf, the drain telemetry
+   included, and the card's final states equal to phase 4's on every leaf
+   but the five telemetry leaves;
 5. the main path at full width — fig5's YCSB deployment (4 data sources at
    0/27/73/251 ms, 1M records per node, zipf 0.9, 20% distributed, 5 ops,
    256 txns per terminal, T = 128 terminals) for ssp / ssp-local /
@@ -31,8 +36,19 @@ Phases (any failure raises; the script then exits non-zero):
    (MAIN_EVENTS), and that the kernel launched exactly twice per lockstep
    step (the launches of one replay, counted at the capture, times the
    replays); then `profile_step.measure` over a window of replays: two
-   `geo_schedule_kernel` launches a replay in the trace, their device time
-   (the kernel record's `ms`), the device busy time and idle share.
+   `geo_schedule_kernel` launches a replay in the trace, their device time,
+   the device busy time and idle share. Phase 5 runs the single-event step
+   (`drain=False`);
+5b. the same grid drained (`drain=True`, the default path): the same
+   MAIN_EVENTS, final states equal to phase 5's on every leaf but the drain
+   telemetry, two `geo_schedule` launches a lockstep step; steps, events/s
+   beside phase 5's, the drain hit rate, mean window, loop iterations,
+   window stops and the capture time; the plan's candidates by one sort
+   (`window._candidates`) against the reference's 16 masked argmins on the
+   final event times, equal and both timed; then the windowed replay's profile
+   (kernels a replay, device busy ms, idle share; the kernel record's `ms`
+   is its `geo_schedule` device time a launch, its `launches` phase 5's
+   and 5b's together).
 
 Slice 2, the serving path of the LM stack (dense GQA, llama3.2-3b):
 
@@ -388,17 +404,162 @@ def main_grid():
     return Grid(cells, banks=[banks[c["seed"]] for c in cells])
 
 
-def profile_replays(grid, dev) -> float:
+def profile_replays(grid, dev, drain) -> float:
     """`profile_step.measure` over a window of replays of `grid`'s captured
-    step (its output printed); it fails unless the trace holds exactly two
-    `geo_schedule_kernel` launches a replay. Returns their device ms a
-    launch."""
+    step, windowed (`drain`) or single-event (its output printed); it fails
+    unless the trace holds exactly two `geo_schedule_kernel` launches a
+    replay. Returns their device ms a launch."""
     import profile_step
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    res = profile_step.measure(grid, profile_step.WINDOW, dev, acts)
+    res = profile_step.measure(grid, profile_step.WINDOW, dev, acts, drain=drain)
     profile_step.report(res)
     return res["kernels"][profile_step.GEO_KERNEL]["us_per_launch"] / 1e3
+
+
+# the drain telemetry: the only leaves a drained run may differ on from the
+# single-event run
+TELEMETRY = ("drained", "windows", "win_stops", "fused", "chained")
+
+
+def leaves_but_telemetry_equal(a, b, what):
+    bad = [(n, lanes) for n, lanes in leaf_mismatches(a, b) if n not in TELEMETRY]
+    for name, lanes in bad:
+        print(f"MISMATCH leaf {name} lanes {lanes}")
+    if bad:
+        raise AssertionError(f"{len(bad)} SimState leaves differ: {what}")
+    print(f"every SimState leaf but the drain telemetry equal: {what}")
+
+
+def drain_line(res) -> str:
+    d = res.drain
+    stops = {k: v for k, v in d["window_stops"].items() if v}
+    return (f"drained {d['drained_events']} of {d['events']} events (hit rate "
+            f"{d['drain_hit_rate']}), {d['windows']} windows (mean {d['mean_window_len']}), "
+            f"loop iterations {d['loop_iters']} ({d['loop_iters'] / d['events']:.4f} an "
+            f"event), chained {d['chained']}, window stops {stops}")
+
+
+def candidates_by_argmin(flat, W):
+    """The reference's lockstep route to the window plan's candidates
+    (`src/repro/core/engine/window.py:207-223`): W masked first-occurrence
+    argmins, the first time after them, and each slot's rank as the count
+    of candidates before it (saturated at W). `window._candidates` takes one
+    sort instead."""
+    B, M = flat.shape
+    ids = torch.arange(M, device=flat.device)
+    mflat, cand = flat, []
+    for _ in range(W):
+        j = mflat.argmin(1)
+        cand.append(j)
+        mflat = torch.where(ids == j[:, None], 2**31 - 1, mflat)
+    cand_i = torch.stack(cand, 1)
+    cand_t = flat.gather(1, cand_i)
+    before = (cand_t[..., None] < flat[:, None]) | (
+        (cand_t[..., None] == flat[:, None]) & (cand_i[..., None] < ids))
+    return cand_i, cand_t, mflat.amin(1), before.sum(1, dtype=torch.int32)
+
+
+def graph_ms(fn, iters: int = 500) -> float:
+    """Device ms of one call of `fn` captured into a CUDA graph (no host
+    issue), by CUDA events over `iters` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
+
+
+def check_candidates(states) -> None:
+    """The plan's sort route (`window._candidates`) equals the reference's
+    argmin route on `states`' event times (ties at INF_US among them), and
+    both timed as captured graphs at that shape."""
+    from repro_torch.core.engine import window
+    from repro_torch.core.engine.state import _times_flat
+
+    flat, W = _times_flat(states), window.PLAN_CAP
+    got, want = window._candidates(flat, W), candidates_by_argmin(flat, W)
+    for name, x, y in zip(("cand_i", "cand_t", "t_w1", "pos"), got, want):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"window._candidates: {name} differs from the argmin route")
+    sort_ms = graph_ms(lambda: window._candidates(flat, W))
+    argmin_ms = graph_ms(lambda: candidates_by_argmin(flat, W))
+    print(f"plan candidates at [{flat.shape[0]}, {flat.shape[1]}], W = {W}: the sort route "
+          f"equals the argmin route; {sort_ms:.5f} ms (sort) vs {argmin_ms:.5f} ms "
+          f"({W} masked argmins), device time in a captured graph")
+
+
+def gpu_vs_cpu(bank, grid, drain):
+    """Phases 4 / 4b: `grid` on the card (a captured step) and on the CPU
+    (eager), single-event or windowed; every final leaf and the step count
+    must be equal. Returns {"cuda": RunResult, "cpu": RunResult}."""
+    from repro_torch.core.engine import Simulator, batch
+
+    res = {}
+    for name in ("cuda", "cpu"):
+        sim = Simulator.from_bank(bank, horizon_s=1.0, warmup_s=0.2, drain=drain,
+                                  track_slots=True, device=name)
+        res[name] = sim.run_grid(grid, bank)
+        how = (f"a captured step replayed, warm-up and capture {batch.run.capture_s:.3f} s"
+               if name == "cuda" else "eager")
+        print(f"{name}: {res[name].steps} steps, {res[name].events} events, "
+              f"{res[name].wall_s:.2f} s ({how})")
+    if res["cuda"].steps != res["cpu"].steps:
+        raise AssertionError(f"steps differ: GPU {res['cuda'].steps}, CPU {res['cpu'].steps}")
+    bad = leaf_mismatches(res["cuda"].states, res["cpu"].states)
+    for name, lanes in bad:
+        print(f"MISMATCH leaf {name} lanes {lanes}")
+    if bad:
+        raise AssertionError(f"{len(bad)} SimState leaves differ between GPU and CPU")
+    print(f"every SimState leaf equal on {len(grid)} lanes ({len(res['cpu'].states)} fields)")
+    if drain:
+        print(drain_line(res["cuda"]))
+    return res
+
+
+def main_path(grid, drain):
+    """Phases 5 / 5b: fig5's grid through `Simulator.run_grid` on the card,
+    single-event or windowed: noops 0 and commits on every lane,
+    MAIN_EVENTS events, two `geo_schedule` launches a lockstep step.
+    Returns (RunResult, launches)."""
+    from repro_torch.core.engine import Simulator, batch
+    from repro_torch.kernels.geo_schedule import ops
+
+    cells = grid.cells
+    sim = Simulator.from_bank(grid.banks[0], horizon_s=HORIZON_S, warmup_s=WARMUP_S, drain=drain)
+    torch.cuda.reset_peak_memory_stats()
+    ops.geo_schedule.launches = 0
+    main = sim.run_grid(grid)
+    launches = ops.geo_schedule.launches
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if launches != 2 * main.steps:
+        raise AssertionError(f"geo_schedule launches {launches} != 2 x {main.steps} steps")
+    for i, m in enumerate(main.metrics):
+        if m["noops"] != 0 or m["commits"] <= 0:
+            raise AssertionError(f"lane {i} {cells[i]}: noops={m['noops']} commits={m['commits']}")
+    ev = main.events
+    if ev != MAIN_EVENTS:
+        raise AssertionError(f"{ev} events, the eager step gave {MAIN_EVENTS}")
+    step = "windowed step (_omni_window)" if drain else "single-event step (_omni_step)"
+    print(f"warm-up step and capture of the {step}: {batch.run.capture_s:.3f} s "
+          f"(part of the wall time)")
+    print(f"steps {main.steps} (up to 31 idle tail steps included), events {ev}, "
+          f"wall {main.wall_s:.3f} s, {main.steps / main.wall_s:.1f} steps/s, "
+          f"{ev / main.wall_s:.1f} events/s, {main.wall_s / main.steps * 1e3:.4f} ms a step, "
+          f"peak device memory {peak_mib:.1f} MiB, geo_schedule launches {launches}")
+    if drain:
+        print(drain_line(main))
+    for p in PRESETS_MAIN:
+        rows = [r for r in main.rows() if r["preset"] == p]
+        tps = np.mean([r["throughput_tps"] for r in rows])
+        lat = np.mean([r["avg_latency_ms"] for r in rows])
+        print(f"{p:10s} throughput {tps:9.2f} tps  avg latency {lat:8.2f} ms  "
+              f"(mean of {len(rows)} seeds)")
+    return main, launches
 
 
 def leaf_mismatches(a, b):
@@ -2357,7 +2518,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card")
     from repro_torch.core import workloads
-    from repro_torch.core.engine import Grid, Simulator, batch
+    from repro_torch.core.engine import Grid
     from repro_torch.core.protocols import PRESETS
     from repro_torch.kernels import _build
     from repro_torch.kernels.geo_schedule import ops
@@ -2394,7 +2555,7 @@ def main() -> int:
     # the main path's two launch shapes; the plain version's mean of the two
     # is the kernel record's plain time (each step launches each shape once);
     # the wrapper's time here is its host issue: the record's device time
-    # comes from the captured step's trace (phase 5)
+    # comes from the windowed captured step's trace (phase 5b)
     kern_ms = plain_ms = 0.0
     work = np.zeros(2)
     for label, host_args in step_launches(B_MAIN, D_MAIN, K_MAIN, seed=99).items():
@@ -2411,64 +2572,41 @@ def main() -> int:
     bound_ms, bound_by = bound(*work)
     print(f"per launch, mean of the two: wrapper {kern_ms:.5f} ms (host issue), plain "
           f"{plain_ms:.5f} ms, bound {bound_ms:.3g} ms ({bound_by}); max |dp| over all cases "
-          f"{max_err:.3g} (the device time a launch inside the captured step: phase 5)")
+          f"{max_err:.3g} (the device time a launch inside the captured steps: phases 5, 5b)")
 
-    phase("4 end to end: GPU vs CPU, all 12 presets")
+    phase("4 end to end: GPU vs CPU, all 12 presets, single-event step (drain=False)")
     cfg_w = workloads.YCSBConfig(num_ds=4, records_per_node=1_000_000, ops_per_txn=5,
                                  dist_ratio=0.2, theta=0.9, seed=0)
     bank16 = workloads.make_ycsb_bank(cfg_w, 16, 256)
     grid12 = Grid.cross(preset=tuple(sorted(PRESETS)), jitter_milli=30)
-    res = {}
-    for name in ("cuda", "cpu"):
-        sim = Simulator.from_bank(bank16, horizon_s=1.0, warmup_s=0.2, track_slots=True,
-                                  device=name)
-        res[name] = sim.run_grid(grid12, bank16)
-        how = (f"a captured step replayed, warm-up and capture {batch.run.capture_s:.3f} s"
-               if name == "cuda" else "eager")
-        print(f"{name}: {res[name].steps} steps, {res[name].events} events, "
-              f"{res[name].wall_s:.2f} s ({how})")
-    if res["cuda"].steps != res["cpu"].steps:
-        raise AssertionError(f"steps differ: GPU {res['cuda'].steps}, CPU {res['cpu'].steps}")
-    bad = leaf_mismatches(res["cuda"].states, res["cpu"].states)
-    for name, lanes in bad:
-        print(f"MISMATCH leaf {name} lanes {lanes}")
-    if bad:
-        raise AssertionError(f"{len(bad)} SimState leaves differ between GPU and CPU")
-    print(f"every SimState leaf equal on 12 lanes ({len(res['cpu'].states)} fields)")
+    single12 = gpu_vs_cpu(bank16, grid12, drain=False)
 
-    phase("5 main path: fig5 YCSB, T=128, 16 lanes")
+    phase("4b end to end: GPU vs CPU, all 12 presets, windowed drain (drain=True)")
+    drained12 = gpu_vs_cpu(bank16, grid12, drain=True)
+    leaves_but_telemetry_equal(drained12["cuda"].states, single12["cuda"].states,
+                               "phase 4b vs phase 4 on the card")
+    del single12, drained12
+
+    phase("5 main path: fig5 YCSB, T=128, 16 lanes, single-event step (drain=False)")
     print(f"CUT: horizon {HORIZON_S} s / warmup {WARMUP_S} s (fig5: 10 s / 2 s)")
     t0 = time.perf_counter()
     grid = main_grid()
-    cells = grid.cells
     print(f"banks built in {time.perf_counter() - t0:.2f} s")
-    sim = Simulator.from_bank(grid.banks[0], horizon_s=HORIZON_S, warmup_s=WARMUP_S)
-    torch.cuda.reset_peak_memory_stats()
-    ops.geo_schedule.launches = 0
-    main = sim.run_grid(grid)
-    launches = ops.geo_schedule.launches
-    peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    if launches != 2 * main.steps:
-        raise AssertionError(f"geo_schedule launches {launches} != 2 x {main.steps} steps")
-    for i, m in enumerate(main.metrics):
-        if m["noops"] != 0 or m["commits"] <= 0:
-            raise AssertionError(f"lane {i} {cells[i]}: noops={m['noops']} commits={m['commits']}")
-    ev = main.events
-    if ev != MAIN_EVENTS:
-        raise AssertionError(f"{ev} events, the eager step gave {MAIN_EVENTS}")
-    print(f"warm-up step and capture of the lockstep step: {batch.run.capture_s:.3f} s "
-          f"(part of the wall time)")
-    print(f"steps {main.steps} (up to 31 idle tail steps included), events {ev}, "
-          f"wall {main.wall_s:.3f} s, {main.steps / main.wall_s:.1f} steps/s, "
-          f"{ev / main.wall_s:.1f} events/s, peak device memory {peak_mib:.1f} MiB, "
-          f"geo_schedule launches {launches}")
-    for p in PRESETS_MAIN:
-        rows = [r for r in main.rows() if r["preset"] == p]
-        tps = np.mean([r["throughput_tps"] for r in rows])
-        lat = np.mean([r["avg_latency_ms"] for r in rows])
-        print(f"{p:10s} throughput {tps:9.2f} tps  avg latency {lat:8.2f} ms  "
-              f"(mean of {len(rows)} seeds)")
-    geo_dev_ms = profile_replays(grid, dev)
+    single, launches = main_path(grid, drain=False)
+    geo_single_ms = profile_replays(grid, dev, drain=False)
+
+    phase("5b main path drained: fig5 YCSB, T=128, 16 lanes, windowed drain (drain=True)")
+    drained, launches_b = main_path(grid, drain=True)
+    leaves_but_telemetry_equal(drained.states, single.states, "phase 5b vs phase 5")
+    check_candidates(drained.states)
+    print(f"events/s: drained {drained.events / drained.wall_s:.1f}, single-event "
+          f"{single.events / single.wall_s:.1f} ({single.wall_s / drained.wall_s:.4f}x); "
+          f"steps {drained.steps} vs {single.steps} ({drained.steps / single.steps:.4f})")
+    geo_dev_ms = profile_replays(grid, dev, drain=True)
+    print(f"geo_schedule device time a launch: {geo_dev_ms:.7f} ms in the windowed graph, "
+          f"{geo_single_ms:.7f} ms in the single-event graph")
+    launches += launches_b
+    del single, drained
 
     lm_records = recurrent_phases(dev, serving_phases(dev, builds))
     lm_records = moe_mla_phases(dev, lm_records)[0]

@@ -5,9 +5,12 @@
 Runs `chip_smoke.py`'s phase-5 grid (fig5 YCSB, T = 128, ssp / ssp-local /
 scalardb / geotp x seeds 0-3, 16 lanes) through `Simulator.run_grid` for
 WINDOW events per lane, three times: a warm-up, an unprofiled run (host
-wall per step) and a run under `torch.profiler`. The step is branchless
-(every step issues the same ops whatever events it processes), so the
-opening window costs per step what any window does.
+wall per step) and a run under `torch.profiler`; the script profiles the
+windowed drain (`drain=True`, the default step `fused._omni_window`), then
+the single-event step (`drain=False`, `omni._omni_step`). Either step is
+branchless (every step issues the same ops whatever events it processes),
+so the opening window costs per step what any window does; a drained
+window of WINDOW events per lane takes fewer steps.
 
 On the card (mode "captured") the run warms the step up, captures it into
 a CUDA graph and replays it (`engine.batch.CapturedStep`); the window is
@@ -19,9 +22,10 @@ the kernel table by name (launches a replay, device us a launch):
 "eager", where the tests run it) each step's ops run one by one, and it
 prints per step the host wall and aten ops issued, then for each labelled
 part of the step (the uint32 hash / salt / delay helpers, the hot-table
-probe, the lane freeze, the two `geo_schedule` calls) its host time and
-its share of the profiled loop. The last line is a JSON summary, which
-names its mode. The full op tables go to `build/profile_step.txt`.
+probe, the lane freeze, the two `geo_schedule` calls, the window plan and
+its apply pass) its host time and its share of the profiled loop. The last
+line is a JSON list of the two summaries, each naming its mode and step.
+The full op tables go to `build/profile_step.txt`.
 Needs one card; imports no JAX.
 """
 
@@ -52,7 +56,10 @@ LABELS = (
     ("repro_torch.core.engine.batch", "_freeze", "lane freeze", False),
     ("repro_torch.core.engine.batch", "_active", "done check", False),
     ("repro_torch.core.scheduler", "plan_dispatch", "geo_schedule call", False),
+    ("repro_torch.core.engine.fused", "_window_plan", "window plan", False),
+    ("repro_torch.core.engine.fused", "_apply_window", "window apply", False),
     ("repro_torch.core.engine.batch", "_omni_step", "step", False),
+    ("repro_torch.core.engine.batch", "_omni_window", "step", False),
 )
 RUN_LABEL = "lockstep run"
 REPLAY_LABEL = "replay of the captured step"
@@ -158,11 +165,12 @@ def kernel_table(kernels, steps: int) -> dict:
             for name, (n, us) in sorted(by.items(), key=lambda kv: -kv[1][1])}
 
 
-def measure(grid, window: int, device, activities, tables=None) -> dict:
+def measure(grid, window: int, device, activities, tables=None, drain: bool = True) -> dict:
     """Warm-up, unprofiled and profiled runs of `grid` for `window` events
-    per lane; returns the per-step summary (device fields are None when the
-    profiler recorded no device activity). On a card the step is replayed
-    from a CUDA graph and the summary covers the replays."""
+    per lane, with the windowed step (`drain`) or the single-event one;
+    returns the per-step summary (device fields are None when the profiler
+    recorded no device activity). On a card the step is replayed from a
+    CUDA graph and the summary covers the replays."""
     from repro_torch.core.engine import Simulator, batch
 
     captured = device.type == "cuda"
@@ -171,7 +179,8 @@ def measure(grid, window: int, device, activities, tables=None) -> dict:
         install_labels(undo)
         replays = install_replay_label(undo)
         timing = install_run_timer(device, undo)
-        sim = Simulator.from_bank(grid.banks[0], horizon_s=2.5, warmup_s=0.5, device=device)
+        sim = Simulator.from_bank(grid.banks[0], horizon_s=2.5, warmup_s=0.5, drain=drain,
+                                  device=device)
         sim.cfg = dataclasses.replace(sim.cfg, max_events=window)
         sim.run_grid(grid)
         sim.run_grid(grid)
@@ -212,6 +221,7 @@ def measure(grid, window: int, device, activities, tables=None) -> dict:
     kernels = [e for e in in_win if e.device_type != cpu_t and e.name not in names]
     out = {
         "mode": "captured" if captured else "eager",
+        "drain": drain,
         "device": str(device),
         "window_events_per_lane": window,
         "steps": steps,
@@ -245,7 +255,7 @@ def measure(grid, window: int, device, activities, tables=None) -> dict:
         out["idle_share_profiled"] = 1.0 - busy_us / win_us
         out["idle_share_unprofiled"] = 1.0 - busy_us / unprof_us
     if not captured:  # the labelled parts run only while a step is issued op by op
-        for _, _, label, _ in LABELS:
+        for label in dict.fromkeys(label for _, _, label, _ in LABELS):
             evs = [e for e in in_win if e.name == label and e.device_type == cpu_t]
             host_us = sum(e.time_range.end - e.time_range.start for e in evs)
             out["labels"][label] = {
@@ -268,7 +278,8 @@ def report(res: dict) -> None:
     if res["device_busy_ms_per_step"] is None:
         print("the profiler recorded no device activity: device busy time and idle share "
               "not measured")
-    print(f"mode {res['mode']}: {res['steps']} steps x {res['lanes']} lanes, wall "
+    step = "windowed step (drain=True)" if res["drain"] else "single-event step (drain=False)"
+    print(f"mode {res['mode']}, {step}: {res['steps']} steps x {res['lanes']} lanes, wall "
           f"{res['wall_ms_per_step']:.4f} ms/step unprofiled (warm-up and capture "
           f"{res['capture_s']:.4f} s included), {res['profiled_wall_ms_per_step']:.4f} profiled")
     if res["mode"] == "captured":
@@ -307,11 +318,14 @@ def main() -> int:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
+    runs = []
     with open(out_dir / "profile_step.txt", "w") as tables:
-        res = measure(main_grid(), WINDOW, torch.device("cuda"), acts, tables)
-    res["card"] = smi
-    report(res)
-    print(json.dumps(res))
+        for drain in (True, False):
+            res = measure(main_grid(), WINDOW, torch.device("cuda"), acts, tables, drain=drain)
+            res["card"] = smi
+            report(res)
+            runs.append(res)
+    print(json.dumps(runs))
     return 0
 
 

@@ -1,4 +1,5 @@
-"""The GeoTP discrete-event engine, PyTorch port (lockstep, fault-free slice).
+"""The GeoTP discrete-event engine, PyTorch port (lockstep lanes, fault-free;
+the windowed drain by default, as the reference).
 
 Entry points: `Simulator` / `Grid` / `RunResult` (`api.py`).
 """

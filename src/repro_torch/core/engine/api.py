@@ -8,8 +8,9 @@
   `faults`, `replica_tau` and `repl_lag_us` axes raise `NotImplementedError`.
 * **`Simulator`** — runs a Grid's cells as [B] lockstep lanes on one device
   (`device=None` means CUDA; it raises when no card is present). `drain`
-  defaults to False here: the windowed drain is not ported, and
-  `drain=True`, `strategy="map"/"mesh"` and `resume` raise.
+  defaults to True, as the reference: each step is the fused windowed
+  drain (`fused._omni_window`); `drain=False` steps `omni._omni_step`.
+  `strategy="map"/"mesh"` and `resume` raise.
 * **`RunResult`** — final states (batched over cells), one metric dict per
   cell, the lockstep step count, wall time; `.rows()`, `.world(i)`,
   `.drain`, `.events`.
@@ -259,13 +260,11 @@ class Simulator:
         proto="geotp",
         horizon_s: float = 10.0,
         warmup_s: float = 2.0,
-        drain: bool = False,
+        drain: bool = True,
         track_slots: bool = False,
         hot_capacity: int = 1024,
         device=None,
     ):
-        if drain:
-            raise not_ported("the windowed drain (drain=True)", "A4")
         if isinstance(proto, str):
             proto = PRESETS[proto]
         self.device = resolve_device(device)
@@ -278,7 +277,7 @@ class Simulator:
             hot_capacity=hot_capacity,
             warmup_us=int(warmup_s * 1e6),
             horizon_us=int(horizon_s * 1e6),
-            drain=False,
+            drain=drain,
             track_slots=track_slots,
         )
 

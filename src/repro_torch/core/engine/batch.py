@@ -7,14 +7,17 @@ same on a [B]-batched state: each step computes every lane's next state
 and keeps the old one where the lane is done (`min(_times_flat) >=
 horizon_us` or `iters >= max_events`), on every leaf, `iters` included.
 
-The state's tensors are the run's static buffers: a step (`step_into`)
-writes every lane's next state back into them. On the card that step is
-captured once into a CUDA graph and replayed (`CapturedStep`): the step
-is branchless and reads nothing on the host, so one recording holds all
-of its ~2,000 kernels, the two `geo_schedule` launches included, and a
-replay issues them without the Python and dispatch cost of each op. This
-is the port's counterpart of the reference's jit-compiled while loop
-(`repro.core.engine.batch`). On the CPU the same function runs eagerly.
+The step is the reference's lockstep step for the config: the windowed
+drain `fused._omni_window` with `cfg.drain` (the default), else the
+single-event `omni._omni_step`. The state's tensors are the run's static
+buffers: a step (`step_into`) writes every lane's next state back into
+them. On the card that step is captured once into a CUDA graph and
+replayed (`CapturedStep`): either step is branchless and reads nothing on
+the host, so one recording holds all of its kernels, the two
+`geo_schedule` launches included, and a replay issues them without the
+Python and dispatch cost of each op. This is the port's counterpart of
+the reference's jit-compiled while loop (`repro.core.engine.batch`). On
+the CPU the same function runs eagerly.
 
 Frozen lanes are idempotent, so the host reads "all lanes done" only every
 `_CHECK_EVERY` steps (one device sync per check) instead of each step; the
@@ -30,6 +33,7 @@ import time
 import torch
 
 from repro_torch.core.workloads import BANK_ARRAYS, Bank
+from repro_torch.core.engine.fused import _omni_window
 from repro_torch.core.engine.omni import _omni_step
 from repro_torch.core.engine.state import (
     SimConfig, SimState, _times_flat, tree_leaves, tree_map,
@@ -70,13 +74,14 @@ def _freeze(act: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Te
 
 
 def step_into(cfg: SimConfig, bank: Bank, s: SimState) -> None:
-    """One lockstep step of every lane, written into `s`'s own tensors.
+    """One lockstep step of every lane (`_omni_window` when `cfg.drain`,
+    else `_omni_step`), written into `s`'s own tensors.
 
     Every next leaf (the step, then the lane freeze) is computed before the
     first `copy_`, so no buffer is overwritten while the step still reads
     it; a leaf the step did not touch is not copied."""
     act = _active(cfg, s)
-    nxt = _omni_step(cfg, bank, s)
+    nxt = (_omni_window if cfg.drain else _omni_step)(cfg, bank, s)
     new = tree_map(lambda n, o: _freeze(act, n, o), nxt, s)
     for (_, n), (_, o) in zip(tree_leaves(new), tree_leaves(s)):
         if n is not o:
@@ -146,8 +151,6 @@ def run(cfg: SimConfig, bank: Bank, state: SimState):
     are updated in place and returned. Returns (final state, lockstep steps
     executed, idle tail steps included); `run.capture_s` is the last run's
     warm-up and capture time (0 on the CPU), part of its wall time."""
-    if cfg.drain:
-        raise not_ported("the windowed drain (drain=True)", "A4")
     if cfg.max_faults:
         raise not_ported("a fault schedule (max_faults > 0)", "A3")
     run.capture_s = 0.0

@@ -64,8 +64,8 @@ def summarize(cfg: SimConfig, s) -> dict:
 
 def drain_stats(state, horizon_us: int | None = None) -> dict:
     """Windowed-drain + fault telemetry for a final state (single or
-    batched); the reference's keys. On the port's fault-free lockstep path
-    the drain counters stay 0 and availability is 1.0."""
+    batched); the reference's keys. The drain counters are 0 after a
+    `drain=False` run; on the port's fault-free path availability is 1.0."""
     state = tree_map(lambda x: np.asarray(x.cpu()) if hasattr(x, "cpu") else np.asarray(x), state)
     events = int(np.sum(state.iters))
     drained = int(np.sum(state.drained))

@@ -2,8 +2,8 @@
 
 | strategy | placement | lane execution |
 |---|---|---|
-| ``vmap`` | one device | lockstep lanes through the branchless step (`omni._omni_step`), the [B] axis written out |
-| ``map`` / ``mesh`` | — | not ported yet: raise `NotImplementedError` |
+| ``vmap`` | one device | lockstep lanes, the [B] axis written out: the branchless fused windowed drain (`fused._omni_window`) with `drain=True` (the default), the single-event step (`omni._omni_step`) with `drain=False`; captured into a CUDA graph on the card |
+| ``map`` / ``mesh`` | — | not ported yet (A2, A7): raise `NotImplementedError` |
 | ``auto`` | | ``vmap``, the port's one placement (the reference's strategies are bitwise-identical per cell, so the results are the reference's ``map`` results too) |
 """
 

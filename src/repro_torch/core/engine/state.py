@@ -67,7 +67,7 @@ _HIST_BASE_US = 100.0  # bin 0 at 100 µs, 8 bins per octave
 # int32 value of the reference's salt multiplier
 _SALT_MUL = 2654435761 % (2**31)
 
-# windowed-drain stop reasons (telemetry leaves; the drain is not ported yet)
+# windowed-drain stop reasons (the `win_stops` telemetry leaf)
 STOP_REASONS = (
     "horizon", "nondrainable", "scheduled", "lock_key", "dm_row",
     "dm_col", "rel_op", "cap", "fault", "sched_chain",
@@ -256,7 +256,7 @@ class SimConfig:
     max_events: int = 4_000_000
     alpha_milli: int = 800  # Eq.(4) EWMA α
     beta_milli: int = 875  # network-latency EWMA
-    drain: bool = False  # windowed drain: not ported (ROADMAP §A)
+    drain: bool = True  # windowed drain (`fused._omni_window`), as the reference
     lockstep: bool = False
     track_slots: bool = False
     max_faults: int = 0
@@ -435,13 +435,51 @@ def _lane_gather(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return x.gather(1, d)
 
 
+def _lanes(x: torch.Tensor, nd: int) -> torch.Tensor:
+    """A per-lane [B] tensor viewed as [B, 1, ...] with `nd` dims, to
+    broadcast against [B, ...] arrays of that rank."""
+    return x.view(-1, *([1] * (nd - 1)))
+
+
+def _dyn_view(dyn: DynProto, nd: int) -> DynProto:
+    """Every [B] knob viewed with `nd` dims (`_lanes`)."""
+    return DynProto(*(_lanes(x, nd) for x in dyn))
+
+
 def _exec_us(cfg: SimConfig, s: SimState, d: torch.Tensor) -> torch.Tensor:
-    """Per-op execution time at data source d ([B] or [B, M] int64); the
+    """Per-op execution time at data source d ([B] or [B, ...] int64); the
     ScalarDB-style middleware CC pays one more DM round trip per statement."""
+    if d.dim() > 2:
+        return _exec_us(cfg, s, d.reshape(d.shape[0], -1)).reshape(d.shape)
     ex = s.dyn.exec_us if d.dim() == 1 else s.dyn.exec_us[:, None]
     cc = s.dyn.middleware_cc if d.dim() == 1 else s.dyn.middleware_cc[:, None]
     base = ex * _lane_gather(s.exec_scale_milli, d) // 1000
     return base + torch.where(cc, _lane_gather(s.tau_mw_eff, d), 0)
+
+
+def _mw_send(s: SimState, on_r, d, t0):
+    """Effective (departure base, link RTT) of a middleware<->d message, d
+    [B] or [B, M]: a replica-served subtxn rides the replica link, a severed
+    primary link departs at its heal time. In a fault-free state (the only
+    state the port runs, ROADMAP §A A3) this is (t0, tau_true[d])."""
+    heal = _lane_gather(s.mw_heal, d)
+    tau = torch.where(on_r, _lane_gather(s.repl_tau, d), _lane_gather(s.tau_mw_eff, d))
+    return torch.where(~on_r & (heal > t0), heal, t0), tau
+
+
+def _mw_link(s: SimState, on_r, d, t0):
+    """`_mw_send` reduced to the fault-free (t0, tau_true[d]): the port's
+    configs carry no fault schedule (one raises, A3)."""
+    return t0, _lane_gather(s.tau_true, d)
+
+
+def _ds_send(s: SimState, a, b, t0):
+    """Effective (departure base, link RTT) of a geo-agent a -> b mesh
+    message (a [B], b [B] or [B, M]): a severed link holds it until its heal
+    time, DEGRADE scales the RTT. Fault-free: (t0, tau_ds[a, b])."""
+    bidx = torch.arange(a.shape[0], device=a.device)
+    heal = _lane_gather(s.ds_heal[bidx, a], b)
+    return torch.maximum(t0, heal), _lane_gather(s.tau_ds_eff[bidx, a], b)
 
 
 def _round_done_transition(dyn, is_final, centralized, reply_t, prep_t, local_t, fast):

@@ -2,13 +2,15 @@
 step writes the lanes' next state back into the state's own tensors, the
 function a CUDA graph captures on the card (`batch.CapturedStep`).
 
-Here on the CPU: the in-place run is bitwise the reference on every final
-`SimState` leaf, with lanes that finish at different steps (so the lane
-freeze and the copy-back both act) on a shared bank and on per-cell banks;
-every buffer keeps its storage across steps; and the runner's launch
+Here on the CPU: the in-place run of the single-event step (`drain=False`)
+is bitwise the reference on every final `SimState` leaf, with lanes that
+finish at different steps (so the lane freeze and the copy-back both act)
+on a shared bank and on per-cell banks; every buffer keeps its storage
+across steps; and the runner's launch
 accounting (launches counted while the step is captured, times the
-replays) gives two `geo_schedule` launches a step, with a stand-in for
-the CUDA graph that records a step and replays it eagerly."""
+replays) gives two `geo_schedule` launches a step, for the single-event
+and the windowed step, with a stand-in for the CUDA graph that records a
+step and replays it eagerly."""
 
 import contextlib
 
@@ -48,9 +50,9 @@ def _grids(per_cell):
             Grid(cells, banks=[pairs[c["seed"]][1] for c in cells]), None, None)
 
 
-def _port_sim(bank):
-    return Simulator.from_bank(bank, horizon_s=HORIZON_S, warmup_s=WARMUP_S, track_slots=True,
-                               device="cpu")
+def _port_sim(bank, drain=False):
+    return Simulator.from_bank(bank, horizon_s=HORIZON_S, warmup_s=WARMUP_S, drain=drain,
+                               track_slots=True, device="cpu")
 
 
 def _assert_states_equal(port_states, ref_states):
@@ -141,8 +143,17 @@ def test_launch_accounting_with_a_stand_in_graph(monkeypatch):
     """Replays x the launches counted during the capture, plus the warm-up
     step's own, equal 2 launches a step; the state and steps are the eager
     run's."""
+    _check_launch_accounting(False, monkeypatch)
+
+
+def test_launch_accounting_of_the_windowed_step_with_a_stand_in_graph(monkeypatch):
+    """The same for the windowed step (`fused._omni_window`, `drain=True`)."""
+    _check_launch_accounting(True, monkeypatch)
+
+
+def _check_launch_accounting(drain, monkeypatch):
     _, tg, _, tb = _grids(False)
-    eager = _port_sim(tb).run_grid(tg, tb)
+    eager = _port_sim(tb, drain).run_grid(tg, tb)
 
     real = geo_ops.geo_schedule
 
@@ -159,13 +170,13 @@ def test_launch_accounting_with_a_stand_in_graph(monkeypatch):
         return made[-1]
 
     monkeypatch.setattr(batch, "_stepper", stepper)
-    res = _port_sim(tb).run_grid(tg, tb)
+    res = _port_sim(tb, drain).run_grid(tg, tb)
     (cap,) = made
     graph = cap.graph
     assert cap.warm_steps == batch._WARMUP_STEPS and cap.launches == 2
     assert graph.replays == res.steps - cap.warm_steps
     assert counting.launches == graph.replays * cap.launches + 2 * cap.warm_steps
     assert counting.launches == 2 * res.steps
-    assert res.steps == eager.steps
+    assert res.steps == eager.steps and res.cfg.drain == drain
     for (name, x), (_, y) in zip(tree_leaves(res.states), tree_leaves(eager.states)):
         assert x.dtype == y.dtype and bool((x == y).all()), name

@@ -1,7 +1,9 @@
-"""End to end: the port's lockstep `Simulator.run_grid(device="cpu")` against
-the reference `Simulator(drain=False, track_slots=True).run_grid(strategy=
-"map")` — the reference's sequential `_step` lanes, bitwise-identical to its
-lockstep strategy and the faster compile on the CPU.
+"""End to end: the port's single-event lockstep step, `Simulator(drain=
+False).run_grid(device="cpu")` (the drained default has its own file,
+`test_torch_drain.py`), against the reference `Simulator(drain=False,
+track_slots=True).run_grid(strategy="map")` — the reference's sequential
+`_step` lanes, bitwise-identical to its lockstep strategy and the faster
+compile on the CPU.
 
 Every final `SimState` leaf must be equal (bitwise, dtype included) and so
 must the `RunResult.rows()` dicts. Two reference compiles for the whole
@@ -69,7 +71,7 @@ def _run_both(rgrid, tgrid, rbank, tbank):
     rres = rsim.run_grid(rgrid, rbank, strategy="map")
     tsim = Simulator.from_bank(
         tbank if tbank is not None else tgrid.banks[0],
-        horizon_s=HORIZON_S, warmup_s=WARMUP_S, track_slots=True, device="cpu",
+        horizon_s=HORIZON_S, warmup_s=WARMUP_S, drain=False, track_slots=True, device="cpu",
     )
     tres = tsim.run_grid(tgrid, tbank)
     assert_states_equal(tres.states, rres.states)

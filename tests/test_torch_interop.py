@@ -96,8 +96,8 @@ def test_single_world_run_matches_reference():
         rsim = r_engine.Simulator.from_bank(rbank, horizon_s=0.3, warmup_s=0.05, drain=False,
                                             track_slots=True)
         rres = rsim.run(r_engine.make_world(preset, jitter_milli=30), rbank)
-        tsim = Simulator.from_bank(tbank, horizon_s=0.3, warmup_s=0.05, track_slots=True,
-                                   device="cpu")
+        tsim = Simulator.from_bank(tbank, horizon_s=0.3, warmup_s=0.05, drain=False,
+                                   track_slots=True, device="cpu")
         tres = tsim.run(make_world(preset, jitter_milli=30), tbank)
         assert not tres.batched and len(tres) == 1
         w = tres.world(0)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.core import workloads
-from repro_torch.core.engine import Grid, Simulator
+from repro_torch.core.engine import Grid, Simulator, apply, window
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -37,7 +37,8 @@ def test_import_leaves_jax_and_repro_unloaded():
 
 
 # the modules of slices 2 and 3 (the serving path of the LM stack: the
-# dense GQA family, then the recurrent mixers), beside slice 1's
+# dense GQA family, then the recurrent mixers) and slice 9's windowed drain,
+# beside slice 1's
 SLICE_MODULES = [
     "unported.py",
     "configs/registry.py",
@@ -64,6 +65,10 @@ SLICE_MODULES = [
     "kernels/rglru/rglru.py",
     "kernels/rglru/ops.py",
     "kernels/rglru/ref.py",
+    "core/engine/chain.py",
+    "core/engine/window.py",
+    "core/engine/apply.py",
+    "core/engine/fused.py",
 ]
 
 
@@ -75,6 +80,12 @@ def test_sources_import_no_jax_and_no_repro():
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+
+
+def test_engine_modules_stay_under_900_lines():
+    """The reference's layering guard, held by the port's engine too."""
+    for f in sorted((PKG / "core" / "engine").glob("*.py")):
+        assert len(f.read_text().splitlines()) <= 900, f.name
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
@@ -97,8 +108,15 @@ def test_unported_paths_raise_not_implemented(case):
     bank = _bank()
     grid = Grid.cross(preset=("ssp",), rtt_ms=(0.0, 10.0))
     if case == "drain":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Simulator.from_bank(bank, drain=True, device="cpu")
+        # the sequential lanes' drain step falls back to `_step` (A2), and
+        # their window plan ranks by a sort of its own (A4); the lockstep
+        # drain is the default
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A2"):
+            apply._drain_step(None, bank, None)
+        cfg = Simulator.from_bank(bank, device="cpu").cfg
+        assert cfg.drain and not cfg.lockstep
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A4"):
+            window._window_plan(cfg, bank, None)
         return
     if case == "faults":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -114,7 +132,7 @@ def test_unported_paths_raise_not_implemented(case):
             sim.run_grid(grid, bank, strategy=case)
         return
     res = sim.run_grid(grid, bank)
-    assert res.strategy_resolved == "vmap" and res.metrics[0]["noops"] == 0
+    assert res.strategy_resolved == "vmap" and res.metrics[0]["noops"] == 0 and res.cfg.drain
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if case == "resume":
             sim.resume(res)

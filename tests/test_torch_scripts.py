@@ -37,6 +37,15 @@ def _signature(args):
 def test_smoke_launch_shapes_are_the_steps(monkeypatch):
     """Each step calls the kernel once as Eq.9 and once as Eq.8; the smoke
     builds both launches with the same shapes, dtypes and all-zero parts."""
+    _check_launch_shapes(False, monkeypatch)
+
+
+def test_smoke_launch_shapes_are_the_windowed_steps(monkeypatch):
+    """The same for the windowed step (`fused._omni_window`, `drain=True`)."""
+    _check_launch_shapes(True, monkeypatch)
+
+
+def _check_launch_shapes(drain, monkeypatch):
     seen = []
     real = scheduler.plan_dispatch
 
@@ -46,9 +55,9 @@ def test_smoke_launch_shapes_are_the_steps(monkeypatch):
 
     monkeypatch.setattr(scheduler, "plan_dispatch", record)
     grid = _grid()
-    res = Simulator.from_bank(grid.banks[0], horizon_s=0.05, warmup_s=0.0,
+    res = Simulator.from_bank(grid.banks[0], horizon_s=0.05, warmup_s=0.0, drain=drain,
                               device="cpu").run_grid(grid)
-    assert len(seen) == 2 * res.steps
+    assert len(seen) == 2 * res.steps and res.cfg.drain == drain
     launches = chip_smoke.step_launches(B, D, K, seed=0)
     want = [_signature(launches["eq9"]), _signature(launches["eq8"])]
     shapes = lambda sig: [(s, dt) for s, dt, _ in sig]  # noqa: E731
@@ -72,8 +81,8 @@ def test_smoke_work_counts_these_inputs():
 
 def test_profile_window_on_the_cpu():
     acts = [torch.profiler.ProfilerActivity.CPU]
-    res = profile_step.measure(_grid(), 32, torch.device("cpu"), acts)
-    assert res["steps"] == 32 and res["lanes"] == B
+    res = profile_step.measure(_grid(), 32, torch.device("cpu"), acts, drain=False)
+    assert res["steps"] == 32 and res["lanes"] == B and not res["drain"]
     assert res["device_busy_ms_per_step"] is None  # no device activity recorded
     assert res["aten_ops_per_step"] > 100
     lab = res["labels"]
@@ -85,6 +94,39 @@ def test_profile_window_on_the_cpu():
     # every wrapper was removed again
     assert placement.run is batch.run
     assert scheduler.plan_dispatch.__module__ == "repro_torch.core.scheduler"
+
+
+def test_profile_window_of_the_drained_step_on_the_cpu(monkeypatch):
+    """The windowed step (the default): the plan and the apply pass run
+    once a step, inside it, beside the two kernel calls (a window of 8
+    steps, the done check every 8)."""
+    monkeypatch.setattr(batch, "_CHECK_EVERY", 8)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    res = profile_step.measure(_grid(), 8, torch.device("cpu"), acts)
+    assert res["drain"] and res["mode"] == "eager" and res["lanes"] == B
+    lab = res["labels"]
+    for name in ("step", "window plan", "window apply"):
+        assert lab[name]["calls_per_step"] == 1.0, name
+    assert lab["geo_schedule call"]["calls_per_step"] == 2.0
+    assert lab["window plan"]["share_of_loop"] < lab["step"]["share_of_loop"] < 1.0
+    assert placement.run is batch.run
+
+
+def test_plan_candidates_sort_equals_the_argmin_route():
+    """`window._candidates` (one sort of time * M + index) against the
+    reference's W masked argmins (`chip_smoke.candidates_by_argmin`) on
+    times with many ties, INF_US among them."""
+    from repro_torch.core.engine import window
+    from repro_torch.core.netmodel import INF_US
+
+    gen = torch.Generator().manual_seed(0)
+    for M, W in ((1280, 16), (40, 16), (16, 16), (9, 16)):
+        flat = torch.randint(0, 6, (5, M), generator=gen, dtype=torch.int32)
+        flat = torch.where(flat == 5, INF_US, flat * 1000)
+        W = min(W, M)
+        got, want = window._candidates(flat, W), chip_smoke.candidates_by_argmin(flat, W)
+        for name, x, y in zip(("cand_i", "cand_t", "t_w1", "pos"), got, want):
+            assert x.dtype == y.dtype and torch.equal(x, y), (M, name)
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "profile_step.py"])
