@@ -64,7 +64,11 @@ LABELS = (
 RUN_LABEL = "lockstep run"
 REPLAY_LABEL = "replay of the captured step"
 GEO_KERNEL = "geo_schedule_kernel"
-WINDOW = 128  # events per lane: 128 steps (127 replays on the card)
+# events per lane: 64 steps (63 replays on the card). At 128 (127 replays,
+# ~375,000 kernels of the windowed step) one chip run's trace lost 3 of its
+# 254 geo_schedule kernels, and the per-replay accounting below refuses a
+# trace that lost any; a shorter window halves what the profiler records
+WINDOW = 64
 KERNEL_ROWS = 25  # kernel table rows printed
 
 
@@ -165,12 +169,15 @@ def kernel_table(kernels, steps: int) -> dict:
             for name, (n, us) in sorted(by.items(), key=lambda kv: -kv[1][1])}
 
 
-def measure(grid, window: int, device, activities, tables=None, drain: bool = True) -> dict:
+def measure(grid, window: int, device, activities, tables=None, drain: bool = True,
+            bank=None, terminals=None) -> dict:
     """Warm-up, unprofiled and profiled runs of `grid` for `window` events
     per lane, with the windowed step (`drain`) or the single-event one;
     returns the per-step summary (device fields are None when the profiler
     recorded no device activity). On a card the step is replayed from a
-    CUDA graph and the summary covers the replays."""
+    CUDA graph and the summary covers the replays. `bank` is a bank the
+    cells share (default: the grid's own per-cell banks); a grid with a
+    fault schedule profiles the step with its fault and heartbeat tails."""
     from repro_torch.core.engine import Simulator, batch
 
     captured = device.type == "cuda"
@@ -179,15 +186,15 @@ def measure(grid, window: int, device, activities, tables=None, drain: bool = Tr
         install_labels(undo)
         replays = install_replay_label(undo)
         timing = install_run_timer(device, undo)
-        sim = Simulator.from_bank(grid.banks[0], horizon_s=2.5, warmup_s=0.5, drain=drain,
-                                  device=device)
+        sim = Simulator.from_bank(grid.banks[0] if bank is None else bank, terminals=terminals,
+                                  horizon_s=2.5, warmup_s=0.5, drain=drain, device=device)
         sim.cfg = dataclasses.replace(sim.cfg, max_events=window)
-        sim.run_grid(grid)
-        sim.run_grid(grid)
+        sim.run_grid(grid, bank)
+        sim.run_grid(grid, bank)
         wall_s, steps, capture_s = timing["wall_s"], timing["steps"], batch.run.capture_s
         replays["replays"] = 0
         with torch.profiler.profile(activities=activities) as prof:
-            sim.run_grid(grid)
+            sim.run_grid(grid, bank)
         prof_wall_s = timing["wall_s"]
     finally:
         for mod, name, fn in reversed(undo):
@@ -222,6 +229,7 @@ def measure(grid, window: int, device, activities, tables=None, drain: bool = Tr
     out = {
         "mode": "captured" if captured else "eager",
         "drain": drain,
+        "max_faults": int(grid.max_faults),
         "device": str(device),
         "window_events_per_lane": window,
         "steps": steps,
@@ -279,6 +287,8 @@ def report(res: dict) -> None:
         print("the profiler recorded no device activity: device busy time and idle share "
               "not measured")
     step = "windowed step (drain=True)" if res["drain"] else "single-event step (drain=False)"
+    if res.get("max_faults"):
+        step += f" with {res['max_faults']} fault rows a lane"
     print(f"mode {res['mode']}, {step}: {res['steps']} steps x {res['lanes']} lanes, wall "
           f"{res['wall_ms_per_step']:.4f} ms/step unprofiled (warm-up and capture "
           f"{res['capture_s']:.4f} s included), {res['profiled_wall_ms_per_step']:.4f} profiled")

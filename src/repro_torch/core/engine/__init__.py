@@ -1,5 +1,6 @@
-"""The GeoTP discrete-event engine, PyTorch port (lockstep lanes, fault-free;
-the windowed drain by default, as the reference).
+"""The GeoTP discrete-event engine, PyTorch port (lockstep lanes, the
+windowed drain by default as the reference, typed fault schedules with
+heartbeats and replica failover).
 
 Entry points: `Simulator` / `Grid` / `RunResult` (`api.py`).
 """

@@ -1,16 +1,18 @@
 """Public simulation API: `Simulator` + `Grid` + `RunResult` (port of
-`repro.core.engine.api`, fault-free lockstep slice).
+`repro.core.engine.api`, lockstep lanes).
 
 * **`Grid`** — a validated sweep over the engine axes `preset`, `rtt_ms`,
   `tau_true_us`, `jitter_milli` (default **30**, as the reference),
-  `exec_scale_milli`, `seed`, `clock_skew_us`, plus free-form labels and
-  optional per-cell Banks; the reference's validation messages. The
-  `faults`, `replica_tau` and `repl_lag_us` axes raise `NotImplementedError`.
+  `exec_scale_milli`, `seed`, `clock_skew_us`, the fault axes `faults`
+  (typed rows or legacy crash triples, validated per cell, one row count
+  across cells), `replica_tau` and `repl_lag_us`, plus free-form labels and
+  optional per-cell Banks; the reference's validation messages.
 * **`Simulator`** — runs a Grid's cells as [B] lockstep lanes on one device
   (`device=None` means CUDA; it raises when no card is present). `drain`
   defaults to True, as the reference: each step is the fused windowed
   drain (`fused._omni_window`); `drain=False` steps `omni._omni_step`.
-  `strategy="map"/"mesh"` and `resume` raise.
+  `strategy="map"/"mesh"` and `resume` raise. A grid's fault row count
+  sets the run's `SimConfig.max_faults`.
 * **`RunResult`** — final states (batched over cells), one metric dict per
   cell, the lockstep step count, wall time; `.rows()`, `.world(i)`,
   `.drain`, `.events`.
@@ -26,12 +28,17 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.core.netmodel import PAPER_RTT_MS
+from repro_torch.core.netmodel import INF_US, PAPER_RTT_MS
 from repro_torch.core.protocols import PRESETS, ProtocolConfig
 from repro_torch.core.workloads import Bank, bank_to, stack_banks
 from repro_torch.core.engine.metrics import drain_stats, world_index
 from repro_torch.core.engine.placement import resolve_strategy, simulate_batch
 from repro_torch.core.engine.state import (
+    FAULT_COLS,
+    KIND_CRASH,
+    KIND_DEGRADE,
+    KIND_PARTITION,
+    MW,
     SimConfig,
     WorldSpec,
     make_world,
@@ -41,7 +48,6 @@ from repro_torch.core.engine.state import (
 from repro_torch.unported import not_ported
 
 _VECTOR_AXES = ("rtt_ms", "tau_true_us", "exec_scale_milli", "replica_tau")
-_FAULT_AXES = ("faults", "replica_tau", "repl_lag_us")
 _NON_LABEL_AXES = ("tau_true_us", "exec_scale_milli", "faults", "replica_tau")
 
 
@@ -50,6 +56,117 @@ def _cell_num_ds(cell: dict, default_rtt_ms) -> int:
         return len(cell["tau_true_us"])
     rtt = cell.get("rtt_ms")
     return len(rtt if rtt is not None else default_rtt_ms)
+
+
+def _fault_row_resources(kind: int, a: int, b: int) -> tuple:
+    """The link/node resources one typed fault row occupies, as hashable
+    keys: overlapping intervals on a shared resource are rejected. A CRASH
+    claims its node AND its middleware link (the outage accounting
+    `down_since`/`down_us` is per-node and cannot track two concurrent
+    spells); a middleware-side PARTITION/DEGRADE claims the mw<->b link; a
+    mesh row claims the undirected a<->b link."""
+    if kind == KIND_CRASH:
+        return (("ds", a), ("mw", a))
+    if a == MW:
+        return (("mw", b),)
+    return (("mesh", min(a, b), max(a, b)),)
+
+
+def _validate_cell_faults(i: int, val, num_ds: int) -> tuple:
+    """Normalize + validate one cell's fault schedule at Grid construction.
+
+    Rows are typed 6-tuples ``(t_start_us, kind, endpoint_a, endpoint_b,
+    t_end_us, severity)`` with ``kind`` in {KIND_CRASH, KIND_PARTITION,
+    KIND_DEGRADE} and ``endpoint_a == MW`` (-1) selecting the middleware
+    side of a link; legacy ``(t_crash_us, ds, t_recover_us)`` crash triples
+    are accepted and widened. Returns the schedule normalized to a tuple of
+    6-tuples. Pad rows (t_start >= INF_US) are kept but skipped by the
+    semantic checks. Raises ValueError with the offending cell index for
+    malformed rows, unknown kinds, out-of-range endpoints, end-before-start,
+    non-positive DEGRADE severity, or overlapping intervals on one
+    link/node (see `_fault_row_resources`).
+    """
+    if not isinstance(val, (list, tuple)):
+        raise ValueError(
+            f"Grid cell {i}: faults must be a sequence of "
+            f"(t_crash_us, ds, t_recover_us) triples or typed "
+            f"(t_start_us, kind, endpoint_a, endpoint_b, t_end_us, severity) "
+            f"rows, got {type(val).__name__}"
+        )
+    rows = []
+    live = {}  # resource key -> list of ((start, end), row index)
+    for j, r in enumerate(val):
+        if not isinstance(r, (list, tuple)) or len(r) not in (3, FAULT_COLS):
+            raise ValueError(
+                f"Grid cell {i}: faults row {j} must be a "
+                f"(t_crash_us, ds, t_recover_us) triple or a "
+                f"(t_start_us, kind, endpoint_a, endpoint_b, t_end_us, "
+                f"severity) 6-tuple, got {r!r}"
+            )
+        if len(r) == 3:
+            crash, ds, rec = (int(x) for x in r)
+            start, kind, a, b, end, sev = crash, KIND_CRASH, ds, ds, rec, 0
+        else:
+            start, kind, a, b, end, sev = (int(x) for x in r)
+        rows.append((start, kind, a, b, end, sev))
+        if start >= INF_US:
+            continue  # pad row — never fires inside the horizon
+        if kind not in (KIND_CRASH, KIND_PARTITION, KIND_DEGRADE):
+            raise ValueError(
+                f"Grid cell {i}: faults row {j} has unknown kind={kind} "
+                f"(crash={KIND_CRASH}, partition={KIND_PARTITION}, "
+                f"degrade={KIND_DEGRADE})"
+            )
+        if kind == KIND_CRASH:
+            if not 0 <= a < num_ds:
+                raise ValueError(
+                    f"Grid cell {i}: faults row {j} targets ds={a}, out of "
+                    f"range for num_ds={num_ds}"
+                )
+        else:
+            if a != MW and not 0 <= a < num_ds:
+                raise ValueError(
+                    f"Grid cell {i}: faults row {j} endpoint_a={a} is "
+                    f"neither MW (-1) nor a ds in range for num_ds={num_ds}"
+                )
+            if not 0 <= b < num_ds:
+                raise ValueError(
+                    f"Grid cell {i}: faults row {j} endpoint_b={b}, out of "
+                    f"range for num_ds={num_ds}"
+                )
+            if a == b:
+                raise ValueError(
+                    f"Grid cell {i}: faults row {j} links ds={a} to itself"
+                )
+        if end <= start:
+            raise ValueError(
+                f"Grid cell {i}: faults row {j} "
+                + (
+                    f"recovers at {end}us, which is not after its crash "
+                    f"at {start}us"
+                    if kind == KIND_CRASH
+                    else f"ends at {end}us, which is not after its start "
+                    f"at {start}us"
+                )
+            )
+        if kind == KIND_DEGRADE and sev <= 0:
+            raise ValueError(
+                f"Grid cell {i}: faults row {j} is a degrade with "
+                f"severity={sev}; need a positive milli-scale RTT "
+                f"multiplier (e.g. 3000 = 3x)"
+            )
+        for res in _fault_row_resources(kind, a, b):
+            for (c0, r0), j0 in live.get(res, ()):
+                if start < r0 and c0 < end:
+                    what = "ds" if res[0] == "ds" else "link"
+                    name = res[1] if len(res) == 2 else f"{res[1]}<->{res[2]}"
+                    raise ValueError(
+                        f"Grid cell {i}: faults rows {j0} and {j} overlap "
+                        f"on {what}={name} ([{c0}, {r0}) vs "
+                        f"[{start}, {end}) us)"
+                    )
+            live.setdefault(res, []).append(((start, end), j))
+    return tuple(rows)
 
 
 def _row_labels(cell: dict) -> dict:
@@ -104,9 +221,15 @@ class Grid:
                     f" differs from cell 0's num_ds={self.num_ds} — "
                     "heterogeneous grids must be split into separate sweeps"
                 )
-            for ax in _FAULT_AXES:
-                if c.get(ax) is not None:
-                    raise not_ported(f"Grid cell {i}: the {ax!r} axis", "A3")
+            if c.get("faults") is not None:
+                c["faults"] = _validate_cell_faults(i, c["faults"], self.num_ds)
+            rt = c.get("replica_tau")
+            if rt is not None and len(rt) != self.num_ds:
+                raise ValueError(
+                    f"Grid cell {i}: replica_tau has {len(rt)} entries, "
+                    f"need one per data source (num_ds={self.num_ds}; use "
+                    f"INF_US for data sources without a replica)"
+                )
             skew = c.get("clock_skew_us")
             if skew is not None and (
                 not isinstance(skew, int) or isinstance(skew, bool) or skew < 0
@@ -116,6 +239,30 @@ class Grid:
                     f"integer (microseconds of worst-case clock offset), "
                     f"got {skew!r}"
                 )
+        # the fault axis is static-shaped: every cell must carry the same
+        # number of schedule rows (F) so the worlds stack into one batch
+        fault_cells = [i for i, c in enumerate(cells) if c.get("faults") is not None]
+        if fault_cells:
+            i0 = fault_cells[0]
+            self.max_faults = len(cells[i0]["faults"])
+            for i, c in enumerate(cells):
+                f = c.get("faults")
+                if f is None:
+                    raise ValueError(
+                        f"Grid cell {i}: no fault schedule, but cell {i0} "
+                        f"has {self.max_faults} rows — fault schedules are a "
+                        "static axis; give every cell a schedule (pad "
+                        "fault-free cells with (INF_US, 0, INF_US) rows)"
+                    )
+                if len(f) != self.max_faults:
+                    raise ValueError(
+                        f"Grid cell {i}: fault schedule has {len(f)} rows "
+                        f"but cell {i0} has {self.max_faults} — pad shorter "
+                        "schedules with (INF_US, 0, INF_US) rows so every "
+                        "cell shares one static shape"
+                    )
+        else:
+            self.max_faults = 0
         if self.banks is not None:
             if len(self.banks) != len(cells):
                 raise ValueError(
@@ -139,6 +286,13 @@ class Grid:
             return [val]
         if not isinstance(val, (list, tuple)):
             return [val]
+        if key == "faults":
+            # one schedule is depth 2 (rows of numbers); a sweep is depth 3
+            if len(val) > 0 and isinstance(val[0], (list, tuple)) and (
+                len(val[0]) > 0 and isinstance(val[0][0], (list, tuple))
+            ):
+                return [tuple(tuple(r) for r in sched) for sched in val]
+            return [tuple(tuple(r) if isinstance(r, (list, tuple)) else r for r in val)]
         if key in _VECTOR_AXES:
             if len(val) > 0 and isinstance(val[0], (list, tuple)):
                 return list(val)
@@ -179,6 +333,10 @@ class Grid:
     def __iter__(self):
         return iter(self.cells)
 
+    def labels(self, i: int) -> dict:
+        """Cell i's row labels: every non-vector cell key (preset included)."""
+        return _row_labels(self.cells[i])
+
     def world(self, i: int) -> WorldSpec:
         c = self.cells[i]
         rtt = c.get("rtt_ms")
@@ -189,6 +347,10 @@ class Grid:
             jitter_milli=c.get("jitter_milli", 30),
             exec_scale_milli=c.get("exec_scale_milli"),
             seed=c.get("seed", 0),
+            faults=c.get("faults"),
+            max_faults=self.max_faults,
+            replica_tau=c.get("replica_tau"),
+            repl_lag_us=c.get("repl_lag_us", 0),
             clock_skew_us=c.get("clock_skew_us", 0),
         )
 
@@ -300,13 +462,22 @@ class Simulator:
                 f"bank.num_ds={bank.num_ds} != Simulator num_ds={self.cfg.num_ds}"
             )
 
+    def _cfg_for(self, faults) -> SimConfig:
+        """The run's config: `max_faults` follows the worlds' schedule
+        shape ([..., F, 6]); the Simulator's own config is untouched."""
+        F = int(faults.shape[-2])
+        if F == self.cfg.max_faults:
+            return self.cfg
+        return dataclasses.replace(self.cfg, max_faults=F)
+
     def _run(self, worlds: WorldSpec, bank: Bank, bank_batched: bool, strategy: str):
+        cfg = self._cfg_for(worlds.faults)
         bank = bank_to(bank, self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         states, metrics, steps = simulate_batch(
-            self.cfg, bank, worlds, bank_batched=bank_batched, strategy=strategy,
+            cfg, bank, worlds, bank_batched=bank_batched, strategy=strategy,
             device=self.device,
         )
         if self.device.type == "cuda":
@@ -315,15 +486,15 @@ class Simulator:
         for i, m in enumerate(metrics):
             if m["noops"] != 0:
                 raise RuntimeError(f"cell {i}: {m['noops']} noop events fired")
-        return states, metrics, steps, wall, bank
+        return cfg, states, metrics, steps, wall, bank
 
     def run(self, world: WorldSpec, bank: Bank, *, labels: dict | None = None) -> RunResult:
         """Run ONE world (a single lockstep lane)."""
         self._check_bank(bank, batched=False)
         worlds = tree_map(lambda x: x[None], world)
-        states, metrics, steps, wall, bank = self._run(worlds, bank, False, "vmap")
+        cfg, states, metrics, steps, wall, bank = self._run(worlds, bank, False, "vmap")
         return RunResult(
-            cfg=self.cfg, states=states, metrics=metrics, cells=[dict(labels or {})],
+            cfg=cfg, states=states, metrics=metrics, cells=[dict(labels or {})],
             strategy="vmap", wall_s=wall, steps=steps, bank=bank, bank_batched=False, batched=False,
         )
 
@@ -345,11 +516,11 @@ class Simulator:
         else:
             bank_batched = False
         self._check_bank(bank, batched=bank_batched)
-        states, metrics, steps, wall, bank = self._run(
+        cfg, states, metrics, steps, wall, bank = self._run(
             grid.worlds(), bank, bank_batched, resolved
         )
         return RunResult(
-            cfg=dataclasses.replace(self.cfg, lockstep=True), states=states,
+            cfg=dataclasses.replace(cfg, lockstep=True), states=states,
             metrics=metrics, cells=[dict(c) for c in grid.cells], strategy=strategy,
             wall_s=wall, steps=steps, bank=bank,
             bank_batched=bank_batched, batched=True, strategy_resolved=resolved,

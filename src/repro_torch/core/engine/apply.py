@@ -52,6 +52,7 @@ def _apply_window(
     xlel,
     xcommit,
     xrel,
+    act_hb,
     chained_inc,
     act_fu,
     act_pfu,
@@ -63,9 +64,9 @@ def _apply_window(
     `fused._omni_window`, the one caller, selects window-OR-single-event
     masks and folds the non-drainable single event's release footprint in
     via `xcancel` / `xlel` / `xcommit` / `xrel` (all False or 0 where no
-    such event), so the hotspot update runs once a step. The per-lane
-    increments are [B] tensors (or ints). The reference's heartbeat argument
-    (`act_hb`) has no counterpart: no fault schedule."""
+    such event), so the hotspot update runs once a step. `act_hb` [B,D]
+    marks the heartbeat probes drained in the window (all False without a
+    fault schedule). The per-lane increments are [B] tensors (or ints)."""
     T, D, K = cfg.terminals, cfg.num_ds, cfg.max_ops
     TK, TD = T * K, T * D
     w = torch.where
@@ -218,10 +219,19 @@ def _apply_window(
     # ---- latency monitor: one exact EWMA application per in-window fan-in
     # (the plan caps a DS column at K_EWMA fan-ins; tau_est is never read
     # inside a window) --------------------------------------------------------
-    cnt_d = dm_mask.sum(1, dtype=I32)  # [B,D]
+    F = s_.fault_time.shape[-1]
+    if F:
+        # the sequential monitor's freeze (crashed-DS and replica-link
+        # fan-ins feed nothing) on the effective RTT (a degrade is
+        # observed); neither can change inside a window
+        cnt_d = (dm_mask & ~(s_.ds_down[:, None, :] | s_.on_repl)).sum(1, dtype=I32)
+        mon_sample = s_.tau_mw_eff
+    else:
+        cnt_d = dm_mask.sum(1, dtype=I32)  # [B,D]
+        mon_sample = s_.tau_true
     tau_est = s_.tau_est
     for i in range(K_EWMA):
-        tau_est = w(cnt_d > i, ewma_update(tau_est, s_.tau_true, cfg.beta_milli), tau_est)
+        tau_est = w(cnt_d > i, ewma_update(tau_est, mon_sample, cfg.beta_milli), tau_est)
 
     # ---- terminal phase/timer (window events own their terminals) ---------
     phase = w(send_c_w, T_COMMIT_WAIT, s_.phase.to(I32))
@@ -284,7 +294,19 @@ def _apply_window(
     fast_inc = (lane_sum(sub_upd & (v.new_sub_state == SUB_LOCAL_COMMIT))
                 + lane_sum(rd_w_g & (v.fu_rd_state == SUB_LOCAL_COMMIT)))
 
+    # ---- in-window heartbeat probes: `faults._hb_event` at each slot's own
+    # time (count and re-arm a firing probe, disarm one that does not fire);
+    # reachability cannot change inside a window, so the plan's fire
+    # predicate is exact
+    extra = {}
+    if F:
+        hb_fired = act_hb & v.hb_fire
+        extra["hb_count"] = s_.hb_count + hb_fired.to(I32)
+        extra["hb_time"] = w(hb_fired, s_.hb_time + s_.dyn.hb_interval_us[:, None],
+                             w(act_hb, INF_US, s_.hb_time))
+
     return s_._replace(
+        **extra,
         now=t_now,
         iters=s_.iters + iters_inc,
         drained=s_.drained + drained_inc,
@@ -336,11 +358,16 @@ def _drainable_due(s: SimState) -> torch.Tensor:
         | (sst == SUB_ABORT_ACK)
     )
     op_drainable = (s.op_state == OP_ENROUTE) | (s.op_state == OP_EXEC)
-    return (
+    clean = (
         ~(due_term & (s.phase != T_COMMIT_LOG)).any(1)
         & ~(due_sub & ~sub_drainable).flatten(1).any(1)
         & ~(due_op & ~op_drainable).flatten(1).any(1)
     )
+    if s.fault_time.shape[-1]:
+        # a due fault event always takes the single-event route; heartbeat
+        # probes drain
+        clean = clean & ~(s.fault_time == t_now[:, None]).any(1)
+    return clean
 
 
 def _drain_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:

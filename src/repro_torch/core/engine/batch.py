@@ -39,7 +39,6 @@ from repro_torch.core.engine.state import (
     SimConfig, SimState, _times_flat, tree_leaves, tree_map,
 )
 from repro_torch.kernels.geo_schedule import ops as geo_ops
-from repro_torch.unported import not_ported
 
 # steps between two host reads of "all lanes done"; safe at any value,
 # since a step leaves every frozen lane as it was
@@ -67,7 +66,7 @@ def _active(cfg: SimConfig, s: SimState) -> torch.Tensor:
 
 def _freeze(act: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
     """Lane b keeps `old` unless act[b]. A leaf the step did not touch (the
-    same tensor object, e.g. the knobs and the fault leaves) needs no select."""
+    same tensor object, e.g. the knobs) needs no select."""
     if new is old:
         return old
     return torch.where(act.view(-1, *([1] * (old.dim() - 1))), new, old)
@@ -151,8 +150,6 @@ def run(cfg: SimConfig, bank: Bank, state: SimState):
     are updated in place and returned. Returns (final state, lockstep steps
     executed, idle tail steps included); `run.capture_s` is the last run's
     warm-up and capture time (0 on the CPU), part of its wall time."""
-    if cfg.max_faults:
-        raise not_ported("a fault schedule (max_faults > 0)", "A3")
     run.capture_s = 0.0
     steps = 0
     if not bool(_active(cfg, state).any()):

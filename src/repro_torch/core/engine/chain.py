@@ -40,6 +40,7 @@ from repro_torch.core.engine.state import (
     _lane_gather,
     _lanes,
     _lock_wait_deadline,
+    _mw_send,
     _round_done_transition,
 )
 
@@ -151,8 +152,8 @@ class _PlanVals(NamedTuple):
     win_term: torch.Tensor  # [T] window membership
     win_sub: torch.Tensor  # [T,D]
     win_op: torch.Tensor  # [T,K]
-    win_hb: torch.Tensor  # [D] heartbeat probes: zeros (no fault schedule)
-    hb_fire: torch.Tensor  # [D] zeros (no fault schedule)
+    win_hb: torch.Tensor  # [D] in-window heartbeat probes (zeros when F == 0)
+    hb_fire: torch.Tensor  # [D] probe fires (target unreachable at its slot time)
     n_win: torch.Tensor  # events in the maximal window
     use: torch.Tensor  # window holds >= 2 events
     t_last: torch.Tensor  # timestamp of the window's last event
@@ -311,11 +312,12 @@ class _ChainEffects(NamedTuple):
 
 
 def chain_effects(
-    s: SimState, c: _ChainEnts,
+    s: SimState, F: int, c: _ChainEnts,
     t_op_c, d_op_c, t_sub_c, d_sub_c, iters_fu, iters_pfu,
     is_final_td, aborting_td, centr_t, fast_t,
 ) -> _ChainEffects:
-    """Fault-free: every link is (t0, tau_true[d])."""
+    """With a fault schedule (F > 0) the replies and votes ride the
+    effective middleware links (`_mw_send`); fault-free, (t0, tau_true[d])."""
     B = t_op_c.shape[0]
     bw = torch.arange(B, device=t_op_c.device)[:, None]
     dyn3 = _dyn_view(s.dyn, 3)
@@ -325,8 +327,11 @@ def chain_effects(
     rd_fu = c.fu_valid & ~c.att_has
     fin_c = is_final_td[bw, t_op_c, d_op_c]
     abort_c2 = aborting_td[bw, t_op_c, d_op_c]
-    rt2 = _lane_gather(s.tau_true, d_op_c)[..., None]
-    reply2 = u + _delay_salted(_lanes(s.jitter_milli, 3), rt2, iters_fu * _SALT_MUL + 37)
+    if F:
+        rb2, rt2 = _mw_send(s, s.on_repl[bw, t_op_c, d_op_c][..., None], d_op_c[..., None], u)
+    else:
+        rb2, rt2 = u, _lane_gather(s.tau_true, d_op_c)[..., None]
+    reply2 = rb2 + _delay_salted(_lanes(s.jitter_milli, 3), rt2, iters_fu * _SALT_MUL + 37)
     prep2 = u + dyn3.lan_rtt_us + dyn3.log_flush_us
     local2 = u + dyn3.log_flush_us
     rd_state_fu, rd_time_fu = _round_done_transition(
@@ -334,9 +339,11 @@ def chain_effects(
         fast_t.gather(1, t_op_c)[..., None],
     )
     rd_wr_fu = rd_fu & ~abort_c2[..., None]
-    vt2 = _lane_gather(s.tau_true, d_sub_c)
-    vote2 = c.prep_t_c + _delay_salted(_lanes(s.jitter_milli, 2), vt2,
-                                       iters_pfu * _SALT_MUL + 43)
+    if F:
+        vb2, vt2 = _mw_send(s, s.on_repl[bw, t_sub_c, d_sub_c], d_sub_c, c.prep_t_c)
+    else:
+        vb2, vt2 = c.prep_t_c, _lane_gather(s.tau_true, d_sub_c)
+    vote2 = vb2 + _delay_salted(_lanes(s.jitter_milli, 2), vt2, iters_pfu * _SALT_MUL + 43)
     return _ChainEffects(
         att_state_fu=att_state_fu, att_time_fu=att_time_fu, rd_fu=rd_fu,
         abort_c2=abort_c2, rd_state_fu=rd_state_fu.to(I32), rd_time_fu=rd_time_fu,
@@ -354,6 +361,7 @@ class _Admission(NamedTuple):
     win_term: torch.Tensor  # [T]
     win_sub: torch.Tensor  # [T,D]
     win_op: torch.Tensor  # [T,K]
+    win_hb: torch.Tensor  # [D] (zeros when F == 0)
     fu_win: torch.Tensor  # [W,G] admitted exec-chain follow-ups
     pfu_win: torch.Tensor  # [W] admitted prepare-flush follow-ups
     n_chained: torch.Tensor  # follow-up entities admitted
@@ -362,7 +370,7 @@ class _Admission(NamedTuple):
 def entity_admission(
     dyn, c: _ChainEnts, r: _ChainRanks, eff: _ChainEffects,
     conf_cand_base, code_cand, n_cand, fu_dup, hit_all, horizon_i: int,
-    T: int, D: int, K: int,
+    T: int, D: int, K: int, M0: int, F: int,
 ) -> _Admission:
     """The running-min rule over the [E, E] strict order: admitted
     follow-ups absorb the "scheduled" events their parents fenced on."""
@@ -370,7 +378,6 @@ def entity_admission(
     B, W = conf_cand_base.shape
     dev = conf_cand_base.device
     E = W + G * W + W
-    M0 = T + T * D + T * K
     conf_cand = conf_cand_base | c.pre_mis
     # a seed whose first follow-up (or prepare flush) was admitted no longer
     # schedules anything itself: the entity carries the scheduled time
@@ -413,6 +420,7 @@ def entity_admission(
         win_term=win_flat[:, :T],
         win_sub=win_flat[:, T: T + T * D].reshape(B, T, D),
         win_op=win_flat[:, T + T * D: M0].reshape(B, T, K),
+        win_hb=win_flat[:, M0 + F:] if F else torch.zeros((B, D), dtype=torch.bool, device=dev),
         fu_win=before[:, W: W + G * W].reshape(B, G, W).transpose(1, 2),
         pfu_win=before[:, W + G * W:],
         n_chained=before[:, W:].sum(1, dtype=I32),

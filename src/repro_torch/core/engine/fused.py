@@ -17,9 +17,11 @@ their release footprint folded INTO the shared pass (`xcancel` / `xlel` /
 The [B] lane axis is written out as in `omni.py`. Eq.(9) (admission) and
 Eq.(8) (stagger) go through the `geo_schedule` kernel once each a step.
 Bitwise-identical to `_omni_step` on every leaf but the drain telemetry
-(`drained`, `windows`, `win_stops`, `fused`, `chained`). Fault-free: the
-reference's `if F:` branches (fault tail events, replica routing, link
-state) wait for the fault slice (ROADMAP §A A3).
+(`drained`, `windows`, `win_stops`, `fused`, `chained`). With a fault
+schedule (`cfg.max_faults > 0`) the reference's `if F:` branches run too:
+a due fault row is always pinned and fires through `faults._fault_event`
+at the very end of the pass; a heartbeat probe drains inside a window, or
+fires through `faults._hb_event` when no window forms.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from repro_torch.core import scheduler as sched
 from repro_torch.core.netmodel import INF_US, _hash_u32, ewma_update
 from repro_torch.core.workloads import Bank
 from repro_torch.core.engine.apply import _apply_window, _drainable_due
+from repro_torch.core.engine.faults import (
+    _failover_admission, _failover_routing, _fault_event, _hb_event, _tail_event,
+)
 from repro_torch.core.engine.handlers import _stagger
 from repro_torch.core.engine.locks import _grant_decision
 from repro_torch.core.engine.state import (
@@ -45,6 +50,7 @@ from repro_torch.core.engine.state import (
     SimConfig,
     SimState,
     _delay_salted,
+    _ds_send,
     _exec_us,
     _hist_bin,
     _mw_link,
@@ -66,7 +72,8 @@ def _omni_window(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     otherwise it writes just the rank-0 event (the event `_omni_step` would
     pick), with the non-drainable handlers below as identity-when-off row
     writes. `bank` leaves carry a leading [B] axis."""
-    T, D, K, N = cfg.terminals, cfg.num_ds, cfg.max_ops, cfg.bank_txns
+    T, D, K, N, F = cfg.terminals, cfg.num_ds, cfg.max_ops, cfg.bank_txns, cfg.max_faults
+    M0 = T + T * D + T * K
     C = cfg.hot_capacity
     w = torch.where
     B = s.now.shape[0]
@@ -92,6 +99,15 @@ def _omni_window(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     j_op = i0 - T - T * D
     t = w(is_term0, i0, w(is_sub0, j_sub // D, j_op // K))
     idx = w(is_sub0, j_sub % D, w(is_term0, 0, j_op % K))
+    if F:
+        # fault tail events: always pinned (use False), handled at the very
+        # end of the pass; a rank-0 heartbeat takes its handler only where
+        # no window forms (`~use`), else it drains inside the window
+        is_fault0, is_hb0, f_ev0, d_hb0 = _tail_event(i0, M0, F, D)
+        is_tail0 = is_fault0 | is_hb0
+        is_op0 = is_op0 & ~is_tail0
+        t = w(is_tail0, 0, t)
+        idx = w(is_tail0, 0, idx)
     k_ev = idx.clamp(max=K - 1)
     d_ev = idx.clamp(max=D - 1)
     it0 = s.iters + 1
@@ -130,6 +146,8 @@ def _omni_window(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
         | (is_op0 & ((op0 == OP_ENROUTE) | (op0 == OP_WAIT) | (op0 == OP_EXEC)))
         | (is_sub0 & sub_known[bidx, t, d_ev])
     )
+    if F:
+        is_noop = is_noop & ~is_tail0
 
     # ---- shared masked pass: the window, or the rank-0 drainable event ----
     act_term = w(c1(use), v.win_term, (v.pos_term == 0) & ~v.pinned_term)
@@ -160,6 +178,7 @@ def _omni_window(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
         xlel=xlel,
         xcommit=xcommit,
         xrel=(rel_gate_x, t, d_rel),
+        act_hb=w(c1(use), v.win_hb, False),
         chained_inc=w(use, v.n_chained, 0),
         act_fu=v.fu_win & c2(use),
         act_pfu=v.pfu_win & c1(use),
@@ -172,11 +191,17 @@ def _omni_window(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
 
     # ---- latency-monitor refresh for the pinned fan-in (drainable fan-ins
     # were counted by the shared pass's EWMA chain) -------------------------
+    # (frozen on a crashed DS; with a schedule also on a replica-served
+    # one, and the sample is the effective RTT: a degrade is observed)
+    if F:
+        mon_freeze = s.ds_down[bidx, d_ev] | s.on_repl[bidx, t, d_ev]
+        mon_sample = sx.tau_mw_eff[bidx, d_ev]
+    else:
+        mon_freeze, mon_sample = s.ds_down[bidx, d_ev], sx.tau_true[bidx, d_ev]
     est_ev = sx.tau_est[bidx, d_ev]
     sx = sx._replace(tau_est=sx.tau_est.index_put(
         (bidx, d_ev),
-        w(is_fanin_x & ~s.ds_down[bidx, d_ev],
-          ewma_update(est_ev, sx.tau_true[bidx, d_ev], cfg.beta_milli), est_ev),
+        w(is_fanin_x & ~mon_freeze, ewma_update(est_ev, mon_sample, cfg.beta_milli), est_ev),
     ))
 
     # =================== txn start: bank load + admission ==================
@@ -221,7 +246,11 @@ def _omni_window(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     block, force_abort = sched.admission_decision(
         p_abort, u, row(s.blocked), s.dyn.max_blocked
     )
-    hit_down = is_start & (inv_new & s.ds_down).any(1)
+    if F:
+        hit_v, fo = _failover_admission(s, inv_new, oh_b, valid_b, write_b, t_now0)
+        hit_down = is_start & hit_v
+    else:
+        hit_down = is_start & (inv_new & s.ds_down).any(1)
     force_abort = (force_abort & s.dyn.admission & is_start) | hit_down
     block = block & s.dyn.admission & is_start & ~force_abort
     dispatching = is_start & ~block & ~force_abort
@@ -297,12 +326,24 @@ def _omni_window(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     peers = inv_t & (dd != c1(d_o)) & ~abort_family
     ab_salts = c1(salt0(17)) + dd32
     jit = c1(s.jitter_milli)
-    tau_do = s.tau_true[bidx, d_o]
-    notify_direct = _delay_salted(jit, s.tau_ds[bidx, d_o], ab_salts)
-    to_dm = _delay_salted(s.jitter_milli, tau_do, salt0(19))
-    notify_via_dm = c1(to_dm) + _delay_salted(jit, s.tau_true, ab_salts)
-    notify = c1(t_now0) + w(c1(s.dyn.early_abort), notify_direct, notify_via_dm)
-    own_ack_t = t_now0 + _delay_salted(s.jitter_milli, tau_do, salt0(23))
+    if F:
+        # abort notifications ride the effective links
+        dd_b = dd.expand(B, D)
+        mesh_base, mesh_tau = _ds_send(s, d_o, dd_b, c1(t_now0))
+        notify_direct = mesh_base + _delay_salted(jit, mesh_tau, ab_salts)
+        up_base, up_tau = _mw_link(s, s.on_repl[bidx, t, d_o], d_o, t_now0)
+        to_dm = up_base + _delay_salted(s.jitter_milli, up_tau, salt0(19))
+        dn_base, dn_tau = _mw_link(s, row(s.on_repl), dd_b, c1(to_dm))
+        notify_via_dm = dn_base + _delay_salted(jit, dn_tau, ab_salts)
+        notify = w(c1(s.dyn.early_abort), notify_direct, notify_via_dm)
+        own_ack_t = up_base + _delay_salted(s.jitter_milli, up_tau, salt0(23))
+    else:
+        tau_do = s.tau_true[bidx, d_o]
+        notify_direct = _delay_salted(jit, s.tau_ds[bidx, d_o], ab_salts)
+        to_dm = _delay_salted(s.jitter_milli, tau_do, salt0(19))
+        notify_via_dm = c1(to_dm) + _delay_salted(jit, s.tau_true, ab_salts)
+        notify = c1(t_now0) + w(c1(s.dyn.early_abort), notify_direct, notify_via_dm)
+        own_ack_t = t_now0 + _delay_salted(s.jitter_milli, tau_do, salt0(23))
     sub_row = w(c1(is_timeout) & peers, SUB_ABORT_PEER, sub_row)
     sub_tm = w(c1(is_timeout) & peers, notify, sub_tm)
     sub_row = w(c1(is_timeout) & at_do, SUB_ABORT_ACK, sub_row)
@@ -388,6 +429,9 @@ def _omni_window(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     will_retry_fin = ~committed_fin & (retries_t < s.dyn.max_retries)
     cause_fin = w(~will_retry_fin & (retries_t > 0), CAUSE_EXHAUSTED, row(sx.abort_cause))
 
+    # "during fault": some DS unreachable (crashed, or partitioned away)
+    any_down_f = (s.ds_down | (s.mw_heal > c1(t_now0)) if F else s.ds_down).any(1)
+
     def add_at(x, j, val):  # x [B, M] += val at column j, per lane
         return x.index_put((bidx, j), x[bidx, j] + val)
 
@@ -399,7 +443,7 @@ def _omni_window(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
 
     sx = sx._replace(
         ab_cause=add_at(sx.ab_cause, cause_fin.to(I64), one_a),
-        commits_fault=sx.commits_fault + w(s.ds_down.any(1), one_c, 0),
+        commits_fault=sx.commits_fault + w(any_down_f, one_c, 0),
         commits=sx.commits + one_c,
         aborts=sx.aborts + one_a,
         commits_dist=sx.commits_dist + w(dist, one_c, 0),
@@ -472,11 +516,35 @@ def _omni_window(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
         wan_legs=sx.wan_legs + wan_x,
     )
 
+    # ============== replica failover bookkeeping (start / finish) ==========
+    # one on_repl write: a dispatching start routes the hit subtxns to their
+    # replicas (stale reads and the staleness window recorded), a finish
+    # releases the routing; after the scatter, so every send above read the
+    # routing as it was
+    if F:
+        sx = _failover_routing(sx, t, t_now0, fo, dispatching, gate_fin, valid_b, write_b, ds_b)
+
     # ============================== noop ===================================
-    nz = c2(is_noop)
-    return sx._replace(
+    nz, n1 = c2(is_noop), c1(is_noop)
+    upd = dict(
         op_time=w(nz & (sx.op_time == c2(t_now0)), INF_US, sx.op_time),
         sub_time=w(nz & (sx.sub_time == c2(t_now0)), INF_US, sx.sub_time),
-        term_time=w(c1(is_noop) & (sx.term_time == c1(t_now0)), INF_US, sx.term_time),
+        term_time=w(n1 & (sx.term_time == c1(t_now0)), INF_US, sx.term_time),
         noops=sx.noops + is_noop.to(I32),
     )
+    if F:
+        upd.update(
+            fault_time=w(n1 & (sx.fault_time == c1(t_now0)), INF_US, sx.fault_time),
+            hb_time=w(n1 & (sx.hb_time == c1(t_now0)), INF_US, sx.hb_time),
+        )
+    sx = sx._replace(**upd)
+
+    # ===================== fault / heartbeat tail events ===================
+    # dead last: the row-t scatters above rewrite row t (a stale row-0 copy
+    # for a tail event) and would clobber the crash cascade's writes. A
+    # rank-0 fault is always pinned (`use` False); a rank-0 heartbeat that
+    # drained in the window was counted and re-armed by `_apply_window`
+    if F:
+        sx = _fault_event(cfg, sx, f_ev0, is_fault0)
+        sx = _hb_event(cfg, sx, d_hb0, is_hb0 & ~use)
+    return sx

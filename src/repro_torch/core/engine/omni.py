@@ -8,8 +8,10 @@ its category flag. The reference runs this under `jax.vmap`; here the [B]
 lane axis is written out, with explicit lane indexing (`x[bidx, t]`,
 `bidx = arange(B)`). Same event pick and tie-break (first occurrence), same
 salts, same update formulas and float order, so every lane's trajectory is
-bitwise the reference's. Fault-free: the fault / heartbeat tail, replica
-routing and link state wait for the fault slice (ROADMAP §A).
+bitwise the reference's. With a fault schedule (`cfg.max_faults > 0`)
+the reference's `if F:` branches run too: admission's fail-fast and
+replica failover, the links' heal-time and replica routing, the monitor on
+the effective link, and the fault / heartbeat tail events, run last.
 
 Eq.(9) (admission) and Eq.(8) (stagger) go through the `geo_schedule`
 kernel, once each per step: Eq.(9) reads the hot table before the claim,
@@ -25,6 +27,9 @@ from repro_torch.core import scheduler as sched
 from repro_torch.core.netmodel import INF_US, _hash_u32, ewma_update
 from repro_torch.core.protocols import PREPARE_COORD, PREPARE_DECENTRAL, PREPARE_NONE
 from repro_torch.core.workloads import Bank
+from repro_torch.core.engine.faults import (
+    _failover_admission, _failover_routing, _fault_event, _hb_event, _tail_event,
+)
 from repro_torch.core.engine.handlers import _stagger
 from repro_torch.core.engine.locks import _grant_decision
 from repro_torch.core.engine.state import (
@@ -36,8 +41,9 @@ from repro_torch.core.engine.state import (
     T_IDLE, T_ACTIVE, T_COMMIT_LOG, T_COMMIT_WAIT, T_ABORT_WAIT,
     CAUSE_NONE, CAUSE_TIMEOUT, CAUSE_ADMISSION, CAUSE_CRASH, CAUSE_EXHAUSTED,
     SimConfig, SimState,
-    _delay, _delay_salted, _exec_us, _hist_bin, _lock_wait_deadline, _measuring,
-    _round_done_transition, _salt, _tiga_arrival, _tiga_fast, _times_flat, _u01,
+    _delay, _delay_salted, _ds_send, _exec_us, _hist_bin, _lock_wait_deadline, _measuring,
+    _mw_link, _round_done_transition, _salt, _tiga_arrival, _tiga_fast, _times_flat, _u01,
+    _unreachable,
 )
 
 I8 = torch.int8
@@ -50,7 +56,8 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     `bank` leaves carry a leading [B] axis (a shared bank is expanded, not
     copied). Returns the next state of every lane; `batch.run` keeps the
     state of lanes that were already done (the vmap lane freeze)."""
-    T, D, K, N = cfg.terminals, cfg.num_ds, cfg.max_ops, cfg.bank_txns
+    T, D, K, N, F = cfg.terminals, cfg.num_ds, cfg.max_ops, cfg.bank_txns, cfg.max_faults
+    M0 = T + T * D + T * K
     C = cfg.hot_capacity
     w = torch.where
     dev = s.now.device
@@ -80,6 +87,14 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     j_op = i - T - T * D
     t = w(is_term, i, w(is_sub, j_sub // D, j_op // K))
     idx = w(is_sub, j_sub % D, w(is_term, 0, j_op % K))
+    if F:
+        # fault / heartbeat tail sections: their masked handlers run at the
+        # very end of the pass, everything before is identity for them
+        is_fault_ev, is_hb_ev, f_ev, d_hb = _tail_event(i, M0, F, D)
+        is_tail = is_fault_ev | is_hb_ev
+        is_op = is_op & ~is_tail
+        t = w(is_tail, 0, t)
+        idx = w(is_tail, 0, idx)
     k_ev = idx.clamp(max=K - 1)
     d_ev = idx.clamp(max=D - 1)
     s = s._replace(now=t_now, iters=s.iters + 1)
@@ -111,6 +126,8 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
         is_start | is_logflush | is_arrive | is_timeout | is_exec | is_sched
         | is_round_in | is_prep_cmd | is_prepared | is_finish | is_fin_ack
     )
+    if F:
+        is_noop = is_noop & ~is_tail
     d_o = s.op_ds[bidx, t, k_ev].to(torch.int64)  # the op event's data source
 
     # =================== txn start: bank load + admission ====================
@@ -161,7 +178,11 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     block, force_abort = sched.admission_decision(
         p_abort, u, row(s.blocked), s.dyn.max_blocked
     )
-    hit_down = is_start & (inv_new & s.ds_down).any(1)
+    if F:
+        hit_v, fo = _failover_admission(s, inv_new, oh_b, valid_b, write_b, now)
+        hit_down = is_start & hit_v
+    else:
+        hit_down = is_start & (inv_new & s.ds_down).any(1)
     force_abort = (force_abort & s.dyn.admission & is_start) | hit_down
     block = block & s.dyn.admission & is_start & ~force_abort
     dispatching = is_start & ~block & ~force_abort
@@ -261,9 +282,11 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     rd_is_final = row(s.cur_round).to(I32) >= d_final
     centralized = inv_t.to(I32).sum(1) == 1
     rd_aborting = s.sub_state[bidx, t, d_o].to(I32) == SUB_ABORT_PEER
-    tau_do = s.tau_true[bidx, d_o]
-    tau_ev = s.tau_true[bidx, d_ev]
-    reply_t_rd = now + _delay(s, tau_do, _salt(s, 37))
+    # the middleware links at d_o and d_ev (routing and link state cannot
+    # change before the step's end)
+    do_base, tau_do = _mw_link(s, s.on_repl[bidx, t, d_o], d_o, now)
+    ev_base, tau_ev = _mw_link(s, s.on_repl[bidx, t, d_ev], d_ev, now)
+    reply_t_rd = do_base + _delay(s, tau_do, _salt(s, 37))
     prep_t_rd = now + s.dyn.lan_rtt_us + s.dyn.log_flush_us
     local_t_rd = now + s.dyn.log_flush_us
     single_rd = w(row_nn, row(s.op_round), 0).amax(1) == 0
@@ -284,7 +307,7 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
         fast_commits=s.fast_commits + (g_rd & (rd_state == SUB_LOCAL_COMMIT)).to(I32)
     )
     # dispatch command reaches DS d_ev
-    arrival = now + _delay(s, tau_ev, _salt(s, 41))
+    arrival = ev_base + _delay(s, tau_ev, _salt(s, 41))
     first_t_ev, fast_ev = _tiga_arrival(s.dyn, s.clock_skew_us, now, arrival)
     disp_mask = (
         (row(s.op_state).to(I32) == OP_PENDING)
@@ -315,17 +338,23 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     # DS-side 2PC legs
     sub_row = w(c1(is_prep_cmd) & at_ev, SUB_PREPARING, sub_row)
     sub_tm = w(c1(is_prep_cmd) & at_ev, c1(now + s.dyn.log_flush_us), sub_tm)
-    vote_send_t = now + _delay(s, tau_ev, _salt(s, 43))
+    vote_send_t = ev_base + _delay(s, tau_ev, _salt(s, 43))
     sub_row = w(c1(is_prepared) & at_ev, SUB_VOTE, sub_row)
     sub_tm = w(c1(is_prepared) & at_ev, c1(vote_send_t), sub_tm)
-    # DM fan-ins: shared EWMA monitor refresh (frozen on a crashed DS)
-    mon_freeze = s.ds_down[bidx, d_ev]
+    # DM fan-ins: shared EWMA monitor refresh, frozen on a crashed DS; with
+    # a schedule it samples the effective link (a degrade is observed) and
+    # freezes on replica-link fan-ins too
+    if F:
+        mon_sample = s.tau_mw_eff[bidx, d_ev]
+        mon_freeze = s.ds_down[bidx, d_ev] | s.on_repl[bidx, t, d_ev]
+    else:
+        mon_sample, mon_freeze = tau_ev, s.ds_down[bidx, d_ev]
     est_ev = s.tau_est[bidx, d_ev]
     s = s._replace(
         tau_est=s.tau_est.index_put(
             (bidx, d_ev),
             w((is_round_in | is_fin_ack) & ~mon_freeze,
-              ewma_update(est_ev, tau_ev, cfg.beta_milli), est_ev),
+              ewma_update(est_ev, mon_sample, cfg.beta_milli), est_ev),
         )
     )
     sub_row = w(c1(is_round_in) & at_ev, c1(w(is_reply, SUB_ROUND_AT_DM, SUB_VOTED)), sub_row)
@@ -339,7 +368,7 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     lcs_gate = is_commit_fin & (fl_ev < INF_US) & _measuring(cfg, s)
     lcs_span = w(lcs_gate, (now - fl_ev + 500) // 1000, 0)
     ack_salt = _salt(s, 47) + w(is_commit_fin, 0, 6)  # 47 commit, 53 abort
-    ack_send_t = now + _delay(s, tau_ev, ack_salt)
+    ack_send_t = ev_base + _delay(s, tau_ev, ack_salt)
     sub_row = w(c1(is_finish) & at_ev, c1(w(is_commit_fin, SUB_ACK, SUB_ABORT_ACK)), sub_row)
     sub_tm = w(c1(is_finish) & at_ev, c1(ack_send_t), sub_tm)
     # timeout abort fan-out (peer notify + own ack)
@@ -349,11 +378,22 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     peers = inv_t & (dd != c1(d_o)) & ~abort_family
     ab_salts = c1(_salt(s, 17)) + dd32
     jit = c1(s.jitter_milli)
-    notify_direct = _delay_salted(jit, s.tau_ds[bidx, d_o], ab_salts)
-    to_dm = _delay(s, tau_do, _salt(s, 19))
-    notify_via_dm = c1(to_dm) + _delay_salted(jit, s.tau_true, ab_salts)
-    notify = c1(now) + w(c1(s.dyn.early_abort), notify_direct, notify_via_dm)
-    own_ack_t = now + _delay(s, tau_do, _salt(s, 23))
+    dd_b = dd.expand(B, D)
+    if F:
+        # abort notifications ride the effective links
+        mesh_base, mesh_tau = _ds_send(s, d_o, dd_b, c1(now))
+        notify_direct = mesh_base + _delay_salted(jit, mesh_tau, ab_salts)
+        to_dm = do_base + _delay(s, tau_do, _salt(s, 19))
+        dn_base, dn_tau = _mw_link(s, row(s.on_repl), dd_b, c1(to_dm))
+        notify_via_dm = dn_base + _delay_salted(jit, dn_tau, ab_salts)
+        notify = w(c1(s.dyn.early_abort), notify_direct, notify_via_dm)
+        own_ack_t = do_base + _delay(s, tau_do, _salt(s, 23))
+    else:
+        notify_direct = _delay_salted(jit, s.tau_ds[bidx, d_o], ab_salts)
+        to_dm = _delay(s, tau_do, _salt(s, 19))
+        notify_via_dm = c1(to_dm) + _delay_salted(jit, s.tau_true, ab_salts)
+        notify = c1(now) + w(c1(s.dyn.early_abort), notify_direct, notify_via_dm)
+        own_ack_t = now + _delay(s, tau_do, _salt(s, 23))
     sub_row = w(c1(is_timeout) & peers, SUB_ABORT_PEER, sub_row)
     sub_tm = w(c1(is_timeout) & peers, notify, sub_tm)
     sub_row = w(c1(is_timeout) & at_do, SUB_ABORT_ACK, sub_row)
@@ -424,7 +464,8 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     send_p = gate_dec & dec_p & ~dec_c
     log_f = gate_dec & dec_l & ~dec_c & ~dec_p
     salts = lambda a: c1(_salt(s, a)) + dd32
-    dm_send = lambda a: c1(now) + _delay_salted(jit, s.tau_true, salts(a))
+    dm_base, dm_tau = _mw_link(s, row(s.on_repl), dd_b, c1(now))
+    dm_send = lambda a: dm_base + _delay_salted(jit, dm_tau, salts(a))
     sub_row = w(c1(send_c) & inv_t, SUB_COMMIT_CMD, sub_row)
     sub_tm = w(c1(send_c) & inv_t, dm_send(11), sub_tm)
     sub_row = w(c1(send_p) & inv_t, SUB_PREP_CMD, sub_row)
@@ -494,7 +535,8 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
     retries_t = row(s.retries)
     will_retry_fin = ~committed_fin & (retries_t < s.dyn.max_retries)
     cause_fin = w(~will_retry_fin & (retries_t > 0), CAUSE_EXHAUSTED, row(s.abort_cause))
-    any_down_f = s.ds_down.any(1)
+    # "during fault": some DS unreachable (crashed, or partitioned away)
+    any_down_f = (_unreachable(s) if F else s.ds_down).any(1)
 
     def add_at(x, j, v):  # x [B, M] += v at column j, per lane
         return x.index_put((bidx, j), x[bidx, j] + v)
@@ -578,12 +620,34 @@ def _omni_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
         wan_legs=s.wan_legs + wan_inc,
     )
 
+    # ============== replica failover bookkeeping (start / finish) ============
+    # one on_repl write: a dispatching start routes the hit subtxns to their
+    # replicas (stale reads and the staleness window recorded), a finish
+    # releases the routing; after the scatter, so every send above read the
+    # routing as it was
+    if F:
+        s = _failover_routing(s, t, now, fo, dispatching, gate_fin, valid_b, write_b, ds_b)
+
     # ============================== noop =====================================
     nz = is_noop[:, None, None]
     n1 = is_noop[:, None]
-    return s._replace(
+    upd = dict(
         op_time=w(nz & (s.op_time == now[:, None, None]), INF_US, s.op_time),
         sub_time=w(nz & (s.sub_time == now[:, None, None]), INF_US, s.sub_time),
         term_time=w(n1 & (s.term_time == c1(now)), INF_US, s.term_time),
         noops=s.noops + is_noop.to(I32),
     )
+    if F:
+        upd.update(
+            fault_time=w(n1 & (s.fault_time == c1(now)), INF_US, s.fault_time),
+            hb_time=w(n1 & (s.hb_time == c1(now)), INF_US, s.hb_time),
+        )
+    s = s._replace(**upd)
+
+    # ===================== fault / heartbeat tail events =====================
+    # dead last: the row-t scatters above rewrite row t (a stale row-0 copy
+    # for a tail event) and would clobber the crash cascade's writes
+    if F:
+        s = _fault_event(cfg, s, f_ev, is_fault_ev)
+        s = _hb_event(cfg, s, d_hb, is_hb_ev)
+    return s

@@ -5,8 +5,10 @@ The port's engine is lockstep-only: every `SimState` leaf carries a leading
 [B] lane axis (a scalar of the reference is [B] here, a [T,K] array is
 [B,T,K]), and the helpers below take such batched states. Leaf names,
 order and dtypes are the reference's, so states compare leaf by leaf
-(`repro_torch.interop`). The fault leaves exist with F = 0: fault
-schedules are not ported yet (ROADMAP §A).
+(`repro_torch.interop`). Fault schedules are [F, 6] typed rows
+(`KIND_CRASH` / `KIND_PARTITION` / `KIND_DEGRADE`), F = `SimConfig.max_faults`;
+F = 0 is the fault-free engine, whose helpers and event-time view carry no
+link state and no fault / heartbeat tail.
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ from repro_torch.core.protocols import (
     STAGGER_NONE,
     ProtocolConfig,
 )
-from repro_torch.unported import not_ported
-
 # ---- op states -------------------------------------------------------------
 OP_NONE, OP_PENDING, OP_ENROUTE, OP_QUEUED, OP_WAIT, OP_EXEC, OP_HOLD, OP_DONE = range(8)
 
@@ -85,6 +85,16 @@ N_ABORT_CAUSES = 5
 ABORT_CAUSES = ("none", "timeout", "admission", "crash", "exhausted")
 
 FAULT_COLS = 6
+
+# Typed fault rows: (t_start_us, kind, endpoint_a, endpoint_b, t_end_us,
+# severity), the reference's table (`repro.core.engine.state`):
+#   CRASH      data source endpoint_a (== endpoint_b) down; severity unused.
+#   PARTITION  endpoint_a == MW: the middleware<->endpoint_b link severed;
+#              endpoint_a >= 0: the mesh link a<->b severed (both ways).
+#   DEGRADE    the link's RTT times severity/1000 between start and end.
+KIND_CRASH, KIND_PARTITION, KIND_DEGRADE = 0, 1, 2
+MW = -1  # endpoint_a value selecting the middleware side of a link
+_PAD_ROW = (INF_US, KIND_CRASH, 0, 0, INF_US, 0)
 
 
 class DynProto(NamedTuple):
@@ -167,10 +177,46 @@ class WorldSpec(NamedTuple):
     lel_scale_milli: torch.Tensor
     dyn: DynProto
     seed: torch.Tensor
-    faults: torch.Tensor  # [0, 6]: fault-free (schedules not ported)
+    faults: torch.Tensor  # [F, 6] typed rows, padded with _PAD_ROW
     replica_tau: torch.Tensor  # [D], INF_US = no replica
     repl_lag_us: torch.Tensor
     clock_skew_us: torch.Tensor
+
+
+def _widen_faults(rows: torch.Tensor) -> torch.Tensor:
+    """[n, 3] legacy crash triples -> [n, 6] typed rows (no-op on [n, 6])."""
+    if rows.shape[-1] == FAULT_COLS:
+        return rows
+    if rows.shape[-1] != 3:
+        raise ValueError(
+            f"fault rows must have 3 (legacy crash) or {FAULT_COLS} columns, "
+            f"got {rows.shape[-1]}"
+        )
+    t, ds, rec = rows[:, 0], rows[:, 1], rows[:, 2]
+    kind = torch.full_like(t, KIND_CRASH)
+    return torch.stack([t, kind, ds, ds, rec, torch.zeros_like(t)], dim=1)
+
+
+def pad_faults(faults, max_faults: int | None = None) -> torch.Tensor:
+    """A fault schedule as a static [F, 6] int32 tensor: typed rows or
+    legacy (t_crash_us, ds, t_recover_us) triples (widened), None for no
+    faults; padded to `max_faults` rows with `_PAD_ROW` (t_start INF_US
+    never fires inside the horizon)."""
+    if faults is None:
+        rows = torch.zeros((0, FAULT_COLS), dtype=torch.int32)
+    else:
+        rows = torch.as_tensor(faults, dtype=torch.int32)
+        if rows.dim() != 2:
+            cols = FAULT_COLS if rows.numel() % FAULT_COLS == 0 else 3
+            rows = rows.reshape(-1, cols)
+        rows = _widen_faults(rows)
+    n = rows.shape[0]
+    if max_faults is None:
+        max_faults = n
+    if n > max_faults:
+        raise ValueError(f"{n} fault rows exceed max_faults={max_faults}")
+    pad = torch.tensor([_PAD_ROW], dtype=torch.int32).repeat(max_faults - n, 1)
+    return torch.cat([rows, pad], 0)
 
 
 def make_world(
@@ -183,15 +229,14 @@ def make_world(
     exec_scale_milli=None,
     seed: int = 0,
     faults=None,
+    max_faults: int | None = None,
     replica_tau=None,
     repl_lag_us: int = 0,
     clock_skew_us: int = 0,
 ) -> WorldSpec:
-    """A fault-free WorldSpec from a preset name / ProtocolConfig + RTTs."""
-    if faults is not None and len(faults) > 0:
-        raise not_ported("a fault schedule", "A3")
-    if replica_tau is not None or repl_lag_us:
-        raise not_ported("geo-replica failover (replica_tau/repl_lag_us)", "A3")
+    """A WorldSpec from a preset name / ProtocolConfig + RTTs. `replica_tau`
+    is the optional [D] middleware<->replica RTT (INF_US, or None, = no
+    replica), `repl_lag_us` the lag charged to each stale read."""
     if isinstance(proto, str):
         proto = PRESETS[proto]
     if tau_true_us is None:
@@ -201,7 +246,9 @@ def make_world(
         tau_ds_us = derive_tau_ds_us(tau_true)
     if exec_scale_milli is None:
         exec_scale_milli = torch.full(tau_true.shape, 1000, dtype=torch.int32)
-    i32 = lambda v: torch.tensor(v, dtype=torch.int32)
+    if replica_tau is None:
+        replica_tau = torch.full(tau_true.shape, INF_US, dtype=torch.int32)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
     return WorldSpec(
         tau_true=tau_true,
         tau_ds=torch.as_tensor(tau_ds_us, dtype=torch.int32),
@@ -210,9 +257,9 @@ def make_world(
         lel_scale_milli=i32(proto.lel_scale_milli),
         dyn=dyn_from_proto(proto),
         seed=i32(seed),
-        faults=torch.zeros((0, FAULT_COLS), dtype=torch.int32),
-        replica_tau=torch.full(tau_true.shape, INF_US, dtype=torch.int32),
-        repl_lag_us=i32(0),
+        faults=pad_faults(faults, max_faults),
+        replica_tau=torch.as_tensor(replica_tau, dtype=torch.int32),
+        repl_lag_us=i32(repl_lag_us),
         clock_skew_us=i32(clock_skew_us),
     )
 
@@ -349,14 +396,19 @@ class SimState(NamedTuple):
 
 
 def init_state(cfg: SimConfig, world: WorldSpec) -> SimState:
-    """Initial state of ONE (unbatched, CPU) world."""
-    if cfg.max_faults:
-        raise not_ported("a fault schedule (max_faults > 0)", "A3")
-    T, K, D, N = cfg.terminals, cfg.max_ops, cfg.num_ds, cfg.bank_txns
+    """Initial state of ONE (unbatched, CPU) world; `world.faults` has
+    `cfg.max_faults` rows."""
+    T, K, D, N, F = cfg.terminals, cfg.max_ops, cfg.num_ds, cfg.bank_txns, cfg.max_faults
     i32 = torch.int32
-    z = lambda shape, dt=i32: torch.zeros(shape, dtype=dt)
-    full = lambda shape, v: torch.full(shape, v, dtype=i32)
-    s0 = lambda: torch.tensor(0, dtype=i32)
+    z = lambda shape, dt=i32: torch.zeros(shape, dtype=dt)  # noqa: E731
+    full = lambda shape, v: torch.full(shape, v, dtype=i32)  # noqa: E731
+    s0 = lambda: torch.tensor(0, dtype=i32)  # noqa: E731
+    faults = world.faults.to(i32).reshape(F, FAULT_COLS)
+    # failure detection lag: crash / partition starts fire detect_delay_us
+    # late; degrades shift nothing, and end times are never shifted
+    f_start, f_kind = faults[:, 0], faults[:, 1]
+    detect = torch.where(f_kind == KIND_DEGRADE, 0, world.dyn.detect_delay_us)
+    f_first = torch.where(f_start < INF_US, f_start + detect, f_start).to(i32)
     start = ((torch.arange(T, dtype=i32) * 2000) // max(T, 1)).to(i32)
     nslot = N if cfg.track_slots else 1
     return SimState(
@@ -371,9 +423,9 @@ def init_state(cfg: SimConfig, world: WorldSpec) -> SimState:
         sub_time=full((T, D), INF_US), sub_arrive=z((T, D)), sub_lel=z((T, D)),
         first_lock=full((T, D), INF_US), rd_done=z((T, D), torch.bool),
         sub_fast=z((T, D), torch.bool),
-        fault_ds=z((0,)), fault_recover=z((0,)), fault_time=z((0,)),
-        fault_stage=z((0,), torch.int8), fault_kind=z((0,)), fault_peer=z((0,)),
-        fault_sev=z((0,)),
+        fault_ds=faults[:, 2].clone(), fault_recover=faults[:, 4].clone(), fault_time=f_first,
+        fault_stage=z((F,), torch.int8), fault_kind=f_kind.clone(),
+        fault_peer=faults[:, 3].clone(), fault_sev=faults[:, 5].clone(),
         ds_down=z((D,), torch.bool), mw_heal=z((D,)), ds_heal=z((D, D)),
         tau_mw_eff=world.tau_true.clone(), tau_ds_eff=world.tau_ds.clone(),
         repl_tau=world.replica_tau.clone(), repl_lag_us=world.repl_lag_us.clone(),
@@ -429,10 +481,10 @@ def _salt(s: SimState, a: int) -> torch.Tensor:
 
 
 def _lane_gather(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-    """x [B, D] gathered at d [B] or [B, M] (int64)."""
+    """x [B, D] gathered at d [B] or [B, ...] (int64)."""
     if d.dim() == 1:
         return x.gather(1, d[:, None])[:, 0]
-    return x.gather(1, d)
+    return x.gather(1, d.reshape(d.shape[0], -1)).reshape(d.shape)
 
 
 def _lanes(x: torch.Tensor, nd: int) -> torch.Tensor:
@@ -459,27 +511,36 @@ def _exec_us(cfg: SimConfig, s: SimState, d: torch.Tensor) -> torch.Tensor:
 
 def _mw_send(s: SimState, on_r, d, t0):
     """Effective (departure base, link RTT) of a middleware<->d message, d
-    [B] or [B, M]: a replica-served subtxn rides the replica link, a severed
-    primary link departs at its heal time. In a fault-free state (the only
-    state the port runs, ROADMAP §A A3) this is (t0, tau_true[d])."""
+    [B] or [B, ...]: a replica-served subtxn rides the replica link, a
+    severed primary link departs at its heal time. In a clean state this is
+    (t0, tau_true[d])."""
     heal = _lane_gather(s.mw_heal, d)
     tau = torch.where(on_r, _lane_gather(s.repl_tau, d), _lane_gather(s.tau_mw_eff, d))
     return torch.where(~on_r & (heal > t0), heal, t0), tau
 
 
 def _mw_link(s: SimState, on_r, d, t0):
-    """`_mw_send` reduced to the fault-free (t0, tau_true[d]): the port's
-    configs carry no fault schedule (one raises, A3)."""
+    """`_mw_send`, reduced to the pristine (t0, tau_true[d]) when the state
+    carries no fault schedule (F = 0 on the [B, F] fault leaves)."""
+    if s.fault_time.shape[-1]:
+        return _mw_send(s, on_r, d, t0)
     return t0, _lane_gather(s.tau_true, d)
 
 
 def _ds_send(s: SimState, a, b, t0):
     """Effective (departure base, link RTT) of a geo-agent a -> b mesh
     message (a [B], b [B] or [B, M]): a severed link holds it until its heal
-    time, DEGRADE scales the RTT. Fault-free: (t0, tau_ds[a, b])."""
+    time, DEGRADE scales the RTT. Clean: (t0, tau_ds[a, b])."""
     bidx = torch.arange(a.shape[0], device=a.device)
     heal = _lane_gather(s.ds_heal[bidx, a], b)
     return torch.maximum(t0, heal), _lane_gather(s.tau_ds_eff[bidx, a], b)
+
+
+def _unreachable(s: SimState) -> torch.Tensor:
+    """[B, D] data source crashed OR partitioned from the middleware: the
+    gate of heartbeat probes, the availability charge and admission's
+    fail-fast / failover."""
+    return s.ds_down | (s.mw_heal > s.now[:, None])
 
 
 def _round_done_transition(dyn, is_final, centralized, reply_t, prep_t, local_t, fast):
@@ -553,6 +614,11 @@ def _measuring(cfg: SimConfig, s: SimState) -> torch.Tensor:
 
 
 def _times_flat(s: SimState) -> torch.Tensor:
-    """[B, T + T*D + T*K] event-time view (term | sub | op); fault-free."""
+    """[B, T + T*D + T*K (+ F + D)] event-time view (term | sub | op |
+    fault | heartbeat); the fault and heartbeat tails exist only when the
+    state carries a fault schedule (F = `fault_time.shape[-1]` > 0)."""
     B = s.term_time.shape[0]
-    return torch.cat([s.term_time, s.sub_time.reshape(B, -1), s.op_time.reshape(B, -1)], dim=1)
+    parts = [s.term_time, s.sub_time.reshape(B, -1), s.op_time.reshape(B, -1)]
+    if s.fault_time.shape[-1]:
+        parts += [s.fault_time, s.hb_time]
+    return torch.cat(parts, dim=1)

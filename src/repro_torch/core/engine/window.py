@@ -26,8 +26,10 @@ sets, as the reference's module docstring lists them):
 
 Every windowed event keeps the iteration number (hash salt) and timestamp
 it would have had sequentially, so a drained run is bitwise the `drain=False`
-run on every leaf but the drain telemetry. Fault-free: the fault and
-heartbeat tail slots wait for the fault slice (ROADMAP §A A3).
+run on every leaf but the drain telemetry. With a fault schedule the
+fault and heartbeat tail slots join the order: a due fault row is pinned
+and stops the window at itself (stop reason `fault`); a heartbeat probe is
+conflict-free and drains, its re-arm time entering the running-min rule.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from repro_torch.core.engine.chain import (
     MAXI,
     STOP_DM_COL,
     STOP_DM_ROW,
+    STOP_FAULT,
     STOP_HORIZON,
     STOP_LOCK_KEY,
     STOP_NONDRAINABLE,
@@ -68,6 +71,7 @@ from repro_torch.core.engine.state import (
     _exec_us,
     _lanes,
     _lock_wait_deadline,
+    _mw_send,
     _round_done_transition,
     _tiga_arrival,
     _tiga_fast,
@@ -124,8 +128,10 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
     slots, which are all that any window decision reads."""
     if not cfg.lockstep:
         raise not_ported("the sequential lanes' window plan (lockstep=False)", "A4")
-    T, D, K = cfg.terminals, cfg.num_ds, cfg.max_ops
-    M = T + T * D + T * K
+    T, D, K, F = cfg.terminals, cfg.num_ds, cfg.max_ops, cfg.max_faults
+    M0 = T + T * D + T * K
+    # the fault / heartbeat tail slots exist only with a fault schedule
+    M = M0 + (F + D if F else 0)
     BIG = M
     st, sst, inv = s.op_state, s.sub_state, s.inv
     evt_term, evt_sub, evt_op = s.term_time, s.sub_time, s.op_time
@@ -144,14 +150,14 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
     ids_m = torch.arange(M, device=dev)
     hit_all = cand_i[..., None] == ids_m  # [B,W,M]
     is_sub_c = (cand_i >= T) & (cand_i < T + T * D)
-    is_op_c = (cand_i >= T + T * D) & (cand_i < M)
+    is_op_c = (cand_i >= T + T * D) & (cand_i < M0)
     sub_flat_c = (cand_i - T).clamp(0, T * D - 1)
     t_sub_c = w(is_sub_c, sub_flat_c // D, 0)
     d_sub_c = w(is_sub_c, sub_flat_c % D, 0)
     op_flat_c = (cand_i - T - T * D).clamp(0, T * K - 1)
     pos_term = pos[:, :T]
     pos_sub = pos[:, T: T + T * D].reshape(B, T, D)
-    pos_op = pos[:, T + T * D:].reshape(B, T, K)
+    pos_op = pos[:, T + T * D: M0].reshape(B, T, K)
 
     # ---- per-slot event categories (what each slot would fire as) ---------
     cat_log = s.phase == T_COMMIT_LOG
@@ -174,8 +180,17 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
     dd = torch.arange(D, device=dev)
     oh_d = d_of[..., None] == dd  # [B,T,K,D]
     opn = st != OP_NONE
-    tau_row = s.tau_true[:, None, :]  # [B,1,D]; fault-free links (t0, tau_true)
+    tau_row = s.tau_true[:, None, :]  # [B,1,D]
     kk = torch.arange(K, device=dev)
+    # middleware<->DS link per (t, d): heal-deferred base and effective
+    # (replica / degraded) RTT. Link state cannot change inside a window
+    # (fault events are pinned, starts and finishes are not drainable), so
+    # this is the link each handler would take at its own time
+    if F:
+        dd_td = dd.expand(B, T, D)
+        link_td = lambda t0: _mw_send(s, s.on_repl, dd_td, t0)  # noqa: E731
+    else:
+        link_td = lambda t0: (t0, tau_row)  # noqa: E731
 
     # ---- op events: candidate-query lock decisions ------------------------
     fk = s.op_key.reshape(B, -1)
@@ -253,7 +268,7 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
     it1 = s.iters[:, None] + 1
     iters_term = it1 + pos_term + shift_flat[:, :T]
     iters_sub = it1[..., None] + pos_sub + shift_flat[:, T: T + T * D].reshape(B, T, D)
-    iters_op = it1[..., None] + pos_op + shift_flat[:, T + T * D:].reshape(B, T, K)
+    iters_op = it1[..., None] + pos_op + shift_flat[:, T + T * D: M0].reshape(B, T, K)
     iters_fu = it1[..., None] + r.mrank_fu
     iters_pfu = it1 + r.mrank_pfu
 
@@ -261,7 +276,8 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
     rd3 = oh_d & rd_cat[..., None]  # [B,T,K,D]
     time_rd = w(rd3, evt_op[..., None], 0).amax(2)
     iters_rd = w(rd3, iters_op[..., None], 0).amax(2)
-    reply_t = time_rd + _delay_salted(jit3, tau_row, iters_rd * _SALT_MUL + 37)
+    rbase, rtau = link_td(time_rd)
+    reply_t = rbase + _delay_salted(jit3, rtau, iters_rd * _SALT_MUL + 37)
     rmax_td = w(opn[..., None] & oh_d, s.op_round[..., None].to(I32), -1).amax(2)
     is_final_td = s.cur_round[..., None].to(I32) >= rmax_td
     centr_t = inv.sum(2, dtype=I32) == 1
@@ -276,7 +292,8 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
     )
 
     # ---- sub dispatch (DM -> DS statements) -------------------------------
-    arrival_td = evt_sub + _delay_salted(jit3, tau_row, iters_sub * _SALT_MUL + 41)
+    abase, atau = link_td(evt_sub)
+    arrival_td = abase + _delay_salted(jit3, atau, iters_sub * _SALT_MUL + 41)
     eff_arrival_td, fast_disp_td = _tiga_arrival(
         dyn3, _lanes(s.clock_skew_us, 3), evt_sub, arrival_td
     )
@@ -288,11 +305,12 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
 
     # ---- DS-side prepare command / WAL-flushed vote -----------------------
     prep_time = evt_sub + dyn3.log_flush_us
-    vote_t = evt_sub + _delay_salted(jit3, tau_row, iters_sub * _SALT_MUL + 43)
+    vbase, vtau = link_td(evt_sub)
+    vote_t = vbase + _delay_salted(jit3, vtau, iters_sub * _SALT_MUL + 43)
 
     # ---- chain-entity effect values ---------------------------------------
     eff = chain_effects(
-        s, c, t_op_c, d_op_c, t_sub_c, d_sub_c, iters_fu, iters_pfu,
+        s, F, c, t_op_c, d_op_c, t_sub_c, d_sub_c, iters_fu, iters_pfu,
         is_final_td, aborting_td, centr_t, fast_t,
     )
 
@@ -333,7 +351,10 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
     done_ack_j = cat_ack & (~inv3 | (sta3 == SUB_DONE)).all(3)
     done_abk_j = cat_abort_ack & (~inv3 | (sta3 == SUB_ABORTED)).all(3)
     jit4 = _lanes(s.jitter_milli, 4)
-    b3, r3 = evt_sub[..., None], tau_row[:, None]  # [B,T,D,1], [B,1,1,D]
+    if F:
+        b3, r3 = _mw_send(s, s.on_repl[:, :, None, :], dd.expand(B, T, D, D), evt_sub[..., None])
+    else:
+        b3, r3 = evt_sub[..., None], tau_row[:, None]  # [B,T,D,1], [B,1,1,D]
     dd32 = dd.to(I32)
     dt_commit3 = b3 + _delay_salted(jit4, r3, iters_sub[..., None] * _SALT_MUL + 11 + dd32)
     dt_prepare3 = b3 + _delay_salted(jit4, r3, iters_sub[..., None] * _SALT_MUL + 13 + dd32)
@@ -341,11 +362,13 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
 
     # ---- terminal commit-log flush (broadcast) ----------------------------
     salt_e = iters_term[..., None] * _SALT_MUL + 31 + dd32
-    dt_log = evt_term[..., None] + _delay_salted(jit3, tau_row, salt_e)
+    lbase, ltau = link_td(evt_term[..., None])
+    dt_log = lbase + _delay_salted(jit3, ltau, salt_e)
 
     # ---- DS-side commit apply / peer-abort release ------------------------
     ack_salt = iters_sub * _SALT_MUL + w(cat_commit, 47, 53).to(I32)
-    ack_t = evt_sub + _delay_salted(jit3, tau_row, ack_salt)
+    kbase, ktau = link_td(evt_sub)
+    ack_t = kbase + _delay_salted(jit3, ktau, ack_salt)
     # a release with a queued waiter on a released key is not drainable
     # (the grants would need exact ordering); probed on compact [W, K]
     # footprint rows gathered per candidate
@@ -447,6 +470,22 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
     conf_rel = torch.cat([zt, flatten(conf_rel_sub), flatten(conf_rel_op)], 1)
     pinned_flat = torch.cat([pinned_term, flatten(pinned_sub), flatten(pinned_op)], 1)
     n_flat = torch.cat([n_term, flatten(n_sub), flatten(n_op)], 1)
+    if F:
+        # fault rows: pinned, schedule nothing, conflict with nothing (a due
+        # one stops the window at itself). Heartbeat slots drain: a probe
+        # writes only its own counter and timer, and reads reachability no
+        # window event changes; its re-arm time enters the running min
+        zfd = torch.zeros((B, F + D), dtype=torch.bool, device=dev)
+        conf_key = torch.cat([conf_key, zfd], 1)
+        conf_row = torch.cat([conf_row, zfd], 1)
+        conf_col = torch.cat([conf_col, zfd], 1)
+        conf_rel = torch.cat([conf_rel, zfd], 1)
+        pinned_flat = torch.cat([pinned_flat, ~zfd[:, :F], zfd[:, :D]], 1)
+        hb_fire = s.ds_down | (s.mw_heal > s.hb_time)
+        n_hb = w(hb_fire & (s.hb_time < INF_US), s.hb_time + dyn2.hb_interval_us, INF_US)
+        n_flat = torch.cat([n_flat, torch.zeros((B, F), dtype=I32, device=dev), n_hb], 1)
+    else:
+        hb_fire = torch.zeros((B, D), dtype=torch.bool, device=dev)
     conflict = conf_key | conf_row | conf_col | conf_rel
     horizon_i = cfg.horizon_us
     code = w(flat >= horizon_i, STOP_HORIZON,
@@ -454,11 +493,14 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
                w(conf_key, STOP_LOCK_KEY,
                  w(conf_row, STOP_DM_ROW,
                    w(conf_col, STOP_DM_COL, w(conf_rel, STOP_REL_OP, STOP_SCHEDULED)))))).to(I32)
+    if F:
+        # fault-row stoppers get their own code (the horizon stays dominant)
+        fault_flat = (ids_m >= M0) & (ids_m < M0 + F)
+        code = w((flat < horizon_i) & fault_flat, STOP_FAULT, code)
     adm = entity_admission(
         s.dyn, c, r, eff, conflict.gather(1, cand_i), code.gather(1, cand_i),
-        n_flat.gather(1, cand_i), fu_dup, hit_all, horizon_i, T, D, K,
+        n_flat.gather(1, cand_i), fu_dup, hit_all, horizon_i, T, D, K, M0, F,
     )
-    no_hb = torch.zeros((B, D), dtype=torch.bool, device=dev)
     return _PlanVals(
         cand_i=cand_i,
         cand_is_sub=is_sub_c,
@@ -537,8 +579,8 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
         win_term=adm.win_term,
         win_sub=adm.win_sub,
         win_op=adm.win_op,
-        win_hb=no_hb,
-        hb_fire=no_hb,
+        win_hb=adm.win_hb,
+        hb_fire=hb_fire,
         n_win=adm.n_win,
         use=adm.use,
         t_last=adm.t_last,

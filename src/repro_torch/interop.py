@@ -20,7 +20,6 @@ import torch
 from repro_torch.core.hotspot import HashHotspot
 from repro_torch.core.workloads import BANK_ARRAYS, Bank
 from repro_torch.core.engine.state import DynProto, SimState, WorldSpec
-from repro_torch.unported import not_ported
 
 
 def _fields(obj) -> dict:
@@ -53,11 +52,9 @@ def bank_from_numpy(bank) -> Bank:
 
 
 def worlds_from_numpy(worlds) -> WorldSpec:
-    """A reference [B]-stacked WorldSpec (numpy leaves) -> the port's."""
-    src = _fields(worlds)
-    if np.asarray(src["faults"]).shape[-2] > 0:
-        raise not_ported("a fault schedule", "A3")
-    return _build(WorldSpec, src, {"dyn": DynProto})
+    """A reference [B]-stacked WorldSpec (numpy leaves) -> the port's, its
+    fault schedules ([B, F, 6]) and replica leaves included."""
+    return _build(WorldSpec, worlds, {"dyn": DynProto})
 
 
 def state_from_numpy(state, device=None) -> SimState:

@@ -37,8 +37,8 @@ def test_import_leaves_jax_and_repro_unloaded():
 
 
 # the modules of slices 2 and 3 (the serving path of the LM stack: the
-# dense GQA family, then the recurrent mixers) and slice 9's windowed drain,
-# beside slice 1's
+# dense GQA family, then the recurrent mixers), slice 9's windowed drain and
+# slice 10's fault injection, beside slice 1's
 SLICE_MODULES = [
     "unported.py",
     "configs/registry.py",
@@ -69,6 +69,7 @@ SLICE_MODULES = [
     "core/engine/window.py",
     "core/engine/apply.py",
     "core/engine/fused.py",
+    "core/engine/faults.py",
 ]
 
 
@@ -102,7 +103,7 @@ def _bank():
 
 @pytest.mark.parametrize(
     "case",
-    ["drain", "faults", "replica_tau", "map", "mesh", "resume", "save"],
+    ["drain", "map", "mesh", "resume", "save"],
 )
 def test_unported_paths_raise_not_implemented(case):
     bank = _bank()
@@ -117,14 +118,6 @@ def test_unported_paths_raise_not_implemented(case):
         assert cfg.drain and not cfg.lockstep
         with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A4"):
             window._window_plan(cfg, bank, None)
-        return
-    if case == "faults":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Grid([{"preset": "ssp", "faults": ((100, 0, 200),)}])
-        return
-    if case == "replica_tau":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Grid([{"preset": "ssp", "replica_tau": (1000, 1000)}], default_rtt_ms=(0.0, 10.0))
         return
     sim = Simulator.from_bank(bank, horizon_s=0.05, warmup_s=0.0, device="cpu")
     if case in ("map", "mesh"):

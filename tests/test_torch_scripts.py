@@ -753,6 +753,7 @@ def _stand_in_the_card(monkeypatch):
         return (_time.perf_counter() - t0) * 1e3
 
     monkeypatch.setattr(chip_smoke, "cuda_ms", host_ms)
+    monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, iters=500: host_ms(fn, iters))
 
 
 def test_slice8_phases_run_on_the_cpu(monkeypatch):
@@ -878,3 +879,80 @@ def test_kernel_label_names_the_int8_variant():
     assert chip_smoke.kernel_label(mangled) == "decode_split_kernel<bfloat16, 128, int8>"
     same = mangled.replace("Li128EaE", "Li128ES1_E")
     assert chip_smoke.kernel_label(same) == "decode_split_kernel<bfloat16, 128>"
+
+
+def test_profile_window_of_a_faulted_step_on_the_cpu(monkeypatch):
+    """A grid with a fault schedule and a bank the cells share: the profiled
+    step carries the fault and heartbeat tails (a window of 8 steps)."""
+    monkeypatch.setattr(batch, "_CHECK_EVERY", 8)
+    cfg = workloads.YCSBConfig(num_ds=D, records_per_node=1000, ops_per_txn=K, seed=0)
+    bank = workloads.make_ycsb_bank(cfg, terminals=4, txns_per_terminal=8)
+    grid = Grid([dict(preset=p, faults=((1_000, 0, 2_000),), replica_tau=(30_000,) * D)
+                 for p in ("ssp", "geotp")])
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    res = profile_step.measure(grid, 8, torch.device("cpu"), acts, bank=bank)
+    assert res["drain"] and res["max_faults"] == 1 and res["lanes"] == 2
+    assert res["labels"]["geo_schedule call"]["calls_per_step"] == 2.0
+    assert placement.run is batch.run
+
+
+def _reference_test_module(name, monkeypatch):
+    import importlib
+
+    monkeypatch.syspath_prepend(str(ROOT / "tests" / "core"))
+    return importlib.import_module(name)
+
+
+def test_fault_phase_schedules_are_the_reference_tests(monkeypatch):
+    """Phase 4c's schedules and replicas are the reference tests' own."""
+    faults = _reference_test_module("test_faults", monkeypatch)
+    parts = _reference_test_module("test_partitions", monkeypatch)
+    assert chip_smoke.CRASH_HEAVY == faults.CRASH_HEAVY
+    assert chip_smoke.PART_HEAVY == parts.PART_HEAVY
+    assert (chip_smoke.REPLICA_TAU, chip_smoke.REPL_LAG_US) == (parts.REPLICA_TAU, parts.REPL_LAG_US)
+    assert (chip_smoke.SMALL_T, chip_smoke.SMALL_K, chip_smoke.SMALL_D, chip_smoke.SMALL_N) == (
+        faults.T, faults.K, faults.D, faults.N)
+    assert chip_smoke.SMALL_RTT == faults.RTT
+    bank, grid = chip_smoke.small_fault_grid()
+    assert len(grid) == 24 and grid.max_faults == 3
+    assert bank.key.shape == (faults.T, faults.N, faults.K)
+
+
+@pytest.mark.parametrize("fig", ["fig16", "fig17"])
+def test_fault_figure_phases_run_the_reference_figures(fig, monkeypatch):
+    """Phases 5c / 5d run benchmarks/figures.py's fig16 / fig17 under
+    --full: its cells (worlds carried across equal), terminals, horizon,
+    warmup and bank."""
+    import jax
+    import numpy as np
+
+    from benchmarks import figures
+    from repro.core import engine as r_engine
+    from repro_torch import interop
+    from repro_torch.core.engine.state import tree_leaves
+
+    class Seen(Exception):
+        pass
+
+    seen = {}
+
+    def capture(tag, cells, bank, terminals, **kw):
+        seen.update(cells=cells, bank=bank, terminals=terminals, kw=kw)
+        raise Seen
+
+    monkeypatch.setattr(figures, "run_sweep", capture)
+    with pytest.raises(Seen):
+        {"fig16": figures.fig16_faults, "fig17": figures.fig17_partitions}[fig](quick=False)
+    want = r_engine.Grid(seen["cells"])
+    got = Grid(chip_smoke.fig_cells(fig))
+    assert got.cells == want.cells and got.max_faults == want.max_faults
+    rw = interop.worlds_from_numpy(jax.tree_util.tree_map(np.asarray, want.worlds()))
+    for (name, x), (_, y) in zip(tree_leaves(got.worlds()), tree_leaves(rw)):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+    assert seen["terminals"] == chip_smoke.FIG_T
+    assert seen["kw"] == dict(horizon_s=chip_smoke.FIG_HORIZON_S, warmup_s=chip_smoke.FIG_WARMUP_S)
+    ref_bank, bank = seen["bank"], chip_smoke.fig_bank()
+    for f in workloads.BANK_ARRAYS:
+        assert np.array_equal(getattr(bank, f).numpy(), np.asarray(getattr(ref_bank, f))), f
+    ref = chip_smoke.FIG16_REF if fig == "fig16" else chip_smoke.FIG17_REF
+    assert [r[:2] for r in ref] == [(c["schedule"], c["preset"]) for c in got.cells]
