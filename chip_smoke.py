@@ -234,6 +234,29 @@ Slice 8, the vision frontend, the encoder-decoder and the int8 KV cache
 Phases 11-19 draw the GPU-vs-CPU check's weights on the card and copy
 them to the CPU.
 
+Slice 11, continuation (`Simulator.resume`, `RunResult.with_states` /
+`save`) and the port's smoke path, run after phase 19:
+
+5e. fig11's online segments (`benchmarks/figures.py:177-210`) at fig11's
+   own size: T = 48, `ycsb_bank(48, theta=0.9, dist_ratio=0.6)`, jitter
+   30; for ssp and for geotp a first 8 s segment (warmup 1 s) through
+   `Simulator.run`, then three segments, each `with_states` with
+   `tau_true` edited and `resume(horizon_s=now / 1e6 + 8.0, warmup_s=0.0)`,
+   the captured windowed step captured anew for each. Each preset is a
+   single lane, as fig11 runs it: each chain's next horizon is its own
+   `now` + 8 s, which two lanes of one grid cannot share. Every segment's
+   events, commits, aborts, throughput and final clock equal the JAX
+   reference's (FIG11_ONLINE_REF); two `geo_schedule` launches a step;
+   each segment's steps, seconds, events/s and launches;
+5f. the port's smoke (`repro_torch.bench.smoke`, the reference smoke's
+   cells: fig5's YCSB deployment at T = 32, 2.5 s, drained, single-event,
+   faults, partitions, protocols) with its bench file in a temporary
+   directory: every guard holds, every leg's cells equal the JAX
+   reference's events, commits and aborts (SMOKE_REF), the bench file
+   holds the smoke entry and a sweep a leg, two `geo_schedule` launches a
+   step; each leg's steps, seconds, events/s, drain hit rate and mean
+   window.
+
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -246,7 +269,6 @@ import dataclasses
 import json
 import pathlib
 import re
-import subprocess
 import sys
 import time
 
@@ -2800,6 +2822,165 @@ def slice8_phases(dev, records):
     return records, runs, i8
 
 
+# ---------------------------------------------------------------------------
+# slice 11: continuation (Simulator.resume) and the port's smoke path
+# ---------------------------------------------------------------------------
+
+# phase 5e: fig11's online segments (benchmarks/figures.py:177-210) at its
+# own size: T = QUICK_T = 48, ycsb_bank(48, theta=0.9, dist_ratio=0.6)
+FIG11_T = 48
+FIG11_SEGMENTS = ((0, 27, 73, 251), (0, 120, 40, 200), (0, 27, 200, 80), (0, 60, 60, 251))
+FIG11_HORIZON_S, FIG11_WARMUP_S = 8.0, 1.0  # the first segment
+FIG11_SEGMENT_S = 8.0  # each later segment: resume to now / 1e6 + 8.0, warmup 0
+# (preset, segment, events, commits, aborts, throughput_tps, final clock us)
+# of fig11's online loop run through the JAX reference on the CPU (its
+# single-world `sim.run` / `sim.resume` chain, nothing recorded), printed
+# by `PYTHONPATH=src:. JAX_PLATFORMS=cpu python tests/test_torch_bench_smoke.py`.
+# Events and commits are cumulative; a resumed segment's throughput is its
+# new commits over 8 s, the first's the metrics' (commits over 7 s).
+FIG11_ONLINE_REF = [
+    ("ssp", 0, 13899, 624, 0, 89.14285714285714, 7998678),
+    ("ssp", 1, 26244, 1309, 0, 85.625, 15998159),
+    ("ssp", 2, 37185, 1894, 12, 73.125, 23998119),
+    ("ssp", 3, 52608, 2748, 12, 106.75, 31996165),
+    ("geotp", 0, 17097, 889, 0, 127.0, 7999298),
+    ("geotp", 1, 23970, 1306, 24, 52.125, 15995472),
+    ("geotp", 2, 38671, 2234, 27, 116.0, 23994777),
+    ("geotp", 3, 47795, 2817, 32, 72.875, 31993053),
+]
+# phase 5f: each smoke leg's (preset, seed, events, commits, aborts) as the
+# JAX reference gives them for the reference smoke's cells
+# (`benchmarks/run.py::smoke`, run through `benchmarks.common.run_sweep` on
+# the CPU with strategy="map" and record=False; the same command as
+# FIG11_ONLINE_REF). The drained and the single-event leg share the grid's
+# numbers (the reference's steps are bitwise-interchangeable).
+_SMOKE_GRID = [
+    ("ssp", 0, 3550, 193, 0), ("ssp-local", 0, 3970, 256, 0), ("scalardb", 0, 1473, 73, 0),
+    ("geotp", 0, 3879, 233, 0), ("ssp", 1, 4537, 253, 0), ("ssp-local", 1, 4397, 278, 0),
+    ("scalardb", 1, 1771, 77, 0), ("geotp", 1, 4715, 278, 0), ("ssp", 2, 4613, 259, 0),
+    ("ssp-local", 2, 4835, 316, 0), ("scalardb", 2, 1551, 86, 0), ("geotp", 2, 5025, 314, 0),
+    ("ssp", 3, 3322, 186, 0), ("ssp-local", 3, 3708, 234, 0), ("scalardb", 3, 1427, 75, 0),
+    ("geotp", 3, 3746, 228, 0),
+]
+SMOKE_REF = {
+    "grid": _SMOKE_GRID,
+    "single": _SMOKE_GRID,
+    "faults": [("ssp", 0, 3541, 195, 54), ("geotp", 0, 3329, 191, 67)],
+    "partitions": [("ssp", 0, 2802, 140, 31), ("geotp", 0, 3241, 179, 41)],
+    "protocols": [
+        ("ssp", 0, 3550, 246, 0), ("geotp", 0, 3879, 292, 0), ("fastc", 0, 8479, 770, 0),
+        ("tiga", 0, 4208, 378, 0), ("opta", 0, 5079, 332, 85), ("ssp", 1, 4537, 313, 0),
+        ("geotp", 1, 4715, 350, 0), ("fastc", 1, 8695, 778, 0), ("tiga", 1, 4321, 385, 0),
+        ("opta", 1, 5335, 351, 74),
+    ],
+}
+
+
+def fig11_online_phase(device=None) -> int:
+    """Phase 5e: fig11's online loop through the port, each preset a
+    single-lane chain of `run`, then `with_states` (tau_true edited) and
+    `resume` a segment; every segment equal to FIG11_ONLINE_REF and two
+    geo_schedule launches a step. Returns the launches."""
+    from repro_torch.bench.common import ycsb_bank
+    from repro_torch.core.engine import Simulator, batch, make_world
+    from repro_torch.kernels.geo_schedule import ops
+
+    t0 = time.perf_counter()
+    bank = ycsb_bank(FIG11_T, theta=0.9, dist_ratio=0.6)
+    print(f"bank built in {time.perf_counter() - t0:.2f} s")
+    sim = Simulator.from_bank(bank, terminals=FIG11_T, horizon_s=FIG11_HORIZON_S,
+                              warmup_s=FIG11_WARMUP_S, device=device)
+    on_card = sim.device.type == "cuda"
+    ref = iter(FIG11_ONLINE_REF)
+    total = bad = steps = wall = 0
+    for preset in ("ssp", "geotp"):
+        res, events = None, 0
+        for i, rtt in enumerate(FIG11_SEGMENTS):
+            ops.geo_schedule.launches = 0
+            if res is None:
+                res = sim.run(make_world(preset, tuple(map(float, rtt)), jitter_milli=30), bank)
+                m = dict(res.metrics[0])
+            else:
+                tau = torch.tensor([[int(r * 1000) for r in rtt]], dtype=torch.int32,
+                                   device=sim.device)
+                res = res.with_states(res.states._replace(tau_true=tau))
+                base = int(res.states.commits[0])
+                res = sim.resume(res, horizon_s=int(res.states.now[0]) / 1e6 + FIG11_SEGMENT_S,
+                                 warmup_s=0.0)
+                m = dict(res.metrics[0])
+                m["throughput_tps"] = (int(res.states.commits[0]) - base) / FIG11_SEGMENT_S
+            launches = ops.geo_schedule.launches
+            if launches != (2 * res.steps if on_card else 0):
+                raise AssertionError(f"{preset} segment {i}: geo_schedule launches {launches} "
+                                     f"!= 2 x {res.steps} steps")
+            got = (preset, i, m["events"], m["commits"], m["aborts"], m["throughput_tps"],
+                   int(res.states.now[0]))
+            want = next(ref)
+            seg_events, events = m["events"] - events, m["events"]
+            print(f"{preset:5s} segment {i} tau_true {rtt} ms: events {got[2]} (+{seg_events}) "
+                  f"commits {got[3]} aborts {got[4]} throughput {got[5]} tps now {got[6]} us; "
+                  f"{res.steps} steps, {res.wall_s:.3f} s ({batch.run.capture_s:.3f} s warm-up "
+                  f"and capture), {seg_events / res.wall_s:.1f} events/s, "
+                  f"{res.wall_s / max(res.steps, 1) * 1e3:.4f} ms a step, geo_schedule launches "
+                  f"{launches}: {'the reference' if got == want else f'REFERENCE {want}'}")
+            bad += got != want
+            total, steps, wall = total + launches, steps + res.steps, wall + res.wall_s
+    if bad:
+        raise AssertionError(f"fig11 online: {bad} segments differ from FIG11_ONLINE_REF")
+    print(f"fig11 online: {len(FIG11_ONLINE_REF)} segments equal to the reference; {steps} "
+          f"steps, {wall:.3f} s, {steps / wall:.1f} steps/s, geo_schedule launches {total}")
+    return total
+
+
+def smoke_phase(device=None) -> int:
+    """Phase 5f: `repro_torch.bench.smoke` with its bench file in a temporary
+    directory: every guard holds, every leg's cells equal SMOKE_REF, the
+    file holds the entry and one sweep a leg, two geo_schedule launches a
+    step. Returns the launches."""
+    import tempfile
+
+    from repro_torch.bench import smoke
+    from repro_torch.kernels.geo_schedule import ops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "BENCH_engine.json"
+        ops.geo_schedule.launches = 0
+        run = smoke.smoke(path, device=device)
+        launches = ops.geo_schedule.launches
+        bench = json.loads(path.read_text())
+    if run.rc != 0:
+        raise AssertionError("the port's smoke failed a guard")
+    if bench["smoke"] != json.loads(json.dumps(run.entry)):
+        raise AssertionError("the bench file's smoke entry is not the one the smoke recorded")
+    tags = sorted(f"smoke_{name}" for name in smoke.LEGS)
+    if sorted(bench["sweeps"]) != tags or any("steps" not in bench["sweeps"][t] for t in tags):
+        raise AssertionError(f"bench file sweeps {sorted(bench['sweeps'])} != {tags}")
+    env = {k: run.entry[k] for k in ("torch_backend", "device_name", "power_limit")}
+    print(f"bench file: the smoke entry ({len(run.entry)} keys) and sweeps {tags}; {env}")
+    steps = sum(r.steps for r in run.results.values())
+    on_card = next(iter(run.results.values())).states.now.device.type == "cuda"
+    if launches != (2 * steps if on_card else 0):
+        raise AssertionError(f"geo_schedule launches {launches} != 2 x {steps} steps")
+    bad = []
+    for name in smoke.LEGS:
+        res, cells = run.results[name], smoke.leg_cells()[name][0]
+        got = [(c["preset"], c["seed"], m["events"], m["commits"], m["aborts"])
+               for c, m in zip(cells, res.metrics)]
+        diff = [(g, w) for g, w in zip(got, SMOKE_REF[name]) if g != w]
+        if diff or len(got) != len(SMOKE_REF[name]):
+            bad.append((name, diff))
+        d = res.drain
+        print(f"{name:10s} {len(res)} lanes: {res.steps} steps, {run.walls[name]:.3f} s "
+              f"(run {res.wall_s:.3f} s), {res.events / run.walls[name]:.1f} events/s, drain "
+              f"hit rate {d['drain_hit_rate']}, mean window {d['mean_window_len']}: "
+              f"{'the reference' if not diff else diff}")
+    if bad:
+        raise AssertionError(f"smoke legs differ from SMOKE_REF: {bad}")
+    print(f"smoke: every leg's cells equal to the reference; {steps} steps, geo_schedule "
+          f"launches {launches}")
+    return launches
+
+
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 KERNEL_NAMES = ("geo_schedule", "decode_attention", "flash_attention", "mlstm_chunk",
@@ -2831,10 +3012,9 @@ def main() -> int:
     from repro_torch.kernels.geo_schedule import ops
     from repro_torch.kernels.geo_schedule.ref import geo_schedule_ref
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    from repro_torch.device import smi_line
+
+    smi = smi_line(torch.device("cuda", 0))
     kind = torch.cuda.get_device_name(0)
     print("device", kind, "count", torch.cuda.device_count())
     print(smi)
@@ -2943,6 +3123,13 @@ def main() -> int:
     lm_records = recurrent_phases(dev, serving_phases(dev, builds))
     lm_records = moe_mla_phases(dev, lm_records)[0]
     lm_records = slice8_phases(dev, lm_records)[0]
+
+    phase(f"5e fig11-online-T{FIG11_T}: fig11's online segments through Simulator.resume, "
+          f"{len(FIG11_SEGMENTS)} x {FIG11_SEGMENT_S} s a preset")
+    launches += fig11_online_phase()
+
+    phase("5f the port's smoke (repro_torch.bench.smoke): fig5 YCSB, T=32, five legs")
+    launches += smoke_phase()
 
     print(kernels_line([{
         "name": "geo_schedule",

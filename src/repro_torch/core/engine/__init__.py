@@ -2,10 +2,21 @@
 windowed drain by default as the reference, typed fault schedules with
 heartbeats and replica failover).
 
-Entry points: `Simulator` / `Grid` / `RunResult` (`api.py`).
+Entry points: `Simulator` / `Grid` / `RunResult` (`api.py`), and the port's
+bench file: `BENCH_FILE`, `runtime_env`, `load_bench`, `record_bench`,
+`record_smoke`.
 """
 
-from repro_torch.core.engine.api import Grid, RunResult, Simulator
+from repro_torch.core.engine.api import (
+    BENCH_FILE,
+    Grid,
+    RunResult,
+    Simulator,
+    load_bench,
+    record_bench,
+    record_smoke,
+    runtime_env,
+)
 from repro_torch.core.engine.state import (
     SimConfig,
     SimState,
@@ -17,6 +28,7 @@ from repro_torch.core.engine.state import (
 )
 
 __all__ = [
+    "BENCH_FILE",
     "Grid",
     "RunResult",
     "Simulator",
@@ -25,6 +37,10 @@ __all__ = [
     "WorldSpec",
     "init_state",
     "init_state_world",
+    "load_bench",
     "make_world",
+    "record_bench",
+    "record_smoke",
+    "runtime_env",
     "stack_worlds",
 ]

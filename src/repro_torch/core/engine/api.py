@@ -11,23 +11,29 @@
   (`device=None` means CUDA; it raises when no card is present). `drain`
   defaults to True, as the reference: each step is the fused windowed
   drain (`fused._omni_window`); `drain=False` steps `omni._omni_step`.
-  `strategy="map"/"mesh"` and `resume` raise. A grid's fault row count
-  sets the run's `SimConfig.max_faults`.
+  `.resume(result)` continues a result's states to a later horizon (in
+  place: the result's states must not be reused). `strategy="map"/"mesh"`
+  raise. A grid's fault row count sets the run's `SimConfig.max_faults`.
 * **`RunResult`** — final states (batched over cells), one metric dict per
   cell, the lockstep step count, wall time; `.rows()`, `.world(i)`,
-  `.drain`, `.events`.
+  `.drain`, `.events`, `.with_states(states)`, and `.save(tag)`, which
+  records the run under ``sweeps.<tag>`` in the port's own bench file
+  (`BENCH_FILE`, the reference's schema, with the torch runtime and the
+  card's name and power limit in place of the jax keys).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
+import pathlib
 import time
 from typing import Any
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import card_info, resolve_device
 from repro_torch.core.netmodel import INF_US, PAPER_RTT_MS
 from repro_torch.core.protocols import PRESETS, ProtocolConfig
 from repro_torch.core.workloads import Bank, bank_to, stack_banks
@@ -43,12 +49,77 @@ from repro_torch.core.engine.state import (
     WorldSpec,
     make_world,
     stack_worlds,
+    tree_leaves,
     tree_map,
 )
 from repro_torch.unported import not_ported
 
 _VECTOR_AXES = ("rtt_ms", "tau_true_us", "exec_scale_milli", "replica_tau")
 _NON_LABEL_AXES = ("tau_true_us", "exec_scale_milli", "faults", "replica_tau")
+
+# the port's bench file: never the reference's results/bench/BENCH_engine.json
+BENCH_DIR = pathlib.Path("results/bench_torch")
+BENCH_FILE = BENCH_DIR / "BENCH_engine.json"
+
+
+# ---------------------------------------------------------------------------
+# bench records (the reference's `{"sweeps": {...}, "smoke": {...}}` schema)
+# ---------------------------------------------------------------------------
+
+
+def runtime_env(device=None) -> dict:
+    """The runtime a run measured on, recorded in every bench entry: the
+    torch and CUDA versions, the device type the run used and the card
+    count, and the card's name and power limit as nvidia-smi prints them
+    (``"cpu"`` and None on the CPU)."""
+    dev = resolve_device(device)
+    return {
+        "torch_version": torch.__version__,
+        "torch_cuda": torch.version.cuda,
+        "torch_backend": dev.type,
+        "torch_device_count": torch.cuda.device_count() if dev.type == "cuda" else 1,
+        **card_info(dev),
+    }
+
+
+def load_bench(path=None) -> dict:
+    p = pathlib.Path(path) if path is not None else BENCH_FILE
+    if p.exists():
+        with open(p) as f:
+            return json.load(f)
+    return {"sweeps": {}, "smoke": {}}
+
+
+def _write_bench(bench: dict, path) -> None:
+    p = pathlib.Path(path) if path is not None else BENCH_FILE
+    p.parent.mkdir(parents=True, exist_ok=True)
+    with open(p, "w") as f:
+        json.dump(bench, f, indent=1, default=float)
+
+
+def record_bench(tag: str, entry: dict, path=None, *, device=None) -> dict:
+    """Merge one sweep's record into the bench file under ``sweeps.<tag>``,
+    with `runtime_env(device)`'s keys."""
+    entry = {**entry, **runtime_env(device)}
+    bench = load_bench(path)
+    bench.setdefault("sweeps", {})[tag] = entry
+    _write_bench(bench, path)
+    return entry
+
+
+def record_smoke(entry: dict, path=None, *, device=None) -> dict:
+    """Write the smoke's record (``smoke``) into the bench file, with
+    `runtime_env(device)`'s keys."""
+    entry = {**entry, **runtime_env(device)}
+    bench = load_bench(path)
+    bench["smoke"] = entry
+    _write_bench(bench, path)
+    return entry
+
+
+def _layout(states) -> tuple:
+    """(leaf name, shape, dtype, device) of every leaf of `states`."""
+    return tuple((n, tuple(x.shape), x.dtype, x.device) for n, x in tree_leaves(states))
 
 
 def _cell_num_ds(cell: dict, default_rtt_ms) -> int:
@@ -358,6 +429,9 @@ class Grid:
         """All cells stacked into one WorldSpec with a leading [B] axis."""
         return stack_worlds([self.world(i) for i in range(len(self.cells))])
 
+    def with_banks(self, banks) -> "Grid":
+        return Grid(self.cells, banks=banks, default_rtt_ms=self.default_rtt_ms)
+
     def bank_stack(self) -> Bank:
         if self.banks is None:
             raise ValueError("Grid has no per-cell banks")
@@ -379,6 +453,10 @@ class RunResult:
     bank_batched: bool = False
     batched: bool = True
     strategy_resolved: str = "vmap"
+    mesh_devices: int = 1
+    # the states' leaves as the run left them: what `Simulator.resume` holds
+    # `states` (perhaps replaced through `with_states`) to
+    layout: tuple = dataclasses.field(default=(), repr=False, compare=False)
 
     def __len__(self) -> int:
         return len(self.metrics)
@@ -402,8 +480,45 @@ class RunResult:
     def rows(self) -> list:
         return [{**_row_labels(cell), **m} for cell, m in zip(self.cells, self.metrics)]
 
+    def with_states(self, states) -> "RunResult":
+        """Copy with substituted states (e.g. `tau_true` edited for an online
+        re-configuration segment, before `Simulator.resume`). Nothing is
+        recomputed from the edited leaves."""
+        return dataclasses.replace(self, states=states)
+
     def save(self, tag: str, path=None) -> dict:
-        raise not_ported("RunResult.save (the port's bench file)", "A5")
+        """Record this run under ``sweeps.<tag>`` in the port's bench file
+        (`BENCH_FILE` unless `path`): the reference's keys, its jax runtime
+        keys replaced by `runtime_env`'s, plus ``steps`` (the lockstep steps
+        the run took, idle tail included)."""
+        d = self.drain
+        entry = {
+            "worlds": len(self.metrics),
+            "terminals": self.cfg.terminals,
+            "events": self.events,
+            "wall_s": round(self.wall_s, 2),
+            "events_per_sec": round(self.events / max(self.wall_s, 1e-9), 1),
+            "strategy": self.strategy,
+            "strategy_resolved": self.strategy_resolved or self.strategy,
+            "mesh_devices": self.mesh_devices,
+            "horizon_s": self.cfg.horizon_us / 1e6,
+            "drain_hit_rate": d["drain_hit_rate"],
+            "mean_window_len": d["mean_window_len"],
+            "loop_iters": d["loop_iters"],
+            "window_stops": d["window_stops"],
+            "plan_fused": d["plan_fused"],
+            "availability": d["availability"],
+            "abort_causes": d["abort_causes"],
+            "commits_during_fault": d["commits_during_fault"],
+            "link_downtime_us": d["link_downtime_us"],
+            "stale_reads": d["stale_reads"],
+            "failovers": d["failovers"],
+            "max_staleness_us": d["max_staleness_us"],
+            "wan_rounds": d["wan_rounds"],
+            "fast_commits": d["fast_commits"],
+            "steps": self.steps,
+        }
+        return record_bench(tag, entry, path, device=self.states.now.device)
 
 
 class Simulator:
@@ -470,14 +585,18 @@ class Simulator:
             return self.cfg
         return dataclasses.replace(self.cfg, max_faults=F)
 
-    def _run(self, worlds: WorldSpec, bank: Bank, bank_batched: bool, strategy: str):
-        cfg = self._cfg_for(worlds.faults)
+    def _run(self, cfg: SimConfig, bank: Bank, bank_batched: bool, strategy: str, *,
+             worlds: WorldSpec | None = None, states=None):
+        """One timed, synchronised `simulate_batch` call: fresh from `worlds`,
+        or continuing `states` in place. Returns the config that ran (the
+        placement's), the final states, the metrics, the steps, the wall
+        time and the bank on this device."""
         bank = bank_to(bank, self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        states, metrics, steps = simulate_batch(
-            cfg, bank, worlds, bank_batched=bank_batched, strategy=strategy,
+        cfg, states, metrics, steps = simulate_batch(
+            cfg, bank, worlds, bank_batched=bank_batched, states=states, strategy=strategy,
             device=self.device,
         )
         if self.device.type == "cuda":
@@ -489,13 +608,17 @@ class Simulator:
         return cfg, states, metrics, steps, wall, bank
 
     def run(self, world: WorldSpec, bank: Bank, *, labels: dict | None = None) -> RunResult:
-        """Run ONE world (a single lockstep lane)."""
+        """Run ONE world (a single lockstep lane; its states keep the [1] lane
+        axis)."""
         self._check_bank(bank, batched=False)
         worlds = tree_map(lambda x: x[None], world)
-        cfg, states, metrics, steps, wall, bank = self._run(worlds, bank, False, "vmap")
+        cfg, states, metrics, steps, wall, bank = self._run(
+            self._cfg_for(worlds.faults), bank, False, "vmap", worlds=worlds
+        )
         return RunResult(
             cfg=cfg, states=states, metrics=metrics, cells=[dict(labels or {})],
-            strategy="vmap", wall_s=wall, steps=steps, bank=bank, bank_batched=False, batched=False,
+            strategy="vmap", wall_s=wall, steps=steps, bank=bank, bank_batched=False,
+            batched=False, layout=_layout(states),
         )
 
     def run_grid(self, grid: Grid, bank: Bank | None = None, *, strategy: str = "auto",
@@ -516,15 +639,74 @@ class Simulator:
         else:
             bank_batched = False
         self._check_bank(bank, batched=bank_batched)
+        worlds = grid.worlds()
         cfg, states, metrics, steps, wall, bank = self._run(
-            grid.worlds(), bank, bank_batched, resolved
+            self._cfg_for(worlds.faults), bank, bank_batched, resolved, worlds=worlds
         )
         return RunResult(
-            cfg=dataclasses.replace(cfg, lockstep=True), states=states,
-            metrics=metrics, cells=[dict(c) for c in grid.cells], strategy=strategy,
-            wall_s=wall, steps=steps, bank=bank,
+            cfg=cfg, states=states, metrics=metrics, cells=[dict(c) for c in grid.cells],
+            strategy=strategy, wall_s=wall, steps=steps, bank=bank,
             bank_batched=bank_batched, batched=True, strategy_resolved=resolved,
+            layout=_layout(states),
         )
 
-    def resume(self, result: RunResult, **kw) -> RunResult:
-        raise not_ported("Simulator.resume", "A5")
+    def _check_states(self, result: RunResult) -> None:
+        """Every leaf of `result.states` as the last run left it: same
+        name, shape, dtype and device, and that device this Simulator's.
+        Nothing is broadcast, cast or moved."""
+        got = _layout(result.states)
+        if [g[0] for g in got] != [w[0] for w in result.layout]:
+            raise ValueError("result.states is not the SimState the run left")
+        for (name, shape, dtype, dev), (_, w_shape, w_dtype, w_dev) in zip(got, result.layout):
+            for what, g, w in (("shape", shape, w_shape), ("dtype", dtype, w_dtype),
+                               ("device", dev, w_dev)):
+                if g != w:
+                    raise ValueError(
+                        f"result.states.{name} has {what} {g}, but the run left {w}: a "
+                        "state edited through with_states must keep every leaf's shape, "
+                        "dtype and device"
+                    )
+            if dev.type != self.device.type:
+                raise ValueError(
+                    f"result.states.{name} is on {dev}, but this Simulator runs on "
+                    f"{self.device}"
+                )
+
+    def resume(self, result: RunResult, *, horizon_s: float | None = None,
+               warmup_s: float | None = None, strategy: str | None = None,
+               mesh_devices: int | None = None) -> RunResult:
+        """Continue a finished run's states (batched or single-world).
+
+        `horizon_s` extends the absolute horizon (a continuation with the
+        old horizon is a no-op: every pending event already lies beyond
+        it); `warmup_s` re-gates the metric warmup for the continued span.
+        Both are rounded to the microsecond, not truncated, as the
+        reference does (`horizon_s` often arrives as ``now / 1e6 +
+        delta``). The fault shape (`max_faults`) is the result's. The
+        placement defaults to the original run's.
+
+        The run steps `result.states`' own tensors in place, the port's
+        form of the reference's donated buffers: `result.states` (and any
+        result sharing its tensors) holds the continued states afterwards
+        and must not be reused as the state it was. Every leaf must still
+        have the shape, dtype and device the run left it with (`ValueError`
+        otherwise, naming the leaf); a leaf replaced through `with_states`
+        is read as it is, and nothing derived from it is recomputed."""
+        if mesh_devices not in (None, 1):
+            raise not_ported("mesh_devices > 1 (multi-GPU grids)", "A7")
+        strategy = strategy if strategy is not None else result.strategy
+        resolved = resolve_strategy(strategy)
+        self._check_states(result)
+        cfg = result.cfg
+        if horizon_s is not None:
+            cfg = dataclasses.replace(cfg, horizon_us=round(horizon_s * 1e6))
+        if warmup_s is not None:
+            cfg = dataclasses.replace(cfg, warmup_us=round(warmup_s * 1e6))
+        cfg, states, metrics, steps, wall, bank = self._run(
+            cfg, result.bank, result.bank_batched, resolved, states=result.states
+        )
+        return RunResult(
+            cfg=cfg, states=states, metrics=metrics, cells=result.cells, strategy=strategy,
+            wall_s=wall, steps=steps, bank=bank, bank_batched=result.bank_batched,
+            batched=result.batched, strategy_resolved=resolved, layout=_layout(states),
+        )

@@ -4,6 +4,7 @@
 |---|---|---|
 | ``vmap`` | one device | lockstep lanes, the [B] axis written out: the branchless fused windowed drain (`fused._omni_window`) with `drain=True` (the default), the single-event step (`omni._omni_step`) with `drain=False`; captured into a CUDA graph on the card |
 | ``map`` / ``mesh`` | — | not ported yet (A2, A7): raise `NotImplementedError` |
+| continuation (``states=``) | the states' device | the same lanes, stepped on from `states` in place (`Simulator.resume`) |
 | ``auto`` | | ``vmap``, the port's one placement (the reference's strategies are bitwise-identical per cell, so the results are the reference's ``map`` results too) |
 """
 
@@ -39,18 +40,25 @@ def placement_cfg(cfg: SimConfig, strategy: str) -> SimConfig:
     return cfg
 
 
-def simulate_batch(cfg: SimConfig, bank, worlds: WorldSpec, *, bank_batched: bool = False,
-                   states=None, strategy: str = "auto", device=None):
+def simulate_batch(cfg: SimConfig, bank, worlds: WorldSpec | None, *,
+                   bank_batched: bool = False, states=None, strategy: str = "auto",
+                   device=None):
     """Run a [B]-stacked batch of worlds in lockstep on `device`.
 
-    Returns (final states [B-batched], list of B metric dicts, lockstep
-    steps executed)."""
-    if states is not None:
-        raise not_ported("continuing states (Simulator.resume)", "A5")
+    Fresh runs build their states from `worlds`. A continuation passes the
+    [B]-batched `states` of an earlier run instead (`worlds` is unused): B
+    comes from `states.now`, and the run steps those tensors in place, the
+    port's form of the reference's donated buffers: the caller must not
+    reuse them as the states they were. Either way the placement's config
+    (`lockstep=True`) is the one that runs.
+
+    Returns (the config that ran, final states [B-batched], list of B
+    metric dicts, lockstep steps executed)."""
     strategy = resolve_strategy(strategy)
     cfg = placement_cfg(cfg, strategy)
-    B = int(worlds.seed.shape[0])
+    if states is None:
+        states = init_state_world(cfg, worlds, device)
+    B = int(states.now.shape[0])
     bank = lane_bank(bank, B, bank_batched)
-    states = init_state_world(cfg, worlds, device)
     states, steps = run(cfg, bank, states)
-    return states, summarize_batch(cfg, states), steps
+    return cfg, states, summarize_batch(cfg, states), steps

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, nothing of `repro`, CUDA by default,
-and loud about what it has not ported yet."""
+"""The PyTorch port stands alone: no JAX, nothing of `repro` or of the
+reference's `benchmarks`, CUDA by default, and loud about what it has not
+ported yet."""
 
 import os
 import pathlib
@@ -22,8 +23,8 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import importlib, pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "             or k == 'repro' or k.startswith('repro.'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro', "
+        "'benchmarks'))\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]), bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -38,7 +39,7 @@ def test_import_leaves_jax_and_repro_unloaded():
 
 # the modules of slices 2 and 3 (the serving path of the LM stack: the
 # dense GQA family, then the recurrent mixers), slice 9's windowed drain and
-# slice 10's fault injection, beside slice 1's
+# slice 10's fault injection and slice 11's bench harness, beside slice 1's
 SLICE_MODULES = [
     "unported.py",
     "configs/registry.py",
@@ -70,11 +71,13 @@ SLICE_MODULES = [
     "core/engine/apply.py",
     "core/engine/fused.py",
     "core/engine/faults.py",
+    "bench/common.py",
+    "bench/smoke.py",
 ]
 
 
 def test_sources_import_no_jax_and_no_repro():
-    pat = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(from|import)\s+(jax|repro|benchmarks)(\.|\s|$)", re.M)
     files = sorted(PKG.rglob("*.py"))
     assert {PKG / m for m in SLICE_MODULES} <= set(files)
     files += [ROOT / "chip_smoke.py", ROOT / "profile_step.py"]
@@ -103,7 +106,7 @@ def _bank():
 
 @pytest.mark.parametrize(
     "case",
-    ["drain", "map", "mesh", "resume", "save"],
+    ["drain", "map", "mesh", "resume-map", "resume-mesh"],
 )
 def test_unported_paths_raise_not_implemented(case):
     bank = _bank()
@@ -124,13 +127,16 @@ def test_unported_paths_raise_not_implemented(case):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sim.run_grid(grid, bank, strategy=case)
         return
+    # resume and save are ported; resume's other placements are not
     res = sim.run_grid(grid, bank)
     assert res.strategy_resolved == "vmap" and res.metrics[0]["noops"] == 0 and res.cfg.drain
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "resume":
-            sim.resume(res)
-        else:
-            res.save("x")
+    if case == "resume-map":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A2"):
+            sim.resume(res, horizon_s=0.1, strategy="map")
+        return
+    for kw in (dict(strategy="mesh"), dict(mesh_devices=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A7"):
+            sim.resume(res, horizon_s=0.1, **kw)
 
 
 def test_grid_validation_messages():
