@@ -257,6 +257,25 @@ Slice 11, continuation (`Simulator.resume`, `RunResult.with_states` /
    step; each leg's steps, seconds, events/s, drain hit rate and mean
    window.
 
+Slice 12, the sequential lanes (`strategy="map"`, `engine.simulate`), run
+after phase 5f:
+
+5g. first the host cost of one eager op and of one host read (what a
+   handler's inner branch costs either way); then (a) the 12 presets at
+   fig5's YCSB deployment cut to T = 8 and 0.3 s (paper RTTs) through
+   `run_grid(strategy="map")`, single-event and drained, fault-free and
+   under CRASH_HEAVY with replicas: every leaf but `fused` equal to the
+   card's vmap lanes, `geo_schedule` launched eagerly, and every final leaf
+   equal to the same map lanes on the CPU; (b) phase 5's world (fig5's YCSB
+   deployment at T = 128) for geotp, seed 0, its horizon cut (printed):
+   untimed to the warm-up at 0.3 s (the map lane through `engine.simulate`
+   equal to the vmap lane on every leaf), then timed to 0.6 s in both
+   modes through `engine.simulate(state=)`, each equal to the vmap lane
+   resumed over the same span on every leaf but `fused`. Each run's
+   events/s, host ms an event and launches, beside the vmap lanes' rate
+   without their capture. Every timed run has the host to itself: the
+   CPU's map lanes (four processes) run beside (b)'s untimed prefix.
+
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -456,7 +475,8 @@ def profile_replays(grid, dev, drain, bank=None, terminals=None) -> dict:
     """`profile_step.measure` over a window of replays of `grid`'s captured
     step, windowed (`drain`) or single-event (its output printed); it fails
     unless the trace holds exactly two `geo_schedule_kernel` launches a
-    replay. Returns the summary; `geo_ms` reads B1's device ms a launch."""
+    step (the eager warm-up's and the replays'). Returns the summary;
+    `geo_ms` reads B1's device ms a launch."""
     import profile_step
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -2981,6 +3001,267 @@ def smoke_phase(device=None) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the sequential lanes (strategy="map", engine.simulate)
+# ---------------------------------------------------------------------------
+
+# phase 5g (a): the 12 presets at fig5's YCSB deployment (4 data sources at
+# paper RTTs, 1M records per node, zipf 0.9, 20% distributed, 5 ops), cut to
+# T = 8 and a 0.3 s horizon, fault-free and under CRASH_HEAVY with replicas
+SEQ_T, SEQ_N = 8, 64
+SEQ_HORIZON_S, SEQ_WARMUP_S = 0.3, 0.05
+SEQ_SCHEDULES = {"fault-free": {},
+                 "crash-heavy": dict(faults=CRASH_HEAVY, replica_tau=(60_000,) * 4,
+                                     repl_lag_us=250_000)}
+# (b): phase 5's world (fig5's YCSB deployment at T = 128) for geotp, seed 0,
+# its horizon cut from fig5's 10 s / 2 s to fit the phase's time: run untimed
+# to the warm-up, then timed over a span longer than the 251 ms round trip to
+# DS 3, so the timed events are past the start-up burst
+SEQ_MAIN_WARMUP_S, SEQ_MAIN_HORIZON_S = 0.3, 0.6
+
+
+def seq_bank(terminals, txns, seed=0):
+    from repro_torch.core import workloads
+
+    return workloads.make_ycsb_bank(
+        workloads.YCSBConfig(num_ds=4, records_per_node=1_000_000, ops_per_txn=5,
+                             dist_ratio=0.2, theta=0.9, seed=seed), terminals, txns)
+
+
+def seq_grid(schedule):
+    from repro_torch.core.engine import Grid
+    from repro_torch.core.protocols import PRESETS
+
+    return Grid([dict(preset=p, **SEQ_SCHEDULES[schedule]) for p in sorted(PRESETS)])
+
+
+def seq_run(schedule, drain, strategy, device):
+    """Phase 5g (a)'s grid through `run_grid(strategy=...)` on `device`:
+    (RunResult, geo_schedule launches counted over the run)."""
+    from repro_torch.core.engine import Simulator
+    from repro_torch.kernels.geo_schedule import ops
+
+    bank = seq_bank(SEQ_T, SEQ_N)
+    sim = Simulator.from_bank(bank, horizon_s=SEQ_HORIZON_S, warmup_s=SEQ_WARMUP_S, drain=drain,
+                              track_slots=True, device=device)
+    ops.geo_schedule.launches = 0
+    res = sim.run_grid(seq_grid(schedule), bank, strategy=strategy)
+    return res, ops.geo_schedule.launches
+
+
+def seq_cpu_run(schedule, drain):
+    """Phase 5g (a)'s map lanes on the CPU (eager, one thread), in a process
+    of its own: a stand-in for the RunResult with the
+    final states as numpy arrays."""
+    import types
+
+    from repro_torch.core.engine.state import tree_map
+
+    torch.set_num_threads(1)
+    res, _ = seq_run(schedule, drain, "map", "cpu")
+    return types.SimpleNamespace(steps=res.steps, events=res.events, wall_s=res.wall_s,
+                                 states=tree_map(lambda x: x.numpy(), res.states))
+
+
+def start_seq_cpu_runs():
+    """Phase 5g (a)'s four CPU runs, one process each."""
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        4, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {(sch, drain): pool.submit(seq_cpu_run, sch, drain)
+                  for sch in SEQ_SCHEDULES for drain in (False, True)}
+
+
+def map_line(label, res, launches) -> str:
+    """Events/s, host ms an event and launches of a map run on the card."""
+    return (f"{label}: {len(res)} lanes, {res.steps} sequential steps, {res.events} events, "
+            f"{res.wall_s:.3f} s, {res.events / res.wall_s:.1f} events/s, "
+            f"{res.wall_s / res.events * 1e3:.4f} host ms an event, geo_schedule launches "
+            f"{launches} ({launches / res.events:.4f} an event)")
+
+
+def states_equal_but(a, b, skip, what) -> None:
+    bad = [(n, lanes) for n, lanes in leaf_mismatches(a, b) if n not in skip]
+    for name, lanes in bad:
+        print(f"MISMATCH leaf {name} lanes {lanes}")
+    if bad:
+        raise AssertionError(f"{len(bad)} SimState leaves differ: {what}")
+    print(f"every SimState leaf{' but ' + '/'.join(skip) if skip else ''} equal: {what}")
+
+
+def branch_costs(dev, n=2000) -> tuple[float, float]:
+    """Host us of one eager op at the handlers' sizes (a [1, 4] `torch.where`)
+    and of one host read of a predicate after it (`handlers._flags`: the
+    device-to-host copy and its wait): a handler's inner branch costs one
+    read as a host branch, or both bodies' ops as a masked write."""
+    from repro_torch.core.engine.handlers import _flags
+
+    x = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    m = x > 0
+    p = m.any(1)
+    times = []
+    for read in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            y = torch.where(m, x, 1)
+            if read:
+                _flags(p)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        del y
+    op_us, read_us = times[0], times[1] - times[0]
+    print(f"host cost on the card: one eager [1, 4] op {op_us:.2f} us, one host read of a "
+          f"predicate after it {read_us:.2f} us (= {read_us / op_us:.1f} ops)")
+    return op_us, read_us
+
+
+def seq_main_warm(device):
+    """Phase 5g (b)'s untimed prefix: phase 5's world for geotp, single-event,
+    to the warm-up, the map lane through `engine.simulate` and the vmap lane
+    through `run_grid`, equal on every leaf. Returns (bank, the map lane's
+    state, the vmap RunResult)."""
+    from repro_torch.core.engine import Grid, Simulator, simulate
+    from repro_torch.core.netmodel import PAPER_RTT_MS, derive_tau_ds_us, make_net_params
+
+    bank = seq_bank(T_MAIN, 256)
+    sim = Simulator.from_bank(bank, horizon_s=SEQ_MAIN_WARMUP_S, warmup_s=0.05, drain=False,
+                              device=device)
+    tau = make_net_params(PAPER_RTT_MS).tau_dm
+    cfg = dataclasses.replace(sim.cfg, lockstep=False)
+    state, m = simulate(cfg, bank, tau, derive_tau_ds_us(tau), 30, device=sim.device)
+    if m["noops"] != 0:
+        raise AssertionError(f"engine.simulate: {m['noops']} noops")
+    vres = sim.run_grid(Grid([dict(preset="geotp", seed=0)], banks=[bank]), strategy="vmap")
+    states_equal_but(state, vres.states, (), f"T={T_MAIN} geotp to the warm-up, map vs vmap lane")
+    return bank, state, vres
+
+
+def seq_main_timed(bank, warm, vwarm, device) -> tuple[int, dict]:
+    """Phase 5g (b)'s timed span, from the warm-up to the horizon, in both
+    modes: the map lane through `engine.simulate(state=)` and the vmap lane
+    through `resume`, from copies of the warm states. Each mode's map lane
+    equals its vmap lane on every leaf but `fused`; the two map lanes agree
+    but the drain telemetry. The vmap lane's rate leaves out its capture.
+    Returns (geo_schedule launches, the numbers printed)."""
+    from repro_torch.core.engine import Simulator, batch, simulate
+    from repro_torch.core.engine.metrics import drain_stats
+    from repro_torch.core.engine.state import tree_map
+    from repro_torch.core.netmodel import PAPER_RTT_MS, derive_tau_ds_us, make_net_params
+    from repro_torch.kernels.geo_schedule import ops
+
+    tau = make_net_params(PAPER_RTT_MS).tau_dm
+    base = int(warm.iters[0])
+    launches, out, runs = 0, {}, {}
+    for drain in (False, True):
+        mode = "drained" if drain else "single-event"
+        sim = Simulator.from_bank(bank, horizon_s=SEQ_MAIN_HORIZON_S,
+                                  warmup_s=SEQ_MAIN_WARMUP_S, drain=drain, device=device)
+        cfg = dataclasses.replace(sim.cfg, lockstep=False)
+        state = tree_map(torch.clone, warm)
+        ops.geo_schedule.launches = 0
+        t0 = time.perf_counter()
+        state, m = simulate(cfg, bank, tau, derive_tau_ds_us(tau), 30, state=state,
+                            device=sim.device)
+        wall = time.perf_counter() - t0
+        n = ops.geo_schedule.launches
+        events = m["events"] - base
+        if n <= 0 and state.now.device.type == "cuda":
+            raise AssertionError(f"T={T_MAIN} geotp {mode}: no geo_schedule launch")
+        if m["noops"] != 0 or m["commits"] <= 0:
+            raise AssertionError(f"engine.simulate {mode}: {m['noops']} noops, "
+                                 f"{m['commits']} commits")
+        vcopy = vwarm.with_states(tree_map(torch.clone, vwarm.states))
+        vcopy = dataclasses.replace(vcopy, cfg=dataclasses.replace(vcopy.cfg, drain=drain))
+        vres = sim.resume(vcopy, horizon_s=SEQ_MAIN_HORIZON_S, warmup_s=SEQ_MAIN_WARMUP_S)
+        vcap = batch.run.capture_s
+        vevents = vres.events - base
+        drained = ""
+        if drain:
+            d = drain_stats(state, horizon_us=cfg.horizon_us)
+            drained = (f", drain hit rate {d['drain_hit_rate']}, mean window "
+                       f"{d['mean_window_len']}")
+        print(f"{mode}, engine.simulate(state=) from {SEQ_MAIN_WARMUP_S} s: {events} events, "
+              f"{wall:.3f} s, {events / wall:.1f} events/s, {wall / events * 1e3:.4f} host ms "
+              f"an event, geo_schedule launches {n} ({n / events:.4f} an event){drained}; the "
+              f"vmap lane resumed: {vres.steps} steps, {vres.wall_s:.3f} s with "
+              f"{vcap:.3f} s of capture, {vevents / (vres.wall_s - vcap):.1f} events/s "
+              f"without it")
+        if vevents != events:
+            raise AssertionError(f"{events} events, the vmap lane {vevents}")
+        states_equal_but(state, vres.states, ("fused",), f"T={T_MAIN} geotp, {mode}: map vs vmap")
+        runs[drain] = state
+        launches += n
+        out["main", mode] = dict(events=events, wall_s=wall, launches=n,
+                                 vmap_wall_s=vres.wall_s - vcap)
+    states_equal_but(runs[True], runs[False], TELEMETRY, f"T={T_MAIN} geotp, drained vs single")
+    return launches, out
+
+
+def sequential_phase(device=None) -> tuple[int, dict]:
+    """Phase 5g: the sequential lanes on the card. (a) the 12 presets
+    through `run_grid(strategy="map")`, drained and single-event,
+    fault-free and crash-heavy: every leaf but `fused` equal to the card's
+    vmap lanes, geo_schedule launched eagerly, and every leaf equal to the
+    CPU's map lanes; (b) phase 5's world for geotp through `engine.simulate`
+    in both modes, from the warm-up to the horizon, each equal to its lane
+    of a vmap run on every leaf but `fused`. Every timed run has the host to
+    itself: the CPU's map lanes (four processes) run beside (b)'s untimed
+    prefix. Returns (the map runs' geo_schedule launches, the numbers
+    printed)."""
+    from repro_torch.core.engine import batch
+    from repro_torch.core.engine.state import tree_map
+
+    launches, out, cards = 0, {}, {}
+    if torch.cuda.is_available() and device != "cpu":
+        out["branch"] = branch_costs(torch.device("cuda"))
+    for sch in SEQ_SCHEDULES:
+        for drain in (False, True):
+            mode = "drained" if drain else "single-event"
+            card, n = seq_run(sch, drain, "map", device)
+            vmap, _ = seq_run(sch, drain, "vmap", device)
+            vcap = batch.run.capture_s
+            if n <= 0 and card.states.now.device.type == "cuda":
+                raise AssertionError(f"{sch} {mode}: no geo_schedule launch on the map lanes")
+            for i, m in enumerate(card.metrics):
+                if m["noops"] != 0 or m["commits"] <= 0:
+                    raise AssertionError(f"{sch} {mode} lane {i}: {m['noops']} noops, "
+                                         f"{m['commits']} commits")
+            print(map_line(f"{sch} {mode}, map on the card", card, n))
+            print(f"{sch} {mode}, vmap on the card: {vmap.steps} lockstep steps, "
+                  f"{vmap.wall_s:.3f} s with {vcap:.3f} s of capture, "
+                  f"{vmap.events / (vmap.wall_s - vcap):.1f} events/s without it "
+                  f"({card.wall_s / (vmap.wall_s - vcap):.2f}x the map lanes' wall)")
+            states_equal_but(card.states, vmap.states, ("fused",),
+                             f"{sch} {mode}, card: map vs vmap lanes")
+            if sch == "crash-heavy":
+                d = card.drain
+                if not (d["abort_causes"]["crash"] > 0 and d["failovers"] > 0):
+                    raise AssertionError(f"the schedule did not bite: {d}")
+            launches += n
+            cards[sch, drain] = card
+            out[sch, mode] = dict(events=card.events, wall_s=card.wall_s, launches=n,
+                                  vmap_wall_s=vmap.wall_s - vcap)
+
+    print(f"CUT (b): phase 5's world (fig5 YCSB, T={T_MAIN}) for geotp, seed 0, untimed to "
+          f"{SEQ_MAIN_WARMUP_S} s, timed to {SEQ_MAIN_HORIZON_S} s (fig5: 10 s / 2 s)")
+    pool, cpu = start_seq_cpu_runs()
+    bank, warm, vwarm = seq_main_warm(device)
+    for (sch, drain), fut in cpu.items():
+        card, cpu_res = cards[sch, drain], fut.result()
+        mode = "drained" if drain else "single-event"
+        if (cpu_res.steps, cpu_res.events) != (card.steps, card.events):
+            raise AssertionError(f"{sch} {mode}: CPU {cpu_res.steps} steps / "
+                                 f"{cpu_res.events} events, card {card.steps} / {card.events}")
+        states_equal_but(card.states, tree_map(torch.from_numpy, cpu_res.states), (),
+                         f"{sch} {mode}, map lanes: card vs CPU ({cpu_res.wall_s:.2f} s)")
+    pool.shutdown()
+    n, main = seq_main_timed(bank, warm, vwarm, device)
+    out.update(main)
+    return launches + n, out
+
+
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 KERNEL_NAMES = ("geo_schedule", "decode_attention", "flash_attention", "mlstm_chunk",
@@ -3001,6 +3282,7 @@ def kernels_line(records) -> str:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     phase("1 environment")
     print("python", sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
     if not torch.cuda.is_available():
@@ -3130,6 +3412,13 @@ def main() -> int:
 
     phase("5f the port's smoke (repro_torch.bench.smoke): fig5 YCSB, T=32, five legs")
     launches += smoke_phase()
+
+    phase(f"5g the sequential lanes on the card: strategy=\"map\" and engine.simulate, 12 "
+          f"presets at T={SEQ_T} and fig5's world at T={T_MAIN}")
+    t0 = time.perf_counter()
+    launches += sequential_phase()[0]
+    print(f"phase 5g: {time.perf_counter() - t0:.1f} s; the script so far "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     print(kernels_line([{
         "name": "geo_schedule",

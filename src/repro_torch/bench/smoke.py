@@ -11,7 +11,8 @@ lanes:
 1. ``grid``: ssp / ssp-local / scalardb / geotp x seeds 0-3 (16 lanes),
    the windowed drain (the default);
 2. ``single``: the same grid with ``drain=False``, in place of the
-   reference's sequential ``map`` leg (not ported: ROADMAP A2);
+   reference's sequential ``map`` leg (`strategy="map"` runs in the port,
+   but it is the slow path on the card; see ROADMAP);
 3. ``faults``: ssp / geotp under SMOKE_FAULTS (two crash / recovery cycles);
 4. ``partitions``: ssp / geotp under SMOKE_PARTITIONS (a middleware cut and
    a degraded link), replicas SMOKE_REPLICAS;
@@ -37,8 +38,9 @@ Left out, and why (printed by every run):
   baseline, mean window length, scheduled-stop share) compare speed and
   windows with a file written on the same host; the port has no stored
   baseline, so it records these numbers and does not gate on them;
-* the seed comparator (`engine.simulate`, sequential: A2), so the entry has
-  no ``events_per_sec_seed`` or ``speedup_vs_seed``.
+* the seed comparator (`engine.simulate`, the sequential single-world
+  entry: the slow path on the card), so the entry has no
+  ``events_per_sec_seed`` or ``speedup_vs_seed``.
 
 The entry (``smoke`` in the bench file, `record_smoke`) has the reference's
 keys less those two, plus `runtime_env`'s and ``map_leg``. Its ``*_map``
@@ -83,12 +85,13 @@ LEGS = ("grid", "single", "faults", "partitions", "protocols")
 # the reference entry's keys the port does not write (the seed comparator)
 LEFT_OUT = ("events_per_sec_seed", "speedup_vs_seed")
 # the key the port adds: what its *_map keys measure
-MAP_LEG = "single-event vmap lanes (drain=False), not the sequential map strategy"
+MAP_LEG = ("single-event vmap lanes (drain=False), in place of the sequential map strategy "
+           "(the slow path on the card)")
 LEFT_OUT_NOTE = (
     "[smoke] left out: the stored-baseline ratchets (events/s at 70% of a stored baseline, "
     "mean window, scheduled-stop share; recorded, not gated: the port has no stored "
-    "baseline) and the seed comparator (engine.simulate is sequential, ROADMAP A2: no "
-    "events_per_sec_seed / speedup_vs_seed)"
+    "baseline) and the seed comparator (engine.simulate is the sequential slow path on "
+    "the card: no events_per_sec_seed / speedup_vs_seed)"
 )
 
 

@@ -1,10 +1,11 @@
-"""The GeoTP discrete-event engine, PyTorch port (lockstep lanes, the
-windowed drain by default as the reference, typed fault schedules with
-heartbeats and replica failover).
+"""The GeoTP discrete-event engine, PyTorch port (captured lockstep lanes
+and sequential map lanes, the windowed drain by default as the reference,
+typed fault schedules with heartbeats and replica failover).
 
-Entry points: `Simulator` / `Grid` / `RunResult` (`api.py`), and the port's
-bench file: `BENCH_FILE`, `runtime_env`, `load_bench`, `record_bench`,
-`record_smoke`.
+Entry points: `Simulator` / `Grid` / `RunResult` (`api.py`), the
+single-world `simulate` (`batch.py`, the reference's `engine.simulate`),
+and the port's bench file: `BENCH_FILE`, `runtime_env`, `load_bench`,
+`record_bench`, `record_smoke`.
 """
 
 from repro_torch.core.engine.api import (
@@ -17,6 +18,7 @@ from repro_torch.core.engine.api import (
     record_smoke,
     runtime_env,
 )
+from repro_torch.core.engine.batch import simulate
 from repro_torch.core.engine.state import (
     SimConfig,
     SimState,
@@ -42,5 +44,6 @@ __all__ = [
     "record_bench",
     "record_smoke",
     "runtime_env",
+    "simulate",
     "stack_worlds",
 ]

@@ -1,5 +1,5 @@
 """Public simulation API: `Simulator` + `Grid` + `RunResult` (port of
-`repro.core.engine.api`, lockstep lanes).
+`repro.core.engine.api`).
 
 * **`Grid`** — a validated sweep over the engine axes `preset`, `rtt_ms`,
   `tau_true_us`, `jitter_milli` (default **30**, as the reference),
@@ -7,15 +7,19 @@
   (typed rows or legacy crash triples, validated per cell, one row count
   across cells), `replica_tau` and `repl_lag_us`, plus free-form labels and
   optional per-cell Banks; the reference's validation messages.
-* **`Simulator`** — runs a Grid's cells as [B] lockstep lanes on one device
-  (`device=None` means CUDA; it raises when no card is present). `drain`
-  defaults to True, as the reference: each step is the fused windowed
-  drain (`fused._omni_window`); `drain=False` steps `omni._omni_step`.
+* **`Simulator`** — runs a Grid's cells on one device (`device=None` means
+  CUDA; it raises when no card is present), as [B] lockstep lanes
+  (`strategy="vmap"`, what `auto` picks) or as sequential lanes, one after
+  another (`strategy="map"`, the slow path on the card). `drain` defaults
+  to True, as the reference: each step is the windowed drain
+  (`fused._omni_window` on lockstep lanes, `apply._drain_step` on map
+  lanes); `drain=False` steps `omni._omni_step` / `step._step`.
   `.resume(result)` continues a result's states to a later horizon (in
-  place: the result's states must not be reused). `strategy="map"/"mesh"`
-  raise. A grid's fault row count sets the run's `SimConfig.max_faults`.
+  place: the result's states must not be reused), on either placement.
+  `strategy="mesh"` raises. A grid's fault row count sets the run's
+  `SimConfig.max_faults`.
 * **`RunResult`** — final states (batched over cells), one metric dict per
-  cell, the lockstep step count, wall time; `.rows()`, `.world(i)`,
+  cell, the step count, wall time; `.rows()`, `.world(i)`,
   `.drain`, `.events`, `.with_states(states)`, and `.save(tag)`, which
   records the run under ``sweeps.<tag>`` in the port's own bench file
   (`BENCH_FILE`, the reference's schema, with the torch runtime and the
@@ -447,8 +451,10 @@ class RunResult:
     metrics: list
     cells: list
     strategy: str
-    wall_s: float  # wall time of the lockstep run, synchronised
-    steps: int  # lockstep steps executed (all lanes together, idle tail included)
+    wall_s: float  # wall time of the run, synchronised
+    # vmap: lockstep steps executed (all lanes together, idle tail
+    # included); map: the lanes' sequential steps (loop iterations) summed
+    steps: int
     bank: Any = None
     bank_batched: bool = False
     batched: bool = True
@@ -489,8 +495,7 @@ class RunResult:
     def save(self, tag: str, path=None) -> dict:
         """Record this run under ``sweeps.<tag>`` in the port's bench file
         (`BENCH_FILE` unless `path`): the reference's keys, its jax runtime
-        keys replaced by `runtime_env`'s, plus ``steps`` (the lockstep steps
-        the run took, idle tail included)."""
+        keys replaced by `runtime_env`'s, plus ``steps`` (`RunResult.steps`)."""
         d = self.drain
         entry = {
             "worlds": len(self.metrics),
@@ -522,7 +527,7 @@ class RunResult:
 
 
 class Simulator:
-    """Facade over the lockstep engine, fixed to one set of static shapes.
+    """Facade over the engine, fixed to one set of static shapes.
 
     `device=None` runs on the card ("cuda") and raises without one; pass
     ``device="cpu"`` to run on the CPU explicitly."""
@@ -623,7 +628,9 @@ class Simulator:
 
     def run_grid(self, grid: Grid, bank: Bank | None = None, *, strategy: str = "auto",
                  mesh_devices: int | None = None) -> RunResult:
-        """Run every cell of a Grid as [B] lockstep lanes on this device."""
+        """Run every cell of a Grid on this device: as [B] lockstep lanes
+        (`strategy="vmap"` or ``"auto"``) or as sequential lanes, one after
+        another (``"map"``)."""
         if mesh_devices not in (None, 1):
             raise not_ported("mesh_devices > 1 (multi-GPU grids)", "A7")
         resolved = resolve_strategy(strategy)

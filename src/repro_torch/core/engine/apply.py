@@ -1,12 +1,12 @@
-"""Masked window application (port of `repro.core.engine.apply`, batched
-over lanes).
+"""Masked window application + the map-lane drain step (port of
+`repro.core.engine.apply`).
 
 `_apply_window` writes a planned window (`window._window_plan`) in ONE
-masked pass, bitwise-identical to stepping its events sequentially;
-`_drainable_due` is the cheap pre-check the reference's two drain paths
-share. The lockstep lanes run both through `fused._omni_window`. The
-reference's sequential drain step (`_drain_step`) falls back to the
-sequential `_step`, which is not ported yet.
+masked pass over [B] lanes, bitwise-identical to stepping its events
+sequentially; `_drainable_due` is the cheap pre-check the two drain paths
+share. The lockstep lanes run both through `fused._omni_window`;
+`_drain_step` is the sequential (map) lanes' drain step, host-gated
+behind the pre-check, with the sequential `_step` as its fallback.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from repro_torch.core.netmodel import INF_US, ewma_update
 from repro_torch.core.workloads import Bank
 from repro_torch.core.engine.chain import _PlanVals
 from repro_torch.core.engine.state import (
+    N_STOP_REASONS,
     OP_NONE, OP_PENDING, OP_ENROUTE, OP_QUEUED, OP_EXEC, OP_HOLD, OP_DONE,
     SUB_SCHED, SUB_RUN, SUB_ROUND_REPLY, SUB_PREP_CMD, SUB_PREPARING, SUB_VOTE,
     SUB_COMMIT_CMD, SUB_ACK, SUB_LOCAL_COMMIT, SUB_ABORT_PEER, SUB_ABORT_ACK,
@@ -26,8 +27,8 @@ from repro_torch.core.engine.state import (
     SimState,
     _times_flat,
 )
-from repro_torch.core.engine.window import K_EWMA
-from repro_torch.unported import not_ported
+from repro_torch.core.engine.step import _step
+from repro_torch.core.engine.window import K_EWMA, _window_plan
 
 I8 = torch.int8
 I32 = torch.int32
@@ -371,6 +372,28 @@ def _drainable_due(s: SimState) -> torch.Tensor:
 
 
 def _drain_step(cfg: SimConfig, bank: Bank, s: SimState) -> SimState:
-    """The reference's sequential-lane drain step: its fallback is the
-    sequential `_step`, which waits for A2."""
-    raise not_ported("the sequential lanes' drain step (_drain_step)", "A2")
+    """One drain iteration of a sequential (map) lane: apply the maximal
+    conflict-free window of events in one masked pass.
+
+    The cheap pre-check routes to the windowed pass only when every event
+    due at the minimum timestamp belongs to a drainable category; txn
+    starts, lock-wait timeouts, fault events and unexpected states take the
+    sequential single-event `_step`, as does any window the prefix scan
+    cuts below two events. Both gates are host branches on one read each.
+    Bitwise-identical to `_step` (`drain=False`) but the windowed-drain
+    telemetry (`drained` / `windows` / `win_stops` / `chained`); `fused`
+    stays 0 on these lanes. `s` is a one-lane state, `bank` a one-lane
+    bank."""
+    if not bool(_drainable_due(s)):
+        return _step(cfg, bank, s)
+    v = _window_plan(cfg, bank, s)
+    if not bool(v.use):
+        return _step(cfg, bank, s)
+    no = torch.zeros_like(v.use)
+    stop_oh = (v.stop_code[:, None] == torch.arange(N_STOP_REASONS, device=no.device)).to(I32)
+    return _apply_window(
+        cfg, s, v, v.win_term, v.win_sub, v.win_op, v.t_last, v.n_win, v.n_win, 1, stop_oh,
+        fused_inc=0, xcancel=False, xlel=0, xcommit=False, xrel=(no, v.cand_t_sub[:, 0],
+                                                                 v.cand_d_sub[:, 0]),
+        act_hb=v.win_hb, chained_inc=v.n_chained, act_fu=v.fu_win, act_pfu=v.pfu_win,
+    )

@@ -1,6 +1,22 @@
-"""Run loop (port of `repro.core.engine.batch.run`, lockstep only).
+"""Run loops and the single-world entry point (port of
+`repro.core.engine.batch`).
 
-The reference runs `jax.vmap` over a `lax.while_loop`: every lane steps
+`run` picks the step as the reference does: the sequential lanes
+(`cfg.lockstep` False, the `map` strategy and `simulate`) step each lane
+on its own with `apply._drain_step` (`cfg.drain`) or `step._step`, the
+lockstep lanes (`vmap`) step all lanes together with the captured
+windowed or single-event step described below.
+
+Sequential lanes. The reference's `lax.map` runs one lane after another,
+each to its own end (`min(_times_flat) >= horizon_us` or `iters >=
+max_events`) with no lane freeze. `run` slices each lane ([1] views of the
+[B] state and bank), steps it on the host's loop (one read of the loop
+condition a step, and the step's own reads of its handler id and inner
+branches) and writes its final leaves back. Which kernels a step runs
+depends on its event, so nothing here is captured: it is the port's slow
+path on the card.
+
+Lockstep lanes. The reference runs `jax.vmap` over a `lax.while_loop`: every lane steps
 until ALL lanes' conditions are false, and a lane whose own condition is
 already false keeps its old state (the vmap lane freeze). `run` does the
 same on a [B]-batched state: each step computes every lane's next state
@@ -32,12 +48,17 @@ import time
 
 import torch
 
-from repro_torch.core.workloads import BANK_ARRAYS, Bank
+from repro_torch.device import resolve_device
+from repro_torch.core.workloads import BANK_ARRAYS, Bank, bank_to
+from repro_torch.core.engine.apply import _drain_step
 from repro_torch.core.engine.fused import _omni_window
+from repro_torch.core.engine.metrics import summarize, to_host, world_index
 from repro_torch.core.engine.omni import _omni_step
 from repro_torch.core.engine.state import (
-    SimConfig, SimState, _times_flat, tree_leaves, tree_map,
+    SimConfig, SimState, _times_flat, init_state_world, make_world, stack_worlds, tree_leaves,
+    tree_map,
 )
+from repro_torch.core.engine.step import _step
 from repro_torch.kernels.geo_schedule import ops as geo_ops
 
 # steps between two host reads of "all lanes done"; safe at any value,
@@ -143,14 +164,45 @@ def _stepper(step, s: SimState):
     return CapturedStep(step) if s.now.device.type == "cuda" else EagerStep(step)
 
 
+def _run_lane(cfg: SimConfig, bank: Bank, s: SimState):
+    """Step one sequential lane (a one-lane state and bank) to its own end.
+    Returns (final state, loop iterations)."""
+    step = _drain_step if cfg.drain else _step
+    n = 0
+    while bool(_active(cfg, s)):
+        s = step(cfg, bank, s)
+        n += 1
+    return s, n
+
+
+def _run_map(cfg: SimConfig, bank: Bank, state: SimState):
+    """Every lane of `state` as a sequential lane, one after another, each
+    written back into `state`'s tensors. Returns (state, the lanes' loop
+    iterations summed)."""
+    steps = 0
+    for b in range(int(state.now.shape[0])):
+        lane = tree_map(lambda x: x[b:b + 1], state)
+        lane_b = bank._replace(**{f: getattr(bank, f)[b:b + 1] for f in BANK_ARRAYS})
+        out, n = _run_lane(cfg, lane_b, lane)
+        for (_, o), (_, x) in zip(tree_leaves(lane), tree_leaves(out)):
+            if x is not o:
+                o.copy_(x)
+        steps += n
+    return state, steps
+
+
 def run(cfg: SimConfig, bank: Bank, state: SimState):
     """Step every lane to the horizon (or the event budget), in place.
 
     `bank` has [B]-leading array leaves (`lane_bank`); `state`'s tensors
-    are updated in place and returned. Returns (final state, lockstep steps
-    executed, idle tail steps included); `run.capture_s` is the last run's
-    warm-up and capture time (0 on the CPU), part of its wall time."""
+    are updated in place and returned. Sequential lanes (`not
+    cfg.lockstep`) return the lanes' loop iterations summed; lockstep lanes
+    the lockstep steps executed, idle tail steps included. `run.capture_s`
+    is the last run's warm-up and capture time (0 on the CPU and for
+    sequential lanes), part of its wall time."""
     run.capture_s = 0.0
+    if not cfg.lockstep:
+        return _run_map(cfg, bank, state)
     steps = 0
     if not bool(_active(cfg, state).any()):
         return state, steps
@@ -167,3 +219,31 @@ def run(cfg: SimConfig, bank: Bank, state: SimState):
 
 
 run.capture_s = 0.0
+
+
+def simulate(cfg: SimConfig, bank: Bank, tau_true_us, tau_ds_us, jitter_milli: int = 0,
+             exec_scale_milli=None, state: SimState | None = None, faults=None,
+             replica_tau=None, repl_lag_us: int = 0, device=None):
+    """Single-world convenience entry (the reference's `engine.simulate`):
+    init (or continue `state`) + run + summarize, on `device` (None means
+    the card). The world takes its knobs from `cfg.proto`; `faults` is a
+    [cfg.max_faults, 6] typed schedule (legacy crash triples are widened,
+    see `state.pad_faults`) and, with `replica_tau` ([D], INF_US = no
+    replica) and `repl_lag_us`, only meaningful on fresh runs of a
+    fault-carrying config. The default `SimConfig` (lockstep False) steps
+    the sequential lane. A continued `state` (a one-lane state this
+    function returned) must lie on `device`, and is stepped in place.
+
+    Returns (final one-lane state, its metric dict)."""
+    dev = resolve_device(device)
+    if state is None:
+        world = make_world(
+            cfg.proto, tau_true_us=tau_true_us, tau_ds_us=tau_ds_us,
+            jitter_milli=jitter_milli, exec_scale_milli=exec_scale_milli, faults=faults,
+            max_faults=cfg.max_faults, replica_tau=replica_tau, repl_lag_us=repl_lag_us,
+        )
+        state = init_state_world(cfg, stack_worlds([world]), dev)
+    elif state.now.device.type != dev.type:
+        raise ValueError(f"state lies on {state.now.device}, but the run is on {dev}")
+    state, _ = run(cfg, lane_bank(bank_to(bank, dev), 1, False), state)
+    return state, summarize(cfg, world_index(to_host(state), 0))

@@ -555,6 +555,25 @@ def _round_done_transition(dyn, is_final, centralized, reply_t, prep_t, local_t,
     return new_state, new_time
 
 
+def _put(x: torch.Tensor, ix: tuple, v) -> torch.Tensor:
+    """One-lane scatter-set, out of place: `x` ([1, ...]) with lane 0's
+    entries at the index tuple `ix` ([1] index tensors, or slices) set to
+    `v` (a tensor broadcastable to them, cast to x's dtype, or a Python
+    scalar). The sequential handlers' form of the reference's
+    `x.at[ix].set(v)`."""
+    if isinstance(v, torch.Tensor):
+        return x[0].index_put(ix, v.to(x.dtype))[None]
+    y = x.clone()
+    y[0][ix] = v
+    return y
+
+
+def _add(x: torch.Tensor, ix: tuple, v: torch.Tensor) -> torch.Tensor:
+    """One-lane scatter-add (`x.at[ix].add(v)`): duplicate indices
+    accumulate."""
+    return x[0].index_put(ix, v.to(x.dtype), accumulate=True)[None]
+
+
 def _lock_wait_deadline(dyn, now):
     return now + torch.where(dyn.opt_abort, 0, dyn.lock_timeout_us)
 

@@ -1,6 +1,6 @@
 """Windowed conflict-free drain: plan the maximal prefix of the event order
-(port of `repro.core.engine.window`, the lockstep route, batched over
-lanes).
+(port of `repro.core.engine.window`, batched over lanes; it serves the
+lockstep lanes and the sequential map lanes alike).
 
 `_window_plan` ranks each lane's concatenated event-time view into the
 exact sequential processing order and finds the longest conflict-free
@@ -77,7 +77,6 @@ from repro_torch.core.engine.state import (
     _tiga_fast,
     _times_flat,
 )
-from repro_torch.unported import not_ported
 
 # Max DM fan-ins per data source per window: the latency monitor applies one
 # EWMA update per fan-in, composed exactly by unrolling this many masked
@@ -126,8 +125,6 @@ def _window_plan(cfg: SimConfig, bank: Bank, s: SimState) -> _PlanVals:
     conflicting pair, so the window stops at the first conflicting event,
     whose stop reason is recorded. Per-slot tensors are exact at candidate
     slots, which are all that any window decision reads."""
-    if not cfg.lockstep:
-        raise not_ported("the sequential lanes' window plan (lockstep=False)", "A4")
     T, D, K, F = cfg.terminals, cfg.num_ds, cfg.max_ops, cfg.max_faults
     M0 = T + T * D + T * K
     # the fault / heartbeat tail slots exist only with a fault schedule

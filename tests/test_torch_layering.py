@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.core import workloads
 from repro_torch.core.engine import Grid, Simulator, apply, window
+from repro_torch.core.engine.batch import lane_bank
+from repro_torch.core.engine.state import init_state_world, stack_worlds
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -39,7 +41,8 @@ def test_import_leaves_jax_and_repro_unloaded():
 
 # the modules of slices 2 and 3 (the serving path of the LM stack: the
 # dense GQA family, then the recurrent mixers), slice 9's windowed drain and
-# slice 10's fault injection and slice 11's bench harness, beside slice 1's
+# slice 10's fault injection, slice 11's bench harness and slice 12's
+# sequential lanes, beside slice 1's
 SLICE_MODULES = [
     "unported.py",
     "configs/registry.py",
@@ -71,6 +74,9 @@ SLICE_MODULES = [
     "core/engine/apply.py",
     "core/engine/fused.py",
     "core/engine/faults.py",
+    "core/engine/step.py",
+    "core/engine/handlers.py",
+    "core/engine/locks.py",
     "bench/common.py",
     "bench/smoke.py",
 ]
@@ -109,30 +115,41 @@ def _bank():
     ["drain", "map", "mesh", "resume-map", "resume-mesh"],
 )
 def test_unported_paths_raise_not_implemented(case):
+    """`mesh` (and `resume`'s mesh placement) raise A7. The sequential
+    lanes run: `_drain_step` and its window plan,
+    `run_grid(strategy="map")` and `resume(strategy="map")`."""
     bank = _bank()
     grid = Grid.cross(preset=("ssp",), rtt_ms=(0.0, 10.0))
-    if case == "drain":
-        # the sequential lanes' drain step falls back to `_step` (A2), and
-        # their window plan ranks by a sort of its own (A4); the lockstep
-        # drain is the default
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A2"):
-            apply._drain_step(None, bank, None)
-        cfg = Simulator.from_bank(bank, device="cpu").cfg
-        assert cfg.drain and not cfg.lockstep
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A4"):
-            window._window_plan(cfg, bank, None)
-        return
     sim = Simulator.from_bank(bank, horizon_s=0.05, warmup_s=0.0, device="cpu")
-    if case in ("map", "mesh"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sim.run_grid(grid, bank, strategy=case)
+    if case == "drain":
+        # the sequential lanes' drain step on a fresh one-lane state, and its
+        # window plan (the sequential config: lockstep False)
+        cfg = sim.cfg
+        assert cfg.drain and not cfg.lockstep
+        s = init_state_world(cfg, stack_worlds([grid.world(0)]))
+        lb = lane_bank(bank, 1, False)
+        plan = window._window_plan(cfg, lb, s)
+        assert plan.pos_term.shape == (1, cfg.terminals)
+        nxt = apply._drain_step(cfg, lb, s)
+        assert int(nxt.iters[0]) >= 1 and int(nxt.noops[0]) == 0
         return
-    # resume and save are ported; resume's other placements are not
+    if case in ("map", "mesh"):
+        if case == "mesh":
+            with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A7"):
+                sim.run_grid(grid, bank, strategy=case)
+            return
+        res = sim.run_grid(grid, bank, strategy="map")
+        assert res.strategy_resolved == "map" and not res.cfg.lockstep
+        assert all(m["noops"] == 0 for m in res.metrics) and res.events > 0
+        return
+    # resume and save are ported; resume's mesh placement is not
     res = sim.run_grid(grid, bank)
     assert res.strategy_resolved == "vmap" and res.metrics[0]["noops"] == 0 and res.cfg.drain
     if case == "resume-map":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A2"):
-            sim.resume(res, horizon_s=0.1, strategy="map")
+        events = res.events
+        res = sim.resume(res, horizon_s=0.1, strategy="map")
+        assert res.strategy_resolved == "map" and not res.cfg.lockstep
+        assert res.events > events and res.metrics[0]["noops"] == 0
         return
     for kw in (dict(strategy="mesh"), dict(mesh_devices=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A7"):

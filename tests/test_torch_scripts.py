@@ -112,6 +112,37 @@ def test_profile_window_of_the_drained_step_on_the_cpu(monkeypatch):
     assert placement.run is batch.run
 
 
+def test_profile_short_trace_says_where_the_kernels_lie():
+    """A captured run's trace that lost a geo_schedule record: the window
+    runs from the first replay range to the end of the run, and
+    `_short_trace` counts the kernels in it, in the whole trace (the eager
+    warm-up step's included) and before and after it."""
+    from types import SimpleNamespace
+
+    cpu, gpu = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def ev(name, dev, t0, t1):
+        return SimpleNamespace(name=name, device_type=dev,
+                               time_range=SimpleNamespace(start=t0, end=t1))
+
+    geo = "_Z19geo_schedule_kernelPKiS0_"
+    events = [ev(profile_step.RUN_LABEL, cpu, 0, 100), ev(profile_step.RUN_LABEL, gpu, 1, 99),
+              ev(profile_step.REPLAY_LABEL, cpu, 20, 90), ev(geo, gpu, 5, 6), ev(geo, gpu, 8, 9),
+              ev("other_kernel", gpu, 26, 27)]
+    events += [ev(geo, gpu, t, t + 1) for t in (25, 30, 45, 50, 65)]  # 3 replays, one lost
+    prof = SimpleNamespace(events=lambda: events)
+    win = profile_step._window(prof, 3 + batch._WARMUP_STEPS, 3)
+    assert (win["t_lo"], win["t_hi"], win["n"]) == (20, 100, 3)
+    geo_in = sum(profile_step.kernel_name(e.name) == profile_step.GEO_KERNEL
+                 for e in win["kernels"])
+    assert geo_in == 5
+    assert profile_step._short_trace(win, geo_in) == {
+        "replays": 3, "geo_in_window": 5, "geo_in_trace": 7, "geo_before_window": 2,
+        "geo_after_window": 0, "kernels_per_replay": 2.0}
+    with pytest.raises(AssertionError, match="replays"):
+        profile_step._window(prof, 3, 3)
+
+
 def test_plan_candidates_sort_equals_the_argmin_route():
     """`window._candidates` (one sort of time * M + index) against the
     reference's W masked argmins (`chip_smoke.candidates_by_argmin`) on
