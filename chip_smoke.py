@@ -18,9 +18,10 @@ Phases (any failure raises; the script then exits non-zero):
    and of the plain version at those two launch shapes;
 4. end to end, GPU vs CPU — all 12 presets (YCSB, T = 16, D = 4, paper
    RTTs, jitter 30, 1 s horizon) through `Simulator(drain=False).run_grid`
-   (the single-event step `_omni_step`) on both devices, the card's run as
-   a captured step replayed from a CUDA graph; every final `SimState` leaf
-   and the step count must be equal;
+   (the single-event step `_omni_step`) on both devices (the CPU's eager
+   run in a process of its own, started in phase 2 beside the builds, as
+   4b's and 4c's), the card's run as a captured step replayed from a CUDA
+   graph; every final `SimState` leaf and the step count must be equal;
 4b. the same with the windowed drain (`drain=True`, the default: the step
    is `fused._omni_window`): GPU == CPU on every leaf, the drain telemetry
    included, and the card's final states equal to phase 4's on every leaf
@@ -35,20 +36,21 @@ Phases (any failure raises; the script then exits non-zero):
    and commits > 0 on every lane, the events the eager step gave
    (MAIN_EVENTS), and that the kernel launched exactly twice per lockstep
    step (the launches of one replay, counted at the capture, times the
-   replays); then `profile_step.measure` over a window of replays: two
-   `geo_schedule_kernel` launches a replay in the trace, their device time,
-   the device busy time and idle share. Phase 5 runs the single-event step
-   (`drain=False`);
+   replays); then (after phase 5d, once the LM kernels' builds have ended,
+   so the profiles run on a quiet host) `profile_step.measure` over a
+   window of replays: two `geo_schedule_kernel` launches a replay in the
+   trace, their device time, the device busy time and idle share. Phase 5
+   runs the single-event step (`drain=False`);
 5b. the same grid drained (`drain=True`, the default path): the same
    MAIN_EVENTS, final states equal to phase 5's on every leaf but the drain
    telemetry, two `geo_schedule` launches a lockstep step; steps, events/s
    beside phase 5's, the drain hit rate, mean window, loop iterations,
    window stops and the capture time; the plan's candidates by one sort
    (`window._candidates`) against the reference's 16 masked argmins on the
-   final event times, equal and both timed; then the windowed replay's profile
-   (kernels a replay, device busy ms, idle share; the kernel record's `ms`
-   is its `geo_schedule` device time a launch, its `launches` phase 5's
-   and 5b's together with phases 4c-5d's).
+   final event times, equal and both timed; then (after 5d) the windowed
+   replay's profile (kernels a replay, device busy ms, idle share; the kernel record's `ms`
+   is its `geo_schedule` device time a launch, its `launches` every
+   engine phase's: 4c-5d, 5e-5g and 5h).
 
 Slice 10, fault injection (typed crash / partition / degrade schedules,
 heartbeats, replica failover) in the captured lockstep steps:
@@ -61,7 +63,8 @@ heartbeats, replica failover) in the captured lockstep steps:
    drained states equal to the single-event ones but the drain
    telemetry, and the schedules biting (crash aborts, failovers, stale
    reads, windows stopped at a fault row);
-5c. fig16 at paper size (`benchmarks/figures.py` under `--full`): T = 48,
+5c. fig16 at paper size (`repro_torch.bench.figures.fig16_sweeps(quick=False)`,
+   the reference's `benchmarks/figures.py` under `--full`): T = 48,
    the fig5 bank (4 data sources at 0/27/73/251 ms, 1M records per node,
    zipf 0.9, 20% distributed), horizon 20 s, warmup 1 s, ssp and geotp x
    two crash / recovery cycles and the fault-free control (4 lanes)
@@ -237,9 +240,10 @@ them to the CPU.
 Slice 11, continuation (`Simulator.resume`, `RunResult.with_states` /
 `save`) and the port's smoke path, run after phase 19:
 
-5e. fig11's online segments (`benchmarks/figures.py:177-210`) at fig11's
-   own size: T = 48, `ycsb_bank(48, theta=0.9, dist_ratio=0.6)`, jitter
-   30; for ssp and for geotp a first 8 s segment (warmup 1 s) through
+5e. fig11's online segments (`repro_torch.bench.figures.fig11_online`, the
+   reference's `benchmarks/figures.py:177-210`) at fig11's own size:
+   T = 48, `ycsb_bank(48, theta=0.9, dist_ratio=0.6)`, jitter 30; for ssp
+   and for geotp a first 8 s segment (warmup 1 s) through
    `Simulator.run`, then three segments, each `with_states` with
    `tau_true` edited and `resume(horizon_s=now / 1e6 + 8.0, warmup_s=0.0)`,
    the captured windowed step captured anew for each. Each preset is a
@@ -262,19 +266,35 @@ after phase 5f:
 
 5g. first the host cost of one eager op and of one host read (what a
    handler's inner branch costs either way); then (a) the 12 presets at
-   fig5's YCSB deployment cut to T = 8 and 0.3 s (paper RTTs) through
+   fig5's YCSB deployment cut to T = 8 and 0.2 s (paper RTTs) through
    `run_grid(strategy="map")`, single-event and drained, fault-free and
    under CRASH_HEAVY with replicas: every leaf but `fused` equal to the
    card's vmap lanes, `geo_schedule` launched eagerly, and every final leaf
    equal to the same map lanes on the CPU; (b) phase 5's world (fig5's YCSB
    deployment at T = 128) for geotp, seed 0, its horizon cut (printed):
    untimed to the warm-up at 0.3 s (the map lane through `engine.simulate`
-   equal to the vmap lane on every leaf), then timed to 0.6 s in both
+   equal to the vmap lane on every leaf), then timed to 0.45 s in both
    modes through `engine.simulate(state=)`, each equal to the vmap lane
    resumed over the same span on every leaf but `fused`. Each run's
    events/s, host ms an event and launches, beside the vmap lanes' rate
    without their capture. Every timed run has the host to itself: the
    CPU's map lanes (four processes) run beside (b)'s untimed prefix.
+
+Slice 13, the paper's figure sweeps through the port
+(`repro_torch.bench.figures`), run after phase 5g:
+
+5h. every figure of `ALL_FIGURES` but fig11, fig16 and fig17 (phases 5c-5e
+   run those uncut): 12 figures, 19 grids, 204 lanes, each sweep at the
+   reference's quick widths (T = 48; fig5's T 16 / 32 / 64 YCSB and
+   16 / 32 TPC-C; fig7's 60 lanes with the QURO banks, fig9's TPC-C
+   Payment / NewOrder banks, fig14's 15- and 25-op and 1-3-round banks,
+   fig1's two data sources of 500,000 records, fig18's 28 protocol lanes)
+   through `figures.run` (`run_sweep` on the captured windowed step), only
+   the horizon cut (FIGURES_CUT): every lane's events, commits, aborts
+   and hist_all digest equal to the JAX reference's (FIGURES_REF), two
+   `geo_schedule` launches a step; each grid's steps, seconds and events/s;
+   the figures' row code on the results and `claims.validate`'s verdicts
+   on those cut payloads, printed and not gated.
 
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
@@ -677,8 +697,7 @@ def leaf_mismatches(a, b):
 SMALL_T, SMALL_K, SMALL_D, SMALL_N = 8, 4, 2, 32
 SMALL_RTT = (10.0, 100.0)
 SMALL_HORIZON_S = 2.0
-MW, KIND_CRASH, KIND_PARTITION, KIND_DEGRADE = -1, 0, 1, 2
-INF_US = 1 << 30  # repro_torch.core.netmodel.INF_US: a time that never comes
+MW, KIND_PARTITION, KIND_DEGRADE = -1, 1, 2
 CRASH_HEAVY = ((100_000, 0, 400_000), (600_000, 1, 1_300_000), (1_500_000, 0, 1_700_000))
 PART_HEAVY = (
     (200_000, KIND_PARTITION, MW, 0, 1_200_000, 0),
@@ -687,24 +706,10 @@ PART_HEAVY = (
 )
 REPLICA_TAU, REPL_LAG_US = (60_000, 60_000), 250_000
 
-# phases 5c / 5d: fig16 and fig17 at paper size (benchmarks/figures.py
-# under --full): T 48, fig5's YCSB bank (4 data sources at 0/27/73/251 ms,
-# 1M records per node, zipf 0.9, 20% distributed), horizon 20 s, warmup 1 s
-FIG_T = 48
-FIG_HORIZON_S, FIG_WARMUP_S = 20.0, 1.0
-FIG16_CRASHES = ((2_000_000, 0, 4_000_000), (5_000_000, 2, 6_500_000))
-FIG17_PARTITIONS = (
-    (1_500_000, KIND_PARTITION, MW, 1, 4_000_000, 0),
-    (2_000_000, KIND_DEGRADE, MW, 2, 5_000_000, 4_000),
-    (5_500_000, KIND_PARTITION, 1, 2, 6_500_000, 0),
-)
-_PAD = (INF_US, KIND_CRASH, 0, 0, INF_US, 0)
-FIG17_DEGRADES = (
-    (1_500_000, KIND_DEGRADE, MW, 1, 4_500_000, 6_000),
-    (3_000_000, KIND_DEGRADE, MW, 2, 6_000_000, 4_000),
-    _PAD,
-)
-FIG17_REPLICAS = dict(replica_tau=(30_000,) * 4, repl_lag_us=500_000)
+# phases 5c / 5d: fig16 and fig17 at paper size, their sweeps as
+# `repro_torch.bench.figures` builds them under --full (quick=False): T 48,
+# fig5's YCSB bank (4 data sources at 0/27/73/251 ms, 1M records per node,
+# zipf 0.9, 20% distributed), horizon 20 s, warmup 1 s
 # Each lane's numbers as the JAX reference gives them for the same cells,
 # from `PYTHONPATH=src python -m benchmarks.run --full --only fig16` (and
 # `--only fig17`), read from the results/bench/fig16_faults.json and
@@ -756,18 +761,37 @@ def small_fault_grid():
     return bank, Grid(cells, default_rtt_ms=SMALL_RTT)
 
 
-def cpu_run(drain):
-    """Phase 4c's CPU side (eager, one thread), run in a process of its own
-    so it overlaps the card's phases: a stand-in for its RunResult with the
-    final states as numpy arrays."""
+def presets_grid():
+    """Phases 4 / 4b's grid: the 12 presets (jitter 30, paper RTTs) over fig5's
+    YCSB deployment at T = 16, and their shared bank."""
+    from repro_torch.core import workloads
+    from repro_torch.core.engine import Grid
+    from repro_torch.core.protocols import PRESETS
+
+    bank = workloads.make_ycsb_bank(
+        workloads.YCSBConfig(num_ds=4, records_per_node=1_000_000, ops_per_txn=5,
+                             dist_ratio=0.2, theta=0.9, seed=0), 16, 256)
+    return bank, Grid.cross(preset=tuple(sorted(PRESETS)), jitter_milli=30)
+
+
+# the CPU runs of the GPU-vs-CPU phases: grid, horizon s, warmup s
+CPU_RUNS = {"presets": (presets_grid, 1.0, 0.2), "faults": (small_fault_grid, SMALL_HORIZON_S, 0.0)}
+
+
+def cpu_run(kind, drain):
+    """The CPU side (eager, one thread) of phases 4 / 4b (`kind` "presets")
+    or 4c ("faults"), run in a process of its own so it overlaps the card's
+    phases: a stand-in for its RunResult with the final states as numpy
+    arrays."""
     import types
 
     from repro_torch.core.engine import Simulator
     from repro_torch.core.engine.state import tree_map
 
     torch.set_num_threads(1)
-    bank, grid = small_fault_grid()
-    sim = Simulator.from_bank(bank, horizon_s=SMALL_HORIZON_S, warmup_s=0.0, drain=drain,
+    make, horizon_s, warmup_s = CPU_RUNS[kind]
+    bank, grid = make()
+    sim = Simulator.from_bank(bank, horizon_s=horizon_s, warmup_s=warmup_s, drain=drain,
                               track_slots=True, device="cpu")
     res = sim.run_grid(grid, bank)
     return types.SimpleNamespace(steps=res.steps, events=res.events, wall_s=res.wall_s,
@@ -775,13 +799,26 @@ def cpu_run(drain):
 
 
 def start_cpu_runs():
-    """Phase 4c's two CPU runs (single-event, windowed), started in two
-    processes; returns (pool, {drain: future of a `cpu_run`})."""
+    """The four CPU runs of phases 4, 4b and 4c (single-event, windowed),
+    started in four processes; returns (pool, {(kind, drain): future of a
+    `cpu_run`})."""
     import multiprocessing
 
     pool = concurrent.futures.ProcessPoolExecutor(
-        2, mp_context=multiprocessing.get_context("spawn"))
-    return pool, {drain: pool.submit(cpu_run, drain) for drain in (False, True)}
+        4, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {(kind, drain): pool.submit(cpu_run, kind, drain)
+                  for kind in CPU_RUNS for drain in (False, True)}
+
+
+def cpu_result(cpu_runs, kind, drain):
+    """A copy of a `cpu_run`'s result with its states as tensors again."""
+    import types
+
+    from repro_torch.core.engine.state import tree_map
+
+    run = cpu_runs[kind, drain].result()
+    return types.SimpleNamespace(**{**vars(run), "states": tree_map(torch.from_numpy,
+                                                                    run.states)})
 
 
 def fault_small_phase(cpu_runs):
@@ -789,15 +826,12 @@ def fault_small_phase(cpu_runs):
     schedules, single-event and windowed (the CPU runs from
     `start_cpu_runs`); the drained states equal the single-event ones but
     the drain telemetry. Returns the card's geo_schedule launches."""
-    from repro_torch.core.engine.state import tree_map
-
     bank, grid = small_fault_grid()
     kw = dict(horizon_s=SMALL_HORIZON_S, warmup_s=0.0)
     out = {}
     for drain in (False, True):
-        run = cpu_runs[drain].result()
-        run.states = tree_map(torch.from_numpy, run.states)
-        out[drain] = gpu_vs_cpu(bank, grid, drain, cpu=run, **kw)
+        out[drain] = gpu_vs_cpu(bank, grid, drain, cpu=cpu_result(cpu_runs, "faults", drain),
+                                **kw)
     (single, l1), (drained, l2) = out[False], out[True]
     leaves_but_telemetry_equal(drained["cuda"].states, single["cuda"].states,
                                "phase 4c, drained vs single-event on the card")
@@ -812,25 +846,12 @@ def fault_small_phase(cpu_runs):
     return l1 + l2
 
 
-def fig_cells(fig):
-    """fig16's or fig17's cells, as benchmarks/figures.py builds them."""
-    pad16 = ((INF_US, 0, INF_US),) * len(FIG16_CRASHES)
-    if fig == "fig16":
-        scheds, extra = (("crashes", FIG16_CRASHES), ("fault-free", pad16)), {}
-    else:
-        scheds = (("partitions", FIG17_PARTITIONS), ("degrades", FIG17_DEGRADES),
-                  ("fault-free", (_PAD,) * len(FIG17_PARTITIONS)))
-        extra = FIG17_REPLICAS
-    return [dict(preset=p, faults=sc, schedule=label, **extra)
-            for label, sc in scheds for p in ("ssp", "geotp")]
+def fig_sweep(fig):
+    """fig16's or fig17's sweep at paper size (`figures.fig16_sweeps` /
+    `fig17_sweeps` with quick=False): cells, bank, T, horizon and warmup."""
+    from repro_torch.bench import figures
 
-
-def fig_bank():
-    from repro_torch.core import workloads
-
-    return workloads.make_ycsb_bank(
-        workloads.YCSBConfig(num_ds=4, records_per_node=1_000_000, ops_per_txn=5,
-                             dist_ratio=0.2, theta=0.9, seed=0), FIG_T, 256)
+    return {"fig16": figures.fig16_sweeps, "fig17": figures.fig17_sweeps}[fig](False)[0]
 
 
 def lane_numbers(res, i) -> dict:
@@ -842,18 +863,19 @@ def lane_numbers(res, i) -> dict:
             **{k: d[k] for k in LANE_KEYS[3:]}}
 
 
-def fig_phase(fig, bank, device=None):
-    """Phases 5c / 5d: the figure's grid through `Simulator.run_grid` on the
-    card, the captured windowed step: every lane's numbers equal to the
-    reference's (FIG16_REF / FIG17_REF), two geo_schedule launches a step.
-    Returns (RunResult, Grid, launches)."""
+def fig_phase(fig, device=None):
+    """Phases 5c / 5d: the figure's sweep (`fig_sweep`) through
+    `Simulator.run_grid` on the card, the captured windowed step: every
+    lane's numbers equal to the reference's (FIG16_REF / FIG17_REF), two
+    geo_schedule launches a step. Returns (RunResult, Grid, launches)."""
     from repro_torch.core.engine import Grid, Simulator, batch
     from repro_torch.kernels.geo_schedule import ops
 
-    cells, ref = fig_cells(fig), (FIG16_REF if fig == "fig16" else FIG17_REF)
+    s = fig_sweep(fig)
+    cells, bank, ref = s.cells, s.bank, (FIG16_REF if fig == "fig16" else FIG17_REF)
     grid = Grid(cells)
-    sim = Simulator.from_bank(bank, horizon_s=FIG_HORIZON_S, warmup_s=FIG_WARMUP_S,
-                              device=device)
+    sim = Simulator.from_bank(bank, terminals=s.terminals, horizon_s=s.horizon_s,
+                              warmup_s=s.warmup_s, device=device)
     ops.geo_schedule.launches = 0
     res = sim.run_grid(grid, bank)
     launches = ops.geo_schedule.launches
@@ -2846,12 +2868,10 @@ def slice8_phases(dev, records):
 # slice 11: continuation (Simulator.resume) and the port's smoke path
 # ---------------------------------------------------------------------------
 
-# phase 5e: fig11's online segments (benchmarks/figures.py:177-210) at its
-# own size: T = QUICK_T = 48, ycsb_bank(48, theta=0.9, dist_ratio=0.6)
-FIG11_T = 48
-FIG11_SEGMENTS = ((0, 27, 73, 251), (0, 120, 40, 200), (0, 27, 200, 80), (0, 60, 60, 251))
-FIG11_HORIZON_S, FIG11_WARMUP_S = 8.0, 1.0  # the first segment
-FIG11_SEGMENT_S = 8.0  # each later segment: resume to now / 1e6 + 8.0, warmup 0
+# phase 5e: fig11's online segments at fig11's own size, the chain as
+# `repro_torch.bench.figures.fig11_online` runs it (T = QUICK_T = 48,
+# `figures.fig11_bank()`: ycsb_bank(48, theta=0.9, dist_ratio=0.6),
+# FIG11_SEGMENTS, 8 s segments)
 # (preset, segment, events, commits, aborts, throughput_tps, final clock us)
 # of fig11's online loop run through the JAX reference on the CPU (its
 # single-world `sim.run` / `sim.resume` chain, nothing recorded), printed
@@ -2897,59 +2917,52 @@ SMOKE_REF = {
 
 
 def fig11_online_phase(device=None) -> int:
-    """Phase 5e: fig11's online loop through the port, each preset a
-    single-lane chain of `run`, then `with_states` (tau_true edited) and
-    `resume` a segment; every segment equal to FIG11_ONLINE_REF and two
-    geo_schedule launches a step. Returns the launches."""
-    from repro_torch.bench.common import ycsb_bank
-    from repro_torch.core.engine import Simulator, batch, make_world
+    """Phase 5e: fig11's online loop through the port (`figures.fig11_online`:
+    each preset a single-lane chain of `run`, then `with_states` (tau_true
+    edited) and `resume` a segment); every segment equal to
+    FIG11_ONLINE_REF and two geo_schedule launches a step. Returns the
+    launches."""
+    from repro_torch.bench import figures
+    from repro_torch.core.engine import batch
     from repro_torch.kernels.geo_schedule import ops
 
     t0 = time.perf_counter()
-    bank = ycsb_bank(FIG11_T, theta=0.9, dist_ratio=0.6)
+    bank = figures.fig11_bank()
     print(f"bank built in {time.perf_counter() - t0:.2f} s")
-    sim = Simulator.from_bank(bank, terminals=FIG11_T, horizon_s=FIG11_HORIZON_S,
-                              warmup_s=FIG11_WARMUP_S, device=device)
-    on_card = sim.device.type == "cuda"
     ref = iter(FIG11_ONLINE_REF)
-    total = bad = steps = wall = 0
-    for preset in ("ssp", "geotp"):
-        res, events = None, 0
-        for i, rtt in enumerate(FIG11_SEGMENTS):
-            ops.geo_schedule.launches = 0
-            if res is None:
-                res = sim.run(make_world(preset, tuple(map(float, rtt)), jitter_milli=30), bank)
-                m = dict(res.metrics[0])
-            else:
-                tau = torch.tensor([[int(r * 1000) for r in rtt]], dtype=torch.int32,
-                                   device=sim.device)
-                res = res.with_states(res.states._replace(tau_true=tau))
-                base = int(res.states.commits[0])
-                res = sim.resume(res, horizon_s=int(res.states.now[0]) / 1e6 + FIG11_SEGMENT_S,
-                                 warmup_s=0.0)
-                m = dict(res.metrics[0])
-                m["throughput_tps"] = (int(res.states.commits[0]) - base) / FIG11_SEGMENT_S
-            launches = ops.geo_schedule.launches
-            if launches != (2 * res.steps if on_card else 0):
-                raise AssertionError(f"{preset} segment {i}: geo_schedule launches {launches} "
-                                     f"!= 2 x {res.steps} steps")
-            got = (preset, i, m["events"], m["commits"], m["aborts"], m["throughput_tps"],
-                   int(res.states.now[0]))
-            want = next(ref)
-            seg_events, events = m["events"] - events, m["events"]
-            print(f"{preset:5s} segment {i} tau_true {rtt} ms: events {got[2]} (+{seg_events}) "
-                  f"commits {got[3]} aborts {got[4]} throughput {got[5]} tps now {got[6]} us; "
-                  f"{res.steps} steps, {res.wall_s:.3f} s ({batch.run.capture_s:.3f} s warm-up "
-                  f"and capture), {seg_events / res.wall_s:.1f} events/s, "
-                  f"{res.wall_s / max(res.steps, 1) * 1e3:.4f} ms a step, geo_schedule launches "
-                  f"{launches}: {'the reference' if got == want else f'REFERENCE {want}'}")
-            bad += got != want
-            total, steps, wall = total + launches, steps + res.steps, wall + res.wall_s
-    if bad:
-        raise AssertionError(f"fig11 online: {bad} segments differ from FIG11_ONLINE_REF")
-    print(f"fig11 online: {len(FIG11_ONLINE_REF)} segments equal to the reference; {steps} "
-          f"steps, {wall:.3f} s, {steps / wall:.1f} steps/s, geo_schedule launches {total}")
-    return total
+    tot = dict(launches=0, bad=0, steps=0, wall=0.0)
+    seen = {}
+
+    def check(preset, i, rtt, res, m):
+        launches = ops.geo_schedule.launches
+        ops.geo_schedule.launches = 0
+        on_card = res.states.now.device.type == "cuda"
+        if launches != (2 * res.steps if on_card else 0):
+            raise AssertionError(f"{preset} segment {i}: geo_schedule launches {launches} "
+                                 f"!= 2 x {res.steps} steps")
+        got = (preset, i, m["events"], m["commits"], m["aborts"], m["throughput_tps"],
+               int(res.states.now[0]))
+        want = next(ref)
+        seg_events, seen[preset] = m["events"] - seen.get(preset, 0), m["events"]
+        print(f"{preset:5s} segment {i} tau_true {rtt} ms: events {got[2]} (+{seg_events}) "
+              f"commits {got[3]} aborts {got[4]} throughput {got[5]} tps now {got[6]} us; "
+              f"{res.steps} steps, {res.wall_s:.3f} s ({batch.run.capture_s:.3f} s warm-up "
+              f"and capture), {seg_events / res.wall_s:.1f} events/s, "
+              f"{res.wall_s / max(res.steps, 1) * 1e3:.4f} ms a step, geo_schedule launches "
+              f"{launches}: {'the reference' if got == want else f'REFERENCE {want}'}")
+        tot["bad"] += got != want
+        tot["launches"] += launches
+        tot["steps"] += res.steps
+        tot["wall"] += res.wall_s
+
+    ops.geo_schedule.launches = 0
+    figures.fig11_online(bank, device=device, on_segment=check)
+    if tot["bad"]:
+        raise AssertionError(f"fig11 online: {tot['bad']} segments differ from FIG11_ONLINE_REF")
+    print(f"fig11 online: {len(FIG11_ONLINE_REF)} segments equal to the reference; "
+          f"{tot['steps']} steps, {tot['wall']:.3f} s, {tot['steps'] / tot['wall']:.1f} steps/s, "
+          f"geo_schedule launches {tot['launches']}")
+    return tot["launches"]
 
 
 def smoke_phase(device=None) -> int:
@@ -3007,17 +3020,19 @@ def smoke_phase(device=None) -> int:
 
 # phase 5g (a): the 12 presets at fig5's YCSB deployment (4 data sources at
 # paper RTTs, 1M records per node, zipf 0.9, 20% distributed, 5 ops), cut to
-# T = 8 and a 0.3 s horizon, fault-free and under CRASH_HEAVY with replicas
+# T = 8 and a 0.2 s horizon (for the script's time: by then every lane has
+# committed, and CRASH_HEAVY's first crash, at 0.1 s, has aborted
+# transactions and failed reads over), fault-free and under CRASH_HEAVY with
+# replicas
 SEQ_T, SEQ_N = 8, 64
-SEQ_HORIZON_S, SEQ_WARMUP_S = 0.3, 0.05
+SEQ_HORIZON_S, SEQ_WARMUP_S = 0.2, 0.05
 SEQ_SCHEDULES = {"fault-free": {},
                  "crash-heavy": dict(faults=CRASH_HEAVY, replica_tau=(60_000,) * 4,
                                      repl_lag_us=250_000)}
 # (b): phase 5's world (fig5's YCSB deployment at T = 128) for geotp, seed 0,
 # its horizon cut from fig5's 10 s / 2 s to fit the phase's time: run untimed
-# to the warm-up, then timed over a span longer than the 251 ms round trip to
-# DS 3, so the timed events are past the start-up burst
-SEQ_MAIN_WARMUP_S, SEQ_MAIN_HORIZON_S = 0.3, 0.6
+# to the warm-up, then timed over 0.15 s, past the start-up burst
+SEQ_MAIN_WARMUP_S, SEQ_MAIN_HORIZON_S = 0.3, 0.45
 
 
 def seq_bank(terminals, txns, seed=0):
@@ -3262,6 +3277,246 @@ def sequential_phase(device=None) -> tuple[int, dict]:
     return launches + n, out
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the paper's figure sweeps through the port (repro_torch.bench)
+# ---------------------------------------------------------------------------
+
+# phase 5h: every figure of `figures.ALL_FIGURES` but fig11, fig16 and fig17
+# (phases 5c-5e run those uncut), each sweep at the reference's quick widths
+# (QUICK_T = 48, fig5's T 16 / 32 / 64, every cell and bank), only the
+# horizon cut: FIGURES_CUT = (horizon, warmup) s, the warmup min(its own,
+# 0.15): fig18's 0 stays 0
+FIGURES_5H = ("fig1_motivation", "fig5_overall", "fig7_dist_ratio", "fig8_latency_cdf",
+              "fig9_tpcc", "fig10_network", "fig12_ablation", "table1_heterogeneous",
+              "fig13_yugabyte", "fig14_txn_length", "fig15_multiregion", "fig18_protocols")
+FIGURES_CUT = (0.6, 0.15)
+# {sweep tag: each lane's (preset, events, commits, aborts, crc32 of its
+# hist_all as int32 bytes)} as the JAX reference gives them for phase 5h's
+# sweeps at FIGURES_CUT on the CPU (`benchmarks/figures.py`'s functions with
+# `run_sweep` cut, nothing saved), printed by
+# `PYTHONPATH=src:. JAX_PLATFORMS=cpu python tests/test_torch_figures.py`
+FIGURES_REF = {
+    'fig1': [
+        ('ssp', 16928, 939, 0, 1234280703), ('ssp', 8944, 483, 0, 497032421),
+        ('ssp', 5136, 270, 0, 4137428601), ('ssp', 3781, 209, 0, 3198326785),
+        ('ssp', 3046, 157, 0, 2423067867), ('ssp', 3082, 40, 0, 2922786445),
+        ('ssp', 3604, 146, 0, 3980824225), ('ssp', 2979, 143, 0, 207648897),
+        ('ssp', 2436, 127, 0, 3732618499), ('ssp', 1949, 93, 0, 1841700295),
+    ],
+    'fig5_ycsb_T16': [
+        ('ssp', 637, 16, 0, 2693801418), ('ssp-local', 718, 30, 0, 1745502829),
+        ('scalardb', 362, 12, 0, 3875925303), ('geotp', 761, 32, 0, 1452862473),
+    ],
+    'fig5_ycsb_T32': [
+        ('ssp', 1047, 38, 0, 2356245791), ('ssp-local', 1131, 45, 0, 3445196706),
+        ('scalardb', 574, 26, 0, 4153535130), ('geotp', 1153, 45, 0, 3833942986),
+    ],
+    'fig5_ycsb_T64': [
+        ('ssp', 2492, 89, 0, 1747390005), ('ssp-local', 2571, 107, 0, 2128920002),
+        ('scalardb', 1299, 48, 0, 455011344), ('geotp', 2653, 111, 0, 3795263399),
+    ],
+    'fig5_tpcc_T16': [
+        ('ssp', 737, 25, 0, 1052789633), ('geotp', 848, 27, 0, 970185008),
+    ],
+    'fig5_tpcc_T32': [
+        ('ssp', 1621, 51, 0, 3268324282), ('geotp', 1683, 61, 0, 3158532648),
+    ],
+    'fig7': [
+        ('ssp', 2397, 113, 0, 156276135), ('ssp-local', 2397, 113, 0, 156276135),
+        ('chiller', 2397, 113, 0, 156276135), ('geotp', 2397, 113, 0, 156276135),
+        ('quro', 2397, 113, 0, 156276135), ('ssp', 2417, 99, 0, 2294263006),
+        ('ssp-local', 2427, 111, 0, 2343029101), ('chiller', 2476, 111, 0, 3906147048),
+        ('geotp', 2476, 113, 0, 2810051205), ('quro', 2417, 99, 0, 2294263006),
+        ('ssp', 2143, 64, 0, 1042796970), ('ssp-local', 2112, 75, 0, 3655234571),
+        ('chiller', 2283, 89, 0, 2535526017), ('geotp', 2269, 83, 0, 1999300656),
+        ('quro', 2143, 64, 0, 1042796970), ('ssp', 1975, 41, 0, 2887661766),
+        ('ssp-local', 1965, 61, 0, 3347487073), ('chiller', 2186, 74, 0, 1737275367),
+        ('geotp', 2212, 71, 0, 329615761), ('quro', 1975, 41, 0, 2887661766),
+        ('ssp', 2253, 106, 0, 927093277), ('ssp-local', 2253, 106, 0, 927093277),
+        ('chiller', 2253, 106, 0, 927093277), ('geotp', 2253, 106, 0, 927093277),
+        ('quro', 2259, 105, 0, 3192022124), ('ssp', 1958, 71, 0, 1973254933),
+        ('ssp-local', 2216, 106, 0, 684460822), ('chiller', 2249, 102, 0, 2137685263),
+        ('geotp', 2323, 101, 0, 1470615163), ('quro', 1959, 73, 0, 369477427),
+        ('ssp', 1814, 50, 0, 2947322547), ('ssp-local', 1870, 64, 0, 1487923379),
+        ('chiller', 1952, 70, 0, 669172248), ('geotp', 2033, 76, 0, 4022480613),
+        ('quro', 1818, 50, 0, 873147359), ('ssp', 1716, 34, 0, 215672298),
+        ('ssp-local', 1869, 59, 0, 2107789098), ('chiller', 2014, 63, 0, 3728230160),
+        ('geotp', 2128, 67, 0, 3925068445), ('quro', 1742, 35, 0, 4065832843),
+        ('ssp', 408, 4, 0, 2161373223), ('ssp-local', 408, 4, 0, 2161373223),
+        ('chiller', 408, 4, 0, 2161373223), ('geotp', 408, 4, 0, 2161373223),
+        ('quro', 557, 8, 0, 296462562), ('ssp', 516, 8, 0, 3317275331),
+        ('ssp-local', 509, 11, 0, 3153310626), ('chiller', 466, 8, 0, 300838069),
+        ('geotp', 574, 7, 0, 83510079), ('quro', 531, 7, 0, 2269369302),
+        ('ssp', 663, 11, 0, 3169923284), ('ssp-local', 624, 12, 0, 2964545000),
+        ('chiller', 627, 13, 0, 1567376415), ('geotp', 754, 8, 0, 672990090),
+        ('quro', 643, 8, 0, 3911931157), ('ssp', 671, 7, 0, 2363630216),
+        ('ssp-local', 630, 9, 0, 1760798833), ('chiller', 688, 20, 0, 362431096),
+        ('geotp', 1068, 24, 0, 1317371415), ('quro', 693, 7, 0, 2877345665),
+    ],
+    'fig8': [
+        ('ssp', 2143, 64, 0, 1042796970), ('ssp-local', 2112, 75, 0, 3655234571),
+        ('geotp', 2269, 83, 0, 1999300656), ('ssp', 1814, 50, 0, 2947322547),
+        ('ssp-local', 1870, 64, 0, 1487923379), ('geotp', 2033, 76, 0, 4022480613),
+        ('ssp', 663, 11, 0, 3169923284), ('ssp-local', 624, 12, 0, 2964545000),
+        ('geotp', 754, 8, 0, 672990090),
+    ],
+    'fig9': [
+        ('ssp', 1311, 49, 0, 45931070), ('chiller', 1511, 73, 0, 2232088041),
+        ('geotp', 1568, 73, 0, 3893617802), ('ssp', 3114, 65, 0, 3049496647),
+        ('chiller', 3405, 86, 0, 1067490174), ('geotp', 3481, 84, 0, 4228130806),
+    ],
+    'fig10': [
+        ('ssp', 7457, 381, 0, 3487171446), ('geotp', 8214, 435, 0, 279346996),
+        ('ssp', 4240, 213, 0, 540345699), ('geotp', 4773, 258, 0, 662701967),
+        ('ssp', 2414, 127, 0, 2133517277), ('geotp', 2679, 153, 0, 1629008967),
+        ('ssp', 4283, 225, 0, 1902011899), ('geotp', 4609, 267, 0, 3969694828),
+        ('ssp', 3974, 201, 0, 1603544191), ('geotp', 4540, 258, 0, 3649794595),
+        ('ssp', 3776, 193, 0, 1165141396), ('geotp', 4220, 232, 0, 1098565051),
+    ],
+    'fig12': [
+        ('ssp', 2289, 71, 0, 2211003712), ('geotp-o1', 2530, 91, 0, 2683838244),
+        ('geotp-o1o2', 2415, 94, 0, 2473433086), ('geotp', 2415, 94, 0, 2473433086),
+        ('ssp', 2289, 71, 0, 2211003712), ('geotp-o1', 2530, 91, 0, 2683838244),
+        ('geotp-o1o2', 2415, 94, 0, 2473433086), ('geotp', 2415, 94, 0, 2473433086),
+        ('ssp', 1727, 44, 0, 2392094332), ('geotp-o1', 2126, 72, 0, 3900235971),
+        ('geotp-o1o2', 2135, 76, 0, 4203063260), ('geotp', 2135, 76, 0, 4203063260),
+        ('ssp', 865, 17, 0, 4053693379), ('geotp-o1', 938, 25, 0, 410271420),
+        ('geotp-o1o2', 946, 16, 0, 2041877204), ('geotp', 946, 16, 0, 2041877204),
+        ('ssp', 374, 4, 0, 1444929338), ('geotp-o1', 417, 3, 0, 299704038),
+        ('geotp-o1o2', 400, 2, 0, 2042571748), ('geotp', 400, 2, 0, 2042571748),
+    ],
+    'table1': [
+        ('ssp', 2008, 73, 0, 78115800), ('geotp', 2347, 103, 0, 3844495231),
+        ('ssp', 1755, 41, 0, 231043379), ('geotp', 2061, 66, 0, 2844833949),
+        ('ssp', 2006, 72, 0, 2664330751), ('geotp', 2301, 102, 0, 150806213),
+        ('ssp', 1768, 42, 0, 60415028), ('geotp', 2066, 67, 0, 1110361929),
+        ('ssp', 2011, 73, 0, 2022600897), ('geotp', 2348, 103, 0, 2689564638),
+        ('ssp', 1754, 42, 0, 3997002187), ('geotp', 2064, 69, 0, 1083494389),
+    ],
+    'fig13': [
+        ('ssp', 2417, 99, 0, 2294263006), ('geotp', 2476, 113, 0, 2810051205),
+        ('yugabyte-like', 3162, 154, 0, 226554470), ('ssp', 1958, 71, 0, 1973254933),
+        ('geotp', 2323, 101, 0, 1470615163), ('yugabyte-like', 2801, 143, 0, 2586891190),
+        ('ssp', 516, 8, 0, 3317275331), ('geotp', 574, 7, 0, 83510079),
+        ('yugabyte-like', 545, 14, 0, 411937178),
+    ],
+    'fig14_ops5': [
+        ('ssp', 1958, 71, 0, 1973254933), ('geotp', 2323, 101, 0, 1470615163),
+    ],
+    'fig14_ops15': [
+        ('ssp', 987, 3, 0, 1048439352), ('geotp', 1143, 8, 0, 1095862039),
+    ],
+    'fig14_ops25': [
+        ('ssp', 1019, 7, 0, 2850081044), ('geotp', 1146, 10, 0, 4279590877),
+    ],
+    'fig14_rounds': [
+        ('ssp', 2191, 81, 0, 112832631), ('geotp', 2213, 93, 0, 2377416668),
+        ('ssp', 2030, 56, 0, 3201280696), ('geotp', 2030, 57, 0, 3795863074),
+        ('ssp', 2017, 40, 0, 2254476742), ('geotp', 1976, 47, 0, 3356007588),
+        ('ssp', 1744, 59, 0, 2704040009), ('geotp', 1988, 84, 0, 2164929094),
+        ('ssp', 1761, 43, 0, 966990521), ('geotp', 1887, 53, 0, 552716629),
+        ('ssp', 1712, 28, 0, 3147944997), ('geotp', 1697, 35, 0, 1354157291),
+    ],
+    'fig15': [
+        ('ssp', 1958, 71, 0, 1973254933), ('geotp', 2323, 101, 0, 1470615163),
+        ('ssp', 926, 33, 0, 2898812477), ('geotp', 989, 44, 0, 245692274),
+    ],
+    'fig18': [
+        ('ssp', 3794, 190, 0, 2993876947), ('geotp', 4124, 248, 0, 794283051),
+        ('fastc', 5836, 454, 0, 3711685151), ('opta', 4202, 248, 0, 2403678558),
+        ('tiga', 1825, 138, 0, 3645265538), ('tiga', 1933, 130, 0, 4134107850),
+        ('tiga', 4749, 295, 0, 1971390354), ('ssp', 2289, 109, 0, 3201524982),
+        ('geotp', 2415, 138, 0, 311550104), ('fastc', 3341, 247, 0, 2119379801),
+        ('opta', 2530, 138, 0, 3611239064), ('tiga', 1649, 118, 0, 146833115),
+        ('tiga', 1528, 99, 0, 874719330), ('tiga', 2769, 159, 0, 2958096267),
+        ('ssp', 818, 28, 0, 499377385), ('geotp', 806, 34, 0, 825070020),
+        ('fastc', 1370, 86, 0, 2770873359), ('opta', 4495, 77, 340, 2905888842),
+        ('tiga', 1459, 103, 0, 719653290), ('tiga', 792, 36, 0, 60220614),
+        ('tiga', 775, 31, 0, 910807582), ('ssp', 592, 15, 0, 3439371851),
+        ('geotp', 750, 31, 0, 1996181337), ('fastc', 1415, 90, 0, 3121978183),
+        ('opta', 2845, 50, 201, 2056053491), ('tiga', 1401, 97, 0, 724121783),
+        ('tiga', 839, 40, 0, 241061425), ('tiga', 683, 25, 0, 701457068),
+    ],
+}
+
+
+def hist_digest(hist) -> int:
+    """crc32 of a histogram's int32 bytes (a tensor or an array)."""
+    import zlib
+
+    h = hist.detach().cpu().numpy() if isinstance(hist, torch.Tensor) else np.asarray(hist)
+    return zlib.crc32(np.ascontiguousarray(h, dtype=np.int32).tobytes())
+
+
+def figures_phase(device=None, rows_path=None) -> int:
+    """Phase 5h: each sweep of FIGURES_5H through `figures.run` (the figure's
+    own cells and banks, `run_sweep` on the captured lockstep lanes) at
+    FIGURES_CUT: every lane's events, commits, aborts and hist_all digest
+    equal to FIGURES_REF, two geo_schedule launches a step; each grid's
+    lanes, steps, seconds and events/s. The figures' row code turns the
+    results into their payloads (its lines go to `rows_path`, default
+    build/figures_5h_rows.txt) and `claims.validate` prints its verdicts on
+    them (not gated: the horizon is cut). Returns the launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.bench import claims, figures
+    from repro_torch.bench.common import save
+    from repro_torch.kernels.geo_schedule import ops
+
+    h, w = FIGURES_CUT
+    opts = figures.Options(device=device, horizon_s=h, warmup_s=w, record=False, save=False)
+    launches = steps = events = 0
+    wall, bad, lines = 0.0, [], io.StringIO()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in FIGURES_5H:
+            sweeps, rows = figures.SWEEPS[name]
+            out = []
+            for s in sweeps(True):
+                ops.geo_schedule.launches = 0
+                res = figures.run(s, opts)
+                n = ops.geo_schedule.launches
+                if n != (2 * res.steps if res.states.now.device.type == "cuda" else 0):
+                    raise AssertionError(f"{s.tag}: geo_schedule launches {n} != 2 x "
+                                         f"{res.steps} steps")
+                got = [(c["preset"], m["events"], m["commits"], m["aborts"],
+                        hist_digest(res.world(i).hist_all))
+                       for i, (c, m) in enumerate(zip(s.cells, res.metrics))]
+                want = FIGURES_REF[s.tag]
+                diff = [(i, g, r) for i, (g, r) in enumerate(zip(got, want)) if g != r]
+                if diff or len(got) != len(want):
+                    bad.append((s.tag, diff))
+                cap, K = opts.log[-1]["capture_s"], (s.bank or s.banks[0]).key.shape[-1]
+                print(f"{s.tag}: {len(s.cells)} lanes, T={s.terminals}, K={K}, "
+                      f"{res.steps} steps, {res.events} events, {res.wall_s:.3f} s ({cap:.3f} s "
+                      f"warm-up and capture), {res.events / res.wall_s:.1f} events/s, "
+                      f"{res.wall_s / max(res.steps, 1) * 1e3:.4f} ms a step, geo_schedule "
+                      f"launches {n}: {'every lane the reference' if not diff else diff}",
+                      flush=True)
+                with contextlib.redirect_stdout(lines):
+                    out += rows(opts.sweep(s), res)
+                launches, steps, events = launches + n, steps + res.steps, events + res.events
+                wall += res.wall_s
+            save(name, out, tmp)
+        checks = claims.validate(tmp)
+    path = pathlib.Path(rows_path or ROOT / "build" / "figures_5h_rows.txt")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(lines.getvalue())
+    if bad:
+        raise AssertionError(f"phase 5h: lanes differ from FIGURES_REF: {bad}")
+    n_ok = sum(ok for _, ok, _ in checks)
+    for name, ok, detail in checks:
+        print(f"[{'PASS' if ok else 'FAIL'}] {name} :: {detail}")
+    print(f"{n_ok}/{len(checks)} claims validated on the cut payloads (printed, not gated)")
+    print(f"phase 5h: {len(FIGURES_REF)} grids, {sum(map(len, FIGURES_REF.values()))} lanes "
+          f"equal to the reference; {steps} steps, {events} events, {wall:.3f} s in the runs, "
+          f"{events / wall:.1f} events/s, {time.perf_counter() - t_phase:.1f} s with the banks "
+          f"and rows; geo_schedule launches {launches}; the rows' lines in {path}")
+    return launches
+
+
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 KERNEL_NAMES = ("geo_schedule", "decode_attention", "flash_attention", "mlstm_chunk",
@@ -3287,9 +3542,6 @@ def main() -> int:
     print("python", sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card")
-    from repro_torch.core import workloads
-    from repro_torch.core.engine import Grid
-    from repro_torch.core.protocols import PRESETS
     from repro_torch.kernels import _build
     from repro_torch.kernels.geo_schedule import ops
     from repro_torch.kernels.geo_schedule.ref import geo_schedule_ref
@@ -3309,7 +3561,8 @@ def main() -> int:
     pool = concurrent.futures.ThreadPoolExecutor(len(LM_KERNELS))
     builds = {name: pool.submit(timed_build, name) for name in LM_KERNELS}
     pool.shutdown(wait=False)
-    # phase 4c's CPU runs (~70 s each, eager) beside the builds and phases 3-4b
+    # the CPU runs of phases 4-4c (~25-75 s each, eager) beside the builds and
+    # phases 3-4b
     cpu_pool, cpu_runs = start_cpu_runs()
     t0 = time.perf_counter()
     _build.build("geo_schedule", verbose=True)
@@ -3346,14 +3599,11 @@ def main() -> int:
           f"{max_err:.3g} (the device time a launch inside the captured steps: phases 5, 5b)")
 
     phase("4 end to end: GPU vs CPU, all 12 presets, single-event step (drain=False)")
-    cfg_w = workloads.YCSBConfig(num_ds=4, records_per_node=1_000_000, ops_per_txn=5,
-                                 dist_ratio=0.2, theta=0.9, seed=0)
-    bank16 = workloads.make_ycsb_bank(cfg_w, 16, 256)
-    grid12 = Grid.cross(preset=tuple(sorted(PRESETS)), jitter_milli=30)
-    single12 = gpu_vs_cpu(bank16, grid12, drain=False)[0]
+    bank16, grid12 = presets_grid()
+    single12 = gpu_vs_cpu(bank16, grid12, False, cpu=cpu_result(cpu_runs, "presets", False))[0]
 
     phase("4b end to end: GPU vs CPU, all 12 presets, windowed drain (drain=True)")
-    drained12 = gpu_vs_cpu(bank16, grid12, drain=True)[0]
+    drained12 = gpu_vs_cpu(bank16, grid12, True, cpu=cpu_result(cpu_runs, "presets", True))[0]
     leaves_but_telemetry_equal(drained12["cuda"].states, single12["cuda"].states,
                                "phase 4b vs phase 4 on the card")
     del single12, drained12
@@ -3369,9 +3619,6 @@ def main() -> int:
     grid = main_grid()
     print(f"banks built in {time.perf_counter() - t0:.2f} s")
     single, launches = main_path(grid, drain=False)
-    # the profiles run on a quiet host: the LM kernels' builds end first
-    concurrent.futures.wait(builds.values())
-    geo_single_ms = geo_ms(profile_replays(grid, dev, drain=False))
 
     phase("5b main path drained: fig5 YCSB, T=128, 16 lanes, windowed drain (drain=True)")
     drained, launches_b = main_path(grid, drain=True)
@@ -3380,34 +3627,45 @@ def main() -> int:
     print(f"events/s: drained {drained.events / drained.wall_s:.1f}, single-event "
           f"{single.events / single.wall_s:.1f} ({single.wall_s / drained.wall_s:.4f}x); "
           f"steps {drained.steps} vs {single.steps} ({drained.steps / single.steps:.4f})")
+    launches += launches_b + launches_faults
+    del single, drained
+
+    s16 = fig_sweep("fig16")
+    phase(f"5c fig16 at paper size: T={s16.terminals}, crashes and the fault-free control x "
+          f"ssp / geotp, horizon {s16.horizon_s} s, the captured windowed step")
+    res16, _, l16 = fig_phase("fig16")
+    del res16
+
+    s17 = fig_sweep("fig17")
+    phase(f"5d fig17 at paper size: T={s17.terminals}, partitions / degrades / fault-free x "
+          f"ssp / geotp, replicas at 30 ms, lag 500 ms")
+    res17, grid17, l17 = fig_phase("fig17")
+    launches += l16 + l17
+    del res17
+
+    phase("5-5d profiles of the captured replays: phase 5's, 5b's and 5d's grids")
+    # the profiles run on a quiet host: the LM kernels' builds end first
+    concurrent.futures.wait(builds.values())
+    geo_single_ms = geo_ms(profile_replays(grid, dev, drain=False))
     prof_5b = profile_replays(grid, dev, drain=True)
     geo_dev_ms = geo_ms(prof_5b)
     print(f"geo_schedule device time a launch: {geo_dev_ms:.7f} ms in the windowed graph, "
           f"{geo_single_ms:.7f} ms in the single-event graph")
-    launches += launches_b + launches_faults
-    del single, drained, grid
-
-    phase(f"5c fig16 at paper size: T={FIG_T}, crashes and the fault-free control x ssp / "
-          f"geotp, horizon {FIG_HORIZON_S} s, the captured windowed step")
-    bank48 = fig_bank()
-    res16, _, l16 = fig_phase("fig16", bank48)
-    del res16
-
-    phase(f"5d fig17 at paper size: T={FIG_T}, partitions / degrades / fault-free x ssp / "
-          f"geotp, replicas at 30 ms, lag 500 ms")
-    res17, grid17, l17 = fig_phase("fig17", bank48)
-    launches += l16 + l17
-    del res17
-    prof_5d = profile_replays(grid17, dev, drain=True, bank=bank48, terminals=FIG_T)
+    del grid
+    prof_5d = profile_replays(grid17, dev, drain=True, bank=s17.bank, terminals=s17.terminals)
     print(replay_line("phase 5b's fault-free replay (fig5, T=128, 16 lanes)", prof_5b))
-    print(replay_line(f"phase 5d's faulted replay (fig17, T={FIG_T}, 6 lanes, F=3)", prof_5d))
+    print(replay_line(f"phase 5d's faulted replay (fig17, T={s17.terminals}, 6 lanes, F=3)",
+                      prof_5d))
 
     lm_records = recurrent_phases(dev, serving_phases(dev, builds))
     lm_records = moe_mla_phases(dev, lm_records)[0]
     lm_records = slice8_phases(dev, lm_records)[0]
 
-    phase(f"5e fig11-online-T{FIG11_T}: fig11's online segments through Simulator.resume, "
-          f"{len(FIG11_SEGMENTS)} x {FIG11_SEGMENT_S} s a preset")
+    from repro_torch.bench import figures
+
+    phase(f"5e fig11-online-T{figures.QUICK_T}: fig11's online segments through "
+          f"Simulator.resume, {len(figures.FIG11_SEGMENTS)} x {figures.FIG11_SEGMENT_S} s a "
+          f"preset")
     launches += fig11_online_phase()
 
     phase("5f the port's smoke (repro_torch.bench.smoke): fig5 YCSB, T=32, five legs")
@@ -3418,6 +3676,14 @@ def main() -> int:
     t0 = time.perf_counter()
     launches += sequential_phase()[0]
     print(f"phase 5g: {time.perf_counter() - t0:.1f} s; the script so far "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    h, w = FIGURES_CUT
+    phase(f"5h the paper's figures at full width: {len(FIGURES_5H)} figures, "
+          f"{len(FIGURES_REF)} grids at the quick widths, horizon cut to {h} s (warmup {w} s)")
+    t0 = time.perf_counter()
+    launches += figures_phase()
+    print(f"phase 5h: {time.perf_counter() - t0:.1f} s; the script so far "
           f"{time.perf_counter() - t_start:.1f} s")
 
     print(kernels_line([{

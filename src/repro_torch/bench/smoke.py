@@ -315,8 +315,10 @@ def main(argv=None) -> int:
     ap.add_argument("--path", default=None,
                     help="the bench file to record into (default: results/bench_torch/"
                          "BENCH_engine.json)")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run on the CPU; the default is the card")
     args = ap.parse_args(argv)
-    return smoke(args.path).rc
+    return smoke(args.path, device=args.device).rc
 
 
 if __name__ == "__main__":

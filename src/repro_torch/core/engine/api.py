@@ -58,6 +58,11 @@ from repro_torch.core.engine.state import (
 )
 from repro_torch.unported import not_ported
 
+# engine-owned axes a Grid cell may set; everything else is a free-form label
+GRID_AXES = (
+    "preset", "rtt_ms", "tau_true_us", "jitter_milli", "exec_scale_milli",
+    "seed", "faults", "replica_tau", "repl_lag_us", "clock_skew_us",
+)
 _VECTOR_AXES = ("rtt_ms", "tau_true_us", "exec_scale_milli", "replica_tau")
 _NON_LABEL_AXES = ("tau_true_us", "exec_scale_milli", "faults", "replica_tau")
 

@@ -39,6 +39,15 @@ def resolve_strategy(strategy: str) -> str:
     )
 
 
+def mesh_device_count(strategy: str, mesh_devices: int | None = None) -> int:
+    """Devices the strategy places lanes on: 1 for ``map`` / ``vmap`` (and
+    any other name off the mesh, as the reference answers); ``mesh``
+    raises (A7)."""
+    if strategy == "mesh":
+        raise not_ported('strategy="mesh" (multi-GPU grids)', "A7")
+    return 1
+
+
 def placement_cfg(cfg: SimConfig, strategy: str) -> SimConfig:
     """The strategy's engine configuration: lockstep lanes for vmap,
     sequential lanes for map (a continued vmap result's config says

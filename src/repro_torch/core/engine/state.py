@@ -61,6 +61,9 @@ OP_NONE, OP_PENDING, OP_ENROUTE, OP_QUEUED, OP_WAIT, OP_EXEC, OP_HOLD, OP_DONE =
 # ---- terminal phases -------------------------------------------------------
 T_IDLE, T_ACTIVE, T_COMMIT_LOG, T_COMMIT_WAIT, T_ABORT_WAIT = range(5)
 
+# ---- lock modes ------------------------------------------------------------
+LK_FREE, LK_SHARED, LK_X = 0, 1, 2
+
 HIST_BINS = 128
 _HIST_BASE_US = 100.0  # bin 0 at 100 µs, 8 bins per octave
 
@@ -93,6 +96,7 @@ FAULT_COLS = 6
 #              endpoint_a >= 0: the mesh link a<->b severed (both ways).
 #   DEGRADE    the link's RTT times severity/1000 between start and end.
 KIND_CRASH, KIND_PARTITION, KIND_DEGRADE = 0, 1, 2
+FAULT_KINDS = ("crash", "partition", "degrade")
 MW = -1  # endpoint_a value selecting the middleware side of a link
 _PAD_ROW = (INF_US, KIND_CRASH, 0, 0, INF_US, 0)
 

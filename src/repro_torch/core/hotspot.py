@@ -1,10 +1,13 @@
-"""Hotspot footprint (§IV-C): the engine's fixed-capacity hash table.
+"""Hotspot footprint (§IV-C): the engine's fixed-capacity hash table, and
+the dense record-indexed table.
 
-Port of the hash-table half of `repro.core.hotspot` (`hash_init`,
+Port of `repro.core.hotspot`. The engine's half (`hash_init`,
 `probe_slots_batch`, `find_or_claim_slots`, `eq4_masked_w`,
-`lookup_slots`), written over a leading batch axis: a table is [B, C+1]
-(the last row is a scratch slot), a footprint is [B, K]. The dense
-record-indexed table waits for a later slice.
+`lookup_slots`) is written over a leading batch axis: a table is [B, C+1]
+(the last row is a scratch slot), a footprint is [B, K]. The leaves no
+engine step calls are the reference's single-table functions: the dense
+table (`DenseHotspot`, `dense_*`, indexed by record id) and the scalar
+`hash_lookup` / `hash_touch` with clock eviction.
 
 Four fields per slot, as the paper's §IV-C: w_lat (Eq.4 EWMA of the
 latency share, int32 µs), t_cnt / c_cnt (finished / committed accesses) and
@@ -137,3 +140,140 @@ def eq4_masked_w(w_lat, slot, found, lel, alpha_milli: int) -> torch.Tensor:
     else:
         new = fma_f32(w_old, a, lel * share * oma)
     return torch.clamp(new, 0.0, 1e7).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the leaves no engine step calls: the dense table and the scalar hash ops
+# ---------------------------------------------------------------------------
+
+
+class DenseHotspot(NamedTuple):
+    w_lat: torch.Tensor  # [R] int32 µs
+    t_cnt: torch.Tensor  # [R] int32
+    c_cnt: torch.Tensor  # [R] int32
+    a_cnt: torch.Tensor  # [R] int32
+
+
+def dense_init(num_records: int) -> DenseHotspot:
+    z = torch.zeros((num_records,), dtype=torch.int32)
+    return DenseHotspot(w_lat=z, t_cnt=z.clone(), c_cnt=z.clone(), a_cnt=z.clone())
+
+
+def _safe(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return torch.where(valid, keys.to(torch.int64), 0)
+
+
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] with the reference's gather rule: negative indices wrap once,
+    then out-of-range indices clamp."""
+    n = x.shape[0]
+    return x[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
+
+
+def _scatter_add(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x.at[idx].add(v, mode="drop"): indices outside [-n, n) are dropped."""
+    n = x.shape[0]
+    keep = (idx >= -n) & (idx < n)
+    idx = torch.where(idx < 0, idx + n, idx)
+    return x.index_add(0, idx[keep], v.to(x.dtype)[keep])
+
+
+def _scatter_set(x: torch.Tensor, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x.at[idx].set(v, mode="drop"), duplicates last-wins (XLA:CPU's order)."""
+    n = x.shape[0]
+    keep = (idx >= -n) & (idx < n)
+    idx = torch.where(idx < 0, idx + n, idx)
+    v = last_writer_values(idx[None], v.to(x.dtype)[None])[0]
+    out = x.clone()
+    out[idx[keep]] = v[keep]
+    return out
+
+
+def dense_on_dispatch(hs: DenseHotspot, keys, valid) -> DenseHotspot:
+    """A transaction starts accessing `keys` (a_cnt + 1). t_cnt counts
+    finished accesses, so c_cnt / t_cnt in Eq.(9) is the historical commit
+    ratio, not biased down by in-flight transactions."""
+    return hs._replace(a_cnt=_scatter_add(hs.a_cnt, _safe(keys, valid), valid.to(torch.int32)))
+
+
+def dense_on_complete(hs: DenseHotspot, keys, valid, committed, lel_us, alpha_milli) -> DenseHotspot:
+    """A subtransaction finished (committed or aborted): the Eq.(4) EWMA and
+    the counters. keys / valid [K]; committed a scalar bool; lel_us the
+    measured local execution latency (int32 µs); alpha_milli α in 1/1000.
+    w_r = w_lat_r / Σ w_lat (uniform if the sum is 0), then w_lat_r <- α
+    w_lat_r + (1 - α) LEL w_r in float32, rounded back to int32 µs and
+    capped at 10 s."""
+    safe = _safe(keys, valid)
+    vf = valid.to(torch.float32)
+    old = _gather(hs.w_lat, safe).to(torch.float32)
+    w = old * vf
+    total = w.sum()
+    n = torch.clamp_min(vf.sum(), 1.0)
+    share = torch.where(total > 0.0, w / torch.clamp_min(total, 1.0), vf / n)
+    lel_share = torch.as_tensor(lel_us).to(torch.float32) * share
+    a = torch.as_tensor(alpha_milli).to(torch.float32) / 1000.0
+    new = old * a + lel_share * (1.0 - a)
+    new = torch.clamp(torch.where(valid, new, old), 0.0, 1e7).to(torch.int32)
+    dec = valid.to(torch.int32)
+    return hs._replace(
+        w_lat=_scatter_set(hs.w_lat, safe, new),
+        a_cnt=torch.clamp_min(_scatter_add(hs.a_cnt, safe, -dec), 0),
+        t_cnt=_scatter_add(hs.t_cnt, safe, dec),
+        c_cnt=_scatter_add(hs.c_cnt, safe, dec * torch.as_tensor(committed).to(torch.int32)),
+    )
+
+
+def dense_forecast_lel(hs: DenseHotspot, keys, valid) -> torch.Tensor:
+    """Eq.(5): LEL^ = Σ_r w_lat_r over one subtransaction's records.
+    keys / valid [..., K]; returns [...] int32 µs."""
+    w = _gather(hs.w_lat, _safe(keys, valid)) * valid.to(torch.int32)
+    return w.sum(-1, dtype=torch.int32)
+
+
+def dense_gather_stats(hs: DenseHotspot, keys, valid):
+    """(c_cnt, t_cnt, a_cnt) for Eq.(9); invalid slots read record 0."""
+    safe = _safe(keys, valid)
+    return _gather(hs.c_cnt, safe), _gather(hs.t_cnt, safe), _gather(hs.a_cnt, safe)
+
+
+def _probe_slots(key: torch.Tensor, capacity: int, probes: int) -> torch.Tensor:
+    """One key's probe sequence: (h(k) + i*step) mod C, step odd. The
+    step hashes key + 0x9E3779B9 mod 2**32, as `probe_slots_batch` does
+    (the reference's scalar form overflows its int32 add: ROADMAP §C, C9)."""
+    return probe_slots_batch(torch.as_tensor(key, dtype=torch.int32)[None], capacity, probes)[0]
+
+
+def hash_lookup(hs: HashHotspot, key, probes: int = 8):
+    """Returns (slot, found): the slot holding `key`, or -1."""
+    slots = _probe_slots(key, hs.slot_key.shape[0], probes)
+    match = hs.slot_key[slots] == key
+    found = match.any()
+    slot = torch.where(found, slots[_first_true(match)], -1)
+    return slot.to(torch.int32), found
+
+
+def hash_touch(hs: HashHotspot, key, probes: int = 8):
+    """Find-or-insert `key`; evicts by clock second chance within the probe
+    window when it is full. Returns (hs, slot)."""
+    slots = _probe_slots(key, hs.slot_key.shape[0], probes)
+    keys_at = hs.slot_key[slots]
+    match = keys_at == key
+    empty = keys_at == EMPTY
+    cold = hs.clock[slots] == 0
+    # victim: the first clock == 0 slot of the window, else its first slot
+    victim = torch.where(cold.any(), slots[_first_true(cold)], slots[0])
+    slot = torch.where(match.any(), slots[_first_true(match)],
+                       torch.where(empty.any(), slots[_first_true(empty)], victim))
+    fresh = ~match.any()
+    keep = lambda x: torch.where(fresh, 0, x[slot]).to(x.dtype)  # noqa: E731
+    put = lambda x, v: x.index_put((slot[None],), torch.as_tensor(v, dtype=x.dtype)[None])  # noqa: E731
+    hs = hs._replace(
+        slot_key=put(hs.slot_key, key), w_lat=put(hs.w_lat, keep(hs.w_lat)),
+        t_cnt=put(hs.t_cnt, keep(hs.t_cnt)), c_cnt=put(hs.c_cnt, keep(hs.c_cnt)),
+        a_cnt=put(hs.a_cnt, keep(hs.a_cnt)), clock=put(hs.clock, 1),
+    )
+    # age the rest of the probe window (an approximate clock hand)
+    age = (slots == slot).to(torch.int8)
+    clock = hs.clock.clone()
+    clock.scatter_reduce_(0, slots, age, reduce="amin")
+    return hs._replace(clock=clock), slot.to(torch.int32)

@@ -256,9 +256,11 @@ def test_cli_without_a_card_raises(monkeypatch, tmp_path):
 
 def test_chip_smoke_tables_are_the_figure_and_smoke_cells():
     import chip_smoke
+    from repro_torch.bench import figures
 
-    assert chip_smoke.FIG11_SEGMENTS == fig11_segments()
-    assert chip_smoke.FIG11_T == r_figures.QUICK_T
+    # phase 5e runs fig11's online chain as the port's figures module does
+    assert figures.FIG11_SEGMENTS == fig11_segments()
+    assert figures.QUICK_T == r_figures.QUICK_T
     assert [(r[0], r[1]) for r in chip_smoke.FIG11_ONLINE_REF] == [
         (p, i) for p in ("ssp", "geotp") for i in range(len(fig11_segments()))]
     ref = ref_leg_cells()

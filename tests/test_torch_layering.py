@@ -41,8 +41,9 @@ def test_import_leaves_jax_and_repro_unloaded():
 
 # the modules of slices 2 and 3 (the serving path of the LM stack: the
 # dense GQA family, then the recurrent mixers), slice 9's windowed drain and
-# slice 10's fault injection, slice 11's bench harness and slice 12's
-# sequential lanes, beside slice 1's
+# slice 10's fault injection, slice 11's bench harness, slice 12's
+# sequential lanes and slice 13's figures, claims, examples and shims,
+# beside slice 1's
 SLICE_MODULES = [
     "unported.py",
     "configs/registry.py",
@@ -79,6 +80,13 @@ SLICE_MODULES = [
     "core/engine/locks.py",
     "bench/common.py",
     "bench/smoke.py",
+    "bench/claims.py",
+    "bench/figures.py",
+    "bench/run.py",
+    "examples/quickstart.py",
+    "examples/simulate_paper.py",
+    "examples/serve_geo.py",
+    "core/protocol.py",
 ]
 
 

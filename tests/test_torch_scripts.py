@@ -953,7 +953,7 @@ def test_fault_phase_schedules_are_the_reference_tests(monkeypatch):
 def test_fault_figure_phases_run_the_reference_figures(fig, monkeypatch):
     """Phases 5c / 5d run benchmarks/figures.py's fig16 / fig17 under
     --full: its cells (worlds carried across equal), terminals, horizon,
-    warmup and bank."""
+    warmup and bank, taken from `repro_torch.bench.figures`' sweeps."""
     import jax
     import numpy as np
 
@@ -975,14 +975,15 @@ def test_fault_figure_phases_run_the_reference_figures(fig, monkeypatch):
     with pytest.raises(Seen):
         {"fig16": figures.fig16_faults, "fig17": figures.fig17_partitions}[fig](quick=False)
     want = r_engine.Grid(seen["cells"])
-    got = Grid(chip_smoke.fig_cells(fig))
+    sweep = chip_smoke.fig_sweep(fig)
+    got = Grid(sweep.cells)
     assert got.cells == want.cells and got.max_faults == want.max_faults
     rw = interop.worlds_from_numpy(jax.tree_util.tree_map(np.asarray, want.worlds()))
     for (name, x), (_, y) in zip(tree_leaves(got.worlds()), tree_leaves(rw)):
         assert x.dtype == y.dtype and torch.equal(x, y), name
-    assert seen["terminals"] == chip_smoke.FIG_T
-    assert seen["kw"] == dict(horizon_s=chip_smoke.FIG_HORIZON_S, warmup_s=chip_smoke.FIG_WARMUP_S)
-    ref_bank, bank = seen["bank"], chip_smoke.fig_bank()
+    assert seen["terminals"] == sweep.terminals
+    assert seen["kw"] == dict(horizon_s=sweep.horizon_s, warmup_s=sweep.warmup_s)
+    ref_bank, bank = seen["bank"], sweep.bank
     for f in workloads.BANK_ARRAYS:
         assert np.array_equal(getattr(bank, f).numpy(), np.asarray(getattr(ref_bank, f))), f
     ref = chip_smoke.FIG16_REF if fig == "fig16" else chip_smoke.FIG17_REF
