@@ -81,8 +81,9 @@ heartbeats, replica failover) in the captured lockstep steps:
 
 Slice 2, the serving path of the LM stack (dense GQA, llama3.2-3b):
 
-6. build — `decode_attention.cu`, `flash_attention.cu`, `mlstm_chunk.cu`
-   and `rglru_scan.cu`, each by its own nvcc started beside phase 2's, so
+6. build — `decode_attention.cu`, `flash_attention.cu`, `mlstm_chunk.cu`,
+   `rglru_scan.cu` and (20a) `flash_attention_bwd.cu`, each by its own
+   nvcc started beside phase 2's, so
    they compile while phases 3-5 run; ptxas's line for each variant, and
    a failure if a variant of the two attention kernels or of mlstm_chunk
    has a stack frame or spills;
@@ -287,14 +288,58 @@ Slice 13, the paper's figure sweeps through the port
    run those uncut): 12 figures, 19 grids, 204 lanes, each sweep at the
    reference's quick widths (T = 48; fig5's T 16 / 32 / 64 YCSB and
    16 / 32 TPC-C; fig7's 60 lanes with the QURO banks, fig9's TPC-C
-   Payment / NewOrder banks, fig14's 15- and 25-op and 1-3-round banks,
-   fig1's two data sources of 500,000 records, fig18's 28 protocol lanes)
+   Payment / NewOrder banks, fig14's 15- and 25-op and 1-3-round banks)
    through `figures.run` (`run_sweep` on the captured windowed step), only
-   the horizon cut (FIGURES_CUT): every lane's events, commits, aborts
+   the horizon cut (FIGURES_CUT; fig1, fig10 and fig18, since the training
+   phases, to FIGURES_CUT_SHORT): every lane's events, commits, aborts
    and hist_all digest equal to the JAX reference's (FIGURES_REF), two
    `geo_schedule` launches a step; each grid's steps, seconds and events/s;
    the figures' row code on the results and `claims.validate`'s verdicts
    on those cut payloads, printed and not gated.
+
+Slice 14, training on the card (`forward_train`, the loss, the AdamW train
+step, the data pipeline, the one-round-commit checkpoints, the launcher),
+run after phase 19:
+
+20a. build — `flash_attention_bwd.cu` (the flash backward: an lse / D
+   pre-pass, a dK / dV kernel, a dQ kernel; mma.sync for bf16 with
+   dh <= 128, the CUDA cores else), started in phase 2 beside the
+   other LM kernels and printed in phase 6 with ptxas's line for each
+   variant;
+20b. the backward vs its plain version `attention_bwd_ref` (float32 math)
+   on phase 7's FLASH_CASES and EXTRA_FLASH_CASES shapes and BWD_EXTRA
+   (llama3.2-3b's [2, 2048, 24/8, 128], MLA's dv 64 < dh 96, a window, a
+   chunk-local band, a cap of 50, a non-causal and a cross shape), float32
+   within 1e-4 abs + rel, bf16 each of dQ / dK / dV within 2e-2 relative
+   L2, two calls bit for bit equal; CUDA-event times of the kernel, its
+   plain version and SDPA's backward (timed only) at llama's shape, beside
+   the bound from its flops and bytes;
+20c. one train step (`make_train_step`'s body) of llama3.2-3b at full
+   width cut to 2 layers, weights drawn on the CPU and copied, 2 x 128
+   tokens, on both devices: the loss within 1e-2, grad_norm within 2%,
+   every gradient leaf within 5e-2 relative L2, lr and step equal;
+20d. the same on every attention-only reduced config (llama3.2-3b,
+   qwen2-72b, h2o-danube-3-4b, mixtral-8x7b, llama4-scout, minicpm3-4b,
+   internvl2-26b, seamless-m4t-large-v2: every backward variant through a
+   model; MoE routing held by `routelog.compare`, C6), and xlstm-350m and
+   recurrentgemma-9b raising `not_ported` (A7) on the card: their mLSTM and
+   RG-LRU kernels have no backward yet;
+20e. the training path at full width: llama3.2-3b, 28 layers, weights drawn
+   on the card, AdamW, remat="full", 2 x 2048 tokens, 2 warm-up and 5
+   timed steps on one batch: finite losses, the last below the first, 56
+   forward (with the recompute) and 28 backward flash launches a step; the
+   step's ms, tokens/s and peak memory; then one more step under
+   torch.profiler: the backward kernels' device time against all device
+   kernels' in it, and the kernels with the most device time;
+20f. `repro_torch.launch.train.main` with the reference integration test's
+   arguments (llama3.2-3b reduced, 30 steps, batch 8, seq 64, lr 3e-3,
+   checkpoints every 10): the loss down by more than 0.3 and step 30
+   committed; then `--resume` after step 30's COMMIT is removed (`recover`
+   returns 20, the run goes on); then `repro_torch.examples.train_lm` for 20
+   steps. The kernels line's `flash_attention_bwd` record counts 20e's and
+   20f's backward launches, and their forward launches join
+   `flash_attention`'s. For their time, phase 5h cuts three figures'
+   horizons deeper (FIGURES_SHORT).
 
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
@@ -333,8 +378,11 @@ BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 TF32_TENSOR_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def kernel_label(mangled: str) -> str:
@@ -1494,7 +1542,8 @@ def router(cfg, params, dev, policy, n_requests=ROUTER_REQUESTS):
     return res, eng.stats, time.perf_counter() - t0, len(reqs)
 
 
-LM_KERNELS = ("decode_attention", "flash_attention", "mlstm_chunk", "rglru_scan")
+LM_KERNELS = ("decode_attention", "flash_attention", "mlstm_chunk", "rglru_scan",
+              "flash_attention_bwd")
 STRICT_BUILDS = ("decode_attention", "flash_attention", "mlstm_chunk")  # no stack, no spill
 
 
@@ -1517,7 +1566,8 @@ def serving_phases(dev, builds):
     from repro_torch.models.schema import init_params, param_count
 
     bf16 = torch.bfloat16
-    phase("6 build decode_attention, flash_attention, mlstm_chunk, rglru_scan")
+    phase("6 (and 20a) build decode_attention, flash_attention, mlstm_chunk, rglru_scan, "
+          "flash_attention_bwd")
     for name, fut in builds.items():
         secs = fut.result()
         _build.load(name)
@@ -2865,6 +2915,440 @@ def slice8_phases(dev, records):
 
 
 # ---------------------------------------------------------------------------
+# slice 14: training (forward_train, the loss, the AdamW train step, the data
+# pipeline, the one-round-commit checkpoints, the launcher), with the flash
+# backward
+# ---------------------------------------------------------------------------
+
+# phase 20b: (B, Sq, Sk, H, KV, dh, dv, causal, window, chunk_local, cap) of
+# the backward's checks beyond phase 7's FLASH_CASES and EXTRA_FLASH_CASES
+# shapes: llama3.2-3b's training shape (BWD_MAIN, the timed one), minicpm3's
+# MLA heads (dv 64 < dh 96), a sliding window, a chunk-local band, a cap of
+# 50 at dh 256, a non-causal encoder and a cross shape (Sk != Sq)
+BWD_MAIN = (2, 2048, 2048, 24, 8, 128, 128, True, 0, False, 0.0)
+BWD_EXTRA = [
+    BWD_MAIN,
+    (2, 1024, 1024, 40, 40, 96, 64, True, 0, False, 0.0),
+    (1, 3000, 3000, 8, 2, 128, 128, True, 1024, False, 0.0),
+    (1, 2048, 2048, 8, 4, 128, 128, True, 512, True, 0.0),
+    (1, 1500, 1500, 8, 1, 256, 256, True, 1024, False, 50.0),
+    (2, 777, 777, 8, 8, 64, 64, False, 0, False, 0.0),
+    (2, 96, 1024, 16, 16, 64, 64, False, 0, False, 0.0),
+]
+BWD_F32_TOL = 1e-4  # abs + rel: float32 sums in another order
+BWD_BF16_RL2 = 2e-2  # relative L2 of each of dQ / dK / dV in bf16
+# phases 20c-20e: the GPU-vs-CPU train step's bounds
+TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RL2 = 1e-2, 2e-2, 5e-2
+# a gradient leaf is held against at least this share of the global norm: a
+# top-1 router's gradient is rounding noise (the renormalised gate is 1)
+GRAD_FLOOR = 1e-5
+TRAIN_CPU_LAYERS, TRAIN_CPU_B, TRAIN_CPU_S = 2, 2, 128  # phase 20c
+TRAIN_B, TRAIN_S, TRAIN_WARMUP, TRAIN_STEPS = 2, 2048, 2, 5  # phase 20e
+TRAIN_LR = 5e-5  # phase 20e: at 3e-4 the loss of the repeated batch rose for two steps
+# phase 20d: every attention-only family, reduced; the recurrent two raise
+TRAIN_ARCHS = ("llama3.2-3b", "qwen2-72b", "h2o-danube-3-4b", "mixtral-8x7b",
+               "llama4-scout-17b-a16e", "minicpm3-4b", "internvl2-26b", "seamless-m4t-large-v2")
+UNTRAINED_ARCHS = {"xlstm-350m": "mLSTM", "recurrentgemma-9b": "RG-LRU"}
+# phase 20f: the reference integration test's arguments
+# (tests/integration/test_end_to_end.py), and train_lm's steps
+LAUNCH_ARGS = ["--arch", "llama3.2-3b", "--steps", "30", "--batch", "8", "--seq", "64",
+               "--lr", "3e-3", "--ckpt-every", "10"]
+TRAIN_LM_STEPS = 20
+
+
+def bwd_cases():
+    """Phase 20b's shapes: phase 7's flash cases with V as wide as K, then
+    BWD_EXTRA."""
+    out = [(B, S, S, H, KV, dh, dh, c, w, cl, 0.0) for B, S, H, KV, dh, c, w, cl in FLASH_CASES]
+    out += [(B, S, S, H, KV, dh, dh, c, w, cl, cap)
+            for (B, S, H, KV, dh, c, w, cl), cap in EXTRA_FLASH_CASES]
+    return out + BWD_EXTRA
+
+
+def bwd_inputs(case, dtype, dev, seed=0):
+    """q [B,H,Sq,dh], k [B,KV,Sk,dh], v [B,KV,Sk,dv], dout [B,H,Sq,dv] and
+    the forward kernel's out on them (what training saves), the kernel's
+    layout; the mask's keywords."""
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+
+    B, Sq, Sk, H, KV, dh, dv, causal, window, cl, cap = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (_randn(s, dtype, dev, gen) for s in
+                   ((B, H, Sq, dh), (B, KV, Sk, dh), (B, KV, Sk, dv), (B, H, Sq, dv)))
+    kw = dict(causal=causal, window=window, chunk_local=cl, logit_cap=cap)
+    with torch.no_grad():
+        o = fl_ops.mha(*(x.transpose(1, 2) for x in (q, k, v)), **kw).transpose(1, 2)
+    return (q, k, v, o.contiguous(), do), kw
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def check_bwd(case, dtype, dev, seed=0):
+    """The backward kernel against `attention_bwd_ref` (float32 math) on
+    one case: float32 within BWD_F32_TOL abs + rel, bf16 each of dQ / dK /
+    dV within BWD_BF16_RL2 relative L2; two calls bit for bit equal.
+    Returns (max |d|, the worst relative L2)."""
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    args, kw = bwd_inputs(case, dtype, dev, seed)
+    got = fl_ops.mha_backward(*args, **kw)
+    again = fl_ops.mha_backward(*args, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash backward {case} {dtype}: two calls differ")
+    ref = attention_bwd_ref(*(x.float() for x in args), **kw)
+    err, worst = 0.0, 0.0
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        label = f"flash backward {case} {str(dtype)[6:]} {name}"
+        if dtype == torch.float32:
+            err = max(err, check_close(a, r, BWD_F32_TOL, label))
+        else:
+            err = max(err, (a.float() - r).abs().max().item())
+        rl = rel_l2(a, r)
+        if not np.isfinite(rl) or (dtype != torch.float32 and rl > BWD_BF16_RL2):
+            raise AssertionError(f"{label}: relative L2 {rl:.4g} (limit {BWD_BF16_RL2})")
+        worst = max(worst, rl)
+    return err, worst
+
+
+def bwd_work(case, itemsize):
+    """(bytes, operations) of one backward: q, k, v, o and dO read once, dq,
+    dk and dv written once; 2·(3·dh + 2·dv) flops per unmasked (query, key)
+    pair (the scores' recompute, dP, dV, dQ, dK), pairs counted from the
+    mask."""
+    B, Sq, Sk, H, KV, dh, dv, causal, window, cl, _ = case
+    i = np.arange(Sq)
+    if not causal:
+        pairs = Sq * Sk
+    elif window and cl:
+        pairs = int((i % window + 1).sum())
+    elif window:
+        pairs = int(np.minimum(i + 1, window).sum())
+    else:
+        pairs = int((i + 1).sum())
+    nbytes = itemsize * (2 * B * H * Sq * dh + 2 * B * KV * Sk * (dh + dv) + 2 * B * H * Sq * dv)
+    return nbytes, B * H * pairs * 2 * (3 * dh + 2 * dv)
+
+
+def time_bwd(case, dev):
+    """(kernel, plain, SDPA's backward) ms per call at one bf16 shape, CUDA
+    events. SDPA's backward is timed here only, never used by the port."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    args, kw = bwd_inputs(case, torch.bfloat16, dev, 1)
+    k_ms = cuda_ms(lambda: fl_ops.mha_backward(*args, **kw), 5)
+    p_ms = cuda_ms(lambda: attention_bwd_ref(*args, **kw), 2)
+    q, k, v, _, do = args
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=kw["causal"], enable_gqa=True)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 5)
+    return k_ms, p_ms, lib_ms
+
+
+def train_step_both(cfg, weights, batch, dev, opt, label, routed=False):
+    """One train step (`make_train_step`'s body: `accumulated_grads`, then
+    `adamw.apply_updates`) on the card and on the CPU from the same
+    float32 weights and batch (CPU tensors): the loss within
+    TRAIN_LOSS_TOL, grad_norm within TRAIN_GNORM_RTOL, every gradient leaf
+    within TRAIN_GRAD_RL2 relative L2, lr and step equal. `routed` (MoE):
+    the routing is read on both devices and held by `routelog.compare`;
+    the FFN leaves of a layer whose routing differs at a near tie are
+    counted, not held (C6). Returns {"secs", "worst", "flips"}."""
+    from repro_torch.models import model, routelog, stack
+    from repro_torch.optim import adamw
+
+    cpu = torch.device("cpu")
+    out = []
+    for d in (dev, cpu):
+        params = {k: x.to(d, copy=True) for k, x in weights.items()}
+        b = {k: x.to(d) for k, x in batch.items()}
+        with routelog.RouteLog() if routed else contextlib.nullcontext() as log:
+            t0 = time.perf_counter()
+            loss, grads = model.accumulated_grads(cfg, params, b)
+            grads_cpu = {n: g.float().cpu() for n, g in grads.items()}
+            _, st, m = adamw.apply_updates(opt, params, grads, adamw.init_state(params))
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        m["loss"] = loss
+        out.append(dict(m={k: float(v) for k, v in m.items()}, step=int(st["step"]),
+                        grads=grads_cpu, secs=secs,
+                        routes=[(r.topi.cpu(), r.kept.cpu(), r.gates.cpu())
+                                for r in (log.calls if routed else [])]))
+        del params, grads, st
+    g, c = out
+    if abs(g["m"]["loss"] - c["m"]["loss"]) > TRAIN_LOSS_TOL or not np.isfinite(g["m"]["loss"]):
+        raise AssertionError(f"{label}: loss GPU {g['m']['loss']} vs CPU {c['m']['loss']}")
+    if abs(g["m"]["grad_norm"] / c["m"]["grad_norm"] - 1) > TRAIN_GNORM_RTOL:
+        raise AssertionError(f"{label}: grad_norm GPU {g['m']['grad_norm']} vs CPU "
+                             f"{c['m']['grad_norm']}")
+    if abs(g["m"]["lr"] / c["m"]["lr"] - 1) > 1e-6 or g["step"] != 1 or c["step"] != 1:
+        raise AssertionError(f"{label}: lr / step differ: {g['m']}, {g['step']} vs {c['m']}, "
+                             f"{c['step']}")
+    flipped, flips, decisions = set(), 0, 0
+    for i, (rc, rg) in enumerate(zip(c["routes"], g["routes"])):
+        _, n_flip, n_kept = routelog.compare(rc, rg[:2], f"{label} MoE layer {i}")
+        decisions += rc[0].shape[0] * rc[0].shape[1]
+        if n_flip or n_kept:
+            flipped.add(i)
+            flips += n_flip + n_kept
+    if flips > routelog.MAX_FLIPS * max(decisions, 1):
+        raise AssertionError(f"{label}: {flips} of {decisions} routing decisions differ")
+    moe_pfx = [f"{p}." for p, _, _, fk in stack._layers(cfg) if fk == "moe"]
+    held = {n for n in c["grads"]
+            if not any(n.startswith(moe_pfx[i] + "ffn.") for i in flipped)}
+    worst = 0.0
+    floor = GRAD_FLOOR * c["m"]["grad_norm"]
+    for n in sorted(held):
+        gn, cn = g["grads"][n].double(), c["grads"][n].double()
+        rl = ((gn - cn).norm() / max(cn.norm().item(), floor)).item()
+        if not rl <= TRAIN_GRAD_RL2:
+            raise AssertionError(f"{label}: gradient {n} relative L2 {rl:.4g} (limit "
+                                 f"{TRAIN_GRAD_RL2})")
+        worst = max(worst, rl)
+    print(f"{label}: loss GPU {g['m']['loss']:.6f} CPU {c['m']['loss']:.6f}, grad_norm GPU "
+          f"{g['m']['grad_norm']:.6f} CPU {c['m']['grad_norm']:.6f}, worst gradient relative "
+          f"L2 {worst:.4g} over {len(held)} leaves"
+          + (f" ({len(c['grads']) - len(held)} FFN leaves of layers {sorted(flipped)} not held: "
+             f"{flips} routing flips at near ties)" if flipped else "")
+          + f"; step {g['secs']:.2f} s GPU, {c['secs']:.2f} s CPU", flush=True)
+    return {"secs": g["secs"], "worst": worst, "flips": flips}
+
+
+def reduced_train_batch(cfg, gen, B=2, S=64):
+    """A reduced config's training batch on the CPU: tokens and labels from
+    the data pipeline (step 0); a vision model's 8 patch embeddings ahead;
+    an encoder-decoder's 32 frames with the tokens as its decoder's."""
+    from repro_torch.data.pipeline import DataConfig, global_batch
+
+    b = global_batch(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B), 0, "cpu")
+    if cfg.frontend == "vision":
+        b["patches"] = torch.randn((B, 8, cfg.frontend_dim), generator=gen)
+    if cfg.is_encdec:
+        b = {"frames": torch.randn((B, 32, cfg.frontend_dim), generator=gen),
+             "dec_tokens": b["tokens"], "dec_labels": b["labels"]}
+    return b
+
+
+PROFILE_TOP = 8  # phase 20e: the profiled step's kernels with the most device time
+
+
+def profile_train_step(step, params, state, batch) -> dict:
+    """One more train step under torch.profiler: the device time of the
+    flash backward's kernels (`bwd_pre` / `bwd_dkdv` / `bwd_dq`) and of all
+    device kernels in it (None when the profiler records no device activity),
+    the step's wall under the profiler, the PROFILE_TOP kernel names with
+    the most device time; the new params and state. The loss must be
+    finite."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+        time.sleep(0.25)  # the device's records near the span's end stay in the trace
+    if not np.isfinite(loss):
+        raise AssertionError(f"the profiled train step: loss {loss}")
+    cpu_t = torch.autograd.DeviceType.CPU
+    dev = [e for e in prof.events()
+           if e.device_type != cpu_t and not getattr(e, "is_user_annotation", False)]
+    bwd = [e for e in dev if re.search(r"bwd_(pre|dkdv|dq)_", e.name)]
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+    ms = (lambda evs: sum(e.time_range.elapsed_us() for e in evs) / 1e3) if dev else None
+    return dict(params=params, state=state, loss=loss, wall_ms=wall * 1e3,
+                device_ms=ms(dev) if dev else None, bwd_ms=ms(bwd) if dev else None,
+                bwd_kernels=len(bwd), top=[(n[:90], round(t, 3)) for n, t in top])
+
+
+def training_phases(dev, records, full=None):
+    """Phases 20b-20f (20a, the backward's build, is phase 6's). Adds the
+    record of flash_attention_bwd and folds the training path's forward
+    launches into flash_attention's record. `full`: the full-width config
+    (default llama3.2-3b's). Returns (records, numbers)."""
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.dist.checkpoint import CheckpointManager
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import model, stack
+    from repro_torch.models.schema import init_params, init_params_threefry
+    from repro_torch.optim import adamw
+
+    nums = {}
+    phase("20b flash_attention_bwd vs its plain version (attention_bwd_ref) on the card")
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(bwd_cases()):
+            e, rl = check_bwd(case, dt, dev, seed=i)
+            err = max(err, e)
+            print(f"bwd {str(case):58s} {str(dt)[6:]:8s} max |d| {e:.3g}, worst relative L2 "
+                  f"{rl:.3g}; two calls equal", flush=True)
+    k_ms, p_ms, lib_ms = time_bwd(BWD_MAIN, dev)
+    work = bwd_work(BWD_MAIN, 2)
+    b_ms, b_by = bound(*work, BF16_TENSOR_OPS_PER_S)
+    print(f"bwd {BWD_MAIN} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA backward "
+          f"{lib_ms:.4f} ms; {work[0]} bytes, {work[1]:.4g} flops, bound {b_ms:.4g} ms ({b_by}); "
+          f"{work[1] / k_ms / 1e9:.2f} TFLOP/s")
+    nums["bwd"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms)
+
+    cpu = torch.device("cpu")
+    full = full or registry.get(SERVE_ARCH)
+    cfg2 = dataclasses.replace(full, n_layers=TRAIN_CPU_LAYERS)
+    phase(f"20c train step at full width, {cfg2.n_layers} layers: GPU vs CPU "
+          f"({TRAIN_CPU_B} x {TRAIN_CPU_S} tokens)")
+    t0 = time.perf_counter()
+    weights = init_params(stack.build_schema(cfg2), torch.Generator().manual_seed(0), cpu)
+    print(f"{cfg2.name} x {cfg2.n_layers} layers: weights drawn on the CPU in "
+          f"{time.perf_counter() - t0:.2f} s")
+    batch = global_batch(DataConfig(vocab=cfg2.vocab, seq_len=TRAIN_CPU_S,
+                                    global_batch=TRAIN_CPU_B), 0, cpu)
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    nums["20c"] = train_step_both(cfg2, weights, batch, dev, opt, f"{cfg2.name} x 2 layers")
+    del weights
+
+    phase("20d one train step of every attention-only family (reduced): GPU vs CPU")
+    for arch in TRAIN_ARCHS:
+        cfg = registry.reduced(arch)
+        w = init_params_threefry(stack.build_schema(cfg), 0, cpu)
+        b = reduced_train_batch(cfg, torch.Generator().manual_seed(1))
+        train_step_both(cfg, w, b, dev, opt, cfg.name, routed=bool(cfg.n_experts))
+    for arch, kernel in UNTRAINED_ARCHS.items():
+        cfg = registry.reduced(arch)
+        w = init_params_threefry(stack.build_schema(cfg), 0, dev)
+        b = {k: x.to(dev) for k, x in
+             reduced_train_batch(cfg, torch.Generator().manual_seed(1)).items()}
+        try:
+            model.make_train_step(cfg, opt)(w, adamw.init_state(w), b)
+        except NotImplementedError as e:
+            if kernel not in str(e) or "A7" not in str(e):
+                raise
+            print(f"{cfg.name}: raises on the card as it must: {e}")
+        else:
+            raise AssertionError(f"{cfg.name} trained on the card without a {kernel} backward")
+
+    phase(f"20e the training path at full width: {full.name}, {full.n_layers} layers, AdamW, "
+          f"remat=\"full\", {TRAIN_B} x {TRAIN_S} tokens")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(stack.build_schema(full), gen, dev)
+    state = adamw.init_state(params)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in params.values())
+    print(f"{n_params} float32 parameters drawn on the card and AdamW's moments made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    step = model.make_train_step(full, adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                                          total_steps=TRAIN_WARMUP + TRAIN_STEPS),
+                                 remat="full")
+    batch = global_batch(DataConfig(vocab=full.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B), 0,
+                         dev)
+    L, n_steps = full.n_layers, TRAIN_WARMUP + TRAIN_STEPS
+    fl_ops.reset_launches()
+    losses, secs = [], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))  # the host read ends the step
+        secs.append(time.perf_counter() - t0)
+        print(f"step {i}: loss {losses[-1]:.5f} grad_norm {float(m['grad_norm']):.5f} lr "
+              f"{float(m['lr']):.3e} in {secs[-1] * 1e3:.1f} ms", flush=True)
+    fwd, bwd = fl_ops.mha.launches, fl_ops.mha_backward.launches
+    if fwd != 2 * L * n_steps or bwd != L * n_steps:
+        raise AssertionError(f"flash launches forward {fwd} != {2 * L} x {n_steps}, backward "
+                             f"{bwd} != {L} x {n_steps}")
+    if fl_ops.mha_backward.launches_by_dtype["bfloat16"] != bwd:
+        raise AssertionError(f"backward launches {fl_ops.mha_backward.launches_by_dtype}: not bf16")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}: not finite and falling")
+    step_s = sum(secs[TRAIN_WARMUP:]) / TRAIN_STEPS
+    tokens = TRAIN_B * TRAIN_S
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train step {full.name} x {L} layers, {TRAIN_B} x {TRAIN_S} tokens, remat full: "
+          f"{step_s * 1e3:.1f} ms a step (mean of {TRAIN_STEPS} after {TRAIN_WARMUP} warm-up) = "
+          f"{tokens / step_s:.1f} tokens/s; peak device memory {peak:.2f} GiB; flash launches a "
+          f"step {2 * L} forward (with the recompute) + {L} backward; losses {losses}")
+    prof = profile_train_step(step, params, state, batch)
+    params, state = prof.pop("params"), prof.pop("state")
+    if (fl_ops.mha.launches, fl_ops.mha_backward.launches) != (fwd + 2 * L, bwd + L):
+        raise AssertionError(f"the profiled step: flash launches forward "
+                             f"{fl_ops.mha.launches - fwd}, backward "
+                             f"{fl_ops.mha_backward.launches - bwd}")
+    fwd, bwd = fl_ops.mha.launches, fl_ops.mha_backward.launches
+    if prof["device_ms"] is None:
+        print("the profiled step: the profiler recorded no device activity; the backward "
+              "kernels' share not measured")
+    else:
+        print(f"the profiled step (one more, under torch.profiler): the backward kernels "
+              f"{prof['bwd_ms']:.3f} ms of {prof['device_ms']:.3f} ms of device kernels "
+              f"({prof['bwd_ms'] / prof['device_ms']:.3f}; {prof['bwd_kernels']} kernels, "
+              f"{3 * L} expected), the step {prof['wall_ms']:.1f} ms under the profiler; "
+              f"isolated (20b) {L} x {k_ms:.3f} ms = {L * k_ms:.1f} ms, an estimate")
+        for name, t in prof["top"]:
+            print(f"  {t:10.3f} ms  {name}")
+    nums["20e"] = dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s, peak_gib=peak,
+                       losses=losses, **{k: v for k, v in prof.items() if k != "loss"})
+    launches = {"fwd": fwd, "bwd": bwd}
+    del params, state, batch, m
+    torch.cuda.empty_cache()
+
+    phase("20f the launcher and its checkpoints on the card (the reference integration test's "
+          "arguments), resume, and examples/train_lm")
+    with tempfile.TemporaryDirectory() as tmp:
+        fl_ops.reset_launches()
+        args = LAUNCH_ARGS + ["--ckpt-dir", tmp, "--device", dev.type]
+        losses = launcher.main(args)
+        cm = CheckpointManager(tmp, n_hosts=1)
+        if not losses[-1] < losses[0] - 0.3 or cm.latest_step() != 30:
+            raise AssertionError(f"launcher: loss {losses[0]} -> {losses[-1]}, latest step "
+                                 f"{cm.latest_step()}")
+        (pathlib.Path(tmp) / "step_00000030" / "COMMIT").unlink()
+        if cm.recover() != 20:
+            raise AssertionError("recover() after step 30's COMMIT went is not 20")
+        more = launcher.main(args + ["--resume"])
+        if len(more) != 10 or not all(np.isfinite(more)) or cm.latest_step() != 30:
+            raise AssertionError(f"resume: {len(more)} losses, latest step {cm.latest_step()}")
+        lm = train_lm.main(["--steps", str(TRAIN_LM_STEPS), "--ckpt-dir",
+                            str(pathlib.Path(tmp) / "lm"), "--device", dev.type])
+        n = 30 + 10 + TRAIN_LM_STEPS  # one attention layer a step in both reduced configs
+        if (fl_ops.mha.launches, fl_ops.mha_backward.launches) != (n, n):
+            raise AssertionError(f"launcher launches {fl_ops.mha.launches} forward, "
+                                 f"{fl_ops.mha_backward.launches} backward != {n}")
+        print(f"launcher: loss {losses[0]:.4f} -> {losses[-1]:.4f} over 30 steps, step 30 "
+              f"committed; resumed from 20 for 10 steps ({more[-1]:.4f}); train_lm "
+              f"{lm[0]:.4f} -> {lm[-1]:.4f} in {TRAIN_LM_STEPS} steps; flash launches {n} "
+              f"forward, {n} backward")
+        launches["fwd"] += n
+        launches["bwd"] += n
+
+    by_name = {r["name"]: r for r in records}
+    by_name["flash_attention"]["launches"] += launches["fwd"]
+    records.append({"name": "flash_attention_bwd", "route": "cuda",
+                    "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                    "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
+                    "launches": launches["bwd"], "max_abs_err": err, "ms": k_ms,
+                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms})
+    return records, nums
+
+
+# ---------------------------------------------------------------------------
 # slice 11: continuation (Simulator.resume) and the port's smoke path
 # ---------------------------------------------------------------------------
 
@@ -3290,18 +3774,31 @@ FIGURES_5H = ("fig1_motivation", "fig5_overall", "fig7_dist_ratio", "fig8_latenc
               "fig9_tpcc", "fig10_network", "fig12_ablation", "table1_heterogeneous",
               "fig13_yugabyte", "fig14_txn_length", "fig15_multiregion", "fig18_protocols")
 FIGURES_CUT = (0.6, 0.15)
+# figures cut deeper, to FIGURES_CUT_SHORT, for the time of the training
+# phases (20b-20f): fig1's two data sources of 500,000 records, fig10's
+# grid and fig18's (tiga's clock skews of 100 and 200 ms, past the 150 ms
+# slack), the three longest at FIGURES_CUT (~48 s together)
+FIGURES_SHORT = ("fig1_motivation", "fig10_network", "fig18_protocols")
+FIGURES_CUT_SHORT = (0.3, 0.15)
+
+
+def figure_cut(name: str) -> tuple:
+    """(horizon, warmup) s of figure `name` in phase 5h."""
+    return FIGURES_CUT_SHORT if name in FIGURES_SHORT else FIGURES_CUT
+
+
 # {sweep tag: each lane's (preset, events, commits, aborts, crc32 of its
 # hist_all as int32 bytes)} as the JAX reference gives them for phase 5h's
-# sweeps at FIGURES_CUT on the CPU (`benchmarks/figures.py`'s functions with
+# sweeps at their `figure_cut` on the CPU (`benchmarks/figures.py`'s functions with
 # `run_sweep` cut, nothing saved), printed by
 # `PYTHONPATH=src:. JAX_PLATFORMS=cpu python tests/test_torch_figures.py`
 FIGURES_REF = {
     'fig1': [
-        ('ssp', 16928, 939, 0, 1234280703), ('ssp', 8944, 483, 0, 497032421),
-        ('ssp', 5136, 270, 0, 4137428601), ('ssp', 3781, 209, 0, 3198326785),
-        ('ssp', 3046, 157, 0, 2423067867), ('ssp', 3082, 40, 0, 2922786445),
-        ('ssp', 3604, 146, 0, 3980824225), ('ssp', 2979, 143, 0, 207648897),
-        ('ssp', 2436, 127, 0, 3732618499), ('ssp', 1949, 93, 0, 1841700295),
+        ('ssp', 8486, 309, 0, 3486700997), ('ssp', 4609, 162, 0, 3842484391),
+        ('ssp', 2796, 97, 0, 1613478400), ('ssp', 2077, 81, 0, 188426088),
+        ('ssp', 1676, 54, 0, 2845245866), ('ssp', 3082, 40, 0, 2922786445),
+        ('ssp', 2803, 86, 0, 3148815725), ('ssp', 1880, 60, 0, 1946225691),
+        ('ssp', 1411, 50, 0, 921310848), ('ssp', 1179, 35, 0, 4144648998),
     ],
     'fig5_ycsb_T16': [
         ('ssp', 637, 16, 0, 2693801418), ('ssp-local', 718, 30, 0, 1745502829),
@@ -3366,12 +3863,12 @@ FIGURES_REF = {
         ('chiller', 3405, 86, 0, 1067490174), ('geotp', 3481, 84, 0, 4228130806),
     ],
     'fig10': [
-        ('ssp', 7457, 381, 0, 3487171446), ('geotp', 8214, 435, 0, 279346996),
-        ('ssp', 4240, 213, 0, 540345699), ('geotp', 4773, 258, 0, 662701967),
-        ('ssp', 2414, 127, 0, 2133517277), ('geotp', 2679, 153, 0, 1629008967),
-        ('ssp', 4283, 225, 0, 1902011899), ('geotp', 4609, 267, 0, 3969694828),
-        ('ssp', 3974, 201, 0, 1603544191), ('geotp', 4540, 258, 0, 3649794595),
-        ('ssp', 3776, 193, 0, 1165141396), ('geotp', 4220, 232, 0, 1098565051),
+        ('ssp', 4186, 137, 0, 3769363532), ('geotp', 4736, 157, 0, 206536173),
+        ('ssp', 2374, 73, 0, 1777870507), ('geotp', 2677, 95, 0, 2533842101),
+        ('ssp', 1370, 48, 0, 4114220896), ('geotp', 1474, 58, 0, 3345875245),
+        ('ssp', 2212, 76, 0, 107987023), ('geotp', 2484, 99, 0, 1667854626),
+        ('ssp', 2111, 61, 0, 3870744483), ('geotp', 2459, 88, 0, 3437414012),
+        ('ssp', 2191, 73, 0, 1453894276), ('geotp', 2450, 96, 0, 4001831129),
     ],
     'fig12': [
         ('ssp', 2289, 71, 0, 2211003712), ('geotp-o1', 2530, 91, 0, 2683838244),
@@ -3422,20 +3919,20 @@ FIGURES_REF = {
         ('ssp', 926, 33, 0, 2898812477), ('geotp', 989, 44, 0, 245692274),
     ],
     'fig18': [
-        ('ssp', 3794, 190, 0, 2993876947), ('geotp', 4124, 248, 0, 794283051),
-        ('fastc', 5836, 454, 0, 3711685151), ('opta', 4202, 248, 0, 2403678558),
-        ('tiga', 1825, 138, 0, 3645265538), ('tiga', 1933, 130, 0, 4134107850),
-        ('tiga', 4749, 295, 0, 1971390354), ('ssp', 2289, 109, 0, 3201524982),
-        ('geotp', 2415, 138, 0, 311550104), ('fastc', 3341, 247, 0, 2119379801),
-        ('opta', 2530, 138, 0, 3611239064), ('tiga', 1649, 118, 0, 146833115),
-        ('tiga', 1528, 99, 0, 874719330), ('tiga', 2769, 159, 0, 2958096267),
-        ('ssp', 818, 28, 0, 499377385), ('geotp', 806, 34, 0, 825070020),
-        ('fastc', 1370, 86, 0, 2770873359), ('opta', 4495, 77, 340, 2905888842),
-        ('tiga', 1459, 103, 0, 719653290), ('tiga', 792, 36, 0, 60220614),
-        ('tiga', 775, 31, 0, 910807582), ('ssp', 592, 15, 0, 3439371851),
-        ('geotp', 750, 31, 0, 1996181337), ('fastc', 1415, 90, 0, 3121978183),
-        ('opta', 2845, 50, 201, 2056053491), ('tiga', 1401, 97, 0, 724121783),
-        ('tiga', 839, 40, 0, 241061425), ('tiga', 683, 25, 0, 701457068),
+        ('ssp', 2286, 109, 0, 3291932713), ('geotp', 2400, 137, 0, 1766895507),
+        ('fastc', 3310, 244, 0, 1894794730), ('opta', 2506, 137, 0, 1424219533),
+        ('tiga', 689, 48, 0, 293763299), ('tiga', 844, 53, 0, 3366586503),
+        ('tiga', 2749, 158, 0, 4200371116), ('ssp', 1504, 68, 0, 2025677069),
+        ('geotp', 1530, 79, 0, 1790025375), ('fastc', 2042, 138, 0, 3092783960),
+        ('opta', 1617, 80, 0, 1404165906), ('tiga', 689, 48, 0, 2043523301),
+        ('tiga', 705, 37, 0, 474867818), ('tiga', 1796, 96, 0, 2636731862),
+        ('ssp', 641, 17, 0, 1639829541), ('geotp', 765, 32, 0, 3390127335),
+        ('fastc', 1367, 86, 0, 2770873359), ('opta', 2646, 46, 189, 876760495),
+        ('tiga', 647, 42, 0, 890110355), ('tiga', 583, 27, 0, 1092861681),
+        ('tiga', 749, 29, 0, 2389720000), ('ssp', 489, 9, 0, 107235972),
+        ('geotp', 724, 26, 0, 3462205535), ('fastc', 1296, 80, 0, 236732133),
+        ('opta', 1791, 27, 124, 3697980170), ('tiga', 647, 42, 0, 3162018065),
+        ('tiga', 599, 28, 0, 1322767562), ('tiga', 600, 16, 0, 1608416010),
     ],
 }
 
@@ -3451,7 +3948,7 @@ def hist_digest(hist) -> int:
 def figures_phase(device=None, rows_path=None) -> int:
     """Phase 5h: each sweep of FIGURES_5H through `figures.run` (the figure's
     own cells and banks, `run_sweep` on the captured lockstep lanes) at
-    FIGURES_CUT: every lane's events, commits, aborts and hist_all digest
+    its `figure_cut`: every lane's events, commits, aborts and hist_all digest
     equal to FIGURES_REF, two geo_schedule launches a step; each grid's
     lanes, steps, seconds and events/s. The figures' row code turns the
     results into their payloads (its lines go to `rows_path`, default
@@ -3465,13 +3962,15 @@ def figures_phase(device=None, rows_path=None) -> int:
     from repro_torch.bench.common import save
     from repro_torch.kernels.geo_schedule import ops
 
-    h, w = FIGURES_CUT
-    opts = figures.Options(device=device, horizon_s=h, warmup_s=w, record=False, save=False)
     launches = steps = events = 0
     wall, bad, lines = 0.0, [], io.StringIO()
     t_phase = time.perf_counter()
+    n_grids = n_lanes = 0
     with tempfile.TemporaryDirectory() as tmp:
         for name in FIGURES_5H:
+            h, w = figure_cut(name)
+            opts = figures.Options(device=device, horizon_s=h, warmup_s=w, record=False,
+                                   save=False)
             sweeps, rows = figures.SWEEPS[name]
             out = []
             for s in sweeps(True):
@@ -3498,6 +3997,7 @@ def figures_phase(device=None, rows_path=None) -> int:
                 with contextlib.redirect_stdout(lines):
                     out += rows(opts.sweep(s), res)
                 launches, steps, events = launches + n, steps + res.steps, events + res.events
+                n_grids, n_lanes = n_grids + 1, n_lanes + len(got)
                 wall += res.wall_s
             save(name, out, tmp)
         checks = claims.validate(tmp)
@@ -3510,7 +4010,7 @@ def figures_phase(device=None, rows_path=None) -> int:
     for name, ok, detail in checks:
         print(f"[{'PASS' if ok else 'FAIL'}] {name} :: {detail}")
     print(f"{n_ok}/{len(checks)} claims validated on the cut payloads (printed, not gated)")
-    print(f"phase 5h: {len(FIGURES_REF)} grids, {sum(map(len, FIGURES_REF.values()))} lanes "
+    print(f"phase 5h: {n_grids} grids, {n_lanes} lanes "
           f"equal to the reference; {steps} steps, {events} events, {wall:.3f} s in the runs, "
           f"{events / wall:.1f} events/s, {time.perf_counter() - t_phase:.1f} s with the banks "
           f"and rows; geo_schedule launches {launches}; the rows' lines in {path}")
@@ -3520,7 +4020,8 @@ def figures_phase(device=None, rows_path=None) -> int:
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 KERNEL_NAMES = ("geo_schedule", "decode_attention", "flash_attention", "mlstm_chunk",
-                "rglru_scan", "flash_attention_cross", "decode_attention_int8")
+                "rglru_scan", "flash_attention_cross", "decode_attention_int8",
+                "flash_attention_bwd")
 
 
 def kernels_line(records) -> str:
@@ -3660,6 +4161,7 @@ def main() -> int:
     lm_records = recurrent_phases(dev, serving_phases(dev, builds))
     lm_records = moe_mla_phases(dev, lm_records)[0]
     lm_records = slice8_phases(dev, lm_records)[0]
+    lm_records = training_phases(dev, lm_records)[0]
 
     from repro_torch.bench import figures
 
@@ -3678,9 +4180,10 @@ def main() -> int:
     print(f"phase 5g: {time.perf_counter() - t0:.1f} s; the script so far "
           f"{time.perf_counter() - t_start:.1f} s")
 
-    h, w = FIGURES_CUT
-    phase(f"5h the paper's figures at full width: {len(FIGURES_5H)} figures, "
-          f"{len(FIGURES_REF)} grids at the quick widths, horizon cut to {h} s (warmup {w} s)")
+    (h, w), (hs, ws) = FIGURES_CUT, FIGURES_CUT_SHORT
+    phase(f"5h the paper's figures at full width: {len(FIGURES_5H)} figures, their grids at "
+          f"the quick widths, horizon cut to {h} s (warmup {w} s), {', '.join(FIGURES_SHORT)} "
+          f"to {hs} s (warmup {ws} s)")
     t0 = time.perf_counter()
     launches += figures_phase()
     print(f"phase 5h: {time.perf_counter() - t0:.1f} s; the script so far "

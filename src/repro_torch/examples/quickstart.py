@@ -1,11 +1,12 @@
-"""Quickstart through the port: the latency-aware scheduling math and the
-discrete-event engine, the counterpart of sections 1-2 of the reference's
-`examples/quickstart.py`.
+"""Quickstart through the port: the latency-aware scheduling math, the
+discrete-event engine and the model substrate, the counterpart of the
+reference's `examples/quickstart.py`.
 
     PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 
-The reference's section 3 (one training forward pass of a reduced model,
-`stack.forward_train`) is not here: training is not ported (ROADMAP A7).
+Section 3 is one training forward pass (`stack.forward_train`) of reduced
+mixtral-8x7b from the reference's initial weights for seed 0; its tokens
+come from a torch generator (seed 1), not from `jax.random.randint`.
 """
 
 from __future__ import annotations
@@ -16,6 +17,23 @@ import torch
 
 from repro_torch.core import engine, scheduler, workloads
 from repro_torch.core.engine import KIND_DEGRADE, KIND_PARTITION, MW, Grid, Simulator
+
+
+def model_section(device=None) -> torch.Tensor:
+    """Section 3, the model substrate: one forward pass of an assigned arch."""
+    from repro_torch.configs import registry
+    from repro_torch.device import resolve_device
+    from repro_torch.models import stack
+    from repro_torch.models.schema import init_params_threefry
+
+    dev = resolve_device(device)
+    cfg = registry.reduced("mixtral-8x7b")  # tiny same-family config
+    params = init_params_threefry(stack.build_schema(cfg), 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=dev)
+    logits = stack.forward_train(cfg, params, {"tokens": tokens})
+    print("mixtral-8x7b (reduced) logits:", tuple(logits.shape))
+    return logits
 
 
 def main(argv=None) -> dict:
@@ -102,8 +120,9 @@ def main(argv=None) -> dict:
               f"{dz['wan_rounds'] / done:5.2f} WAN rounds/txn, "
               f"{dz['fast_commits']} fast commits")
 
-    print("(the reference's section 3, a training forward pass, is not ported: ROADMAP A7)")
-    return dict(offsets=offsets, lcs=lcs, grid=res, faults=res_f, partitions=res_p, zoo=res_z)
+    logits = model_section(args.device)
+    return dict(offsets=offsets, lcs=lcs, grid=res, faults=res_f, partitions=res_p, zoo=res_z,
+                logits=logits)
 
 
 if __name__ == "__main__":

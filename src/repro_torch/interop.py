@@ -9,7 +9,10 @@ it once in each package and name the first leaf that differs.
 The model's parameters (a flat dict of numpy arrays under the reference's
 names) and its decode caches (nested dicts: an encoder-decoder's
 {"self", "xk", "xv"} layers, int8 K/V with float32 scales) cross the same
-way, so the two packages run the same weights and the same caches.
+way, so the two packages run the same weights and the same caches. So do
+the training state's parameters and AdamW state ({"m", "v": {name: array},
+"step": int32 scalar}): a reference `(params, opt_state)` trains on in the
+port and comes back.
 """
 
 from __future__ import annotations
@@ -105,3 +108,27 @@ def cache_to_numpy(cache) -> dict:
             v = v.detach().cpu()
             out[k] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     return out
+
+
+def _to_numpy(x) -> np.ndarray:
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's parameters {name: tensor} -> {name: numpy array} (the
+    reference's names). bfloat16 tensors come back as float32 (exact)."""
+    return {name: _to_numpy(x) for name, x in params.items()}
+
+
+def opt_state_from_numpy(state, device=None) -> dict:
+    """The reference's AdamW state {"m", "v": {name: array}, "step"} -> the
+    port's: float32 moments, an int32 0-d step."""
+    return {"m": params_from_numpy(state["m"], device), "v": params_from_numpy(state["v"], device),
+            "step": _tensor(np.asarray(state["step"], np.int32), device)}
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """The port's AdamW state -> {"m", "v": {name: array}, "step": int32 array}."""
+    return {"m": params_to_numpy(state["m"]), "v": params_to_numpy(state["v"]),
+            "step": _to_numpy(state["step"])}

@@ -15,6 +15,15 @@ the reference wrapper's padding of dh to 128 and its shrinking of the
 block to divide S are TPU artefacts. `logit_cap` > 0 caps each scaled
 score at `tanh(s / cap) * cap` before the mask, as the reference model's
 attention does (its TPU kernel has no cap).
+
+`mha` is differentiable: when grad mode is on and q, k or v requires a
+gradient, it runs as the `torch.autograd.Function` `_Mha`, whose forward is
+the same launch (or plain call) and whose backward is `mha_backward`: the
+hand-written backward (`csrc/flash_attention_bwd.cu`, three kernels, no
+atomics: bfloat16 with dh <= 128 on the tensor cores, the rest on the CUDA
+cores) on CUDA tensors, `ref.attention_bwd_ref` on CPU tensors.
+`mha_backward.launches` counts its calls on the card. Without a gradient
+`mha` takes the path it always took.
 """
 
 from __future__ import annotations
@@ -22,7 +31,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as _cuda
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention import flash_attention_bwd as _cuda_bwd
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 
 MAX_HEAD_DIM = 256
 
@@ -50,41 +60,104 @@ def _check(q, k, v) -> None:
             raise ValueError(f"mha: {name} on {x.device}, q on {q.device}")
 
 
-def mha(q, k, v, *, causal: bool = True, window: int = 0, chunk_local: bool = False,
-        logit_cap: float = 0.0):
-    """q: [B,S,H,dh], k: [B,Sk,KV,dh], v: [B,Sk,KV,dv] -> [B,S,H,dv] in q's
-    dtype. Sk != S (cross-attention) only with causal=False and window=0,
-    as the reference's `chunked_attention` asserts."""
+def _forward(qt, kt, vt, causal, window, chunk_local, logit_cap):
+    """One launch (or plain call) on the kernel's layout [B,H,S,d]."""
+    if qt.device.type == "cpu":
+        return attention_ref(qt, kt, vt, causal=causal, window=window, chunk_local=chunk_local,
+                             logit_cap=logit_cap)
+    out = qt.new_empty(qt.shape[:3] + (vt.shape[-1],))
+    _cuda.launch(qt, kt, vt, out, qt.shape[-1] ** -0.5, causal, window, chunk_local, logit_cap)
+    mha.launches += 1
+    mha.launches_by_dtype[str(qt.dtype)[6:]] += 1
+    mha.cross_launches += kt.shape[2] != qt.shape[2]
+    return out
+
+
+def _check_args(q, k, v, causal, window, logit_cap) -> None:
     _check(q, k, v)
     if window < 0 or logit_cap < 0:
         raise ValueError(f"mha: window and logit_cap must be >= 0, got {window}, {logit_cap}")
-    cross = k.shape[1] != q.shape[1]
-    if cross and (causal or window):
+    if k.shape[1] != q.shape[1] and (causal or window):
         raise ValueError(f"mha: causal or windowed attention needs q_len == kv_len, got "
                          f"{q.shape[1]} and {k.shape[1]}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mha: no kernel for device {q.device}")
+
+
+class _Mha(torch.autograd.Function):
+    """`mha` with a gradient: the forward's launch, then `mha_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk_local, logit_cap):
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        out = _forward(qt, kt, vt, causal, window, chunk_local, logit_cap)
+        ctx.save_for_backward(qt, kt, vt, out)
+        ctx.mask = (causal, window, chunk_local, logit_cap)
+        return out.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qt, kt, vt, out = ctx.saved_tensors
+        causal, window, chunk_local, logit_cap = ctx.mask
+        dq, dk, dv = mha_backward(qt, kt, vt, out, dout.transpose(1, 2), causal=causal,
+                                  window=window, chunk_local=chunk_local, logit_cap=logit_cap)
+        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), None, None, None, None
+
+
+def mha(q, k, v, *, causal: bool = True, window: int = 0, chunk_local: bool = False,
+        logit_cap: float = 0.0):
+    """q: [B,S,H,dh], k: [B,Sk,KV,dh], v: [B,Sk,KV,dv] -> [B,S,H,dv] in q's
+    dtype. Sk != S (cross-attention) only with causal=False and window=0,
+    as the reference's `chunked_attention` asserts. Differentiable in q, k
+    and v (`_Mha`) when grad mode is on and one of them requires a gradient."""
+    _check_args(q, k, v, causal, window, logit_cap)
     if q.device.type == "cuda":
         _cuda.entry()  # a library that cannot build or load raises before any work
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.device.type == "cuda":
+            _cuda_bwd.entry()  # the backward's library too, before the forward's work
+        return _Mha.apply(q, k, v, causal, window, chunk_local, logit_cap)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return _forward(qt, kt, vt, causal, window, chunk_local, logit_cap).transpose(1, 2)
+
+
+def mha_backward(q, k, v, out, dout, *, causal: bool = True, window: int = 0,
+                 chunk_local: bool = False, logit_cap: float = 0.0):
+    """The gradient of the kernel's function on its layout: q [B,H,S,dh],
+    k [B,KV,Sk,dh], v [B,KV,Sk,dv], the forward's out and its gradient dout
+    [B,H,S,dv] -> (dq, dk, dv) in q's dtype. On CUDA tensors one call of the
+    backward's entry point (its three kernels; float32 workspaces for the row
+    lse and D), counted in `mha_backward.launches`; on CPU tensors
+    `attention_bwd_ref`."""
+    _check_args(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal, window,
+                logit_cap)
+    if out.shape != q.shape[:3] + (v.shape[-1],) or dout.shape != out.shape:
+        raise ValueError(f"mha_backward: out and dout must be {q.shape[:3] + (v.shape[-1],)}, "
+                         f"got {tuple(out.shape)} and {tuple(dout.shape)}")
+    if {out.dtype, dout.dtype} != {q.dtype} or {out.device, dout.device} != {q.device}:
+        raise TypeError("mha_backward: out and dout must share q's dtype and device")
     if q.device.type == "cpu":
-        out = attention_ref(qt, kt, vt, causal=causal, window=window, chunk_local=chunk_local,
-                            logit_cap=logit_cap)
-    else:
-        out = qt.new_empty(qt.shape[:3] + (v.shape[-1],))
-        _cuda.launch(qt, kt, vt, out, q.shape[-1] ** -0.5, causal, window, chunk_local,
-                     logit_cap)
-        mha.launches += 1
-        mha.launches_by_dtype[str(q.dtype)[6:]] += 1
-        mha.cross_launches += cross
-    return out.transpose(1, 2)
+        return attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window,
+                                 chunk_local=chunk_local, logit_cap=logit_cap)
+    _cuda_bwd.entry()
+    q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = q.new_empty(q.shape[:3], dtype=torch.float32)
+    delta = torch.empty_like(lse)
+    _cuda_bwd.launch(q, k, v, out, dout, dq, dk, dv, lse, delta, q.shape[-1] ** -0.5, causal,
+                     window, chunk_local, logit_cap)
+    mha_backward.launches += 1
+    mha_backward.launches_by_dtype[str(q.dtype)[6:]] += 1
+    return dq, dk, dv
 
 
 def reset_launches() -> None:
-    """Zero the launch counts."""
+    """Zero the launch counts (the forward's and the backward's)."""
     mha.launches = 0
     mha.launches_by_dtype = {"float32": 0, "bfloat16": 0}
     mha.cross_launches = 0
+    mha_backward.launches = 0
+    mha_backward.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 reset_launches()

@@ -35,3 +35,49 @@ def attention_ref(q, k, v, *, causal=True, window=0, chunk_local=False, logit_ca
     s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def attention_bwd_ref(q, k, v, o, dout, *, causal=True, window=0, chunk_local=False,
+                      logit_cap=0.0):
+    """The gradient of `attention_ref` in the FA2 form the CUDA backward
+    computes, in float32: P recomputed from the scores and their row
+    log-sum-exp, D = rowsum(dO ∘ O) from the forward's output `o`,
+    dV = Pᵀ·dO, dS = P ∘ (dO·Vᵀ - D) (times 1 - tanh² under the cap),
+    dQ = dS·K·scale, dK = dSᵀ·Q·scale, dK and dV summed over each KV head's
+    query heads. q [B,H,Sq,dh], k [B,KV,Sk,dh], v [B,KV,Sk,dv], o and dout
+    [B,H,Sq,dv] -> (dq, dk, dv) in q's dtype."""
+    B, H, Sq, dh = q.shape
+    KV, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // KV
+    scale = dh**-0.5
+    qf, of, gf = q.float(), o.float(), dout.float()
+    kf = torch.repeat_interleave(k.float(), G, dim=1)
+    vf = torch.repeat_interleave(v.float(), G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    t = None
+    if logit_cap > 0:
+        t = torch.tanh(s / logit_cap)
+        s = t * logit_cap
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        if chunk_local:
+            mask &= (kpos // window) == (qpos // window)
+        else:
+            mask &= kpos > qpos - window
+    s = torch.where(mask, s, -1e30)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    delta = (gf * of).sum(-1, keepdim=True)
+    dv_full = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gf, vf) - delta)
+    if t is not None:
+        ds = ds * (1 - t * t)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk_full = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk_ = dk_full.reshape(B, KV, G, Sk, dh).sum(2)
+    dv_ = dv_full.reshape(B, KV, G, Sk, dv).sum(2)
+    return dq.to(q.dtype), dk_.to(k.dtype), dv_.to(v.dtype)

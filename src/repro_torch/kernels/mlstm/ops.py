@@ -6,6 +6,9 @@ computes the plain version (`ref.py`). It never catches an error to fall
 back. `mlstm.launches` counts kernel launches (plain calls do not count),
 and `mlstm.launches_by_dtype` splits them by dtype: bfloat16 launches run
 the tensor-core (wgmma) kernel, float32 ones the CUDA-core kernel. The
+kernel has no backward yet: on the card a call that would need a gradient
+raises `not_ported` (ROADMAP.md §A item A7); on the CPU the plain version
+is differentiable as it is. The
 kernel computes in float32 and writes h in v's dtype, so bf16 heads from
 the model are passed as they are.
 As the reference's `mlstm_chunk` does, the wrapper forms F = cumsum(logf)
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.kernels.mlstm import mlstm as _cuda
 from repro_torch.kernels.mlstm.ref import mlstm_ref
+from repro_torch.unported import not_ported
 
 MAX_HEAD_DIM = 256
 
@@ -52,6 +56,8 @@ def mlstm(q, k, v, logi, logf):
         return mlstm_ref(q, k, v, logi, logf)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, logi, logf)):
+        raise not_ported("a gradient through the mLSTM kernel (B5's backward)", "A7")
     _cuda.entry()  # a library that cannot build or load raises before any work
     F = torch.cumsum(logf.float(), dim=-1).contiguous()
     qc, kc, vc = (x.contiguous() for x in (q, k, v))

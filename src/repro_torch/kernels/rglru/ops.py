@@ -11,7 +11,9 @@ version (`ref.py`). Neither ever catches an error to fall back.
 `rglru.launches` and `rglru_scan.launches` count kernel launches of each
 entry (plain calls do not count). The kernel takes S and E as they are: the
 reference wrapper's halving of its chunk and channel blocks until they
-divide is a TPU artefact.
+divide is a TPU artefact. The kernel has no backward yet: on the card a
+call that would need a gradient raises `not_ported` (ROADMAP.md §A item
+A7); on the CPU the plain version is differentiable as it is.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.kernels.rglru import rglru as _cuda
 from repro_torch.kernels.rglru.ref import gated_input, rglru_ref
+from repro_torch.unported import not_ported
 
 
 def _check(log_a, b, h0=None, name="rglru_scan") -> None:
@@ -42,9 +45,11 @@ def _check(log_a, b, h0=None, name="rglru_scan") -> None:
         raise ValueError(f"{name}: h0 on {h0.device}, log_a on {log_a.device}")
 
 
-def _kernel_device(x, name) -> None:
+def _kernel_device(x, name, *inputs) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        raise not_ported("a gradient through the RG-LRU kernel (B4's backward)", "A7")
     _cuda.entry()  # a library that cannot build or load raises before any work
 
 
@@ -54,7 +59,7 @@ def rglru_scan(log_a, b):
     _check(log_a, b)
     if b.device.type == "cpu":
         return rglru_ref(log_a, b)
-    _kernel_device(b, "rglru_scan")
+    _kernel_device(b, "rglru_scan", log_a, b)
     la, bc = log_a.contiguous(), b.contiguous()
     out = torch.empty_like(bc)
     _cuda.launch(la, bc, out)
@@ -75,7 +80,7 @@ def rglru(log_a, gated_x, h0=None):
     if gated_x.device.type == "cpu":
         b = gated_input(log_a, gated_x)
         return rglru_scan(log_a, b) if h0 is None else rglru_ref(log_a, b, h0)
-    _kernel_device(gated_x, "rglru")
+    _kernel_device(gated_x, "rglru", log_a, gated_x, h0)
     la, gx = log_a.contiguous(), gated_x.contiguous()
     out = torch.empty_like(gx)
     _cuda.launch(la, gx, out, h0=None if h0 is None else h0.contiguous(), fused=True)

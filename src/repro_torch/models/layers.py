@@ -201,3 +201,10 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype=torch.bfloat16) -
     [..., vocab] one-hot (4.2 GB in bf16 at 8 x 2048 tokens of a 128k vocab)."""
     return table[ids.long()].to(dtype)
 
+
+
+def gather_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[..., labels]: the reference's sum(one_hot(labels) * logits)
+    (one entry times 1.0 plus zeros: the same values) as a gather, without
+    the [..., vocab] one-hot."""
+    return torch.gather(logits, -1, labels.long()[..., None])[..., 0]

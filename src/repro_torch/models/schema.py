@@ -3,12 +3,16 @@ initialization of every weight (port of `repro.models.schema`).
 
 A schema is a flat dict  name -> ParamSpec(shape, axes, init, dtype) . The
 logical axis names are kept so that a schema reads as the reference's; the
-mesh tools that consume them (`abstract_params`, `shardings`,
-`logical_to_spec`) belong to multi-device work (ROADMAP.md §A item A7).
+mesh tools that consume them (`shardings`, `logical_to_spec`) belong to
+multi-device work (ROADMAP.md §A item A7). `abstract_params` gives the
+shapes and dtypes as tensors on the `meta` device (no allocation).
 
-`init_params` draws from an explicit `torch.Generator`. It cannot give JAX's
-numbers for the same seed: tests that compare the two packages carry the
-reference's weights across (`interop.params_from_numpy`).
+`init_params` draws from an explicit `torch.Generator`, fast on the card but
+not JAX's numbers for the same seed: tests that compare the two packages
+carry the reference's weights across (`interop.params_from_numpy`).
+`init_params_threefry` draws the reference's own `init_params(schema,
+PRNGKey(seed))` on the host with the port's threefry (`data/threefry.py`),
+as the training launcher does.
 """
 
 from __future__ import annotations
@@ -40,6 +44,43 @@ Schema = dict  # name -> ParamSpec
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def abstract_params(schema: Schema) -> dict:
+    """{name: tensor on the `meta` device} of each spec's shape and dtype."""
+    return {n: torch.empty(s.shape, dtype=torch_dtype(s.dtype), device="meta")
+            for n, s in schema.items()}
+
+
+def init_params_threefry(schema: Schema, seed: int = 0, device=None, dtype=None) -> dict:
+    """The reference's `init_params(schema, jax.random.PRNGKey(seed))`: one
+    key a name in sorted-name order from `split(PRNGKey(seed), n)`, normal
+    draws scaled by 0.02 (normal, embed) or fan_in^-0.5 (scaled:<fan_in>),
+    zeros and ones. The normals come from the port's threefry on the host
+    (bit for bit the reference's uniforms; erfinv within a few ulps), so
+    this is for the launcher's and the tests' sizes, not a 3B model."""
+    from repro_torch.data import threefry
+
+    dev = resolve_device(device)
+    names = sorted(schema)
+    keys = threefry.split(threefry.PRNGKey(seed), len(names))
+    params = {}
+    for key, n in zip(keys, names):
+        s = schema[n]
+        dt = dtype or torch_dtype(s.dtype)
+        if s.init == "zeros":
+            params[n] = torch.zeros(s.shape, dtype=dt, device=dev)
+        elif s.init == "ones":
+            params[n] = torch.ones(s.shape, dtype=dt, device=dev)
+        else:
+            if s.init.startswith("scaled"):
+                fan_in = int(s.init.split(":")[1]) if ":" in s.init else s.shape[-2]
+                std = 1.0 / math.sqrt(max(fan_in, 1))
+            else:  # normal | embed
+                std = 0.02
+            w = torch.from_numpy(threefry.normal(key, s.shape)) * std
+            params[n] = w.to(dt).to(dev)
+    return params
 
 
 def init_params(schema: Schema, generator: torch.Generator, device=None, dtype=None) -> dict:

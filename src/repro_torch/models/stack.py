@@ -9,11 +9,15 @@ stacked tensors in Python, taking one layer's weights and cache as views
 (``{"blk0": {"k": [G,B,Sc,KV,hd], "v": ...}}``) are the reference's, so
 weights and caches carry across as they are (`repro_torch.interop`).
 
-Two entry points of the serving path:
+Three entry points:
+  forward_train(cfg, params, batch, remat=False)  -> logits
   forward_prefill(cfg, params, batch, cache_len) -> (last_logits, cache)
   forward_decode(cfg, params, token, pos, cache) -> (logits, cache)
 Decode writes the new key and value, and the recurrent mixers' new states,
-into `cache` IN PLACE and returns it.
+into `cache` IN PLACE and returns it. `forward_train` keeps no cache and
+writes nothing in place; it casts every weight inside the autograd graph on
+each call (the reference's `astype`), so its gradients reach the float32
+parameters: `cast_weights`' copies are for serving only.
 
 `build_schema` and the forward passes cover all ten architectures: the
 dense GQA family (mixers gqa / swa / cla, logit softcapping), MLA
@@ -26,7 +30,10 @@ encoder-decoder with its audio frontend (seamless-m4t: a non-causal
 encoder over the projected frames, cross-attention in every decoder
 layer, whose cache holds the memory's K/V beside the self-attention's) and
 the int8 KV cache (`kv_cache_dtype="int8"`: int8 K/V and float32 scales).
-`forward_train` is training (ROADMAP.md §A item A7).
+On the card a training forward runs through the attention kernels and their
+hand-written backward; the mLSTM and RG-LRU kernels have no backward yet, so
+a gradient through them raises there (ROADMAP.md §A item A7); on the CPU
+every family trains through the plain versions.
 
 The prefill batch: {"tokens"}; a vision model {"patches" [B,P,frontend_dim],
 "tokens"} (positions 0..P+T-1 over both); an encoder-decoder
@@ -35,7 +42,12 @@ The prefill batch: {"tokens"}; a vision model {"patches" [B,P,frontend_dim],
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -343,6 +355,84 @@ def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
     if head is None:
         head = params["embed"].T
     return x @ head.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+
+def _train_layer(cfg, p, pfx, mixer, fk, x, positions, enc_out=None):
+    """One decoder layer of the training forward: `_prefill_layer`'s mixers
+    without a cache (an encoder-decoder's cross-attention after the mixer)."""
+    if mixer in _RECURRENT:
+        y, _ = _RECURRENT_BLOCK[mixer](cfg, p, pfx + ".mix", x)
+    else:
+        xn = rmsnorm(x, p[f"{pfx}.mix.ln"])
+        if mixer in _MLA:
+            y, _ = attn.mla_attn(cfg, p, pfx + ".mix", xn, positions)
+        else:
+            y, _ = attn.gqa_attn(cfg, p, pfx + ".mix", xn, positions, mixer=mixer)
+    x = x + y
+    if enc_out is not None:
+        xn = rmsnorm(x, p[f"{pfx}.x.ln"])
+        x = x + attn.cross_attn(cfg, p, f"{pfx}.x", xn, enc_out)[0]
+    if fk != "none":
+        xn = rmsnorm(x, p[f"{pfx}.ffn.ln2"])
+        x = x + ffn(cfg, p, f"{pfx}.ffn", fk, xn)
+    return x
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the 2-D weight products (`aten.mm`, what
+    `x @ w` lowers to), recompute the rest; the counterpart of
+    `jax.checkpoint_policies.dots_with_no_batch_dims_saveable` (batched
+    products, `bmm`, are recomputed there too)."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_products)
+
+
+def forward_train(cfg: ModelConfig, params: dict, batch: dict, remat=False) -> torch.Tensor:
+    """Full-sequence forward -> logits [B, S, V] in the activations' dtype.
+
+    batch: {"tokens" [B,S]}; a vision model's {"patches", "tokens"} (the
+    logits cover the patches too); an encoder-decoder's {"frames",
+    "dec_tokens"} (logits over the decoder tokens). Labels are read by the
+    loss, not here. remat: False / "none" — no checkpointing; True /
+    "full" — `torch.utils.checkpoint` (non-reentrant) around each pattern
+    group; "dots" — the same, saving the 2-D weight products and recomputing
+    the rest (`_save_products`). The encoder and the tail are not
+    checkpointed, as in the reference."""
+    check_supported(cfg)
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = _run_encoder(cfg, params, batch)
+        x, positions = _embed_inputs(cfg, params, {"tokens": batch["dec_tokens"]})
+    else:
+        x, positions = _embed_inputs(cfg, params, batch)
+
+    def group(h, g):
+        for j, (mixer, fk) in enumerate(cfg.pattern):
+            h = _train_layer(cfg, _layer(params, f"blk{j}", g), f"blk{j}", mixer, fk, h,
+                             positions, enc_out)
+        return h
+
+    if remat == "dots":
+        group = functools.partial(checkpoint, group, use_reentrant=False,
+                                  context_fn=_dots_context)
+    elif remat and remat != "none":
+        group = functools.partial(checkpoint, group, use_reentrant=False)
+    for g in range(n_groups(cfg)):
+        x = group(x, g)
+    for i, (mixer, fk) in enumerate(tail_layers(cfg)):
+        x = _train_layer(cfg, _layer(params, f"tail{i}", None), f"tail{i}", mixer, fk, x,
+                         positions, enc_out)
+    return _head(params, rmsnorm(x, params["final_ln"]))
 
 
 # ---------------------------------------------------------------------------

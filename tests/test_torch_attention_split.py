@@ -21,6 +21,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H100_SMS = 132  # the SMs of an H100 SXM
 SERVING_DECODES = {  # (B, KV, Sc): llama3.2-3b, recurrentgemma-9b, the router

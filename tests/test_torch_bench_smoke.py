@@ -40,6 +40,7 @@ from benchmarks import figures as r_figures  # noqa: E402
 from benchmarks import run as r_run  # noqa: E402
 from repro_torch.bench import smoke  # noqa: E402
 from repro_torch.core.engine import load_bench, runtime_env  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CONSTANTS = ("SMOKE_PRESETS", "SMOKE_SEEDS", "SMOKE_T", "SMOKE_HORIZON_S", "SMOKE_WARMUP_S",
              "SMOKE_FAULTS", "SMOKE_PARTITIONS", "SMOKE_REPLICAS", "SMOKE_PROTOCOLS")

@@ -24,6 +24,7 @@ from repro_torch.core import workloads as t_wl
 from repro_torch.core.engine import Grid, Simulator, batch
 from repro_torch.core.engine.state import tree_leaves
 from repro_torch.kernels.geo_schedule import ops as geo_ops
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T, K, D, N = 4, 5, 4, 16
 HORIZON_S, WARMUP_S = 0.3, 0.05

@@ -38,6 +38,7 @@ from repro_torch.core.engine.state import (
 from repro_torch.core.engine.window import _window_plan
 from repro_torch.core.protocols import PRESETS
 from test_torch_engine import CASES, HORIZON_S, WARMUP_S, _banks, _rows_equal
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TELEMETRY = ("drained", "windows", "win_stops", "fused", "chained")
 

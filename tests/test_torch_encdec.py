@@ -35,6 +35,7 @@ from repro_torch.models import layers as t_layers
 from repro_torch.models import model as t_model
 from repro_torch.models import stack as t_stack
 from repro_torch.serving import engine as t_engine
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 LOGIT_TOL = 0.05

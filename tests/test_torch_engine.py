@@ -23,6 +23,7 @@ from repro.core.protocols import PRESETS as R_PRESETS
 from repro_torch.core import workloads as t_wl
 from repro_torch.core.engine import Grid, Simulator
 from repro_torch.core.engine.state import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T, K, D, N = 4, 5, 4, 16
 HORIZON_S, WARMUP_S = 0.3, 0.05

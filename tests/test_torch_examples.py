@@ -24,6 +24,7 @@ import torch
 from repro.core import engine as r_engine
 from repro_torch.examples import quickstart, serve_geo, simulate_paper
 from test_torch_engine import _rows_equal
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -3,12 +3,15 @@ heartbeats, replica failover) against the reference, on the CPU.
 
 * (a) `CRASH_HEAVY`, `PART_HEAVY` and `DEGRADE_HEAVY` (the reference tests'
   schedules, replicas at 60 ms with a 250 ms lag) as one 6-lane grid
-  through the port's `run_grid(device="cpu")`, drained and single-event:
+  through the port's `run_grid(device="cpu")`, drained and single-event
+  (the drained case in `test_torch_faults_drained.py`, so that pytest-xdist
+  can run it beside the rest):
   every final `SimState` leaf bitwise the reference's `strategy="vmap"`
   lanes, every leaf but `fused` its `strategy="map"` lanes, and the
   `drain_stats` equal.
 * (b) an all-pad (INF_US) schedule against the fault-free run, all 12
-  presets: every leaf equal but the schedule's own leaves.
+  presets: every leaf equal but the schedule's own leaves
+  (`test_torch_faults_pad.py`).
 * (c) `_fault_event` / `_hb_event` on mid-run states carried across with
   `interop`, one case per kind and stage, against `jax.vmap` of the
   reference's, field by field.
@@ -46,7 +49,7 @@ from repro_torch.core.engine.state import (
 )
 from repro_torch.core.engine.window import _window_plan
 from repro_torch.core.protocols import PRESETS
-from test_torch_engine import _rows_equal
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T, K, D, N = 8, 4, 2, 32
 RTT = (10.0, 100.0)
@@ -116,8 +119,7 @@ def _differing_leaves(port_states, ref_states):
     return out
 
 
-@pytest.mark.parametrize("drain", [True, False], ids=["drained", "single"])
-def test_faulted_grid_matches_reference_lanes(drain):
+def check_faulted_grid(drain):
     tres = _port_run(drain)
     assert tres.cfg.max_faults == 3 and tres.cfg.drain == drain
     rvmap, rmap = _ref_run(drain, "vmap"), _ref_run(drain, "map")
@@ -137,33 +139,9 @@ def test_faulted_grid_matches_reference_lanes(drain):
         assert m["noops"] == 0, i
 
 
-@functools.lru_cache(maxsize=None)
-def _pad_pair():
-    tbank = _banks()[1]
-    sim = Simulator.from_bank(tbank, horizon_s=0.5, warmup_s=0.0, track_slots=True, device="cpu")
-    presets = tuple(sorted(PRESETS))
-    clean = sim.run_grid(Grid.cross(preset=presets, rtt_ms=RTT), tbank)
-    pad = ((INF_US, 0, INF_US),) * 3
-    padded = sim.run_grid(Grid.cross(preset=presets, rtt_ms=RTT, faults=(pad,)), tbank)
-    return clean, padded
-
-
-SCHEDULE_LEAVES = ("fault_ds", "fault_recover", "fault_time", "fault_stage", "fault_kind",
-                   "fault_peer", "fault_sev")
-
-
-def test_pad_schedule_matches_the_fault_free_run():
-    """The reference's `test_inf_schedule_matches_fault_free_engine`, all 12
-    presets as one grid: the tail sections never fire and perturb nothing."""
-    clean, padded = _pad_pair()
-    assert clean.cfg.max_faults == 0 and padded.cfg.max_faults == 3
-    assert clean.states.fault_time.shape == (12, 0)
-    for (name, x), (_, y) in zip(tree_leaves(padded.states), tree_leaves(clean.states)):
-        if name not in SCHEDULE_LEAVES:
-            assert x.dtype == y.dtype and torch.equal(x, y), name
-    _rows_equal(padded.rows(), clean.rows())
-    assert not padded.states.ds_down.any() and int(padded.states.hb_count.sum()) == 0
-    assert padded.drain["availability"] == 1.0
+@pytest.mark.parametrize("drain", [False], ids=["single"])
+def test_faulted_grid_matches_reference_lanes(drain):
+    check_faulted_grid(drain)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from repro_torch.bench import common as t_common
 from repro_torch.bench import figures
 from test_torch_drain import _differing_leaves
 from test_torch_figures import Recorder
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = 4
 WARMUP_S = 0.1

@@ -55,6 +55,7 @@ from repro_torch.bench import claims, figures  # noqa: E402
 from repro_torch.bench import run as t_run  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.engine.state import HIST_BINS, N_ABORT_CAUSES, N_STOP_REASONS  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIGS = [fn.__name__ for fn in r_figures.ALL_FIGURES]
 
@@ -634,21 +635,27 @@ def test_figures_phase_runs_on_the_cpu(tmp_path, capsys):
             chip_smoke.figures_phase(device="cpu", rows_path=tmp_path / "rows.txt")
 
 
+def chip_smoke_ref_table() -> dict:
+    """The reference's table for phase 5h: each figure at its `figure_cut`."""
+    import chip_smoke
+
+    out = {}
+    for name in chip_smoke.FIGURES_5H:
+        out.update(ref_figures_table((name,), *chip_smoke.figure_cut(name)))
+    return out
+
+
 @pytest.mark.slow
 def test_chip_smoke_figures_ref_is_the_reference():
     import chip_smoke
 
-    h, w = chip_smoke.FIGURES_CUT
-    got = ref_figures_table(chip_smoke.FIGURES_5H, h, w)
+    got = chip_smoke_ref_table()
     assert {k: [tuple(r) for r in v] for k, v in got.items()} == chip_smoke.FIGURES_REF
 
 
 if __name__ == "__main__":
-    import chip_smoke
-
-    h, w = chip_smoke.FIGURES_CUT
     print("FIGURES_REF = {")
-    for tag, rows in ref_figures_table(chip_smoke.FIGURES_5H, h, w).items():
+    for tag, rows in chip_smoke_ref_table().items():
         print(f"    {tag!r}: [")
         for row in rows:
             print(f"        {row!r},")

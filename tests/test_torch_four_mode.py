@@ -50,6 +50,7 @@ from repro_torch.core.protocols import PRESETS
 from repro_torch.core.engine import Grid, Simulator
 from test_torch_engine import _rows_equal, assert_states_equal
 import test_torch_resume as tr
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # ---- tests/core/test_differential.py, verbatim ------------------------------
 HORIZON_US = 1_200_000

@@ -20,6 +20,7 @@ from repro_torch.core import hotspot as t_hs
 from repro_torch.core import scheduler as t_sched
 from repro_torch.kernels.geo_schedule import ops as t_ops
 from repro_torch.kernels.geo_schedule.ref import geo_schedule_ref
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (N, D, K, bn) — the reference kernel's GEO_CASES, plus the lockstep
 # engine's shape (N = B lanes, D = 4, K = 5)

@@ -32,6 +32,7 @@ from repro_torch.kernels.decode_attention import ops as t_dec
 from repro_torch.kernels.decode_attention.ref import decode_int8_ref
 from repro_torch.models import attention as t_attn
 from repro_torch.models import stack as t_stack
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

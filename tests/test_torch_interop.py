@@ -22,6 +22,7 @@ from repro_torch.core.engine.batch import lane_bank
 from repro_torch.core.engine.omni import _omni_step
 from repro_torch.core.engine.state import SimConfig, tree_leaves
 from repro_torch.core.protocols import PRESETS
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T, K, D, N = 4, 5, 4, 16
 STEPS = 40

@@ -15,6 +15,7 @@ from repro_torch.core import workloads
 from repro_torch.core.engine import Grid, Simulator, apply, window
 from repro_torch.core.engine.batch import lane_bank
 from repro_torch.core.engine.state import init_state_world, stack_worlds
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -42,8 +43,9 @@ def test_import_leaves_jax_and_repro_unloaded():
 # the modules of slices 2 and 3 (the serving path of the LM stack: the
 # dense GQA family, then the recurrent mixers), slice 9's windowed drain and
 # slice 10's fault injection, slice 11's bench harness, slice 12's
-# sequential lanes and slice 13's figures, claims, examples and shims,
-# beside slice 1's
+# sequential lanes, slice 13's figures, claims, examples and shims and
+# slice 14's training (the optimizer, the data pipeline, the checkpoints,
+# the launcher, the flash backward's binding), beside slice 1's
 SLICE_MODULES = [
     "unported.py",
     "configs/registry.py",
@@ -87,6 +89,13 @@ SLICE_MODULES = [
     "examples/simulate_paper.py",
     "examples/serve_geo.py",
     "core/protocol.py",
+    "kernels/flash_attention/flash_attention_bwd.py",
+    "optim/adamw.py",
+    "data/threefry.py",
+    "data/pipeline.py",
+    "dist/checkpoint.py",
+    "launch/train.py",
+    "examples/train_lm.py",
 ]
 
 

@@ -24,6 +24,7 @@ from repro.core import hotspot as r_hot
 from repro.core import protocol as r_protocol
 from repro_torch.core import hotspot
 from repro_torch.core import protocol
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CONFIG_FILES = sorted(p.stem for p in (ROOT / "src" / "repro" / "configs").glob("*.py")

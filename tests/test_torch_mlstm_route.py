@@ -20,6 +20,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _mlstm_layer(dtype):

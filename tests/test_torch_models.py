@@ -48,6 +48,7 @@ from repro_torch.models.config import LM_SHAPES as T_SHAPES
 from repro_torch.models.schema import init_params as t_init_params
 from repro_torch.models.schema import param_bytes as t_param_bytes
 from repro_torch.models.schema import param_count as t_param_count
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = r_registry.names()
 LOGIT_TOL = 0.05

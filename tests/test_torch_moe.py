@@ -31,6 +31,7 @@ from repro.models import layers as r_layers
 from repro_torch.configs import registry as t_registry
 from repro_torch.models import layers as t_layers
 from repro_torch.models import routelog
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 1e-5, "bfloat16": 2**-6}

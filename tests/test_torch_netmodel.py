@@ -15,6 +15,7 @@ from repro.core.engine import state as r_state
 from repro_torch.core import hotspot as t_hs
 from repro_torch.core import netmodel as t_net
 from repro_torch.core.engine import state as t_state
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 

@@ -43,6 +43,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.engine.state import tree_leaves
 from test_torch_engine import _rows_equal, assert_states_equal
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T, K, D, N = 4, 4, 2, 32
 RTT = (10.0, 100.0)

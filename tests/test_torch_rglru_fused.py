@@ -43,6 +43,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

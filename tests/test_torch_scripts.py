@@ -20,6 +20,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 import profile_step  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, D, K = 3, 4, 5
 
@@ -508,8 +509,9 @@ def test_recurrent_work_counts_these_inputs():
 
 
 def test_kernels_line_names_all_five_with_every_key():
-    """The five kernels, and the two entries slice 8 added: flash's cross
-    route and decode's int8 cache, each a record of its own."""
+    """The five kernels, the two entries slice 8 added (flash's cross route
+    and decode's int8 cache) and slice 14's flash backward, each a record
+    of its own."""
     rec = {k: 1.0 for k in chip_smoke.KERNEL_KEYS}
     records = [dict(rec, name=n) for n in chip_smoke.KERNEL_NAMES]
     line = chip_smoke.kernels_line(records)
@@ -517,7 +519,8 @@ def test_kernels_line_names_all_five_with_every_key():
         chip_smoke.KERNEL_NAMES)
     assert set(chip_smoke.KERNEL_NAMES) == {"geo_schedule", "decode_attention",
                                             "flash_attention", "mlstm_chunk", "rglru_scan",
-                                            "flash_attention_cross", "decode_attention_int8"}
+                                            "flash_attention_cross", "decode_attention_int8",
+                                            "flash_attention_bwd"}
     with pytest.raises(AssertionError, match="!="):
         chip_smoke.kernels_line(records[:-1])
     last = chip_smoke.KERNEL_NAMES[-1]
@@ -604,10 +607,10 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
     serving = [dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
                for n in ("decode_attention", "flash_attention")]
     records = chip_smoke.recurrent_phases(torch.device("cpu"), serving)
-    geo, cross, int8 = (dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
-                        for n in ("geo_schedule", "flash_attention_cross",
-                                  "decode_attention_int8"))
-    chip_smoke.kernels_line([geo] + records + [cross, int8])  # every key, each launched
+    geo, cross, int8, bwd = (dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
+                             for n in ("geo_schedule", "flash_attention_cross",
+                                       "decode_attention_int8", "flash_attention_bwd"))
+    chip_smoke.kernels_line([geo] + records + [cross, int8, bwd])  # every key, each launched
     by_name = {r["name"]: r for r in records}
     assert by_name["mlstm_chunk"]["launches"] == 2 * 7  # two prefills of 7 mLSTM layers
     # the fused op: 4 RG-LRU layers a prefill (two) and a decode step (two,

@@ -45,6 +45,7 @@ from test_torch_engine import (
 )
 from test_torch_drain import _differing_leaves
 import test_torch_faults as tf
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEP_WINDOW = 24  # consecutive events stepped from each preset's mid-run state
 CRASH_WINDOW = 24  # events stepped from the crash-heavy schedule's second crash (and probe)

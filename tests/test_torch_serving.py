@@ -30,6 +30,7 @@ from repro_torch.kernels.geo_schedule import ops as geo_ops
 from repro_torch.launch import serve as t_serve
 from repro_torch.serving import engine as t_engine
 from repro_torch.serving.kvcache import SlotPool as TSlotPool
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 POD_ARGS = [(0, 12), (30_000, 12), (100_000, 12)]  # the launcher's pods

@@ -10,6 +10,7 @@ from repro.core import workloads as r_wl
 from repro_torch.core import protocols as t_proto
 from repro_torch.core import workloads as t_wl
 from repro_torch.core.workloads import BANK_ARRAYS
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _assert_bank_equal(tb, rb):
