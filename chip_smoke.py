@@ -20,8 +20,9 @@ Phases (any failure raises; the script then exits non-zero):
    RTTs, jitter 30, 1 s horizon) through `Simulator(drain=False).run_grid`
    (the single-event step `_omni_step`) on both devices (the CPU's eager
    run in a process of its own, started in phase 2 beside the builds, as
-   4b's and 4c's), the card's run as a captured step replayed from a CUDA
-   graph; every final `SimState` leaf and the step count must be equal;
+   4b's and 4c's, and held against the card's in phase 4d), the card's run
+   as a captured step replayed from a CUDA graph; every final `SimState`
+   leaf and the step count must be equal;
 4b. the same with the windowed drain (`drain=True`, the default: the step
    is `fused._omni_window`): GPU == CPU on every leaf, the drain telemetry
    included, and the card's final states equal to phase 4's on every leaf
@@ -63,6 +64,9 @@ heartbeats, replica failover) in the captured lockstep steps:
    drained states equal to the single-event ones but the drain
    telemetry, and the schedules biting (crash aborts, failovers, stale
    reads, windows stopped at a fault row);
+4d. after phase 5d, phases 4-4c's card runs against the CPU's, which ran
+   beside phases 2-5d in processes of their own (the card's phases no
+   longer wait for them);
 5c. fig16 at paper size (`repro_torch.bench.figures.fig16_sweeps(quick=False)`,
    the reference's `benchmarks/figures.py` under `--full`): T = 48,
    the fig5 bank (4 data sources at 0/27/73/251 ms, 1M records per node,
@@ -110,13 +114,13 @@ Slice 2, the serving path of the LM stack (dense GQA, llama3.2-3b):
    summaries and latency lists on both devices;
 9. the serving path at full width — llama3.2-3b, all 28 layers, weights
    drawn on the card: (a) `make_prefill_step(cfg, 4096)` on 8 prompts of
-   2048 tokens, then 64 `make_decode_step` steps, with 28 flash launches per
+   2048 tokens, then 32 `make_decode_step` steps, with 28 flash launches per
    prefill (every one bf16: the tensor-core kernel) and 28 decode calls per
    step (each the split kernel and its merge); (b) `GeoServingEngine` geotp vs
-   fcfs over the launcher's three pods (RTT 0/30/100 ms, 12 slots), 60
-   requests, run_model=True: geotp's average latency below fcfs's, 28
-   decode launches per generation and one geo_schedule launch per geotp
-   admission. Cut: `max_seq` 32768 -> 4096 for the pods' slot caches
+   fcfs over the launcher's three pods (RTT 0/30/100 ms, 12 slots), 20
+   requests (CUT from 60 for the script's time), run_model=True: geotp's
+   average latency below fcfs's, 28 decode launches per generation and one
+   geo_schedule launch per geotp admission. Cut: `max_seq` 32768 -> 4096 for the pods' slot caches
    (3 x 12 slots x 28 layers at 32768 would need 135 GB).
 
 Slice 3, the recurrent mixers (xlstm-350m, recurrentgemma-9b):
@@ -149,13 +153,13 @@ Slice 3, the recurrent mixers (xlstm-350m, recurrentgemma-9b):
     4 decode steps, every layer's output, cache leaf and the logits within
     0.08 abs + rel; (b) all 24 layers, weights drawn on the card: prefill
     8 x 2048 (21 mlstm launches per prefill, every one bf16: the
-    tensor-core kernel), 64 decode steps at B = 8, the
+    tensor-core kernel), 32 decode steps at B = 8, the
     router geotp vs fcfs (run_model=True), geotp's average latency below
     fcfs's;
 12. recurrentgemma-9b — (a) as 11a at 5 layers (one group and the tail);
     (b) all 38 layers, weights drawn and cast tensor by tensor on the card:
     prefill 4 x 4096 (26 fused RG-LRU and 12 flash launches per prefill,
-    past the 2048 window: band skip and ring wrap), 64 decode steps at
+    past the 2048 window: band skip and ring wrap), 32 decode steps at
     B = 4 (26 fused RG-LRU and 12 decode launches a step), the router
     geotp vs fcfs (the same launches per step for every generation).
 
@@ -180,18 +184,18 @@ Slice 7, the MoE and MLA families (mixtral-8x7b, llama4-scout, minicpm3-4b):
     row; those are counted, at most routelog.MAX_FLIPS, and not compared);
     (b) CUT to 16 of 32 layers (~46 GB of bf16 weights, drawn on the card
     one layer group at a time): prefill 4 x 4608 (past the 4096 window),
-    the assignments the capacity (1.25) drops, 64 decode steps at B = 4,
+    the assignments the capacity (1.25) drops, 32 decode steps at B = 4,
     flash / decode launches equal to the layer pattern's (16 a prefill, 16
     a step); (c) the router geotp vs fcfs, its summaries equal to the
     CPU's;
 15. llama4-scout — as 14 (one period = 4 layers; the path's shapes: flash
     [2,10240,40,8,128] cla 8192 and NoPE gqa, decode over the 8192-slot
-    cla ring and the 10304-slot linear cache), CUT to 12 of 48 layers
-    (three periods, ~54 GB), prefill 2 x 10240 (past the 8192 chunk), 64
+    cla ring and the 10272-slot linear cache), CUT to 12 of 48 layers
+    (three periods, ~54 GB), prefill 2 x 10240 (past the 8192 chunk), 32
     decode steps at B = 2 (12 flash a prefill, 12 decode a step); no
     router (its pods' linear NoPE caches do not fit beside the weights);
 16. minicpm3-4b — as 14 (one layer), then all 62 layers uncut: prefill
-    8 x 2048 (62 flash launches at dv 64 < dh 96), 64 decode steps at
+    8 x 2048 (62 flash launches at dv 64 < dh 96), 32 decode steps at
     B = 8 (the absorbed MLA decode: plain products, no decode launch), the
     router with `max_seq` cut to 4096 for its pods, as llama's.
 
@@ -218,14 +222,14 @@ Slice 8, the vision frontend, the encoder-decoder and the int8 KV cache
     CPU over one layer at full width, layer by layer, 64 patch embeddings
     ahead of the prompt, within 0.05; (b) all 48 layers uncut (39.8 GB of
     bf16 weights, drawn on the card one layer group at a time): prefill
-    4 x (1,280 patches + 768 tokens) into a 4,096-slot cache, 64 decode
+    4 x (1,280 patches + 768 tokens) into a 4,096-slot cache, 32 decode
     steps, 48 flash launches a prefill and 48 decode calls a step; (c) the
     router geotp vs fcfs, summaries equal to the CPU's, `max_seq` cut to
     2,048 for its pods;
 19. seamless-m4t-large-v2 — (a) as 18a over one encoder and one decoder
     layer, 64 frames (the encoder's layers held too, the decoder's on the
     CPU's encoder output); (b) 24 + 24 layers uncut: 8 x 1,024 stub fbank
-    frames of 160 and 32 decoder tokens, cache 256, 64 decode steps, 72
+    frames of 160 and 32 decoder tokens, cache 256, 32 decode steps, 72
     flash launches a prefill (24 encoder, 24 decoder, 24 on the cross
     route) and 48 decode calls a step (24 self, 24 cross); (c) the router
     over pods with an empty encoder memory (its cross step zeros without a
@@ -241,13 +245,15 @@ them to the CPU.
 Slice 11, continuation (`Simulator.resume`, `RunResult.with_states` /
 `save`) and the port's smoke path, run after phase 19:
 
-5e. fig11's online segments (`repro_torch.bench.figures.fig11_online`, the
-   reference's `benchmarks/figures.py:177-210`) at fig11's own size:
-   T = 48, `ycsb_bank(48, theta=0.9, dist_ratio=0.6)`, jitter 30; for ssp
-   and for geotp a first 8 s segment (warmup 1 s) through
-   `Simulator.run`, then three segments, each `with_states` with
-   `tau_true` edited and `resume(horizon_s=now / 1e6 + 8.0, warmup_s=0.0)`,
-   the captured windowed step captured anew for each. Each preset is a
+5e. fig11's online segments (the chain of `repro_torch.bench.figures.
+   fig11_online`, the reference's `benchmarks/figures.py:177-210`) at
+   fig11's own size: T = 48, `ycsb_bank(48, theta=0.9, dist_ratio=0.6)`,
+   jitter 30; for ssp and for geotp a first 8 s segment (warmup 1 s)
+   through `Simulator.run`, then each later segment `with_states` with
+   `tau_true` edited and `resume(horizon_s=now / 1e6 + 8.0,
+   warmup_s=0.0)`, the captured windowed step captured anew: geotp's
+   whole chain of four segments (ssp's chain CUT for the script's time:
+   FIG11_CHIP_SEGMENTS). Each preset is a
    single lane, as fig11 runs it: each chain's next horizon is its own
    `now` + 8 s, which two lanes of one grid cannot share. Every segment's
    events, commits, aborts, throughput and final clock equal the JAX
@@ -268,18 +274,20 @@ after phase 5f:
 5g. first the host cost of one eager op and of one host read (what a
    handler's inner branch costs either way); then (a) the 12 presets at
    fig5's YCSB deployment cut to T = 8 and 0.2 s (paper RTTs) through
-   `run_grid(strategy="map")`, single-event and drained, fault-free and
-   under CRASH_HEAVY with replicas: every leaf but `fused` equal to the
-   card's vmap lanes, `geo_schedule` launched eagerly, and every final leaf
-   equal to the same map lanes on the CPU; (b) phase 5's world (fig5's YCSB
+   `run_grid(strategy="map")`, single-event fault-free and under
+   CRASH_HEAVY with replicas, and drained under CRASH_HEAVY (the
+   fault-free drained run CUT for the script's time: SEQ_RUNS): every
+   leaf but `fused` equal to the card's vmap lanes, `geo_schedule`
+   launched eagerly, and every final leaf equal to the same map lanes on
+   the CPU; (b) phase 5's world (fig5's YCSB
    deployment at T = 128) for geotp, seed 0, its horizon cut (printed):
    untimed to the warm-up at 0.3 s (the map lane through `engine.simulate`
    equal to the vmap lane on every leaf), then timed to 0.45 s in both
    modes through `engine.simulate(state=)`, each equal to the vmap lane
    resumed over the same span on every leaf but `fused`. Each run's
    events/s, host ms an event and launches, beside the vmap lanes' rate
-   without their capture. Every timed run has the host to itself: the
-   CPU's map lanes (four processes) run beside (b)'s untimed prefix.
+   without their capture. The CPU's map lanes run in three processes
+   started in phase 2, beside phases 3-5d, and are done by phase 5g.
 
 Slice 13, the paper's figure sweeps through the port
 (`repro_torch.bench.figures`), run after phase 5g:
@@ -290,8 +298,10 @@ Slice 13, the paper's figure sweeps through the port
    16 / 32 TPC-C; fig7's 60 lanes with the QURO banks, fig9's TPC-C
    Payment / NewOrder banks, fig14's 15- and 25-op and 1-3-round banks)
    through `figures.run` (`run_sweep` on the captured windowed step), only
-   the horizon cut (FIGURES_CUT; fig1, fig10 and fig18, since the training
-   phases, to FIGURES_CUT_SHORT): every lane's events, commits, aborts
+   the horizon cut (FIGURES_CUT, 0.3 s, cut from 0.6 s for the training
+   phases' time; fig15, whose four-region lanes commit nothing by then,
+   FIGURES_CUT_LONG, 0.45 s):
+   every lane's events, commits, aborts
    and hist_all digest equal to the JAX reference's (FIGURES_REF), two
    `geo_schedule` launches a step; each grid's steps, seconds and events/s;
    the figures' row code on the results and `claims.validate`'s verdicts
@@ -308,8 +318,10 @@ run after phase 19:
    variant;
 20b. the backward vs its plain version `attention_bwd_ref` (float32 math)
    on phase 7's FLASH_CASES and EXTRA_FLASH_CASES shapes and BWD_EXTRA
-   (llama3.2-3b's [2, 2048, 24/8, 128], MLA's dv 64 < dh 96, a window, a
-   chunk-local band, a cap of 50, a non-causal and a cross shape), float32
+   (llama3.2-3b's [2, 2048, 24/8, 128], recurrentgemma-9b's local
+   attention as 21d trains it, [2, 2048, 16/1, 256], window 2048, cap 50,
+   MLA's dv 64 < dh 96, a window, a chunk-local band, a cap of 50, a
+   non-causal and a cross shape), float32
    within 1e-4 abs + rel, bf16 each of dQ / dK / dV within 2e-2 relative
    L2, two calls bit for bit equal; CUDA-event times of the kernel, its
    plain version and SDPA's backward (timed only) at llama's shape, beside
@@ -321,16 +333,17 @@ run after phase 19:
 20d. the same on every attention-only reduced config (llama3.2-3b,
    qwen2-72b, h2o-danube-3-4b, mixtral-8x7b, llama4-scout, minicpm3-4b,
    internvl2-26b, seamless-m4t-large-v2: every backward variant through a
-   model; MoE routing held by `routelog.compare`, C6), and xlstm-350m and
-   recurrentgemma-9b raising `not_ported` (A7) on the card: their mLSTM and
-   RG-LRU kernels have no backward yet;
+   model; MoE routing held by `routelog.compare`, C6); the recurrent two
+   train in 21c;
 20e. the training path at full width: llama3.2-3b, 28 layers, weights drawn
-   on the card, AdamW, remat="full", 2 x 2048 tokens, 2 warm-up and 5
-   timed steps on one batch: finite losses, the last below the first, 56
-   forward (with the recompute) and 28 backward flash launches a step; the
-   step's ms, tokens/s and peak memory; then one more step under
-   torch.profiler: the backward kernels' device time against all device
-   kernels' in it, and the kernels with the most device time;
+   on the card, AdamW, remat="full", 2 x 2048 tokens, 3 timed steps (CUT
+   from 5 for phase 21's time) on one batch
+   (`train_at_width`): a first step under torch.profiler, which warms up
+   too (the backward kernels' device time against all device kernels' in
+   it, and the kernels with the most device time), one more warm-up step
+   and 3 timed steps: finite losses, the last below the first, 56 forward
+   (with the recompute) and 28 backward flash launches a step; the step's
+   ms, tokens/s and peak memory;
 20f. `repro_torch.launch.train.main` with the reference integration test's
    arguments (llama3.2-3b reduced, 30 steps, batch 8, seq 64, lr 3e-3,
    checkpoints every 10): the loss down by more than 0.3 and step 30
@@ -338,8 +351,60 @@ run after phase 19:
    returns 20, the run goes on); then `repro_torch.examples.train_lm` for 20
    steps. The kernels line's `flash_attention_bwd` record counts 20e's and
    20f's backward launches, and their forward launches join
-   `flash_attention`'s. For their time, phase 5h cuts three figures'
-   horizons deeper (FIGURES_SHORT).
+   `flash_attention`'s.
+
+Slice 15, the recurrent families train on the card (the mLSTM and RG-LRU
+backward kernels), run after phase 20:
+
+21a. build — `mlstm_chunk_bwd.cu` (an m / n / c pre-pass, a dK / dV /
+   dlogi kernel and a dQ / dF kernel; mma.sync for bf16, the CUDA cores
+   for float32) and
+   `rglru_scan_bwd.cu` (the reverse scan, one thread a channel; the
+   contract's and the fused op's entries), started in phase 2 beside the
+   other LM kernels and printed in phase 6 with ptxas's lines;
+21b. each backward kernel against its plain version (`mlstm_bwd_ref`,
+   `rglru_bwd_ref`, float32 math) on MLSTM_CASES / RGLRU_CASES, ragged S
+   and dh (MLSTM_BWD_EXTRA, RGLRU_BWD_EXTRA) and the training shapes
+   (mLSTM [2, 4, 2048, 256], RG-LRU [2, 2048, 4096] with log_a in the
+   model's range; the contract, and the fused entry with and without h0),
+   float32 within 1e-4 abs + rel, bf16 each gradient within 2e-2 relative
+   L2, two calls bit for bit; CUDA-event times of each kernel and its
+   plain version at the training shapes beside the bound (no PyTorch call
+   computes either gradient: no library time);
+21c. reduced xlstm-350m in bf16 (the training path's type, the mLSTM
+   backward's mma.sync route) layer by layer, GPU vs CPU on the CPU's
+   input to each layer: the gradients of the input and of the weights
+   within 20d's 5e-2 relative L2 (`layer_grads_both`); then, printed and
+   not held, its whole bf16 step's gradients GPU vs CPU and the CPU's bf16
+   step against its float32 step, no kernel in it (`xlstm_bf16_witness`:
+   a free-running bf16 xLSTM stack is chaotic at random weights); then one
+   train step GPU vs CPU within 20d's bounds of reduced xlstm-350m
+   (float32 activations, see RECURRENT_TRAIN_ARCHS) and reduced
+   recurrentgemma-9b (bf16), then of
+   xlstm-350m at full width cut to 8 layers (one period, with the sLSTM),
+   2 x 128 tokens, float32; the card's mLSTM / RG-LRU / flash launches, one
+   forward and one backward a layer;
+21d. the training path at full width (`train_at_width`, AdamW,
+   remat="full", 2 x 2048 tokens, one batch): xlstm-350m, all 24 layers
+   (21 mLSTM: 42 forward launches a step with the recompute, 21 backward;
+   a profiled first step, which warms up too, and 1 timed step: a step is
+   host-bound by the sLSTM loop), then recurrentgemma-9b CUT to
+   8 of 38 layers (two pattern groups and the tail: 6 RG-LRU + 2 local
+   attention layers, 2.83 B parameters, ~45 GB of masters, gradients and
+   moments; RG-LRU 10 forward launches a step, the tail's two layers not
+   recomputed, and 6 backward; flash 4 and 2; a profiled first step and
+   3 timed steps): finite losses, the last below the first, ms a
+   step, tokens/s, peak memory, each backward kernel's share of the
+   profiled step's device time. The kernels line gains `mlstm_bwd` and
+   `rglru_bwd` (21c's and 21d's launches); the forward launches join
+   `mlstm_chunk`'s, `rglru_scan`'s and `flash_attention`'s records. For
+   the script's time (it must end well inside 1,200 s on a slower host),
+   phase 5e runs geotp's chain of fig11's online segments and not ssp's
+   (FIG11_CHIP_SEGMENTS), phase 5g drops its fault-free drained map
+   run (SEQ_RUNS), phase 5h's horizon is 0.3 s (fig15's 0.45 s),
+   the serving paths take 32 decode steps and their routers 20 requests,
+   20e 3 timed steps, and the engine profiles after phase 5d a window of
+   32 events a lane (`profile_step.WINDOW`).
 
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
@@ -636,46 +701,41 @@ def check_candidates(states) -> None:
           f"({W} masked argmins), device time in a captured graph")
 
 
-def gpu_vs_cpu(bank, grid, drain, horizon_s=1.0, warmup_s=0.2, cpu=None):
-    """Phases 4 / 4b / 4c: `grid` on the card (a captured step) and on the
-    CPU (eager), single-event or windowed; every final leaf and the step
-    count must be equal, and `geo_schedule` launched twice a step on the
-    card. `cpu`, if given, is the CPU run, made elsewhere (`cpu_run`).
-    Returns ({"cuda": run, "cpu": run}, launches)."""
+def card_run(bank, grid, drain, horizon_s=1.0, warmup_s=0.2):
+    """The card's side of phases 4 / 4b / 4c: `grid` as a captured step,
+    single-event or windowed, `geo_schedule` launched twice a step. Returns
+    (run, launches); phase 4d holds the run against the CPU's."""
     from repro_torch.core.engine import Simulator, batch
     from repro_torch.kernels.geo_schedule import ops
 
-    res = {}
-    for name in ("cuda", "cpu"):
-        if name == "cpu" and cpu is not None:
-            res[name] = cpu
-            how = "eager, in a process of its own beside the card's phases"
-        else:
-            sim = Simulator.from_bank(bank, horizon_s=horizon_s, warmup_s=warmup_s, drain=drain,
-                                      track_slots=True, device=name)
-            before = ops.geo_schedule.launches
-            res[name] = sim.run_grid(grid, bank)
-            launches = ops.geo_schedule.launches - before
-            if launches != (2 * res[name].steps if name == "cuda" else 0):
-                raise AssertionError(f"{name}: geo_schedule launches {launches} for "
-                                     f"{res[name].steps} steps")
-            if name == "cuda":
-                cuda_launches = launches
-            how = (f"a captured step replayed, warm-up and capture {batch.run.capture_s:.3f} s"
-                   if name == "cuda" else "eager")
-        print(f"{name}: {res[name].steps} steps, {res[name].events} events, "
-              f"{res[name].wall_s:.2f} s ({how})")
-    if res["cuda"].steps != res["cpu"].steps:
-        raise AssertionError(f"steps differ: GPU {res['cuda'].steps}, CPU {res['cpu'].steps}")
-    bad = leaf_mismatches(res["cuda"].states, res["cpu"].states)
+    sim = Simulator.from_bank(bank, horizon_s=horizon_s, warmup_s=warmup_s, drain=drain,
+                              track_slots=True, device="cuda")
+    before = ops.geo_schedule.launches
+    run = sim.run_grid(grid, bank)
+    launches = ops.geo_schedule.launches - before
+    if launches != 2 * run.steps:
+        raise AssertionError(f"cuda: geo_schedule launches {launches} for {run.steps} steps")
+    print(f"cuda: {run.steps} steps, {run.events} events, {run.wall_s:.2f} s (a captured step "
+          f"replayed, warm-up and capture {batch.run.capture_s:.3f} s)")
+    if drain:
+        print(drain_line(run))
+    return run, launches
+
+
+def against_cpu(card, cpu, what):
+    """Phase 4d: a card run of phases 4-4c and the CPU's run of the same
+    grid (`cpu_run`, eager, in a process of its own): the step count and
+    every final leaf equal."""
+    print(f"{what}: cpu {cpu.steps} steps, {cpu.events} events, {cpu.wall_s:.2f} s (eager, in a "
+          f"process of its own beside the card's phases)")
+    if card.steps != cpu.steps:
+        raise AssertionError(f"{what}: steps differ: GPU {card.steps}, CPU {cpu.steps}")
+    bad = leaf_mismatches(card.states, cpu.states)
     for name, lanes in bad:
         print(f"MISMATCH leaf {name} lanes {lanes}")
     if bad:
-        raise AssertionError(f"{len(bad)} SimState leaves differ between GPU and CPU")
-    print(f"every SimState leaf equal on {len(grid)} lanes ({len(res['cuda'].states)} fields)")
-    if drain:
-        print(drain_line(res["cuda"]))
-    return res, cuda_launches
+        raise AssertionError(f"{what}: {len(bad)} SimState leaves differ between GPU and CPU")
+    print(f"{what}: every SimState leaf equal on {len(card)} lanes ({len(card.states)} fields)")
 
 
 def main_path(grid, drain):
@@ -847,15 +907,18 @@ def cpu_run(kind, drain):
 
 
 def start_cpu_runs():
-    """The four CPU runs of phases 4, 4b and 4c (single-event, windowed),
-    started in four processes; returns (pool, {(kind, drain): future of a
-    `cpu_run`})."""
+    """The CPU runs of phases 4, 4b and 4c (single-event, windowed) and of
+    phase 5g (a) (the map lanes), each started in a process of its own;
+    returns (pool, {(kind, drain): future of a `cpu_run`}, {(schedule,
+    drain): future of a `seq_cpu_run`})."""
     import multiprocessing
 
     pool = concurrent.futures.ProcessPoolExecutor(
-        4, mp_context=multiprocessing.get_context("spawn"))
-    return pool, {(kind, drain): pool.submit(cpu_run, kind, drain)
-                  for kind in CPU_RUNS for drain in (False, True)}
+        2 * len(CPU_RUNS) + len(SEQ_RUNS), mp_context=multiprocessing.get_context("spawn"))
+    runs = {(kind, drain): pool.submit(cpu_run, kind, drain)
+            for kind in CPU_RUNS for drain in (False, True)}
+    seq = {(sch, drain): pool.submit(seq_cpu_run, sch, drain) for sch, drain in SEQ_RUNS}
+    return pool, runs, seq
 
 
 def cpu_result(cpu_runs, kind, drain):
@@ -869,29 +932,27 @@ def cpu_result(cpu_runs, kind, drain):
                                                                     run.states)})
 
 
-def fault_small_phase(cpu_runs):
-    """Phase 4c: GPU == CPU on every leaf and step count under both
-    schedules, single-event and windowed (the CPU runs from
-    `start_cpu_runs`); the drained states equal the single-event ones but
-    the drain telemetry. Returns the card's geo_schedule launches."""
+def fault_small_phase():
+    """Phase 4c's card runs under both schedules, single-event and windowed
+    (phase 4d holds them against the CPU's); the drained states equal the
+    single-event ones but the drain telemetry, and the schedules bite.
+    Returns ({drain: run}, the card's geo_schedule launches)."""
     bank, grid = small_fault_grid()
-    kw = dict(horizon_s=SMALL_HORIZON_S, warmup_s=0.0)
-    out = {}
+    runs, launches = {}, 0
     for drain in (False, True):
-        out[drain] = gpu_vs_cpu(bank, grid, drain, cpu=cpu_result(cpu_runs, "faults", drain),
-                                **kw)
-    (single, l1), (drained, l2) = out[False], out[True]
-    leaves_but_telemetry_equal(drained["cuda"].states, single["cuda"].states,
+        runs[drain], n = card_run(bank, grid, drain, horizon_s=SMALL_HORIZON_S, warmup_s=0.0)
+        launches += n
+    leaves_but_telemetry_equal(runs[True].states, runs[False].states,
                                "phase 4c, drained vs single-event on the card")
-    d = drained["cuda"].drain
+    d = runs[True].drain
     if not (d["abort_causes"]["crash"] > 0 and d["failovers"] > 0 and d["stale_reads"] > 0
             and d["window_stops"]["fault"] > 0):
         raise AssertionError(f"the schedules did not bite: {d}")
     print(f"crash aborts {d['abort_causes']['crash']}, failovers {d['failovers']}, stale reads "
-          f"{d['stale_reads']}, probes {int(drained['cuda'].states.hb_count.sum())}, "
+          f"{d['stale_reads']}, probes {int(runs[True].states.hb_count.sum())}, "
           f"availability {d['availability']}, windows stopped at a fault row "
           f"{d['window_stops']['fault']}")
-    return l1 + l2
+    return runs, launches
 
 
 def fig_sweep(fig):
@@ -983,8 +1044,9 @@ def replay_line(label, prof) -> str:
 
 SERVE_ARCH = "llama3.2-3b"
 SERVE_MAX_SEQ = 4096  # cut from 32768: the pods' slot caches (135 GB at 32768)
-PREFILL_B, PREFILL_S, DECODE_STEPS = 8, 2048, 64  # phase 9a
-ROUTER_REQUESTS, ROUTER_RATE = 60, 400.0  # phase 9b
+# phase 9a; the serving phases' decode steps CUT from 64 for phase 21's time
+PREFILL_B, PREFILL_S, DECODE_STEPS = 8, 2048, 32
+ROUTER_REQUESTS, ROUTER_RATE = 20, 400.0  # phase 9b (requests CUT from 60)
 ROUTER_CACHE = 64  # slots of the cache each `gen_done` decode step builds
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/kernels/test_kernels.py
 LOGIT_TOL = 0.05  # bf16 logits (tests/models/test_archs.py)
@@ -1543,7 +1605,7 @@ def router(cfg, params, dev, policy, n_requests=ROUTER_REQUESTS):
 
 
 LM_KERNELS = ("decode_attention", "flash_attention", "mlstm_chunk", "rglru_scan",
-              "flash_attention_bwd")
+              "flash_attention_bwd", "mlstm_chunk_bwd", "rglru_scan_bwd")
 STRICT_BUILDS = ("decode_attention", "flash_attention", "mlstm_chunk")  # no stack, no spill
 
 
@@ -1566,8 +1628,7 @@ def serving_phases(dev, builds):
     from repro_torch.models.schema import init_params, param_count
 
     bf16 = torch.bfloat16
-    phase("6 (and 20a) build decode_attention, flash_attention, mlstm_chunk, rglru_scan, "
-          "flash_attention_bwd")
+    phase(f"6 (and 20a, 21a) build {', '.join(builds)}")
     for name, fut in builds.items():
         secs = fut.result()
         _build.load(name)
@@ -2924,10 +2985,14 @@ def slice8_phases(dev, records):
 # the backward's checks beyond phase 7's FLASH_CASES and EXTRA_FLASH_CASES
 # shapes: llama3.2-3b's training shape (BWD_MAIN, the timed one), minicpm3's
 # MLA heads (dv 64 < dh 96), a sliding window, a chunk-local band, a cap of
-# 50 at dh 256, a non-causal encoder and a cross shape (Sk != Sq)
+# 50 at dh 256, recurrentgemma-9b's local attention at its training shape of
+# phase 21d (BWD_RG: MQA at dh 256, window 2048, cap 50, the CUDA-core
+# route), a non-causal encoder and a cross shape (Sk != Sq)
 BWD_MAIN = (2, 2048, 2048, 24, 8, 128, 128, True, 0, False, 0.0)
+BWD_RG = (2, 2048, 2048, 16, 1, 256, 256, True, 2048, False, 50.0)
 BWD_EXTRA = [
     BWD_MAIN,
+    BWD_RG,
     (2, 1024, 1024, 40, 40, 96, 64, True, 0, False, 0.0),
     (1, 3000, 3000, 8, 2, 128, 128, True, 1024, False, 0.0),
     (1, 2048, 2048, 8, 4, 128, 128, True, 512, True, 0.0),
@@ -2943,12 +3008,11 @@ TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RL2 = 1e-2, 2e-2, 5e-2
 # top-1 router's gradient is rounding noise (the renormalised gate is 1)
 GRAD_FLOOR = 1e-5
 TRAIN_CPU_LAYERS, TRAIN_CPU_B, TRAIN_CPU_S = 2, 2, 128  # phase 20c
-TRAIN_B, TRAIN_S, TRAIN_WARMUP, TRAIN_STEPS = 2, 2048, 2, 5  # phase 20e
+TRAIN_B, TRAIN_S, TRAIN_WARMUP, TRAIN_STEPS = 2, 2048, 1, 3  # phase 20e (steps CUT from 5)
 TRAIN_LR = 5e-5  # phase 20e: at 3e-4 the loss of the repeated batch rose for two steps
-# phase 20d: every attention-only family, reduced; the recurrent two raise
+# phase 20d: every attention-only family, reduced (the recurrent two: phase 21c)
 TRAIN_ARCHS = ("llama3.2-3b", "qwen2-72b", "h2o-danube-3-4b", "mixtral-8x7b",
                "llama4-scout-17b-a16e", "minicpm3-4b", "internvl2-26b", "seamless-m4t-large-v2")
-UNTRAINED_ARCHS = {"xlstm-350m": "mLSTM", "recurrentgemma-9b": "RG-LRU"}
 # phase 20f: the reference integration test's arguments
 # (tests/integration/test_end_to_end.py), and train_lm's steps
 LAUNCH_ARGS = ["--arch", "llama3.2-3b", "--steps", "30", "--batch", "8", "--seq", "64",
@@ -3052,7 +3116,7 @@ def time_bwd(case, dev):
     return k_ms, p_ms, lib_ms
 
 
-def train_step_both(cfg, weights, batch, dev, opt, label, routed=False):
+def train_step_both(cfg, weights, batch, dev, opt, label, routed=False, read_counts=None):
     """One train step (`make_train_step`'s body: `accumulated_grads`, then
     `adamw.apply_updates`) on the card and on the CPU from the same
     float32 weights and batch (CPU tensors): the loss within
@@ -3060,15 +3124,19 @@ def train_step_both(cfg, weights, batch, dev, opt, label, routed=False):
     within TRAIN_GRAD_RL2 relative L2, lr and step equal. `routed` (MoE):
     the routing is read on both devices and held by `routelog.compare`;
     the FFN leaves of a layer whose routing differs at a near tie are
-    counted, not held (C6). Returns {"secs", "worst", "flips"}."""
+    counted, not held (C6). `read_counts`: a reader of launch counts
+    ({name: count}); the card's step's are returned. Returns {"secs",
+    "worst", "flips", "launches"}."""
     from repro_torch.models import model, routelog, stack
     from repro_torch.optim import adamw
 
     cpu = torch.device("cpu")
     out = []
-    for d in (dev, cpu):
+    launches = {}
+    for i, d in enumerate((dev, cpu)):
         params = {k: x.to(d, copy=True) for k, x in weights.items()}
         b = {k: x.to(d) for k, x in batch.items()}
+        before = read_counts() if read_counts and i == 0 else None
         with routelog.RouteLog() if routed else contextlib.nullcontext() as log:
             t0 = time.perf_counter()
             loss, grads = model.accumulated_grads(cfg, params, b)
@@ -3077,6 +3145,8 @@ def train_step_both(cfg, weights, batch, dev, opt, label, routed=False):
             if d.type == "cuda":
                 torch.cuda.synchronize()
             secs = time.perf_counter() - t0
+        if before is not None:
+            launches = {n: c - before[n] for n, c in read_counts().items()}
         m["loss"] = loss
         out.append(dict(m={k: float(v) for k, v in m.items()}, step=int(st["step"]),
                         grads=grads_cpu, secs=secs,
@@ -3119,7 +3189,7 @@ def train_step_both(cfg, weights, batch, dev, opt, label, routed=False):
           + (f" ({len(c['grads']) - len(held)} FFN leaves of layers {sorted(flipped)} not held: "
              f"{flips} routing flips at near ties)" if flipped else "")
           + f"; step {g['secs']:.2f} s GPU, {c['secs']:.2f} s CPU", flush=True)
-    return {"secs": g["secs"], "worst": worst, "flips": flips}
+    return {"secs": g["secs"], "worst": worst, "flips": flips, "launches": launches}
 
 
 def reduced_train_batch(cfg, gen, B=2, S=64):
@@ -3137,40 +3207,142 @@ def reduced_train_batch(cfg, gen, B=2, S=64):
     return b
 
 
-PROFILE_TOP = 8  # phase 20e: the profiled step's kernels with the most device time
+PROFILE_TOP = 8  # phases 20e, 21d: the profiled step's kernels with the most device time
+# the backward kernels of a profiled train step, by the name of the kernel
+# whose launches they are: the flash backward's (`bwd_pre` / `bwd_dkdv` /
+# `bwd_dq`, their mma variants), the mLSTM backward's and the RG-LRU's
+BWD_KERNEL_RES = {"flash_attention_bwd": r"(?<![a-z_])bwd_(pre|dkdv|dq)_",
+                  "mlstm_bwd": r"mlstm_bwd_(pre|dkdv|dq)_(mma_)?kernel",
+                  "rglru_bwd": r"rglru_bwd_kernel"}
 
 
-def profile_train_step(step, params, state, batch) -> dict:
-    """One more train step under torch.profiler: the device time of the
-    flash backward's kernels (`bwd_pre` / `bwd_dkdv` / `bwd_dq`) and of all
-    device kernels in it (None when the profiler records no device activity),
-    the step's wall under the profiler, the PROFILE_TOP kernel names with
-    the most device time; the new params and state. The loss must be
-    finite."""
+def profile_train_step(step, params, state, batch, names=("flash_attention_bwd",)) -> dict:
+    """One train step under torch.profiler, recording the device's activity
+    only (xLSTM's step issues ~500,000 host ops): the device time of the
+    backward kernels of `names` (BWD_KERNEL_RES) and of all device kernels
+    in it (None when the profiler records no device activity), the step's
+    wall under the profiler, the seconds the profiler took to stop and its
+    records to read, the
+    PROFILE_TOP kernel names with the most device time; the loss, the new
+    params and state. The loss must be finite."""
     import re
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, supported_activities
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # a profiler that cannot record the device (no CUDA) records the host
+    acts = [ProfilerActivity.CUDA]
+    if ProfilerActivity.CUDA not in supported_activities():
+        acts = [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         params, state, m = step(params, state, batch)
         loss = float(m["loss"])
         wall = time.perf_counter() - t0
         time.sleep(0.25)  # the device's records near the span's end stay in the trace
+        t0 = time.perf_counter()
+    stop_s = time.perf_counter() - t0
     if not np.isfinite(loss):
         raise AssertionError(f"the profiled train step: loss {loss}")
+    # the trace's raw records (name, ms) of the device: `prof.events()` would
+    # first build the host's op tree, minutes for xLSTM's ~500,000 launches
+    t0 = time.perf_counter()
     cpu_t = torch.autograd.DeviceType.CPU
-    dev = [e for e in prof.events()
-           if e.device_type != cpu_t and not getattr(e, "is_user_annotation", False)]
-    bwd = [e for e in dev if re.search(r"bwd_(pre|dkdv|dq)_", e.name)]
+    dev = [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+           if e.device_type() != cpu_t and not getattr(e, "is_user_annotation", bool)()]
+    bwd = {n: [e for e in dev if re.search(BWD_KERNEL_RES[n], e[0])] for n in names}
     by_name = {}
-    for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, t in dev:
+        by_name[name] = by_name.get(name, 0.0) + t
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
-    ms = (lambda evs: sum(e.time_range.elapsed_us() for e in evs) / 1e3) if dev else None
-    return dict(params=params, state=state, loss=loss, wall_ms=wall * 1e3,
-                device_ms=ms(dev) if dev else None, bwd_ms=ms(bwd) if dev else None,
-                bwd_kernels=len(bwd), top=[(n[:90], round(t, 3)) for n, t in top])
+    ms = (lambda evs: sum(t for _, t in evs)) if dev else None
+    return dict(params=params, state=state, loss=loss, wall_ms=wall * 1e3, stop_s=stop_s,
+                read_s=time.perf_counter() - t0,
+                device_ms=ms(dev) if dev else None,
+                bwd_ms={n: ms(b) if dev else None for n, b in bwd.items()},
+                bwd_kernels={n: len(b) for n, b in bwd.items()},
+                top=[(n[:90], round(t, 3)) for n, t in top])
+
+
+def train_at_width(cfg, dev, lr, warmup, steps, counts, label):
+    """Phases 20e and 21d: `cfg` at full width on the card, float32 weights
+    drawn there, AdamW, remat="full", one repeated batch of TRAIN_B x
+    TRAIN_S tokens: a first step under the profiler (`profile_train_step`;
+    it warms up too: a kernel's device time does not depend on the host's
+    first-call costs), then `warmup` more and `steps` timed steps. `counts`:
+    {kernel record name: (a reader of its launch count, the launches a
+    step)}; each must grow by exactly that a step, the profiled one
+    included. The losses must be finite and the last below the first.
+    Prints and returns the step's ms, tokens/s, peak device memory, losses
+    (the profiled step's first) and the profile (each backward kernel's
+    device ms beside all device kernels')."""
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.models import model, stack
+    from repro_torch.models.schema import init_params
+    from repro_torch.optim import adamw
+
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(stack.build_schema(cfg), gen, dev)
+    state = adamw.init_state(params)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in params.values())
+    print(f"{label}: {n_params} float32 parameters drawn on the card and AdamW's moments made "
+          f"in {time.perf_counter() - t0:.2f} s")
+    step = model.make_train_step(cfg, adamw.AdamWConfig(lr=lr, warmup_steps=1,
+                                                         total_steps=1 + warmup + steps),
+                                 remat="full")
+    batch = global_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B), 0,
+                         dev)
+    before = {n: read() for n, (read, _) in counts.items()}
+    names = tuple(n for n in counts if n in BWD_KERNEL_RES)
+    prof = profile_train_step(step, params, state, batch, names)
+    params, state = prof.pop("params"), prof.pop("state")
+    losses, secs = [prof.pop("loss")], []
+    print(f"step 0: loss {losses[0]:.5f} in {prof['wall_ms']:.1f} ms under the profiler (the "
+          f"profiler stopped in {prof['stop_s']:.1f} s, its device records read in "
+          f"{prof['read_s']:.1f} s)", flush=True)
+    for i in range(1, 1 + warmup + steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))  # the host read ends the step
+        secs.append(time.perf_counter() - t0)
+        print(f"step {i}: loss {losses[-1]:.5f} grad_norm {float(m['grad_norm']):.5f} lr "
+              f"{float(m['lr']):.3e} in {secs[-1] * 1e3:.1f} ms", flush=True)
+    got = {n: read() - before[n] for n, (read, _) in counts.items()}
+    want = {n: per * (1 + warmup + steps) for n, (_, per) in counts.items()}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got} != {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses}: not finite and falling")
+    step_s = sum(secs[warmup:]) / steps
+    tokens = TRAIN_B * TRAIN_S
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per = ", ".join(f"{n} {p}" for n, (_, p) in counts.items())
+    print(f"train step {label}, {TRAIN_B} x {TRAIN_S} tokens, remat full: {step_s * 1e3:.1f} ms "
+          f"a step (mean of {steps} after the profiled step and {warmup} more warm-up) = "
+          f"{tokens / step_s:.1f} tokens/s; peak device memory {peak:.2f} GiB; launches a step "
+          f"(the forward's with the recompute): {per}; losses {losses}")
+    if prof["device_ms"] is None:
+        print(f"{label}, the profiled step: the profiler recorded no device activity; the "
+              f"backward kernels' share not measured")
+    else:
+        for n in names:
+            print(f"{label}, the profiled step (the first): {n} {prof['bwd_ms'][n]:.3f} ms of "
+                  f"{prof['device_ms']:.3f} ms of device kernels "
+                  f"({prof['bwd_ms'][n] / prof['device_ms']:.3f}; {prof['bwd_kernels'][n]} "
+                  f"kernels)")
+        print("the kernels with the most device time in the profiled step:")
+        for name, t in prof["top"]:
+            print(f"  {t:10.3f} ms  {name}")
+    out = dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s, peak_gib=peak, losses=losses,
+               n_params=n_params, **prof)
+    del params, state, batch, m, prof
+    torch.cuda.empty_cache()
+    print(f"{label}: {time.perf_counter() - t_all:.1f} s in all")
+    return out
 
 
 def training_phases(dev, records, full=None):
@@ -3186,7 +3358,7 @@ def training_phases(dev, records, full=None):
     from repro_torch.examples import train_lm
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.launch import train as launcher
-    from repro_torch.models import model, stack
+    from repro_torch.models import stack
     from repro_torch.models.schema import init_params, init_params_threefry
     from repro_torch.optim import adamw
 
@@ -3228,85 +3400,24 @@ def training_phases(dev, records, full=None):
         w = init_params_threefry(stack.build_schema(cfg), 0, cpu)
         b = reduced_train_batch(cfg, torch.Generator().manual_seed(1))
         train_step_both(cfg, w, b, dev, opt, cfg.name, routed=bool(cfg.n_experts))
-    for arch, kernel in UNTRAINED_ARCHS.items():
-        cfg = registry.reduced(arch)
-        w = init_params_threefry(stack.build_schema(cfg), 0, dev)
-        b = {k: x.to(dev) for k, x in
-             reduced_train_batch(cfg, torch.Generator().manual_seed(1)).items()}
-        try:
-            model.make_train_step(cfg, opt)(w, adamw.init_state(w), b)
-        except NotImplementedError as e:
-            if kernel not in str(e) or "A7" not in str(e):
-                raise
-            print(f"{cfg.name}: raises on the card as it must: {e}")
-        else:
-            raise AssertionError(f"{cfg.name} trained on the card without a {kernel} backward")
 
     phase(f"20e the training path at full width: {full.name}, {full.n_layers} layers, AdamW, "
           f"remat=\"full\", {TRAIN_B} x {TRAIN_S} tokens")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(stack.build_schema(full), gen, dev)
-    state = adamw.init_state(params)
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in params.values())
-    print(f"{n_params} float32 parameters drawn on the card and AdamW's moments made in "
-          f"{time.perf_counter() - t0:.2f} s")
-    step = model.make_train_step(full, adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
-                                                          total_steps=TRAIN_WARMUP + TRAIN_STEPS),
-                                 remat="full")
-    batch = global_batch(DataConfig(vocab=full.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B), 0,
-                         dev)
-    L, n_steps = full.n_layers, TRAIN_WARMUP + TRAIN_STEPS
+    L = full.n_layers
     fl_ops.reset_launches()
-    losses, secs = [], []
-    for i in range(n_steps):
-        t0 = time.perf_counter()
-        params, state, m = step(params, state, batch)
-        losses.append(float(m["loss"]))  # the host read ends the step
-        secs.append(time.perf_counter() - t0)
-        print(f"step {i}: loss {losses[-1]:.5f} grad_norm {float(m['grad_norm']):.5f} lr "
-              f"{float(m['lr']):.3e} in {secs[-1] * 1e3:.1f} ms", flush=True)
-    fwd, bwd = fl_ops.mha.launches, fl_ops.mha_backward.launches
-    if fwd != 2 * L * n_steps or bwd != L * n_steps:
-        raise AssertionError(f"flash launches forward {fwd} != {2 * L} x {n_steps}, backward "
-                             f"{bwd} != {L} x {n_steps}")
-    if fl_ops.mha_backward.launches_by_dtype["bfloat16"] != bwd:
+    nums["20e"] = train_at_width(
+        full, dev, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS,
+        {"flash_attention": (lambda: fl_ops.mha.launches, 2 * L),
+         "flash_attention_bwd": (lambda: fl_ops.mha_backward.launches, L)},
+        f"{full.name} x {L} layers")
+    launches = {"fwd": fl_ops.mha.launches, "bwd": fl_ops.mha_backward.launches}
+    if fl_ops.mha_backward.launches_by_dtype["bfloat16"] != launches["bwd"]:
         raise AssertionError(f"backward launches {fl_ops.mha_backward.launches_by_dtype}: not bf16")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"losses {losses}: not finite and falling")
-    step_s = sum(secs[TRAIN_WARMUP:]) / TRAIN_STEPS
-    tokens = TRAIN_B * TRAIN_S
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train step {full.name} x {L} layers, {TRAIN_B} x {TRAIN_S} tokens, remat full: "
-          f"{step_s * 1e3:.1f} ms a step (mean of {TRAIN_STEPS} after {TRAIN_WARMUP} warm-up) = "
-          f"{tokens / step_s:.1f} tokens/s; peak device memory {peak:.2f} GiB; flash launches a "
-          f"step {2 * L} forward (with the recompute) + {L} backward; losses {losses}")
-    prof = profile_train_step(step, params, state, batch)
-    params, state = prof.pop("params"), prof.pop("state")
-    if (fl_ops.mha.launches, fl_ops.mha_backward.launches) != (fwd + 2 * L, bwd + L):
-        raise AssertionError(f"the profiled step: flash launches forward "
-                             f"{fl_ops.mha.launches - fwd}, backward "
-                             f"{fl_ops.mha_backward.launches - bwd}")
-    fwd, bwd = fl_ops.mha.launches, fl_ops.mha_backward.launches
-    if prof["device_ms"] is None:
-        print("the profiled step: the profiler recorded no device activity; the backward "
-              "kernels' share not measured")
-    else:
-        print(f"the profiled step (one more, under torch.profiler): the backward kernels "
-              f"{prof['bwd_ms']:.3f} ms of {prof['device_ms']:.3f} ms of device kernels "
-              f"({prof['bwd_ms'] / prof['device_ms']:.3f}; {prof['bwd_kernels']} kernels, "
-              f"{3 * L} expected), the step {prof['wall_ms']:.1f} ms under the profiler; "
-              f"isolated (20b) {L} x {k_ms:.3f} ms = {L * k_ms:.1f} ms, an estimate")
-        for name, t in prof["top"]:
-            print(f"  {t:10.3f} ms  {name}")
-    nums["20e"] = dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s, peak_gib=peak,
-                       losses=losses, **{k: v for k, v in prof.items() if k != "loss"})
-    launches = {"fwd": fwd, "bwd": bwd}
-    del params, state, batch, m
-    torch.cuda.empty_cache()
+    prof = nums["20e"]
+    if prof["device_ms"] is not None:
+        print(f"the flash backward: {prof['bwd_kernels']['flash_attention_bwd']} kernels, "
+              f"{3 * L} expected; isolated (20b) {L} x {k_ms:.3f} ms = {L * k_ms:.1f} ms, an "
+              f"estimate")
 
     phase("20f the launcher and its checkpoints on the card (the reference integration test's "
           "arguments), resume, and examples/train_lm")
@@ -3349,6 +3460,435 @@ def training_phases(dev, records, full=None):
 
 
 # ---------------------------------------------------------------------------
+# slice 15: the mLSTM and RG-LRU backward kernels; the recurrent families train
+# ---------------------------------------------------------------------------
+
+# phase 21b: the backward kernels' shapes beyond MLSTM_CASES / RGLRU_CASES:
+# ragged S and head dims (S below one tile, S and dh not multiples of a
+# tile) and, timed, the training shapes of 21d (`recurrent_train_shapes`)
+MLSTM_BWD_EXTRA = [(1, 2, 100, 40), (2, 1, 333, 256), (1, 3, 65, 130), (1, 1, 1, 8)]
+RGLRU_BWD_EXTRA = [(1, 1, 7), (2, 100, 4100), (1, 2049, 96)]
+RGLRU_BWD_ENTRIES = ("contract", "fused", "fused_h0")
+# phase 21c: the recurrent families reduced, then xlstm-350m at full width
+# cut to one period (7 mLSTM + 1 sLSTM layers), 2 x 128 tokens, GPU vs CPU;
+# each with the activations' dtype it is held in: a bf16 xLSTM stack is
+# chaotic at random weights (tests/test_torch_models.py), so the GPU-vs-CPU
+# step of xlstm runs with float32 activations (the mLSTM kernels' float32
+# routes), recurrentgemma's in bf16 as every other family's
+RECURRENT_TRAIN_ARCHS = ((XLSTM_ARCH, torch.float32), (RG_ARCH, torch.bfloat16))
+# phase 21c's bf16 xLSTM: each layer GPU vs CPU (`layer_grads_both`), and the
+# witness of the whole step's chaos, printed on this leaf (`xlstm_bf16_witness`)
+XLSTM_BF16_LEAF = "blk0.mix.bf"
+XLSTM_TRAIN_CPU_LAYERS = 8
+# phase 21d: (warm-up, timed) steps after the profiled first one, which
+# warms up too; recurrentgemma-9b CUT to 8 of 38 layers
+# (two pattern groups and the tail: 6 RG-LRU + 2 local-attention layers,
+# 2.83 B parameters, ~45 GB of masters, gradients and moments; all 38 are
+# 9.40 B, ~150 GB)
+XLSTM_TRAIN_STEPS = (0, 1)  # a step ~21 s, host-bound by the sLSTM loop
+RG_TRAIN_LAYERS = 8
+RG_TRAIN_STEPS = (0, 3)  # a step ~0.63 s
+
+
+def recurrent_train_shapes():
+    """(mlstm (B, H, S, dh), rglru (B, S, E)) of the training path at full
+    width: xlstm-350m's mLSTM heads and recurrentgemma-9b's RG-LRU width at
+    TRAIN_B x TRAIN_S tokens."""
+    from repro_torch.configs import registry
+
+    xl, rg = registry.get(XLSTM_ARCH), registry.get(RG_ARCH)
+    return ((TRAIN_B, xl.n_heads, TRAIN_S, xl.d_model // xl.n_heads),
+            (TRAIN_B, TRAIN_S, int(rg.rnn_scale * rg.d_model)))
+
+
+def mlstm_bwd_inputs(case, dtype, dev, seed):
+    """`mlstm_inputs`, the forward's F = cumsum(logf) and its output h (the
+    kernel's), and dh ~ N(0, 1) in `dtype`: the arguments of `ops.mlstm_bwd`."""
+    from repro_torch.kernels.mlstm import ops
+
+    q, k, v, logi, logf = mlstm_inputs(case, dtype, dev, seed)
+    with torch.no_grad():
+        h = ops.mlstm(q, k, v, logi, logf)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1000)
+    return q, k, v, logi, torch.cumsum(logf, dim=-1), h, _randn(q.shape, dtype, dev, gen)
+
+
+def rglru_bwd_inputs(case, dtype, dev, seed, entry):
+    """log_a in the model's range, -8 softplus(lam) r with lam ~ 1 + N(0,
+    0.5) [E] (its init is ones) and r = sigmoid(N(0, 2)) [B,S,E], so a runs
+    up to ~0.996 where -a² / sqrt(1 - a²) grows; gx ~ N(0, 1) in `dtype`
+    (the contract: b formed from it as the op forms it), the forward's h
+    (the kernel's), dh ~ N(0, 1) in `dtype` and, for "fused_h0", a carry h0
+    ~ N(0, 1) [B,E]. Returns (the arguments of `ops.rglru_bwd`, its
+    keywords)."""
+    from repro_torch.kernels.rglru import ops
+    from repro_torch.kernels.rglru.ref import gated_input
+
+    B, S, E = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lam = 1.0 + 0.5 * torch.randn((E,), generator=gen, device=dev)
+    r = torch.sigmoid(2.0 * torch.randn((B, S, E), generator=gen, device=dev))
+    log_a = -8.0 * torch.nn.functional.softplus(lam) * r
+    gx = _randn((B, S, E), dtype, dev, gen)
+    h0 = torch.randn((B, E), generator=gen, device=dev) if entry == "fused_h0" else None
+    dh = _randn((B, S, E), dtype, dev, gen)
+    with torch.no_grad():
+        if entry == "contract":
+            x = gated_input(log_a, gx)
+            return (log_a, x, ops.rglru_scan(log_a, x), dh), {}
+        return (log_a, gx, ops.rglru(log_a, gx, h0=h0), dh), dict(h0=h0, fused=True)
+
+
+def check_grads(got, ref, names, dtype, label):
+    """float32 within BWD_F32_TOL abs + rel, bf16 each gradient within
+    BWD_BF16_RL2 relative L2 (None: no such gradient). Returns (max |d|,
+    the worst relative L2)."""
+    err, worst = 0.0, 0.0
+    for name, a, r in zip(names, got, ref):
+        if r is None:
+            continue
+        lab = f"{label} {name}"
+        if dtype == torch.float32:
+            err = max(err, check_close(a, r, BWD_F32_TOL, lab))
+        else:
+            err = max(err, (a.float() - r).abs().max().item())
+        rl = rel_l2(a, r)
+        if not np.isfinite(rl) or (dtype != torch.float32 and rl > BWD_BF16_RL2):
+            raise AssertionError(f"{lab}: relative L2 {rl:.4g} (limit {BWD_BF16_RL2})")
+        worst = max(worst, rl)
+    return err, worst
+
+
+def same_bits(a, b) -> bool:
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_mlstm_bwd(case, dtype, dev, seed=0):
+    """The mLSTM backward kernel (`ops.mlstm_bwd`) against `mlstm_bwd_ref`
+    (float32 math) on one case (`check_grads`); two calls bit for bit
+    equal."""
+    from repro_torch.kernels.mlstm import ops
+    from repro_torch.kernels.mlstm.ref import mlstm_bwd_ref
+
+    args = mlstm_bwd_inputs(case, dtype, dev, seed)
+    got, again = ops.mlstm_bwd(*args), ops.mlstm_bwd(*args)
+    torch.cuda.synchronize()
+    label = f"mlstm backward {case} {str(dtype)[6:]}"
+    if not same_bits(got, again):
+        raise AssertionError(f"{label}: two calls differ")
+    ref = mlstm_bwd_ref(*(x.float() for x in args))
+    return check_grads(got, ref, ("dq", "dk", "dv", "dlogi", "dF"), dtype, label)
+
+
+def check_rglru_bwd(case, dtype, dev, entry, seed=0):
+    """The RG-LRU backward kernel (`ops.rglru_bwd`) against `rglru_bwd_ref`
+    (float32 math) on one case and entry (RGLRU_BWD_ENTRIES), as
+    `check_mlstm_bwd`."""
+    from repro_torch.kernels.rglru import ops
+    from repro_torch.kernels.rglru.ref import rglru_bwd_ref
+
+    args, kw = rglru_bwd_inputs(case, dtype, dev, seed, entry)
+    got, again = ops.rglru_bwd(*args, **kw), ops.rglru_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    label = f"rglru backward {case} {str(dtype)[6:]} {entry}"
+    if not same_bits(got, again):
+        raise AssertionError(f"{label}: two calls differ")
+    log_a, x, h, dh = args
+    ref = rglru_bwd_ref(log_a, x.float(), h.float(), dh.float(), **kw)
+    names = ("dlog_a", "dgx" if kw else "db", "dh0")
+    return check_grads(got, ref, names, dtype, label)
+
+
+def mlstm_bwd_work(case, itemsize):
+    """(bytes, flops) of one backward: q, k, v, h and dh read and dq, dk,
+    dv written once, F and logi read and dlogi and dF written once; five
+    products of 2·dh flops (W's recompute, dh·v, dV, dQ, dK) per (query,
+    key <= query) pair."""
+    B, H, S, dh = case
+    return (8 * B * H * S * dh * itemsize + 4 * B * H * S * 4,
+            10 * dh * B * H * S * (S + 1) // 2)
+
+
+def rglru_bwd_work(case, itemsize, entry):
+    """(bytes, operations) of one backward: log_a, h and dh read, dlog_a
+    and db (or dgx) written once, gx read by the fused entries, h0 read
+    and dh0 written by "fused_h0"; about ten operations an element
+    (fused; five for the contract)."""
+    B, S, E = case
+    fused = entry != "contract"
+    per = 8 + (4 if fused else 3) * itemsize
+    return (B * S * E * per + (8 * B * E if entry == "fused_h0" else 0),
+            (10 if fused else 5) * B * S * E)
+
+
+def time_recurrent_bwd(m_case, r_case, dev) -> dict:
+    """ms a call, CUDA events, of each backward kernel and its plain version
+    at the training shapes: mLSTM in bf16 (the path's type) and float32,
+    the RG-LRU's fused entry (the path's) and contract in float32."""
+    from repro_torch.kernels.mlstm import ops as m_ops
+    from repro_torch.kernels.mlstm.ref import mlstm_bwd_ref
+    from repro_torch.kernels.rglru import ops as r_ops
+    from repro_torch.kernels.rglru.ref import rglru_bwd_ref
+
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        args = mlstm_bwd_inputs(m_case, dt, dev, 1)
+        out[f"mlstm_{str(dt)[6:]}"] = (cuda_ms(lambda: m_ops.mlstm_bwd(*args), 5),
+                                       cuda_ms(lambda: mlstm_bwd_ref(*args), 2))
+    for entry in ("fused", "contract"):
+        args, kw = rglru_bwd_inputs(r_case, torch.float32, dev, 1, entry)
+        out[f"rglru_{entry}"] = (cuda_ms(lambda: r_ops.rglru_bwd(*args, **kw), 20),
+                                 cuda_ms(lambda: rglru_bwd_ref(*args, **kw), 1))
+    return out
+
+
+def recurrent_bwd_kernel_phase(dev) -> dict:
+    """Phase 21b. Returns each backward kernel's max |d|, times and bound."""
+    m_main, r_main = recurrent_train_shapes()
+    phase("21b mlstm_bwd and rglru_bwd vs their plain versions on the card")
+    errs = {"mlstm_bwd": 0.0, "rglru_bwd": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(MLSTM_CASES + MLSTM_BWD_EXTRA + [m_main]):
+            e, rl = check_mlstm_bwd(case, dt, dev, seed=i)
+            errs["mlstm_bwd"] = max(errs["mlstm_bwd"], e)
+            print(f"mlstm bwd {str(case):22s} {str(dt)[6:]:8s} max |d| {e:.3g}, worst relative "
+                  f"L2 {rl:.3g}; two calls equal", flush=True)
+        for i, case in enumerate(RGLRU_CASES + RGLRU_BWD_EXTRA + [r_main]):
+            worst = []
+            for entry in RGLRU_BWD_ENTRIES:
+                e, rl = check_rglru_bwd(case, dt, dev, entry, seed=i)
+                errs["rglru_bwd"] = max(errs["rglru_bwd"], e)
+                worst.append(f"{entry} {e:.3g} / {rl:.3g}")
+            print(f"rglru bwd {str(case):18s} {str(dt)[6:]:8s} max |d| / worst relative L2: "
+                  f"{', '.join(worst)}; two calls equal", flush=True)
+    t = time_recurrent_bwd(m_main, r_main, dev)
+    nums = {"errs": errs, "times": t}
+    for dt, item in (("bfloat16", 2), ("float32", 4)):
+        work = mlstm_bwd_work(m_main, item)
+        b_ms, b_by = bound(*work, BF16_TENSOR_OPS_PER_S if item == 2 else FP32_OPS_PER_S)
+        k_ms, p_ms = t[f"mlstm_{dt}"]
+        print(f"mlstm bwd {m_main} {dt}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; {work[0]} "
+              f"bytes, {work[1]:.4g} flops, bound {b_ms:.4g} ms ({b_by}, "
+              f"{'bf16 tensor cores' if item == 2 else 'float32 CUDA cores'}); "
+              f"{work[1] / k_ms / 1e9:.2f} TFLOP/s")
+        nums[f"mlstm_{dt}"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    for entry in ("fused", "contract"):
+        work = rglru_bwd_work(r_main, 4, entry)
+        b_ms, b_by = bound(*work)
+        k_ms, p_ms = t[f"rglru_{entry}"]
+        print(f"rglru bwd {r_main} float32 {entry}: kernel {k_ms:.4f} ms, plain (a host loop over "
+              f"t) {p_ms:.4f} ms; {work[0]} bytes, bound {b_ms:.4g} ms ({b_by}); "
+              f"{work[0] / k_ms / 1e9:.3f} TB/s")
+        nums[f"rglru_{entry}"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    print("no PyTorch call computes either gradient: no library time")
+    return nums
+
+
+def recurrent_counts():
+    """The launch counts of the recurrent kernels and of flash, forward and
+    backward, by kernel record name."""
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.mlstm import ops as m_ops
+    from repro_torch.kernels.rglru import ops as r_ops
+
+    return {"mlstm_chunk": m_ops.mlstm.launches, "mlstm_bwd": m_ops.mlstm_bwd.launches,
+            "rglru_scan": r_ops.rglru.launches + r_ops.rglru_scan.launches,
+            "rglru_bwd": r_ops.rglru_bwd.launches, "flash_attention": fl_ops.mha.launches,
+            "flash_attention_bwd": fl_ops.mha_backward.launches}
+
+
+@contextlib.contextmanager
+def activations(dtype):
+    """The stack's activations in `dtype` (`stack.ACT_DTYPE`) for the block."""
+    from repro_torch.models import stack
+
+    old, stack.ACT_DTYPE = stack.ACT_DTYPE, dtype
+    try:
+        yield
+    finally:
+        stack.ACT_DTYPE = old
+
+
+def mixer_count(cfg, mixer, remat=False) -> int:
+    """The layers of `mixer` in cfg; with `remat`, the forward launches of
+    a step under remat="full" (a pattern group's layers run twice, the
+    tail's, never checkpointed, once)."""
+    return (sum(m == mixer for m, _ in cfg.pattern) * cfg.n_groups * (2 if remat else 1)
+            + sum(m == mixer for m, _ in cfg.tail))
+
+
+def layer_grads_both(cfg, weights, batch, dev, label, read_counts) -> float:
+    """Phase 21c: each layer of `cfg`'s training stack in bf16 activations
+    on the card and on the CPU, on the CPU's input to it (the layers before
+    it run on the CPU), with a fixed random cotangent: the gradients of the
+    layer's input and of its float32 weights (through the in-graph casts)
+    within TRAIN_GRAD_RL2 relative L2 of the CPU's, each held against at
+    least GRAD_FLOOR of the layer's gradient norm; on the card one mLSTM
+    forward and one backward launch a mLSTM layer. A free-running bf16
+    xLSTM stack is chaotic at random weights, so its gradients are held
+    layer by layer, as tests/test_torch_train.py holds its forward. Returns
+    the worst relative L2."""
+    from repro_torch.models import stack
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(2)
+    worst = (0.0, None)
+    with activations(torch.bfloat16):
+        x, positions = stack._embed_inputs(cfg, weights, batch)
+        for pfx, g, mixer, fk in stack._layers(cfg):
+            dy = torch.randn(x.shape, generator=gen).to(x.dtype)
+            out = []
+            for d in (dev, cpu):
+                p = {n: w.detach().to(d, copy=True).requires_grad_()
+                     for n, w in stack._layer(weights, pfx, g).items()}
+                xi = x.detach().to(d).requires_grad_()
+                before = read_counts()
+                y = stack._train_layer(cfg, stack.cast_weights(cfg, p), pfx, mixer, fk, xi,
+                                       positions.to(d))
+                gr = torch.autograd.grad(y, [xi, *p.values()], dy.to(d))
+                launches = {n: c - before[n] for n, c in read_counts().items()}
+                out.append((y.detach().cpu(), {n: v.float().cpu() for n, v in
+                                               zip(("input", *p), gr)}, launches))
+            (_, got, launches), (y, want, _) = out
+            n_m = int(mixer == "mlstm")
+            if {n: c for n, c in launches.items() if c} != (
+                    {"mlstm_chunk": 1, "mlstm_bwd": 1} if n_m else {}):
+                raise AssertionError(f"{label} {pfx}[{g}]: launches on the card {launches}")
+            norm = sum(v.double().norm() ** 2 for v in want.values()).sqrt().item()
+            for n, c in want.items():
+                rl = ((got[n].double() - c.double()).norm()
+                      / max(c.double().norm().item(), GRAD_FLOOR * norm)).item()
+                if not rl <= TRAIN_GRAD_RL2:
+                    raise AssertionError(f"{label} {pfx}[{g}] ({mixer}): gradient of {n} "
+                                         f"relative L2 {rl:.4g} (limit {TRAIN_GRAD_RL2})")
+                worst = max(worst, (rl, f"{pfx}[{g}] {n}"), key=lambda t: t[0])
+            x = y.to(x.dtype)
+    print(f"{label}: every layer's gradients GPU vs CPU in bf16 within {TRAIN_GRAD_RL2} "
+          f"relative L2, the worst {worst[0]:.4g} ({worst[1]}); one mLSTM forward and backward "
+          f"launch a mLSTM layer on the card")
+    return worst[0]
+
+
+def step_grads(cfg, weights, batch, d, dtype) -> dict:
+    """The gradients ({name: float32 on the CPU}) of one step's loss on
+    device `d` with activations in `dtype`."""
+    from repro_torch.models import model
+
+    with activations(dtype):
+        params = {k: x.to(d, copy=True) for k, x in weights.items()}
+        _, grads = model.accumulated_grads(cfg, params, {k: x.to(d) for k, x in batch.items()})
+    return {n: g.float().cpu() for n, g in grads.items()}
+
+
+def xlstm_bf16_witness(cfg, weights, batch, dev, leaf=XLSTM_BF16_LEAF) -> dict:
+    """Phase 21c, printed and not held: the whole bf16 step's gradients of
+    reduced xLSTM GPU vs CPU, and, with no kernel in it, the CPU's bf16
+    step against its float32 step: the worst leaf's relative L2 and
+    `leaf`'s in each."""
+    cpu = torch.device("cpu")
+    g16, c16, c32 = (step_grads(cfg, weights, batch, d, dt) for d, dt in
+                     ((dev, torch.bfloat16), (cpu, torch.bfloat16), (cpu, torch.float32)))
+    out = {}
+    for what, a, b in (("GPU vs CPU, both bf16", g16, c16),
+                       ("CPU bf16 vs CPU float32, no kernel", c16, c32)):
+        rl = {n: rel_l2(a[n], b[n]) for n in b}
+        top = max(rl, key=rl.get)
+        out[what] = (rl[leaf], top, rl[top])
+        print(f"{cfg.name} whole step, {what}: {leaf} relative L2 {rl[leaf]:.4g}, the worst "
+              f"leaf {top} {rl[top]:.4g} (printed, not held)")
+    return out
+
+
+def recurrent_training_phases(dev, records):
+    """Phases 21b-21d (21a, the backward kernels' builds, is phase 6's).
+    Adds the records of mlstm_bwd and rglru_bwd and folds the training
+    path's forward (and recurrentgemma's flash) launches into the other
+    records. Returns (records, numbers)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.models import stack
+    from repro_torch.models.schema import init_params, init_params_threefry
+    from repro_torch.optim import adamw
+
+    k = recurrent_bwd_kernel_phase(dev)
+    nums = {"21b": k}
+    cpu = torch.device("cpu")
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    xl = registry.get(XLSTM_ARCH)
+    xl8 = dataclasses.replace(xl, n_layers=XLSTM_TRAIN_CPU_LAYERS)
+    phase(f"21c {XLSTM_ARCH} (reduced) in bf16 layer by layer, one train step of "
+          f"{' and '.join(a for a, _ in RECURRENT_TRAIN_ARCHS)} (reduced), then {XLSTM_ARCH} at "
+          f"full width, {xl8.n_layers} layers ({TRAIN_CPU_B} x {TRAIN_CPU_S} tokens): GPU vs CPU")
+    xr = registry.reduced(XLSTM_ARCH)
+    w = init_params_threefry(stack.build_schema(xr), 0, cpu)
+    b = reduced_train_batch(xr, torch.Generator().manual_seed(1))
+    nums["21c_bf16"] = dict(
+        layers=layer_grads_both(xr, w, b, dev, f"{xr.name} bfloat16", recurrent_counts),
+        witness=xlstm_bf16_witness(xr, w, b, dev))
+    start = recurrent_counts()  # the launches above compare; the training path's start here
+    cases = [(registry.reduced(a), dt, False) for a, dt in RECURRENT_TRAIN_ARCHS]
+    cases.append((xl8, torch.float32, True))
+    for cfg, dt, full in cases:
+        if full:
+            w = init_params(stack.build_schema(cfg), torch.Generator().manual_seed(0), cpu)
+            b = global_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CPU_S,
+                                        global_batch=TRAIN_CPU_B), 0, cpu)
+        else:
+            w = init_params_threefry(stack.build_schema(cfg), 0, cpu)
+            b = reduced_train_batch(cfg, torch.Generator().manual_seed(1))
+        label = (f"{cfg.name} x {cfg.n_layers} layers" if full else cfg.name) + f" {str(dt)[6:]}"
+        with activations(dt):
+            got = train_step_both(cfg, w, b, dev, opt, label, read_counts=recurrent_counts)
+        got = got["launches"]
+        n_m, n_r, n_a = (mixer_count(cfg, m) for m in ("mlstm", "rglru", "swa"))
+        want = {"mlstm_chunk": n_m, "mlstm_bwd": n_m, "rglru_scan": n_r, "rglru_bwd": n_r,
+                "flash_attention": n_a, "flash_attention_bwd": n_a}
+        if got != want:
+            raise AssertionError(f"{label}: launches on the card {got} != {want}")
+        print(f"{label}: launches on the card {got}")
+        del w
+
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.mlstm import ops as m_ops
+    from repro_torch.kernels.rglru import ops as r_ops
+
+    n_m = mixer_count(xl, "mlstm")
+    phase(f"21d the training path at full width: {xl.name}, {xl.n_layers} layers ({n_m} mLSTM), "
+          f"AdamW, remat=\"full\", {TRAIN_B} x {TRAIN_S} tokens")
+    nums["xlstm"] = train_at_width(
+        xl, dev, TRAIN_LR, *XLSTM_TRAIN_STEPS,
+        {"mlstm_chunk": (lambda: m_ops.mlstm.launches, mixer_count(xl, "mlstm", True)),
+         "mlstm_bwd": (lambda: m_ops.mlstm_bwd.launches, n_m)},
+        f"{xl.name} x {xl.n_layers} layers")
+    rg = dataclasses.replace(registry.get(RG_ARCH), n_layers=RG_TRAIN_LAYERS)
+    n_r, n_a = mixer_count(rg, "rglru"), mixer_count(rg, "swa")
+    print(f"CUT: {rg.name} to {rg.n_layers} of {registry.get(RG_ARCH).n_layers} layers ({n_r} "
+          f"RG-LRU + {n_a} local attention): all 38 with AdamW's state take ~150 GB")
+    nums["rg"] = train_at_width(
+        rg, dev, TRAIN_LR, *RG_TRAIN_STEPS,
+        {"rglru_scan": (lambda: r_ops.rglru.launches + r_ops.rglru_scan.launches,
+                        mixer_count(rg, "rglru", True)),
+         "rglru_bwd": (lambda: r_ops.rglru_bwd.launches, n_r),
+         "flash_attention": (lambda: fl_ops.mha.launches, mixer_count(rg, "swa", True)),
+         "flash_attention_bwd": (lambda: fl_ops.mha_backward.launches, n_a)},
+        f"{rg.name} x {rg.n_layers} layers")
+
+    launches = {n: c - start[n] for n, c in recurrent_counts().items()}
+    by_name = {r["name"]: r for r in records}
+    for name in ("mlstm_chunk", "rglru_scan", "flash_attention", "flash_attention_bwd"):
+        by_name[name]["launches"] += launches[name]
+    for name, src, replaces, key in (
+            ("mlstm_bwd", "mlstm_chunk_bwd.cu", "mlstm/mlstm.py:94", "mlstm_bfloat16"),
+            ("rglru_bwd", "rglru_scan_bwd.cu", "rglru/rglru.py:52", "rglru_fused")):
+        records.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+                        "replaces": f"src/repro/kernels/{replaces}",
+                        "launches": launches[name], "max_abs_err": k["errs"][name],
+                        **k[key], "library_ms": None})
+    print(f"phase 21's launches on the training path: {launches}")
+    return records, nums
+
+
+# ---------------------------------------------------------------------------
 # slice 11: continuation (Simulator.resume) and the port's smoke path
 # ---------------------------------------------------------------------------
 
@@ -3362,6 +3902,10 @@ def training_phases(dev, records, full=None):
 # by `PYTHONPATH=src:. JAX_PLATFORMS=cpu python tests/test_torch_bench_smoke.py`.
 # Events and commits are cumulative; a resumed segment's throughput is its
 # new commits over 8 s, the first's the metrics' (commits over 7 s).
+# phase 5e's segments a preset: geotp's whole chain (a `run`, then three
+# `resume`s with tau_true edited, each from a resumed run); ssp's chain CUT
+# for the script's time (FIG11_ONLINE_REF keeps its rows)
+FIG11_CHIP_SEGMENTS = {"geotp": 4}
 FIG11_ONLINE_REF = [
     ("ssp", 0, 13899, 624, 0, 89.14285714285714, 7998678),
     ("ssp", 1, 26244, 1309, 0, 85.625, 15998159),
@@ -3401,49 +3945,66 @@ SMOKE_REF = {
 
 
 def fig11_online_phase(device=None) -> int:
-    """Phase 5e: fig11's online loop through the port (`figures.fig11_online`:
-    each preset a single-lane chain of `run`, then `with_states` (tau_true
-    edited) and `resume` a segment); every segment equal to
-    FIG11_ONLINE_REF and two geo_schedule launches a step. Returns the
-    launches."""
+    """Phase 5e: fig11's online loop through the port, driven as
+    `figures.fig11_online` drives it, FIG11_CHIP_SEGMENTS segments a
+    preset: a single-lane chain of `Simulator.run`, then
+    `RunResult.with_states` (tau_true edited) and `Simulator.resume` a
+    segment; every segment equal to FIG11_ONLINE_REF and two geo_schedule
+    launches a step. Returns the launches."""
     from repro_torch.bench import figures
-    from repro_torch.core.engine import batch
+    from repro_torch.core.engine import Simulator, batch, make_world
     from repro_torch.kernels.geo_schedule import ops
 
     t0 = time.perf_counter()
     bank = figures.fig11_bank()
     print(f"bank built in {time.perf_counter() - t0:.2f} s")
-    ref = iter(FIG11_ONLINE_REF)
-    tot = dict(launches=0, bad=0, steps=0, wall=0.0)
-    seen = {}
-
-    def check(preset, i, rtt, res, m):
-        launches = ops.geo_schedule.launches
-        ops.geo_schedule.launches = 0
-        on_card = res.states.now.device.type == "cuda"
-        if launches != (2 * res.steps if on_card else 0):
-            raise AssertionError(f"{preset} segment {i}: geo_schedule launches {launches} "
-                                 f"!= 2 x {res.steps} steps")
-        got = (preset, i, m["events"], m["commits"], m["aborts"], m["throughput_tps"],
-               int(res.states.now[0]))
-        want = next(ref)
-        seg_events, seen[preset] = m["events"] - seen.get(preset, 0), m["events"]
-        print(f"{preset:5s} segment {i} tau_true {rtt} ms: events {got[2]} (+{seg_events}) "
-              f"commits {got[3]} aborts {got[4]} throughput {got[5]} tps now {got[6]} us; "
-              f"{res.steps} steps, {res.wall_s:.3f} s ({batch.run.capture_s:.3f} s warm-up "
-              f"and capture), {seg_events / res.wall_s:.1f} events/s, "
-              f"{res.wall_s / max(res.steps, 1) * 1e3:.4f} ms a step, geo_schedule launches "
-              f"{launches}: {'the reference' if got == want else f'REFERENCE {want}'}")
-        tot["bad"] += got != want
-        tot["launches"] += launches
-        tot["steps"] += res.steps
-        tot["wall"] += res.wall_s
-
+    sim = Simulator.from_bank(bank, terminals=figures.QUICK_T, horizon_s=figures.FIG11_HORIZON_S,
+                              warmup_s=figures.FIG11_WARMUP_S, device=device)
+    seg_s = figures.FIG11_SEGMENT_S
+    refs = {(r[0], r[1]): r for r in FIG11_ONLINE_REF}
+    tot = dict(launches=0, bad=0, steps=0, wall=0.0, segments=0)
     ops.geo_schedule.launches = 0
-    figures.fig11_online(bank, device=device, on_segment=check)
+    for preset, n in FIG11_CHIP_SEGMENTS.items():
+        res, events = None, 0
+        for i, rtt in enumerate(figures.FIG11_SEGMENTS[:n]):
+            if res is None:
+                res = sim.run(make_world(preset, tuple(map(float, rtt)), jitter_milli=30), bank)
+                m = res.metrics[0]
+            else:
+                tau = torch.tensor([[int(r * 1000) for r in rtt]], dtype=torch.int32,
+                                   device=sim.device)
+                res = res.with_states(res.states._replace(tau_true=tau))
+                base = int(res.states.commits)
+                res = sim.resume(res, horizon_s=int(res.states.now) / 1e6 + seg_s, warmup_s=0.0)
+                m = dict(res.metrics[0])
+                m["throughput_tps"] = (int(res.states.commits) - base) / seg_s
+            launches = ops.geo_schedule.launches
+            ops.geo_schedule.launches = 0
+            if launches != (2 * res.steps if res.states.now.device.type == "cuda" else 0):
+                raise AssertionError(f"{preset} segment {i}: geo_schedule launches {launches} "
+                                     f"!= 2 x {res.steps} steps")
+            got = (preset, i, m["events"], m["commits"], m["aborts"], m["throughput_tps"],
+                   int(res.states.now[0]))
+            want = refs[(preset, i)]
+            seg_events, events = m["events"] - events, m["events"]
+            print(f"{preset:5s} segment {i} tau_true {rtt} ms: events {got[2]} (+{seg_events}) "
+                  f"commits {got[3]} aborts {got[4]} throughput {got[5]} tps now {got[6]} us; "
+                  f"{res.steps} steps, {res.wall_s:.3f} s ({batch.run.capture_s:.3f} s warm-up "
+                  f"and capture), {seg_events / res.wall_s:.1f} events/s, "
+                  f"{res.wall_s / max(res.steps, 1) * 1e3:.4f} ms a step, geo_schedule launches "
+                  f"{launches}: {'the reference' if got == want else f'REFERENCE {want}'}",
+                  flush=True)
+            tot["bad"] += got != want
+            tot["launches"] += launches
+            tot["steps"] += res.steps
+            tot["wall"] += res.wall_s
+            tot["segments"] += 1
+        if n < len(figures.FIG11_SEGMENTS):
+            print(f"CUT: {preset}'s first {n} of fig11's {len(figures.FIG11_SEGMENTS)} online "
+                  f"segments")
     if tot["bad"]:
         raise AssertionError(f"fig11 online: {tot['bad']} segments differ from FIG11_ONLINE_REF")
-    print(f"fig11 online: {len(FIG11_ONLINE_REF)} segments equal to the reference; "
+    print(f"fig11 online: {tot['segments']} segments equal to the reference; "
           f"{tot['steps']} steps, {tot['wall']:.3f} s, {tot['steps'] / tot['wall']:.1f} steps/s, "
           f"geo_schedule launches {tot['launches']}")
     return tot["launches"]
@@ -3507,12 +4068,15 @@ def smoke_phase(device=None) -> int:
 # T = 8 and a 0.2 s horizon (for the script's time: by then every lane has
 # committed, and CRASH_HEAVY's first crash, at 0.1 s, has aborted
 # transactions and failed reads over), fault-free and under CRASH_HEAVY with
-# replicas
+# replicas. SEQ_RUNS: (schedule, drain) of each run; the fault-free drained
+# run is CUT for the script's time (~30-40 s on the card's host): the
+# crash-heavy drained lanes drain fault-free until the first crash
 SEQ_T, SEQ_N = 8, 64
 SEQ_HORIZON_S, SEQ_WARMUP_S = 0.2, 0.05
 SEQ_SCHEDULES = {"fault-free": {},
                  "crash-heavy": dict(faults=CRASH_HEAVY, replica_tau=(60_000,) * 4,
                                      repl_lag_us=250_000)}
+SEQ_RUNS = (("fault-free", False), ("crash-heavy", False), ("crash-heavy", True))
 # (b): phase 5's world (fig5's YCSB deployment at T = 128) for geotp, seed 0,
 # its horizon cut from fig5's 10 s / 2 s to fit the phase's time: run untimed
 # to the warm-up, then timed over 0.15 s, past the start-up burst
@@ -3560,16 +4124,6 @@ def seq_cpu_run(schedule, drain):
     res, _ = seq_run(schedule, drain, "map", "cpu")
     return types.SimpleNamespace(steps=res.steps, events=res.events, wall_s=res.wall_s,
                                  states=tree_map(lambda x: x.numpy(), res.states))
-
-
-def start_seq_cpu_runs():
-    """Phase 5g (a)'s four CPU runs, one process each."""
-    import multiprocessing
-
-    pool = concurrent.futures.ProcessPoolExecutor(
-        4, mp_context=multiprocessing.get_context("spawn"))
-    return pool, {(sch, drain): pool.submit(seq_cpu_run, sch, drain)
-                  for sch in SEQ_SCHEDULES for drain in (False, True)}
 
 
 def map_line(label, res, launches) -> str:
@@ -3698,16 +4252,15 @@ def seq_main_timed(bank, warm, vwarm, device) -> tuple[int, dict]:
     return launches, out
 
 
-def sequential_phase(device=None) -> tuple[int, dict]:
+def sequential_phase(cpu, device=None) -> tuple[int, dict]:
     """Phase 5g: the sequential lanes on the card. (a) the 12 presets
-    through `run_grid(strategy="map")`, drained and single-event,
-    fault-free and crash-heavy: every leaf but `fused` equal to the card's
-    vmap lanes, geo_schedule launched eagerly, and every leaf equal to the
-    CPU's map lanes; (b) phase 5's world for geotp through `engine.simulate`
-    in both modes, from the warm-up to the horizon, each equal to its lane
-    of a vmap run on every leaf but `fused`. Every timed run has the host to
-    itself: the CPU's map lanes (four processes) run beside (b)'s untimed
-    prefix. Returns (the map runs' geo_schedule launches, the numbers
+    through `run_grid(strategy="map")`, the SEQ_RUNS: every leaf but `fused`
+    equal to the card's vmap lanes, geo_schedule launched eagerly, and every
+    leaf equal to the CPU's map lanes (`cpu`: {(schedule, drain): future of
+    a `seq_cpu_run`}, started in phase 2); (b) phase 5's world for geotp
+    through `engine.simulate` in both modes, from the warm-up to the
+    horizon, each equal to its lane of a vmap run on every leaf but
+    `fused`. Returns (the map runs' geo_schedule launches, the numbers
     printed)."""
     from repro_torch.core.engine import batch
     from repro_torch.core.engine.state import tree_map
@@ -3715,37 +4268,35 @@ def sequential_phase(device=None) -> tuple[int, dict]:
     launches, out, cards = 0, {}, {}
     if torch.cuda.is_available() and device != "cpu":
         out["branch"] = branch_costs(torch.device("cuda"))
-    for sch in SEQ_SCHEDULES:
-        for drain in (False, True):
-            mode = "drained" if drain else "single-event"
-            card, n = seq_run(sch, drain, "map", device)
-            vmap, _ = seq_run(sch, drain, "vmap", device)
-            vcap = batch.run.capture_s
-            if n <= 0 and card.states.now.device.type == "cuda":
-                raise AssertionError(f"{sch} {mode}: no geo_schedule launch on the map lanes")
-            for i, m in enumerate(card.metrics):
-                if m["noops"] != 0 or m["commits"] <= 0:
-                    raise AssertionError(f"{sch} {mode} lane {i}: {m['noops']} noops, "
-                                         f"{m['commits']} commits")
-            print(map_line(f"{sch} {mode}, map on the card", card, n))
-            print(f"{sch} {mode}, vmap on the card: {vmap.steps} lockstep steps, "
-                  f"{vmap.wall_s:.3f} s with {vcap:.3f} s of capture, "
-                  f"{vmap.events / (vmap.wall_s - vcap):.1f} events/s without it "
-                  f"({card.wall_s / (vmap.wall_s - vcap):.2f}x the map lanes' wall)")
-            states_equal_but(card.states, vmap.states, ("fused",),
-                             f"{sch} {mode}, card: map vs vmap lanes")
-            if sch == "crash-heavy":
-                d = card.drain
-                if not (d["abort_causes"]["crash"] > 0 and d["failovers"] > 0):
-                    raise AssertionError(f"the schedule did not bite: {d}")
-            launches += n
-            cards[sch, drain] = card
-            out[sch, mode] = dict(events=card.events, wall_s=card.wall_s, launches=n,
-                                  vmap_wall_s=vmap.wall_s - vcap)
+    for sch, drain in SEQ_RUNS:
+        mode = "drained" if drain else "single-event"
+        card, n = seq_run(sch, drain, "map", device)
+        vmap, _ = seq_run(sch, drain, "vmap", device)
+        vcap = batch.run.capture_s
+        if n <= 0 and card.states.now.device.type == "cuda":
+            raise AssertionError(f"{sch} {mode}: no geo_schedule launch on the map lanes")
+        for i, m in enumerate(card.metrics):
+            if m["noops"] != 0 or m["commits"] <= 0:
+                raise AssertionError(f"{sch} {mode} lane {i}: {m['noops']} noops, "
+                                     f"{m['commits']} commits")
+        print(map_line(f"{sch} {mode}, map on the card", card, n))
+        print(f"{sch} {mode}, vmap on the card: {vmap.steps} lockstep steps, "
+              f"{vmap.wall_s:.3f} s with {vcap:.3f} s of capture, "
+              f"{vmap.events / (vmap.wall_s - vcap):.1f} events/s without it "
+              f"({card.wall_s / (vmap.wall_s - vcap):.2f}x the map lanes' wall)")
+        states_equal_but(card.states, vmap.states, ("fused",),
+                         f"{sch} {mode}, card: map vs vmap lanes")
+        if sch == "crash-heavy":
+            d = card.drain
+            if not (d["abort_causes"]["crash"] > 0 and d["failovers"] > 0):
+                raise AssertionError(f"the schedule did not bite: {d}")
+        launches += n
+        cards[sch, drain] = card
+        out[sch, mode] = dict(events=card.events, wall_s=card.wall_s, launches=n,
+                              vmap_wall_s=vmap.wall_s - vcap)
 
     print(f"CUT (b): phase 5's world (fig5 YCSB, T={T_MAIN}) for geotp, seed 0, untimed to "
           f"{SEQ_MAIN_WARMUP_S} s, timed to {SEQ_MAIN_HORIZON_S} s (fig5: 10 s / 2 s)")
-    pool, cpu = start_seq_cpu_runs()
     bank, warm, vwarm = seq_main_warm(device)
     for (sch, drain), fut in cpu.items():
         card, cpu_res = cards[sch, drain], fut.result()
@@ -3755,7 +4306,6 @@ def sequential_phase(device=None) -> tuple[int, dict]:
                                  f"{cpu_res.events} events, card {card.steps} / {card.events}")
         states_equal_but(card.states, tree_map(torch.from_numpy, cpu_res.states), (),
                          f"{sch} {mode}, map lanes: card vs CPU ({cpu_res.wall_s:.2f} s)")
-    pool.shutdown()
     n, main = seq_main_timed(bank, warm, vwarm, device)
     out.update(main)
     return launches + n, out
@@ -3768,23 +4318,21 @@ def sequential_phase(device=None) -> tuple[int, dict]:
 # phase 5h: every figure of `figures.ALL_FIGURES` but fig11, fig16 and fig17
 # (phases 5c-5e run those uncut), each sweep at the reference's quick widths
 # (QUICK_T = 48, fig5's T 16 / 32 / 64, every cell and bank), only the
-# horizon cut: FIGURES_CUT = (horizon, warmup) s, the warmup min(its own,
-# 0.15): fig18's 0 stays 0
+# horizon cut: FIGURES_CUT = (horizon, warmup) s (0.3 s, cut from 0.6 for
+# the training phases' time), the warmup min(its own, 0.15): fig18's 0
+# stays 0
 FIGURES_5H = ("fig1_motivation", "fig5_overall", "fig7_dist_ratio", "fig8_latency_cdf",
               "fig9_tpcc", "fig10_network", "fig12_ablation", "table1_heterogeneous",
               "fig13_yugabyte", "fig14_txn_length", "fig15_multiregion", "fig18_protocols")
-FIGURES_CUT = (0.6, 0.15)
-# figures cut deeper, to FIGURES_CUT_SHORT, for the time of the training
-# phases (20b-20f): fig1's two data sources of 500,000 records, fig10's
-# grid and fig18's (tiga's clock skews of 100 and 200 ms, past the 150 ms
-# slack), the three longest at FIGURES_CUT (~48 s together)
-FIGURES_SHORT = ("fig1_motivation", "fig10_network", "fig18_protocols")
-FIGURES_CUT_SHORT = (0.3, 0.15)
+FIGURES_CUT = (0.3, 0.15)
+# fig15's two four-region lanes commit nothing by 0.3 s: it keeps 0.45 s
+FIGURES_LONG = ("fig15_multiregion",)
+FIGURES_CUT_LONG = (0.45, 0.15)
 
 
 def figure_cut(name: str) -> tuple:
     """(horizon, warmup) s of figure `name` in phase 5h."""
-    return FIGURES_CUT_SHORT if name in FIGURES_SHORT else FIGURES_CUT
+    return FIGURES_CUT_LONG if name in FIGURES_LONG else FIGURES_CUT
 
 
 # {sweep tag: each lane's (preset, events, commits, aborts, crc32 of its
@@ -3794,145 +4342,246 @@ def figure_cut(name: str) -> tuple:
 # `PYTHONPATH=src:. JAX_PLATFORMS=cpu python tests/test_torch_figures.py`
 FIGURES_REF = {
     'fig1': [
-        ('ssp', 8486, 309, 0, 3486700997), ('ssp', 4609, 162, 0, 3842484391),
-        ('ssp', 2796, 97, 0, 1613478400), ('ssp', 2077, 81, 0, 188426088),
-        ('ssp', 1676, 54, 0, 2845245866), ('ssp', 3082, 40, 0, 2922786445),
-        ('ssp', 2803, 86, 0, 3148815725), ('ssp', 1880, 60, 0, 1946225691),
-        ('ssp', 1411, 50, 0, 921310848), ('ssp', 1179, 35, 0, 4144648998),
+        ('ssp', 8486, 309, 0, 3486700997),
+        ('ssp', 4609, 162, 0, 3842484391),
+        ('ssp', 2796, 97, 0, 1613478400),
+        ('ssp', 2077, 81, 0, 188426088),
+        ('ssp', 1676, 54, 0, 2845245866),
+        ('ssp', 3082, 40, 0, 2922786445),
+        ('ssp', 2803, 86, 0, 3148815725),
+        ('ssp', 1880, 60, 0, 1946225691),
+        ('ssp', 1411, 50, 0, 921310848),
+        ('ssp', 1179, 35, 0, 4144648998),
     ],
     'fig5_ycsb_T16': [
-        ('ssp', 637, 16, 0, 2693801418), ('ssp-local', 718, 30, 0, 1745502829),
-        ('scalardb', 362, 12, 0, 3875925303), ('geotp', 761, 32, 0, 1452862473),
+        ('ssp', 474, 7, 0, 1928631864),
+        ('ssp-local', 482, 8, 0, 3273145820),
+        ('scalardb', 276, 6, 0, 691253880),
+        ('geotp', 534, 12, 0, 2596096946),
     ],
     'fig5_ycsb_T32': [
-        ('ssp', 1047, 38, 0, 2356245791), ('ssp-local', 1131, 45, 0, 3445196706),
-        ('scalardb', 574, 26, 0, 4153535130), ('geotp', 1153, 45, 0, 3833942986),
+        ('ssp', 740, 14, 0, 3696879698),
+        ('ssp-local', 746, 13, 0, 3561935447),
+        ('scalardb', 369, 10, 0, 1069367649),
+        ('geotp', 734, 13, 0, 4020506670),
     ],
     'fig5_ycsb_T64': [
-        ('ssp', 2492, 89, 0, 1747390005), ('ssp-local', 2571, 107, 0, 2128920002),
-        ('scalardb', 1299, 48, 0, 455011344), ('geotp', 2653, 111, 0, 3795263399),
+        ('ssp', 1705, 31, 0, 491490381),
+        ('ssp-local', 1758, 39, 0, 1080956657),
+        ('scalardb', 865, 17, 0, 2932602708),
+        ('geotp', 1776, 42, 0, 3493379206),
     ],
     'fig5_tpcc_T16': [
-        ('ssp', 737, 25, 0, 1052789633), ('geotp', 848, 27, 0, 970185008),
+        ('ssp', 441, 10, 0, 2343103985),
+        ('geotp', 575, 6, 0, 3731664627),
     ],
     'fig5_tpcc_T32': [
-        ('ssp', 1621, 51, 0, 3268324282), ('geotp', 1683, 61, 0, 3158532648),
+        ('ssp', 1064, 16, 0, 3701089524),
+        ('geotp', 1209, 24, 0, 1860806860),
     ],
     'fig7': [
-        ('ssp', 2397, 113, 0, 156276135), ('ssp-local', 2397, 113, 0, 156276135),
-        ('chiller', 2397, 113, 0, 156276135), ('geotp', 2397, 113, 0, 156276135),
-        ('quro', 2397, 113, 0, 156276135), ('ssp', 2417, 99, 0, 2294263006),
-        ('ssp-local', 2427, 111, 0, 2343029101), ('chiller', 2476, 111, 0, 3906147048),
-        ('geotp', 2476, 113, 0, 2810051205), ('quro', 2417, 99, 0, 2294263006),
-        ('ssp', 2143, 64, 0, 1042796970), ('ssp-local', 2112, 75, 0, 3655234571),
-        ('chiller', 2283, 89, 0, 2535526017), ('geotp', 2269, 83, 0, 1999300656),
-        ('quro', 2143, 64, 0, 1042796970), ('ssp', 1975, 41, 0, 2887661766),
-        ('ssp-local', 1965, 61, 0, 3347487073), ('chiller', 2186, 74, 0, 1737275367),
-        ('geotp', 2212, 71, 0, 329615761), ('quro', 1975, 41, 0, 2887661766),
-        ('ssp', 2253, 106, 0, 927093277), ('ssp-local', 2253, 106, 0, 927093277),
-        ('chiller', 2253, 106, 0, 927093277), ('geotp', 2253, 106, 0, 927093277),
-        ('quro', 2259, 105, 0, 3192022124), ('ssp', 1958, 71, 0, 1973254933),
-        ('ssp-local', 2216, 106, 0, 684460822), ('chiller', 2249, 102, 0, 2137685263),
-        ('geotp', 2323, 101, 0, 1470615163), ('quro', 1959, 73, 0, 369477427),
-        ('ssp', 1814, 50, 0, 2947322547), ('ssp-local', 1870, 64, 0, 1487923379),
-        ('chiller', 1952, 70, 0, 669172248), ('geotp', 2033, 76, 0, 4022480613),
-        ('quro', 1818, 50, 0, 873147359), ('ssp', 1716, 34, 0, 215672298),
-        ('ssp-local', 1869, 59, 0, 2107789098), ('chiller', 2014, 63, 0, 3728230160),
-        ('geotp', 2128, 67, 0, 3925068445), ('quro', 1742, 35, 0, 4065832843),
-        ('ssp', 408, 4, 0, 2161373223), ('ssp-local', 408, 4, 0, 2161373223),
-        ('chiller', 408, 4, 0, 2161373223), ('geotp', 408, 4, 0, 2161373223),
-        ('quro', 557, 8, 0, 296462562), ('ssp', 516, 8, 0, 3317275331),
-        ('ssp-local', 509, 11, 0, 3153310626), ('chiller', 466, 8, 0, 300838069),
-        ('geotp', 574, 7, 0, 83510079), ('quro', 531, 7, 0, 2269369302),
-        ('ssp', 663, 11, 0, 3169923284), ('ssp-local', 624, 12, 0, 2964545000),
-        ('chiller', 627, 13, 0, 1567376415), ('geotp', 754, 8, 0, 672990090),
-        ('quro', 643, 8, 0, 3911931157), ('ssp', 671, 7, 0, 2363630216),
-        ('ssp-local', 630, 9, 0, 1760798833), ('chiller', 688, 20, 0, 362431096),
-        ('geotp', 1068, 24, 0, 1317371415), ('quro', 693, 7, 0, 2877345665),
+        ('ssp', 1618, 46, 0, 2062144297),
+        ('ssp-local', 1618, 46, 0, 2062144297),
+        ('chiller', 1618, 46, 0, 2062144297),
+        ('geotp', 1618, 46, 0, 2062144297),
+        ('quro', 1618, 46, 0, 2062144297),
+        ('ssp', 1588, 34, 0, 1337452005),
+        ('ssp-local', 1605, 43, 0, 4031316779),
+        ('chiller', 1633, 42, 0, 1997304366),
+        ('geotp', 1627, 45, 0, 2797749857),
+        ('quro', 1588, 34, 0, 1337452005),
+        ('ssp', 1448, 30, 0, 3816824842),
+        ('ssp-local', 1388, 26, 0, 1918740433),
+        ('chiller', 1435, 34, 0, 2609373006),
+        ('geotp', 1458, 34, 0, 597028352),
+        ('quro', 1448, 30, 0, 3816824842),
+        ('ssp', 1301, 20, 0, 2204948827),
+        ('ssp-local', 1228, 16, 0, 1503811598),
+        ('chiller', 1309, 23, 0, 1454062149),
+        ('geotp', 1327, 25, 0, 3041999179),
+        ('quro', 1301, 20, 0, 2204948827),
+        ('ssp', 1509, 38, 0, 4011906401),
+        ('ssp-local', 1509, 38, 0, 4011906401),
+        ('chiller', 1509, 38, 0, 4011906401),
+        ('geotp', 1509, 38, 0, 4011906401),
+        ('quro', 1513, 38, 0, 17553157),
+        ('ssp', 1300, 23, 0, 326881002),
+        ('ssp-local', 1389, 35, 0, 1624841724),
+        ('chiller', 1427, 34, 0, 4032468790),
+        ('geotp', 1460, 30, 0, 3656867180),
+        ('quro', 1301, 25, 0, 1251122091),
+        ('ssp', 1303, 25, 0, 114089792),
+        ('ssp-local', 1246, 22, 0, 2928098882),
+        ('chiller', 1305, 32, 0, 2333582913),
+        ('geotp', 1385, 31, 0, 2764187215),
+        ('quro', 1292, 24, 0, 3635746949),
+        ('ssp', 1201, 18, 0, 4162545912),
+        ('ssp-local', 1170, 15, 0, 638113683),
+        ('chiller', 1200, 21, 0, 681656083),
+        ('geotp', 1298, 24, 0, 3794952721),
+        ('quro', 1205, 18, 0, 4162545912),
+        ('ssp', 384, 1, 0, 3903964453),
+        ('ssp-local', 384, 1, 0, 3903964453),
+        ('chiller', 384, 1, 0, 3903964453),
+        ('geotp', 384, 1, 0, 3903964453),
+        ('quro', 486, 1, 0, 3903964453),
+        ('ssp', 416, 2, 0, 2943550713),
+        ('ssp-local', 446, 4, 0, 2875353456),
+        ('chiller', 427, 3, 0, 2840081331),
+        ('geotp', 554, 3, 0, 760410872),
+        ('quro', 444, 2, 0, 2943550713),
+        ('ssp', 521, 5, 0, 1783410074),
+        ('ssp-local', 555, 5, 0, 4051294509),
+        ('chiller', 538, 6, 0, 1037862219),
+        ('geotp', 723, 4, 0, 28684877),
+        ('quro', 542, 5, 0, 1989976977),
+        ('ssp', 570, 5, 0, 2487572542),
+        ('ssp-local', 557, 1, 0, 1375620760),
+        ('chiller', 503, 4, 0, 1101112845),
+        ('geotp', 831, 9, 0, 2390695609),
+        ('quro', 607, 6, 0, 2495735803),
     ],
     'fig8': [
-        ('ssp', 2143, 64, 0, 1042796970), ('ssp-local', 2112, 75, 0, 3655234571),
-        ('geotp', 2269, 83, 0, 1999300656), ('ssp', 1814, 50, 0, 2947322547),
-        ('ssp-local', 1870, 64, 0, 1487923379), ('geotp', 2033, 76, 0, 4022480613),
-        ('ssp', 663, 11, 0, 3169923284), ('ssp-local', 624, 12, 0, 2964545000),
-        ('geotp', 754, 8, 0, 672990090),
+        ('ssp', 1448, 30, 0, 3816824842),
+        ('ssp-local', 1388, 26, 0, 1918740433),
+        ('geotp', 1458, 34, 0, 597028352),
+        ('ssp', 1303, 25, 0, 114089792),
+        ('ssp-local', 1246, 22, 0, 2928098882),
+        ('geotp', 1385, 31, 0, 2764187215),
+        ('ssp', 521, 5, 0, 1783410074),
+        ('ssp-local', 555, 5, 0, 4051294509),
+        ('geotp', 723, 4, 0, 28684877),
     ],
     'fig9': [
-        ('ssp', 1311, 49, 0, 45931070), ('chiller', 1511, 73, 0, 2232088041),
-        ('geotp', 1568, 73, 0, 3893617802), ('ssp', 3114, 65, 0, 3049496647),
-        ('chiller', 3405, 86, 0, 1067490174), ('geotp', 3481, 84, 0, 4228130806),
+        ('ssp', 856, 11, 0, 61320377),
+        ('chiller', 913, 19, 0, 4134135973),
+        ('geotp', 1053, 22, 0, 890720915),
+        ('ssp', 2173, 21, 0, 1133233155),
+        ('chiller', 2188, 23, 0, 2935596471),
+        ('geotp', 2311, 23, 0, 902082981),
     ],
     'fig10': [
-        ('ssp', 4186, 137, 0, 3769363532), ('geotp', 4736, 157, 0, 206536173),
-        ('ssp', 2374, 73, 0, 1777870507), ('geotp', 2677, 95, 0, 2533842101),
-        ('ssp', 1370, 48, 0, 4114220896), ('geotp', 1474, 58, 0, 3345875245),
-        ('ssp', 2212, 76, 0, 107987023), ('geotp', 2484, 99, 0, 1667854626),
-        ('ssp', 2111, 61, 0, 3870744483), ('geotp', 2459, 88, 0, 3437414012),
-        ('ssp', 2191, 73, 0, 1453894276), ('geotp', 2450, 96, 0, 4001831129),
+        ('ssp', 4186, 137, 0, 3769363532),
+        ('geotp', 4736, 157, 0, 206536173),
+        ('ssp', 2374, 73, 0, 1777870507),
+        ('geotp', 2677, 95, 0, 2533842101),
+        ('ssp', 1370, 48, 0, 4114220896),
+        ('geotp', 1474, 58, 0, 3345875245),
+        ('ssp', 2212, 76, 0, 107987023),
+        ('geotp', 2484, 99, 0, 1667854626),
+        ('ssp', 2111, 61, 0, 3870744483),
+        ('geotp', 2459, 88, 0, 3437414012),
+        ('ssp', 2191, 73, 0, 1453894276),
+        ('geotp', 2450, 96, 0, 4001831129),
     ],
     'fig12': [
-        ('ssp', 2289, 71, 0, 2211003712), ('geotp-o1', 2530, 91, 0, 2683838244),
-        ('geotp-o1o2', 2415, 94, 0, 2473433086), ('geotp', 2415, 94, 0, 2473433086),
-        ('ssp', 2289, 71, 0, 2211003712), ('geotp-o1', 2530, 91, 0, 2683838244),
-        ('geotp-o1o2', 2415, 94, 0, 2473433086), ('geotp', 2415, 94, 0, 2473433086),
-        ('ssp', 1727, 44, 0, 2392094332), ('geotp-o1', 2126, 72, 0, 3900235971),
-        ('geotp-o1o2', 2135, 76, 0, 4203063260), ('geotp', 2135, 76, 0, 4203063260),
-        ('ssp', 865, 17, 0, 4053693379), ('geotp-o1', 938, 25, 0, 410271420),
-        ('geotp-o1o2', 946, 16, 0, 2041877204), ('geotp', 946, 16, 0, 2041877204),
-        ('ssp', 374, 4, 0, 1444929338), ('geotp-o1', 417, 3, 0, 299704038),
-        ('geotp-o1o2', 400, 2, 0, 2042571748), ('geotp', 400, 2, 0, 2042571748),
+        ('ssp', 1504, 30, 0, 2675043737),
+        ('geotp-o1', 1617, 33, 0, 111588074),
+        ('geotp-o1o2', 1530, 35, 0, 2013822207),
+        ('geotp', 1530, 35, 0, 2013822207),
+        ('ssp', 1504, 30, 0, 2675043737),
+        ('geotp-o1', 1617, 33, 0, 111588074),
+        ('geotp-o1o2', 1530, 35, 0, 2013822207),
+        ('geotp', 1530, 35, 0, 2013822207),
+        ('ssp', 1233, 20, 0, 592624713),
+        ('geotp-o1', 1356, 23, 0, 1887763642),
+        ('geotp-o1o2', 1391, 25, 0, 383168657),
+        ('geotp', 1391, 25, 0, 383168657),
+        ('ssp', 705, 6, 0, 1345040300),
+        ('geotp-o1', 798, 13, 0, 671862803),
+        ('geotp-o1o2', 899, 10, 0, 2842753232),
+        ('geotp', 899, 10, 0, 2842753232),
+        ('ssp', 352, 1, 0, 1375620760),
+        ('geotp-o1', 381, 1, 0, 3903964453),
+        ('geotp-o1o2', 394, 1, 0, 3903964453),
+        ('geotp', 394, 1, 0, 3903964453),
     ],
     'table1': [
-        ('ssp', 2008, 73, 0, 78115800), ('geotp', 2347, 103, 0, 3844495231),
-        ('ssp', 1755, 41, 0, 231043379), ('geotp', 2061, 66, 0, 2844833949),
-        ('ssp', 2006, 72, 0, 2664330751), ('geotp', 2301, 102, 0, 150806213),
-        ('ssp', 1768, 42, 0, 60415028), ('geotp', 2066, 67, 0, 1110361929),
-        ('ssp', 2011, 73, 0, 2022600897), ('geotp', 2348, 103, 0, 2689564638),
-        ('ssp', 1754, 42, 0, 3997002187), ('geotp', 2064, 69, 0, 1083494389),
+        ('ssp', 1301, 24, 0, 335418922),
+        ('geotp', 1473, 33, 0, 1870926754),
+        ('ssp', 1230, 21, 0, 262990239),
+        ('geotp', 1307, 21, 0, 2437401816),
+        ('ssp', 1298, 23, 0, 3085317942),
+        ('geotp', 1465, 34, 0, 4091857788),
+        ('ssp', 1230, 21, 0, 3603427634),
+        ('geotp', 1307, 22, 0, 894798113),
+        ('ssp', 1301, 24, 0, 335418922),
+        ('geotp', 1474, 33, 0, 842828987),
+        ('ssp', 1229, 21, 0, 262990239),
+        ('geotp', 1309, 24, 0, 3503703350),
     ],
     'fig13': [
-        ('ssp', 2417, 99, 0, 2294263006), ('geotp', 2476, 113, 0, 2810051205),
-        ('yugabyte-like', 3162, 154, 0, 226554470), ('ssp', 1958, 71, 0, 1973254933),
-        ('geotp', 2323, 101, 0, 1470615163), ('yugabyte-like', 2801, 143, 0, 2586891190),
-        ('ssp', 516, 8, 0, 3317275331), ('geotp', 574, 7, 0, 83510079),
-        ('yugabyte-like', 545, 14, 0, 411937178),
+        ('ssp', 1588, 34, 0, 1337452005),
+        ('geotp', 1627, 45, 0, 2797749857),
+        ('yugabyte-like', 2083, 69, 0, 2323801364),
+        ('ssp', 1300, 23, 0, 326881002),
+        ('geotp', 1460, 30, 0, 3656867180),
+        ('yugabyte-like', 1772, 53, 0, 206658128),
+        ('ssp', 416, 2, 0, 2943550713),
+        ('geotp', 554, 3, 0, 760410872),
+        ('yugabyte-like', 491, 7, 0, 1497836895),
     ],
     'fig14_ops5': [
-        ('ssp', 1958, 71, 0, 1973254933), ('geotp', 2323, 101, 0, 1470615163),
+        ('ssp', 1300, 23, 0, 326881002),
+        ('geotp', 1460, 30, 0, 3656867180),
     ],
     'fig14_ops15': [
-        ('ssp', 987, 3, 0, 1048439352), ('geotp', 1143, 8, 0, 1095862039),
+        ('ssp', 922, 2, 0, 2943550713),
+        ('geotp', 1057, 2, 0, 4125887329),
     ],
     'fig14_ops25': [
-        ('ssp', 1019, 7, 0, 2850081044), ('geotp', 1146, 10, 0, 4279590877),
+        ('ssp', 969, 5, 0, 3603101490),
+        ('geotp', 945, 3, 0, 4219447913),
     ],
     'fig14_rounds': [
-        ('ssp', 2191, 81, 0, 112832631), ('geotp', 2213, 93, 0, 2377416668),
-        ('ssp', 2030, 56, 0, 3201280696), ('geotp', 2030, 57, 0, 3795863074),
-        ('ssp', 2017, 40, 0, 2254476742), ('geotp', 1976, 47, 0, 3356007588),
-        ('ssp', 1744, 59, 0, 2704040009), ('geotp', 1988, 84, 0, 2164929094),
-        ('ssp', 1761, 43, 0, 966990521), ('geotp', 1887, 53, 0, 552716629),
-        ('ssp', 1712, 28, 0, 3147944997), ('geotp', 1697, 35, 0, 1354157291),
+        ('ssp', 1346, 23, 0, 2571967279),
+        ('geotp', 1392, 31, 0, 3780332131),
+        ('ssp', 1274, 23, 0, 668085574),
+        ('geotp', 1249, 23, 0, 1354039523),
+        ('ssp', 1255, 13, 0, 3840616826),
+        ('geotp', 1221, 21, 0, 2752206478),
+        ('ssp', 1162, 16, 0, 2365740332),
+        ('geotp', 1278, 29, 0, 1766929355),
+        ('ssp', 1140, 19, 0, 3827044630),
+        ('geotp', 1183, 22, 0, 2057320847),
+        ('ssp', 1157, 10, 0, 2279887181),
+        ('geotp', 1114, 15, 0, 3535648734),
     ],
     'fig15': [
-        ('ssp', 1958, 71, 0, 1973254933), ('geotp', 2323, 101, 0, 1470615163),
-        ('ssp', 926, 33, 0, 2898812477), ('geotp', 989, 44, 0, 245692274),
+        ('ssp', 1525, 38, 0, 947617552),
+        ('geotp', 1876, 57, 0, 3771567714),
+        ('ssp', 687, 14, 0, 2421161586),
+        ('geotp', 736, 17, 0, 3134042579),
     ],
     'fig18': [
-        ('ssp', 2286, 109, 0, 3291932713), ('geotp', 2400, 137, 0, 1766895507),
-        ('fastc', 3310, 244, 0, 1894794730), ('opta', 2506, 137, 0, 1424219533),
-        ('tiga', 689, 48, 0, 293763299), ('tiga', 844, 53, 0, 3366586503),
-        ('tiga', 2749, 158, 0, 4200371116), ('ssp', 1504, 68, 0, 2025677069),
-        ('geotp', 1530, 79, 0, 1790025375), ('fastc', 2042, 138, 0, 3092783960),
-        ('opta', 1617, 80, 0, 1404165906), ('tiga', 689, 48, 0, 2043523301),
-        ('tiga', 705, 37, 0, 474867818), ('tiga', 1796, 96, 0, 2636731862),
-        ('ssp', 641, 17, 0, 1639829541), ('geotp', 765, 32, 0, 3390127335),
-        ('fastc', 1367, 86, 0, 2770873359), ('opta', 2646, 46, 189, 876760495),
-        ('tiga', 647, 42, 0, 890110355), ('tiga', 583, 27, 0, 1092861681),
-        ('tiga', 749, 29, 0, 2389720000), ('ssp', 489, 9, 0, 107235972),
-        ('geotp', 724, 26, 0, 3462205535), ('fastc', 1296, 80, 0, 236732133),
-        ('opta', 1791, 27, 124, 3697980170), ('tiga', 647, 42, 0, 3162018065),
-        ('tiga', 599, 28, 0, 1322767562), ('tiga', 600, 16, 0, 1608416010),
+        ('ssp', 2286, 109, 0, 3291932713),
+        ('geotp', 2400, 137, 0, 1766895507),
+        ('fastc', 3310, 244, 0, 1894794730),
+        ('opta', 2506, 137, 0, 1424219533),
+        ('tiga', 689, 48, 0, 293763299),
+        ('tiga', 844, 53, 0, 3366586503),
+        ('tiga', 2749, 158, 0, 4200371116),
+        ('ssp', 1504, 68, 0, 2025677069),
+        ('geotp', 1530, 79, 0, 1790025375),
+        ('fastc', 2042, 138, 0, 3092783960),
+        ('opta', 1617, 80, 0, 1404165906),
+        ('tiga', 689, 48, 0, 2043523301),
+        ('tiga', 705, 37, 0, 474867818),
+        ('tiga', 1796, 96, 0, 2636731862),
+        ('ssp', 641, 17, 0, 1639829541),
+        ('geotp', 765, 32, 0, 3390127335),
+        ('fastc', 1367, 86, 0, 2770873359),
+        ('opta', 2646, 46, 189, 876760495),
+        ('tiga', 647, 42, 0, 890110355),
+        ('tiga', 583, 27, 0, 1092861681),
+        ('tiga', 749, 29, 0, 2389720000),
+        ('ssp', 489, 9, 0, 107235972),
+        ('geotp', 724, 26, 0, 3462205535),
+        ('fastc', 1296, 80, 0, 236732133),
+        ('opta', 1791, 27, 124, 3697980170),
+        ('tiga', 647, 42, 0, 3162018065),
+        ('tiga', 599, 28, 0, 1322767562),
+        ('tiga', 600, 16, 0, 1608416010),
     ],
 }
 
@@ -4021,7 +4670,7 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 KERNEL_NAMES = ("geo_schedule", "decode_attention", "flash_attention", "mlstm_chunk",
                 "rglru_scan", "flash_attention_cross", "decode_attention_int8",
-                "flash_attention_bwd")
+                "flash_attention_bwd", "mlstm_bwd", "rglru_bwd")
 
 
 def kernels_line(records) -> str:
@@ -4062,9 +4711,9 @@ def main() -> int:
     pool = concurrent.futures.ThreadPoolExecutor(len(LM_KERNELS))
     builds = {name: pool.submit(timed_build, name) for name in LM_KERNELS}
     pool.shutdown(wait=False)
-    # the CPU runs of phases 4-4c (~25-75 s each, eager) beside the builds and
-    # phases 3-4b
-    cpu_pool, cpu_runs = start_cpu_runs()
+    # the CPU runs of phases 4-4c and 5g (a) (~5-75 s each, eager) beside the
+    # builds and phases 3-5d; phase 4d and 5g read them
+    cpu_pool, cpu_runs, seq_cpu_runs = start_cpu_runs()
     t0 = time.perf_counter()
     _build.build("geo_schedule", verbose=True)
     _build.load("geo_schedule")
@@ -4099,20 +4748,20 @@ def main() -> int:
           f"{plain_ms:.5f} ms, bound {bound_ms:.3g} ms ({bound_by}); max |dp| over all cases "
           f"{max_err:.3g} (the device time a launch inside the captured steps: phases 5, 5b)")
 
-    phase("4 end to end: GPU vs CPU, all 12 presets, single-event step (drain=False)")
+    phase("4 end to end on the card: all 12 presets, single-event step (drain=False); the "
+          "CPU's run in phase 4d")
     bank16, grid12 = presets_grid()
-    single12 = gpu_vs_cpu(bank16, grid12, False, cpu=cpu_result(cpu_runs, "presets", False))[0]
+    single12, _ = card_run(bank16, grid12, False)
 
-    phase("4b end to end: GPU vs CPU, all 12 presets, windowed drain (drain=True)")
-    drained12 = gpu_vs_cpu(bank16, grid12, True, cpu=cpu_result(cpu_runs, "presets", True))[0]
-    leaves_but_telemetry_equal(drained12["cuda"].states, single12["cuda"].states,
+    phase("4b end to end on the card: all 12 presets, windowed drain (drain=True); the CPU's "
+          "run in phase 4d")
+    drained12, _ = card_run(bank16, grid12, True)
+    leaves_but_telemetry_equal(drained12.states, single12.states,
                                "phase 4b vs phase 4 on the card")
-    del single12, drained12
 
-    phase("4c end to end with faults: GPU vs CPU, 12 presets x CRASH_HEAVY / PART_HEAVY "
-          "(replicas), single-event and windowed")
-    launches_faults = fault_small_phase(cpu_runs)
-    cpu_pool.shutdown()
+    phase("4c end to end with faults on the card: 12 presets x CRASH_HEAVY / PART_HEAVY "
+          "(replicas), single-event and windowed; the CPU's runs in phase 4d")
+    faults12, launches_faults = fault_small_phase()
 
     phase("5 main path: fig5 YCSB, T=128, 16 lanes, single-event step (drain=False)")
     print(f"CUT: horizon {HORIZON_S} s / warmup {WARMUP_S} s (fig5: 10 s / 2 s)")
@@ -4144,6 +4793,15 @@ def main() -> int:
     launches += l16 + l17
     del res17
 
+    phase("4d phases 4-4c: GPU vs CPU, the CPU's runs made beside the card's phases since "
+          "phase 2")
+    against_cpu(single12, cpu_result(cpu_runs, "presets", False), "phase 4")
+    against_cpu(drained12, cpu_result(cpu_runs, "presets", True), "phase 4b")
+    for drain, run in faults12.items():
+        against_cpu(run, cpu_result(cpu_runs, "faults", drain),
+                    f"phase 4c {'windowed' if drain else 'single-event'}")
+    del single12, drained12, faults12
+
     phase("5-5d profiles of the captured replays: phase 5's, 5b's and 5d's grids")
     # the profiles run on a quiet host: the LM kernels' builds end first
     concurrent.futures.wait(builds.values())
@@ -4162,12 +4820,13 @@ def main() -> int:
     lm_records = moe_mla_phases(dev, lm_records)[0]
     lm_records = slice8_phases(dev, lm_records)[0]
     lm_records = training_phases(dev, lm_records)[0]
+    lm_records = recurrent_training_phases(dev, lm_records)[0]
 
     from repro_torch.bench import figures
 
     phase(f"5e fig11-online-T{figures.QUICK_T}: fig11's online segments through "
-          f"Simulator.resume, {len(figures.FIG11_SEGMENTS)} x {figures.FIG11_SEGMENT_S} s a "
-          f"preset")
+          f"Simulator.resume, {', '.join(f'{p} {n}' for p, n in FIG11_CHIP_SEGMENTS.items())} "
+          f"segments of {figures.FIG11_SEGMENT_S} s")
     launches += fig11_online_phase()
 
     phase("5f the port's smoke (repro_torch.bench.smoke): fig5 YCSB, T=32, five legs")
@@ -4176,14 +4835,15 @@ def main() -> int:
     phase(f"5g the sequential lanes on the card: strategy=\"map\" and engine.simulate, 12 "
           f"presets at T={SEQ_T} and fig5's world at T={T_MAIN}")
     t0 = time.perf_counter()
-    launches += sequential_phase()[0]
+    launches += sequential_phase(seq_cpu_runs)[0]
+    cpu_pool.shutdown()
     print(f"phase 5g: {time.perf_counter() - t0:.1f} s; the script so far "
           f"{time.perf_counter() - t_start:.1f} s")
 
-    (h, w), (hs, ws) = FIGURES_CUT, FIGURES_CUT_SHORT
+    (h, w), (hl, wl) = FIGURES_CUT, FIGURES_CUT_LONG
     phase(f"5h the paper's figures at full width: {len(FIGURES_5H)} figures, their grids at "
-          f"the quick widths, horizon cut to {h} s (warmup {w} s), {', '.join(FIGURES_SHORT)} "
-          f"to {hs} s (warmup {ws} s)")
+          f"the quick widths, horizon cut to {h} s (warmup {w} s), {', '.join(FIGURES_LONG)} "
+          f"to {hl} s (warmup {wl} s)")
     t0 = time.perf_counter()
     launches += figures_phase()
     print(f"phase 5h: {time.perf_counter() - t0:.1f} s; the script so far "

@@ -43,6 +43,7 @@ import sys
 import time
 
 import torch
+from torch.autograd.profiler_util import Interval
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -67,11 +68,12 @@ LABELS = (
 RUN_LABEL = "lockstep run"
 REPLAY_LABEL = "replay of the captured step"
 GEO_KERNEL = "geo_schedule_kernel"
-# events per lane: 64 steps (63 replays on the card). At 128 (127 replays,
+# events per lane: 32 steps (31 replays on the card). At 128 (127 replays,
 # ~375,000 kernels of the windowed step) one chip run's trace lost 3 of its
 # 254 geo_schedule kernels, and the accounting below refuses a trace that
-# lost any; a shorter window halves what the profiler records
-WINDOW = 64
+# lost any; a shorter window cuts what the profiler records and what is
+# read back, and chip_smoke.py profiles three such windows
+WINDOW = 32
 # the profiler leaves out device records stamped outside its own span (its
 # log counts them as "Out-of-range"), so on a card the span reaches this far
 # past the run on either side
@@ -183,6 +185,73 @@ def kernel_table(kernels, steps: int) -> dict:
             for name, (n, us) in sorted(by.items(), key=lambda kv: -kv[1][1])}
 
 
+class _Record:
+    """One trace record, with the fields of a `FunctionEvent` that `_window`
+    and `measure` read."""
+
+    __slots__ = ("name", "device_type", "time_range", "cpu_parent", "cpu_children")
+
+    def __init__(self, name, device_type, start_us, end_us):
+        self.name, self.device_type, self.cpu_parent = name, device_type, None
+        self.time_range, self.cpu_children = Interval(start_us, end_us), []
+
+
+class RawTrace:
+    """`prof`'s records read straight from the profiler's result, as
+    `prof.events()` gives them (the same records, times in us from the
+    trace's start, each host op's parent the innermost host range around it
+    on its thread), without its parse of every record (demangled names,
+    stacks, shapes, the kernels attached to their launches), a few times
+    slower for the same records."""
+
+    def __init__(self, prof):
+        self.prof = prof
+
+    def events(self) -> list:
+        res = self.prof.profiler.kineto_results
+        t0 = res.trace_start_ns()
+        cpu_t = torch.autograd.DeviceType.CPU
+        hidden = {"[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+                  "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+                  "aten::is_leaf", "aten::output_nr", "aten::_version"}
+        out, threads = [], {}
+        for e in res.events():
+            name = e.name()
+            if name in hidden or getattr(e, "is_hidden_event", bool)():
+                continue
+            rec = _Record(name, e.device_type(), (e.start_ns() - t0) / 1000,
+                          (e.end_ns() - t0) / 1000)
+            out.append(rec)
+            if (rec.device_type == cpu_t and not e.is_async()
+                    and e.start_thread_id() == e.end_thread_id()):
+                threads.setdefault(e.start_thread_id(), []).append(rec)
+        for recs in threads.values():  # as `EventList._populate_cpu_children`
+            stack = []
+            for rec in sorted(recs, key=lambda r: (r.time_range.start, -r.time_range.end)):
+                while stack:
+                    parent = stack[-1].time_range
+                    if rec.time_range.start >= parent.end or rec.time_range.end > parent.end:
+                        stack.pop()
+                    else:
+                        rec.cpu_parent = stack[-1]
+                        stack[-1].cpu_children.append(rec)
+                        break
+                stack.append(rec)
+        while True:  # as `EventList._remove_dup_nodes`: an op's lone namesake child goes
+            keep = []
+            for rec in out:
+                parent = rec.cpu_parent
+                if parent is not None and parent.name == rec.name and len(parent.cpu_children) == 1:
+                    parent.cpu_children = rec.cpu_children
+                    for child in rec.cpu_children:
+                        child.cpu_parent = parent
+                else:
+                    keep.append(rec)
+            if len(keep) == len(out):
+                return out
+            out = keep
+
+
 def _window(prof, steps: int, replays) -> dict:
     """The profiled run in `prof`'s trace: the host RUN_LABEL range, on a
     card (`replays`: the replays the run issued) from its first replay on.
@@ -261,7 +330,7 @@ def measure(grid, window: int, device, activities, tables=None, drain: bool = Tr
             if timing["steps"] != steps:
                 raise AssertionError(f"profiled run took {timing['steps']} steps, "
                                      f"unprofiled {steps}")
-            win = _window(prof, steps, replays["replays"] if captured else None)
+            win = _window(RawTrace(prof), steps, replays["replays"] if captured else None)
             traced_geo = sum(kernel_name(e.name) == GEO_KERNEL for e in win["traced"])
             if not captured or traced_geo == 2 * steps:
                 break

@@ -69,6 +69,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"  // the mma.sync kernels' fragments, tiles and cp.async
+
 namespace {
 
 constexpr float kNeg = -1e30f;
@@ -545,40 +547,6 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 // kernel 2m, one per (b·kv head, 64 keys): dK and dV over the G query heads
 // and needed query tiles; kernel 3m, one per (b·h, 64 queries): dQ.
 
-constexpr int kMmaThreads = 128;  // four warps
-constexpr int kMmaRows = 64;      // a block's rows and a walked tile's rows
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"((uint32_t)__cvta_generic_to_shared(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"((uint32_t)__cvta_generic_to_shared(p)));
-}
-// c[4] += a[4] (16x16, row) · {b0, b1} (16x8, col)
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// The A fragment (16 rows x k16) of columns 16·kc.. of a warp's C tiles
-// c[n-tile][4] over the same 16 rows.
-__device__ __forceinline__ void c_to_a(uint32_t* a, const float* c0, const float* c1) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
 // Is every pair of the 64 x 64 tile from (q0, k0) inside the keys and
 // queries and allowed? The allowed keys of a query are one interval whose
 // ends grow with the query, so the four corners decide.
@@ -591,109 +559,11 @@ __device__ __forceinline__ bool tile_full(int q0, int k0, int S, int Sk, int cau
          allowed(q1, k1, causal, window, chunk_local);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// every copy group but the newest has landed (this thread's)
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// `rows` rows of d bf16 elements from row r0 of src (n rows in all) into
-// dst [rows][DP + 8], zeros past row n and past column d. With `vec` (d a
-// multiple of 8, src 16-byte aligned) 16-byte cp.async copies, which land
-// at the caller's wait; else plain loads and stores.
-template <int DP>
-__device__ __forceinline__ void load_tile_mma(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                              int r0, int rows, int n, int d, bool vec) {
-  constexpr int LD = DP + 8;
-  if (vec) {
-    constexpr int CH = DP / 8;
-    for (int i = threadIdx.x; i < rows * CH; i += kMmaThreads) {
-      const int r = i / CH, c = (i - r * CH) * 8;
-      const bool in = r0 + r < n && c < d;
-      cp_async16(dst + r * LD + c, in ? src + (size_t)(r0 + r) * d + c : src, in ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * DP; i += kMmaThreads) {
-      const int r = i / DP, c = i - r * DP;
-      dst[r * LD + c] = r0 + r < n && c < d ? src[(size_t)(r0 + r) * d + c]
-                                            : __float2bfloat16_rn(0.0f);
-    }
-  }
-}
-
-// kMmaRows floats from src[r0..] (n in all; zeros past n) into dst, by
-// cp.async.
-__device__ __forceinline__ void load_rows_async(float* dst, const float* src, int r0, int n) {
-  for (int r = threadIdx.x; r < kMmaRows; r += kMmaThreads) {
-    const bool in = r0 + r < n;
-    cp_async4(dst + r, in ? src + r0 + r : src, in ? 4 : 0);
-  }
-}
-
 // The first item i >= from of [0, n) that `need` takes, else n.
 template <typename F>
 __device__ __forceinline__ int next_needed(int from, int n, F need) {
   while (from < n && !need(from)) ++from;
   return from;
-}
-
-// acc[8][4] += A (a warp's 16 rows of a, from column 0, nk16 k16 steps) ·
-// Bᵀ, B the 64 rows of b (both [rows][DP + 8], k along the row): a
-// warp's 16 x 64 block of A·Bᵀ.
-template <int DP>
-__device__ __forceinline__ void mma_abt(float (*acc)[4], const __nv_bfloat16* a,
-                                        const __nv_bfloat16* b, int nk16) {
-  constexpr int LD = DP + 8;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    if (kk >= nk16) break;
-    uint32_t af[4];
-    ldsm_x4(af, a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                      ((lane >> 3) & 1) * 8);
-      mma16816(acc[2 * np], af, bf[0], bf[1]);
-      mma16816(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[DP / 8][4] += X · B, X a warp's 16 x 64 C tiles x[8][4] (rounded to
-// bf16), B the 64 rows of b ([rows][DP + 8], k along the column), over the
-// first nn16 16-column groups of B.
-template <int DP>
-__device__ __forceinline__ void mma_xb(float (*acc)[4], float (*x)[4],
-                                       const __nv_bfloat16* b, int nn16) {
-  constexpr int LD = DP + 8;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    uint32_t af[4];
-    c_to_a(af, x[2 * kc], x[2 * kc + 1]);
-#pragma unroll
-    for (int np = 0; np < DP / 16; ++np) {
-      if (np >= nn16) break;
-      uint32_t bf[4];
-      ldsm_x4_t(bf, b + (kc * 16 + (lane & 15)) * LD + np * 16 + (lane >> 4) * 8);
-      mma16816(acc[2 * np], af, bf[0], bf[1]);
-      mma16816(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
 }
 
 // A warp's 16 x 64 scores s (query rows qr and qr + 8, keys from k0) as
@@ -928,8 +798,8 @@ bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       p_ds_tile<CAP, true, true>(s, dp, k0 + warp * 16, q0, S, Sk, scale, cap, causal, window,
                                  chunk_local, lse_s + buf * BQ, dl_s + buf * BQ);
     // dV += Pᵀ·dO, dK += dSᵀ·Q over the tile's queries
-    mma_xb<DP>(adv, s, gb, nv16);
-    mma_xb<DP>(adk, dp, qb, nh16);
+    mma_xb<DP, DP>(adv, s, gb, 0, nv16);
+    mma_xb<DP, DP>(adk, dp, qb, 0, nh16);
     __syncthreads();  // every warp is done with this buffer before it is refilled
     cur = nxt;
   }
@@ -1017,7 +887,7 @@ bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
       p_ds_tile<CAP, true, false>(s, dp, q0 + warp * 16, k0, S, Sk, scale, cap, causal, window,
                                   chunk_local, lr, dr);
     // dQ += dS·K over the tile's keys
-    mma_xb<DP>(acc, dp, kt, nh16);
+    mma_xb<DP, DP>(acc, dp, kt, 0, nh16);
     __syncthreads();  // every warp is done with this buffer before it is refilled
     cur = nxt;
   }

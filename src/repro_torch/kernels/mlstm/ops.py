@@ -6,9 +6,6 @@ computes the plain version (`ref.py`). It never catches an error to fall
 back. `mlstm.launches` counts kernel launches (plain calls do not count),
 and `mlstm.launches_by_dtype` splits them by dtype: bfloat16 launches run
 the tensor-core (wgmma) kernel, float32 ones the CUDA-core kernel. The
-kernel has no backward yet: on the card a call that would need a gradient
-raises `not_ported` (ROADMAP.md §A item A7); on the CPU the plain version
-is differentiable as it is. The
 kernel computes in float32 and writes h in v's dtype, so bf16 heads from
 the model are passed as they are.
 As the reference's `mlstm_chunk` does, the wrapper forms F = cumsum(logf)
@@ -16,6 +13,19 @@ in float32, so the kernel reads two [S] gate rows per tile instead of an
 [S, S] decay matrix. The kernel takes dh as it is (up to 256) and S as it
 is, masking the ragged edge: the reference wrapper's halving of its blocks
 until they divide S is a TPU artefact.
+
+`mlstm` is differentiable: when grad mode is on and an input requires a
+gradient, it runs as the `torch.autograd.Function` `_Mlstm`, whose forward
+is the same launch (or plain call) and whose backward is `mlstm_bwd`: the
+hand-written backward (`csrc/mlstm_chunk_bwd.cu`: an m / n / c pre-pass, a
+dK / dV / dlogi kernel and a dQ / dF kernel, no atomics; bfloat16 on the
+tensor cores, float32 on the CUDA cores) on CUDA tensors,
+`ref.mlstm_bwd_ref` on CPU tensors. It saves q, k,
+v, logi, the forward's own F and h; dlogf is the reverse cumsum of dF,
+formed here as the forward's cumsum is. `mlstm_bwd.launches` counts its
+calls on the card. A backward library that cannot build or load raises
+before the forward's work; nothing falls back to autograd through the
+plain version.
 """
 
 from __future__ import annotations
@@ -23,8 +33,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.mlstm import mlstm as _cuda
-from repro_torch.kernels.mlstm.ref import mlstm_ref
-from repro_torch.unported import not_ported
+from repro_torch.kernels.mlstm import mlstm_bwd as _cuda_bwd
+from repro_torch.kernels.mlstm.ref import mlstm_bwd_ref, mlstm_ref
 
 MAX_HEAD_DIM = 256
 
@@ -48,30 +58,94 @@ def _check(q, k, v, logi, logf) -> None:
             raise ValueError(f"mlstm: {name} on {x.device}, q on {q.device}")
 
 
-def mlstm(q, k, v, logi, logf):
-    """Stabilized chunkwise mLSTM. q/k/v: [B,H,S,dh]; logi/logf (log input
-    gate, log sigmoid forget gate): [B,H,S] -> h [B,H,S,dh] in v's dtype."""
-    _check(q, k, v, logi, logf)
-    if q.device.type == "cpu":
-        return mlstm_ref(q, k, v, logi, logf)
-    if q.device.type != "cuda":
-        raise ValueError(f"mlstm: no kernel for device {q.device}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, logi, logf)):
-        raise not_ported("a gradient through the mLSTM kernel (B5's backward)", "A7")
-    _cuda.entry()  # a library that cannot build or load raises before any work
+def _forward(q, k, v, logi, logf):
+    """One launch (or plain call); returns (h, the contiguous q, k, v, logi
+    and F it read)."""
     F = torch.cumsum(logf.float(), dim=-1).contiguous()
     qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    li = logi.float().contiguous()
+    if q.device.type == "cpu":
+        return mlstm_ref(q, k, v, logi, logf), (qc, kc, vc, li, F)
     out = torch.empty_like(vc)
-    _cuda.launch(qc, kc, vc, F, logi.float().contiguous(), out, q.shape[-1] ** -0.5)
+    _cuda.launch(qc, kc, vc, F, li, out, q.shape[-1] ** -0.5)
     mlstm.launches += 1
     mlstm.launches_by_dtype[str(q.dtype)[6:]] += 1
-    return out
+    return out, (qc, kc, vc, li, F)
+
+
+class _Mlstm(torch.autograd.Function):
+    """`mlstm` with a gradient: the forward's launch, then `mlstm_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logi, logf):
+        out, saved = _forward(q, k, v, logi, logf)
+        ctx.save_for_backward(*saved, out)
+        ctx.gate_dtypes = (logi.dtype, logf.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, dh):
+        q, k, v, li, F, out = ctx.saved_tensors
+        dq, dk, dv, dlogi, dF = mlstm_bwd(q, k, v, li, F, out, dh)
+        dlogf = torch.flip(torch.cumsum(torch.flip(dF, (-1,)), dim=-1), (-1,))
+        di, df = ctx.gate_dtypes
+        return dq, dk, dv, dlogi.to(di), dlogf.to(df)
+
+
+def mlstm(q, k, v, logi, logf):
+    """Stabilized chunkwise mLSTM. q/k/v: [B,H,S,dh]; logi/logf (log input
+    gate, log sigmoid forget gate): [B,H,S] -> h [B,H,S,dh] in v's dtype.
+    Differentiable in every input (`_Mlstm`) when grad mode is on and one
+    of them requires a gradient."""
+    _check(q, k, v, logi, logf)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mlstm: no kernel for device {q.device}")
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, logi, logf))
+    if q.device.type == "cuda":
+        _cuda.entry()  # a library that cannot build or load raises before any work
+        if grad:
+            _cuda_bwd.entry()  # the backward's library too, before the forward's work
+    if grad:
+        return _Mlstm.apply(q, k, v, logi, logf)
+    if q.device.type == "cpu":
+        return mlstm_ref(q, k, v, logi, logf)
+    return _forward(q, k, v, logi, logf)[0]
+
+
+def mlstm_bwd(q, k, v, logi, F, h, dh):
+    """The gradient of the kernel's function: q/k/v [B,H,S,dh], logi and the
+    forward's F = cumsum(logf) [B,H,S] float32, the forward's output h and
+    its gradient dh [B,H,S,dh] -> (dq, dk, dv) in q's dtype and (dlogi, dF)
+    float32. On CUDA tensors one call of the backward's entry point (its
+    three kernels; a float32 workspace for the rows' m, n and c), counted
+    in `mlstm_bwd.launches`; on CPU tensors `mlstm_bwd_ref`."""
+    _check(q, k, v, logi, F)
+    if h.shape != q.shape or dh.shape != q.shape:
+        raise ValueError(f"mlstm_bwd: h and dh must be {tuple(q.shape)}, got {tuple(h.shape)} "
+                         f"and {tuple(dh.shape)}")
+    if {h.dtype, dh.dtype} != {q.dtype} or {h.device, dh.device} != {q.device}:
+        raise TypeError("mlstm_bwd: h and dh must share q's dtype and device")
+    if q.device.type == "cpu":
+        return mlstm_bwd_ref(q, k, v, logi, F, h, dh)
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_bwd: no kernel for device {q.device}")
+    _cuda_bwd.entry()
+    q, k, v, h, dh = (x.contiguous() for x in (q, k, v, h, dh))
+    li, Fc = logi.float().contiguous(), F.float().contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dlogi, dF = torch.empty_like(li), torch.empty_like(Fc)
+    _cuda_bwd.launch(q, k, v, h, dh, Fc, li, dq, dk, dv, dlogi, dF, q.shape[-1] ** -0.5)
+    mlstm_bwd.launches += 1
+    mlstm_bwd.launches_by_dtype[str(q.dtype)[6:]] += 1
+    return dq, dk, dv, dlogi, dF
 
 
 def reset_launches() -> None:
-    """Zero both launch counts."""
+    """Zero the launch counts (the forward's and the backward's)."""
     mlstm.launches = 0
     mlstm.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+    mlstm_bwd.launches = 0
+    mlstm_bwd.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 reset_launches()

@@ -6,9 +6,10 @@
     log a_t = -c * softplus(Lambda) * r_t   (c = 8)
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Prefill and decode run the RG-LRU op through `kernels.rglru.ops.rglru`: on
-the card one launch of the hand-written CUDA kernel (B4) forms b and scans,
-on CPU tensors the plain version. Decode is the op at S = 1 from the
+Prefill, decode and training run the RG-LRU op through
+`kernels.rglru.ops.rglru`: on the card one launch of the hand-written CUDA
+kernel (B4) forms b and scans (and, for a gradient, one launch of its
+hand-written reverse scan), on CPU tensors the plain version. Decode is the op at S = 1 from the
 cached carry h0, the reference's O(1) update. The block is the Griffin
 recurrent block:
 y = W_out( GeLU(W_gate xn) * RGLRU(conv4(W_x xn)) ).

@@ -30,10 +30,10 @@ encoder-decoder with its audio frontend (seamless-m4t: a non-causal
 encoder over the projected frames, cross-attention in every decoder
 layer, whose cache holds the memory's K/V beside the self-attention's) and
 the int8 KV cache (`kv_cache_dtype="int8"`: int8 K/V and float32 scales).
-On the card a training forward runs through the attention kernels and their
-hand-written backward; the mLSTM and RG-LRU kernels have no backward yet, so
-a gradient through them raises there (ROADMAP.md §A item A7); on the CPU
-every family trains through the plain versions.
+On the card a training forward runs through the attention, mLSTM and
+RG-LRU kernels, and its gradient through their hand-written backwards
+(each wrapper an autograd Function), so every family trains there; on the
+CPU the same Functions run the plain versions and their plain backwards.
 
 The prefill batch: {"tokens"}; a vision model {"patches" [B,P,frontend_dim],
 "tokens"} (positions 0..P+T-1 over both); an encoder-decoder

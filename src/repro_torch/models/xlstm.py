@@ -2,9 +2,10 @@
 and sLSTM (scalar memory, sequential recurrence) (port of
 `repro.models.xlstm`).
 
-Prefill runs mLSTM in the stabilized parallel form through the contract
-function `mlstm_parallel`: the hand-written CUDA kernel on the card
-(`kernels.mlstm.ops.mlstm`, B5), its plain version on CPU tensors. sLSTM
+Prefill and training run mLSTM in the stabilized parallel form through the
+contract function `mlstm_parallel`: the hand-written CUDA kernel on the
+card (`kernels.mlstm.ops.mlstm`, B5, with its hand-written backward when a
+gradient is needed), its plain version on CPU tensors. sLSTM
 has no kernel in the reference either: its prefill is a Python loop over t
 (the reference's `lax.scan`). Decode is the O(1) recurrent update for both.
 d_ff = 0 for this family: the blocks carry their own up/down projections.

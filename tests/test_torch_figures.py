@@ -621,6 +621,7 @@ def test_figures_phase_runs_on_the_cpu(tmp_path, capsys):
         mp.setattr(r_figures, "QUICK_T", 4)
         mp.setattr(chip_smoke, "FIGURES_5H", names)
         mp.setattr(chip_smoke, "FIGURES_CUT", (0.3, 0.1))
+        mp.setattr(chip_smoke, "FIGURES_LONG", ())
         ref = {k: [tuple(r) for r in v] for k, v in ref_figures_table(names, 0.3, 0.1).items()}
         mp.setattr(chip_smoke, "FIGURES_REF", ref)
         assert chip_smoke.figures_phase(device="cpu", rows_path=tmp_path / "rows.txt") == 0

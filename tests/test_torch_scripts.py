@@ -510,8 +510,8 @@ def test_recurrent_work_counts_these_inputs():
 
 def test_kernels_line_names_all_five_with_every_key():
     """The five kernels, the two entries slice 8 added (flash's cross route
-    and decode's int8 cache) and slice 14's flash backward, each a record
-    of its own."""
+    and decode's int8 cache), slice 14's flash backward and slice 15's
+    mLSTM and RG-LRU backwards, each a record of its own."""
     rec = {k: 1.0 for k in chip_smoke.KERNEL_KEYS}
     records = [dict(rec, name=n) for n in chip_smoke.KERNEL_NAMES]
     line = chip_smoke.kernels_line(records)
@@ -520,7 +520,7 @@ def test_kernels_line_names_all_five_with_every_key():
     assert set(chip_smoke.KERNEL_NAMES) == {"geo_schedule", "decode_attention",
                                             "flash_attention", "mlstm_chunk", "rglru_scan",
                                             "flash_attention_cross", "decode_attention_int8",
-                                            "flash_attention_bwd"}
+                                            "flash_attention_bwd", "mlstm_bwd", "rglru_bwd"}
     with pytest.raises(AssertionError, match="!="):
         chip_smoke.kernels_line(records[:-1])
     last = chip_smoke.KERNEL_NAMES[-1]
@@ -607,10 +607,10 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
     serving = [dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
                for n in ("decode_attention", "flash_attention")]
     records = chip_smoke.recurrent_phases(torch.device("cpu"), serving)
-    geo, cross, int8, bwd = (dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
-                             for n in ("geo_schedule", "flash_attention_cross",
-                                       "decode_attention_int8", "flash_attention_bwd"))
-    chip_smoke.kernels_line([geo] + records + [cross, int8, bwd])  # every key, each launched
+    others = [dict({k: 0.0 for k in chip_smoke.KERNEL_KEYS}, name=n, launches=1)
+              for n in ("geo_schedule", "flash_attention_cross", "decode_attention_int8",
+                        "flash_attention_bwd", "mlstm_bwd", "rglru_bwd")]
+    chip_smoke.kernels_line(others + records)  # every key, each launched
     by_name = {r["name"]: r for r in records}
     assert by_name["mlstm_chunk"]["launches"] == 2 * 7  # two prefills of 7 mLSTM layers
     # the fused op: 4 RG-LRU layers a prefill (two) and a decode step (two,
@@ -632,8 +632,8 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
         ("decode", (2, 8192, 40, 8, 128), 2049),  # the cla ring: position 10240's chunk
         ("decode", (2, 8192, 40, 8, 128), None),
         ("flash", (2, 10240, 40, 8, 128, True, 0, False), None),  # NoPE gqa
-        ("decode", (2, 10304, 40, 8, 128), 10241),  # linear
-        ("decode", (2, 10304, 40, 8, 128), None)]),
+        ("decode", (2, 10272, 40, 8, 128), 10241),  # linear
+        ("decode", (2, 10272, 40, 8, 128), None)]),
     ("minicpm3-4b", (8, 2048), [])])  # MLA: phase 13's shape, plain decode
 def test_path_shape_checks_take_the_serving_shapes(arch, serve, want, monkeypatch):
     """Phases 14-16 hold flash and decode at each shape the full-width run

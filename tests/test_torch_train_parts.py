@@ -131,38 +131,52 @@ def test_mha_without_a_gradient_takes_the_plain_path():
 
 
 def test_backward_on_a_card_launches_or_raises(monkeypatch):
-    """A CUDA tensor that needs a gradient goes to the backward's library:
-    one that cannot load raises before any work, never a plain fallback;
-    the mLSTM and RG-LRU kernels, which have no backward yet, raise
-    `not_ported` naming A7 on such tensors."""
+    """A CUDA tensor that needs a gradient goes to the port's Function
+    (`_Mha`, `_Mlstm`, `_Rglru`, `_RglruScan`), whose backward is the
+    hand-written kernel; a backward library that cannot load raises
+    `OSError` before any work, never a plain fallback. (No card here: the
+    Functions' `apply` is recorded, not run.)"""
 
     def broken(name):
         raise OSError(f"cannot load lib{name}.so")
 
+    bwd_libs = ("flash_attention_bwd", "mlstm_chunk_bwd", "rglru_scan_bwd")
+    binds = (t_bwd_bind, t_mlstm._cuda_bwd, t_rglru._cuda_bwd)
     real_load = _build.load
     monkeypatch.setattr(_build, "load",
-                        lambda name: broken(name) if name == "flash_attention_bwd"
-                        else real_load(name))
-    t_bwd_bind.entry.cache_clear()
-    monkeypatch.setattr(t_flash._cuda, "entry", lambda: None)  # the forward's library "loads"
-    counts = (t_flash.mha.launches, t_flash.mha_backward.launches)
+                        lambda name: broken(name) if name in bwd_libs else real_load(name))
+    for b in binds:
+        b.entry.cache_clear()
+    for mod in (t_flash, t_mlstm, t_rglru):  # the forward's library "loads"
+        monkeypatch.setattr(mod._cuda, "entry", lambda: None)
+    counts = (t_flash.mha.launches, t_flash.mha_backward.launches, t_mlstm.mlstm.launches,
+              t_mlstm.mlstm_bwd.launches, t_rglru.rglru.launches, t_rglru.rglru_scan.launches,
+              t_rglru.rglru_bwd.launches)
     with FakeTensorMode():
         q = torch.empty((1, 16, 4, 32), device="cuda", requires_grad=True)
         kv = torch.empty((1, 16, 2, 32), device="cuda")
-        with pytest.raises(OSError, match="cannot load libflash_attention_bwd"):
-            t_flash.mha(q, kv, kv)
         x = torch.empty((1, 2, 16, 32), device="cuda", requires_grad=True)
         gate = torch.empty((1, 2, 16), device="cuda")
-        with pytest.raises(NotImplementedError, match="mLSTM kernel.*A7"):
-            t_mlstm.mlstm(x, x, x, gate, gate)
         la = torch.empty((1, 16, 8), device="cuda")
         gx = torch.empty((1, 16, 8), device="cuda", requires_grad=True)
-        with pytest.raises(NotImplementedError, match="RG-LRU kernel.*A7"):
-            t_rglru.rglru(la, gx)
-        with pytest.raises(NotImplementedError, match="RG-LRU kernel.*A7"):
-            t_rglru.rglru_scan(la, gx)
-    assert (t_flash.mha.launches, t_flash.mha_backward.launches) == counts
-    t_bwd_bind.entry.cache_clear()
+        calls = (lambda: t_flash.mha(q, kv, kv), lambda: t_mlstm.mlstm(x, x, x, gate, gate),
+                 lambda: t_rglru.rglru(la, gx), lambda: t_rglru.rglru_scan(la, gx))
+        for lib, call in zip(("flash_attention_bwd", "mlstm_chunk_bwd", "rglru_scan_bwd",
+                              "rglru_scan_bwd"), calls):
+            with pytest.raises(OSError, match=f"cannot load lib{lib}"):
+                call()
+        for b in binds:  # the backward's libraries "load" too: each call takes its Function
+            monkeypatch.setattr(b, "entry", lambda: None)
+        fns = (t_flash._Mha, t_mlstm._Mlstm, t_rglru._Rglru, t_rglru._RglruScan)
+        for fn in fns:
+            monkeypatch.setattr(fn, "apply", lambda *a, fn=fn: fn)
+        assert [call() for call in calls] == list(fns)
+    assert (t_flash.mha.launches, t_flash.mha_backward.launches, t_mlstm.mlstm.launches,
+            t_mlstm.mlstm_bwd.launches, t_rglru.rglru.launches, t_rglru.rglru_scan.launches,
+            t_rglru.rglru_bwd.launches) == counts
+    monkeypatch.undo()
+    for b in binds:
+        b.entry.cache_clear()
 
 
 # ---- AdamW ------------------------------------------------------------------
