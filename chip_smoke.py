@@ -67,6 +67,16 @@ heartbeats, replica failover) in the captured lockstep steps:
 4d. after phase 5d, phases 4-4c's card runs against the CPU's, which ran
    beside phases 2-5d in processes of their own (the card's phases no
    longer wait for them);
+4e. the worlds mesh (`strategy="mesh"`, slice 16) on the card, run in
+   phase 4d: phase 4b's grid (the 12 presets, T = 16, 1 s, drained) twice,
+   (a) over the census's devices (the chip host's one card: one slice)
+   and (b) over MESH_SLICES slices all on cuda:0, stood in through the
+   census as the CPU tests stand in CPU devices (12 lanes padded to 15):
+   several captured graphs, their replays issued before any read, the
+   padding and the gather. Every final leaf and every metric equal to
+   phase 4b's vmap run (no padding lane shows), two `geo_schedule`
+   launches a step summed over the slices; the steps, the wall time and
+   each slice's capture seconds;
 5c. fig16 at paper size (`repro_torch.bench.figures.fig16_sweeps(quick=False)`,
    the reference's `benchmarks/figures.py` under `--full`): T = 48,
    the fig5 bank (4 data sources at 0/27/73/251 ms, 1M records per node,
@@ -116,7 +126,10 @@ Slice 2, the serving path of the LM stack (dense GQA, llama3.2-3b):
    drawn on the card: (a) `make_prefill_step(cfg, 4096)` on 8 prompts of
    2048 tokens, then 32 `make_decode_step` steps, with 28 flash launches per
    prefill (every one bf16: the tensor-core kernel) and 28 decode calls per
-   step (each the split kernel and its merge); (b) `GeoServingEngine` geotp vs
+   step (each the split kernel and its merge), and each step's bound
+   (`step_bound`, slice 16: the prefill's FLOPs over the bf16 rate, the
+   decode step's HBM bytes at the steps' mean context over the HBM rate)
+   with `mfu`; (b) `GeoServingEngine` geotp vs
    fcfs over the launcher's three pods (RTT 0/30/100 ms, 12 slots), 20
    requests (CUT from 60 for the script's time), run_model=True: geotp's
    average latency below fcfs's, 28 decode launches per generation and one
@@ -343,7 +356,11 @@ run after phase 19:
    it, and the kernels with the most device time), one more warm-up step
    and 3 timed steps: finite losses, the last below the first, 56 forward
    (with the recompute) and 28 backward flash launches a step; the step's
-   ms, tokens/s and peak memory;
+   ms, tokens/s and peak memory, and its bound from the analytic model
+   (`step_bound`, slice 16: `models.flops` on the config that ran, its
+   total FLOPs over the bf16 rate and its HBM bytes over the HBM rate)
+   with `mfu`, the model FLOPs (6 N D) over the step's seconds x the bf16
+   rate;
 20f. `repro_torch.launch.train.main` with the reference integration test's
    arguments (llama3.2-3b reduced, 30 steps, batch 8, seq 64, lr 3e-3,
    checkpoints every 10): the loss down by more than 0.3 and step 30
@@ -395,7 +412,8 @@ backward kernels), run after phase 20:
    recomputed, and 6 backward; flash 4 and 2; a profiled first step and
    3 timed steps): finite losses, the last below the first, ms a
    step, tokens/s, peak memory, each backward kernel's share of the
-   profiled step's device time. The kernels line gains `mlstm_bwd` and
+   profiled step's device time, each step's bound and `mfu` (as 20e's; for
+   recurrentgemma-9b those of the 8-layer config). The kernels line gains `mlstm_bwd` and
    `rglru_bwd` (21c's and 21d's launches); the forward launches join
    `mlstm_chunk`'s, `rglru_scan`'s and `flash_attention`'s records. For
    the script's time (it must end well inside 1,200 s on a slower host),
@@ -588,6 +606,36 @@ def bound(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def step_bound(label, cfg, cell, secs, remat="full") -> dict:
+    """A model step's bound from the port's analytic model (`models.flops`)
+    on the config that ran (its cut depth included): the step's FLOPs
+    (`cell_flops(...)["total"]`, `remat`'s recompute included in a train
+    step) over the bf16 tensor rate and its HBM bytes (`cell_hbm_bytes`)
+    over the HBM rate; the bound is the larger. Printed beside the
+    measured `secs`, with `mfu` (the model FLOPs, 6 N D for a train step or
+    2 N D for a serve step, over `secs` x the bf16 rate) and the same share
+    of the total FLOPs. Costs no chip time; returns the numbers."""
+    from repro_torch.models import flops
+
+    f = flops.cell_flops(cfg, cell, remat)
+    hbm = flops.cell_hbm_bytes(cfg, cell)
+    flops_ms = f["total"] / BF16_TENSOR_OPS_PER_S * 1e3
+    hbm_ms = hbm / HBM_BYTES_PER_S * 1e3
+    out = dict(model_flops=f["model"], total_flops=f["total"], hbm_bytes=hbm,
+               flops_ms=flops_ms, hbm_ms=hbm_ms, bound_ms=max(flops_ms, hbm_ms),
+               bound_by="operations" if flops_ms >= hbm_ms else "bytes", ms=secs * 1e3,
+               mfu=f["model"] / (secs * BF16_TENSOR_OPS_PER_S),
+               total_share=f["total"] / (secs * BF16_TENSOR_OPS_PER_S))
+    print(f"bound {label} ({cfg.name}, {cfg.n_layers} layers, {cell.kind} B={cell.global_batch} "
+          f"S={cell.seq_len}{', remat ' + remat if cell.kind == 'train' else ''}): model FLOPs "
+          f"{f['model']:.6g}, total FLOPs {f['total']:.6g} -> {flops_ms:.4f} ms at the bf16 "
+          f"rate; HBM bytes {hbm:.6g} -> {hbm_ms:.4f} ms; bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}) against {secs * 1e3:.3f} ms measured = "
+          f"{out['bound_ms'] / (secs * 1e3):.4f} of it; mfu {out['mfu']:.4f}, total-FLOPs share "
+          f"{out['total_share']:.4f}")
+    return out
+
+
 def main_grid():
     """Phase 5's grid: fig5's YCSB deployment at T = 128 for the smoke
     presets x seeds 0-3, each cell with its seed's bank (16 lanes)."""
@@ -720,6 +768,72 @@ def card_run(bank, grid, drain, horizon_s=1.0, warmup_s=0.2):
     if drain:
         print(drain_line(run))
     return run, launches
+
+
+# phase 4e: the worlds mesh's slices in run (b), all on cuda:0 (12 lanes -> 15)
+MESH_SLICES = 5
+
+
+def metrics_equal(a, b) -> bool:
+    """Two metric lists equal key for key (NaN equal to NaN)."""
+    def same(x, y):
+        return x == y or (isinstance(x, float) and isinstance(y, float) and x != x and y != y)
+
+    return len(a) == len(b) and all(
+        ma.keys() == mb.keys() and all(same(ma[k], mb[k]) for k in ma) for ma, mb in zip(a, b))
+
+
+def mesh_phase(bank, grid, want) -> int:
+    """Phase 4e: phase 4b's grid under `strategy="mesh"`, (a) over the
+    census's devices and (b) over MESH_SLICES slices of cuda:0 stood in
+    through the census (`launch.mesh.local_devices`). Each run's final
+    leaves and metrics must equal `want` (phase 4b's vmap run) and its
+    `geo_schedule` launches twice its steps, summed over the slices.
+    Returns the launches."""
+    from repro_torch.core.engine import Simulator, batch
+    from repro_torch.kernels.geo_schedule import ops
+    from repro_torch.launch import mesh
+
+    t_phase = time.perf_counter()
+    sim = Simulator.from_bank(bank, horizon_s=1.0, warmup_s=0.2, drain=True, track_slots=True,
+                              device="cuda")
+    census = mesh.local_devices
+    launches = 0
+    runs = (("(a) the census", census("cuda")),
+            (f"(b) {MESH_SLICES} slices of cuda:0", [torch.device("cuda", 0)] * MESH_SLICES))
+    for label, devices in runs:
+        mesh.local_devices = lambda device=None, devices=devices: devices
+        try:
+            before = ops.geo_schedule.launches
+            res = sim.run_grid(grid, bank, strategy="mesh")
+            n = ops.geo_schedule.launches - before
+        finally:
+            mesh.local_devices = census
+        lanes = -(-len(grid) // len(devices)) * len(devices)
+        caps = ", ".join(f"{c:.3f}" for c in batch.run.slice_capture_s)
+        print(f"{label}: {res.mesh_devices} slice(s) of {lanes // len(devices)} lanes "
+              f"({lanes - len(grid)} padding), {res.steps} steps summed over the slices, "
+              f"{res.events} events, {res.wall_s:.3f} s ({batch.run.capture_s:.3f} s warm-up "
+              f"and capture: {caps} s a slice), geo_schedule launches {n}")
+        if (res.strategy_resolved, res.mesh_devices) != ("mesh", len(devices)):
+            raise AssertionError(f"{label}: ran {res.strategy_resolved} over "
+                                 f"{res.mesh_devices} devices")
+        if n != 2 * res.steps:
+            raise AssertionError(f"{label}: geo_schedule launches {n} != 2 x {res.steps} steps")
+        if res.states.now.shape[0] != len(grid) or not metrics_equal(res.metrics, want.metrics):
+            raise AssertionError(f"{label}: the metrics differ from phase 4b's (or a padding "
+                                 f"lane shows)")
+        bad = leaf_mismatches(res.states, want.states)
+        for name, lanes_bad in bad:
+            print(f"MISMATCH leaf {name} lanes {lanes_bad}")
+        if bad:
+            raise AssertionError(f"phase 4e {label}: {len(bad)} SimState leaves differ from "
+                                 f"phase 4b's")
+        print(f"{label}: every SimState leaf and every metric of the {len(grid)} cells equal "
+              f"to phase 4b's vmap run")
+        launches += n
+    print(f"phase 4e: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def against_cpu(card, cpu, what):
@@ -901,7 +1015,7 @@ def cpu_run(kind, drain):
     bank, grid = make()
     sim = Simulator.from_bank(bank, horizon_s=horizon_s, warmup_s=warmup_s, drain=drain,
                               track_slots=True, device="cpu")
-    res = sim.run_grid(grid, bank)
+    res = sim.run_grid(grid, bank, strategy="vmap")
     return types.SimpleNamespace(steps=res.steps, events=res.events, wall_s=res.wall_s,
                                  states=tree_map(lambda x: x.numpy(), res.states))
 
@@ -1791,6 +1905,13 @@ def serving_phases(dev, builds):
           f"{PREFILL_B / dec_mean:.1f} tokens/s; launches flash {fl_ops.mha.launches} "
           f"(by dtype {fl_ops.mha.launches_by_dtype}), "
           f"decode {dec_ops.decode.launches}; logits finite")
+    from repro_torch.models.config import ShapeCell
+
+    step_bound("9a prefill", cfg, ShapeCell("9a_prefill", PREFILL_S, PREFILL_B, "prefill"),
+               pre_s[1])
+    # the decode cell's context: the mean of the steps' (PREFILL_S + t for t < DECODE_STEPS)
+    step_bound("9a decode", cfg, ShapeCell("9a_decode", PREFILL_S + DECODE_STEPS // 2,
+                                           PREFILL_B, "decode"), dec_mean)
     del cache, logits
     flash_launches = fl_ops.mha.launches
     decode_launches = dec_ops.decode.launches
@@ -3337,8 +3458,11 @@ def train_at_width(cfg, dev, lr, warmup, steps, counts, label):
         print("the kernels with the most device time in the profiled step:")
         for name, t in prof["top"]:
             print(f"  {t:10.3f} ms  {name}")
+    from repro_torch.models.config import ShapeCell
+
+    bnd = step_bound(label, cfg, ShapeCell("train", TRAIN_S, TRAIN_B, "train"), step_s)
     out = dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s, peak_gib=peak, losses=losses,
-               n_params=n_params, **prof)
+               n_params=n_params, bound=bnd, **prof)
     del params, state, batch, m, prof
     torch.cuda.empty_cache()
     print(f"{label}: {time.perf_counter() - t_all:.1f} s in all")
@@ -4800,6 +4924,10 @@ def main() -> int:
     for drain, run in faults12.items():
         against_cpu(run, cpu_result(cpu_runs, "faults", drain),
                     f"phase 4c {'windowed' if drain else 'single-event'}")
+
+    phase(f"4e the worlds mesh on the card (strategy=\"mesh\"): phase 4b's grid over the "
+          f"census's devices, then over {MESH_SLICES} slices of cuda:0")
+    launches += mesh_phase(bank16, grid12, drained12)
     del single12, drained12, faults12
 
     phase("5-5d profiles of the captured replays: phase 5's, 5b's and 5d's grids")

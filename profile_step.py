@@ -314,8 +314,8 @@ def measure(grid, window: int, device, activities, tables=None, drain: bool = Tr
         sim = Simulator.from_bank(grid.banks[0] if bank is None else bank, terminals=terminals,
                                   horizon_s=2.5, warmup_s=0.5, drain=drain, device=device)
         sim.cfg = dataclasses.replace(sim.cfg, max_events=window)
-        sim.run_grid(grid, bank)
-        sim.run_grid(grid, bank)
+        sim.run_grid(grid, bank, strategy="vmap")
+        sim.run_grid(grid, bank, strategy="vmap")
         wall_s, steps, capture_s = timing["wall_s"], timing["steps"], batch.run.capture_s
         short = []
         for _ in range(PROFILE_ATTEMPTS):
@@ -323,7 +323,7 @@ def measure(grid, window: int, device, activities, tables=None, drain: bool = Tr
             with torch.profiler.profile(activities=activities) as prof:
                 if captured:
                     time.sleep(TRACE_PAD_S)
-                sim.run_grid(grid, bank)
+                sim.run_grid(grid, bank, strategy="vmap")
                 if captured:
                     time.sleep(TRACE_PAD_S)
             prof_wall_s = timing["wall_s"]

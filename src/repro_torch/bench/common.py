@@ -29,7 +29,6 @@ from repro_torch.core.engine import (
     record_smoke,
 )
 from repro_torch.core.netmodel import PAPER_RTT_MS, make_net_params
-from repro_torch.unported import not_ported
 
 RESULTS = BENCH_DIR
 DEFAULT_RTT = PAPER_RTT_MS
@@ -114,17 +113,17 @@ def run_sweep(
            rtt_ms, tau_true_us, jitter_milli, exec_scale_milli, seed, faults,
            replica_tau, repl_lag_us, clock_skew_us; any other key is a label).
     bank:  Bank shared by every cell, or None with `banks` (one per cell).
-    strategy: ``auto`` / ``vmap`` (lockstep lanes) or ``map`` (sequential
-           lanes); ``mesh`` and `mesh_devices` > 1 are not ported (A7).
+    strategy: ``auto`` (`placement.resolve_strategy`), ``vmap`` (lockstep
+           lanes), ``map`` (sequential lanes) or ``mesh`` (the grid split
+           over `mesh_devices` devices, default every one the census
+           counts).
     drain: the windowed drain (the default) or the single-event step.
     """
-    if strategy == "mesh" or mesh_devices not in (None, 1):
-        raise not_ported('strategy="mesh" / mesh_devices > 1 (multi-GPU grids)', "A7")
     grid = Grid(cells, banks=banks)
     b0 = banks[0] if banks is not None else bank
     sim = Simulator.from_bank(b0, terminals=terminals, horizon_s=horizon_s, warmup_s=warmup_s,
                               drain=drain, device=device)
-    res = sim.run_grid(grid, bank, strategy=strategy)
+    res = sim.run_grid(grid, bank, strategy=strategy, mesh_devices=mesh_devices)
     for c, m in zip(cells, res.metrics):
         m["preset"] = c["preset"]
         # per-cell cost is amortized over the lanes; the grid's wall goes in

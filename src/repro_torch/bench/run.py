@@ -13,8 +13,11 @@ steps, events and events/s.
 
 It runs on the card; ``--device cpu`` asks for the CPU. Without a card
 and without ``--device cpu`` it raises before anything runs. ``--smoke``
-runs the port's smoke (`repro_torch.bench.smoke.main`); ``--strategy
-mesh`` raises: the mesh placement is not ported (A7).
+runs the port's smoke (`repro_torch.bench.smoke.main`); ``--smoke
+--strategy mesh`` its grid under the mesh placement instead
+(`repro_torch.bench.smoke.smoke_mesh`), which fails unless the census
+counts more than one device: on a host with one card it fails by that
+rule, as the reference's does on one device.
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ import time
 
 from repro_torch.bench import claims
 from repro_torch.device import resolve_device
-from repro_torch.unported import not_ported
 
 
 def selected(only: str | None) -> list:
@@ -87,18 +89,18 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="the port's smoke (repro_torch.bench.smoke)")
     ap.add_argument("--strategy", default=None, choices=("mesh",),
-                    help="with --smoke in the reference: a forced placement; the port's "
-                         "mesh placement is not ported (A7)")
+                    help="with --smoke: run the smoke grid under the mesh placement, split "
+                         "over every visible device")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the CPU; the default is the card")
     args = ap.parse_args(argv)
 
-    if args.strategy == "mesh":
-        raise not_ported('--strategy mesh (multi-GPU grids)', "A7")
     device = resolve_device(args.device)  # raises without a card unless told "cpu"
     if args.smoke:
         from repro_torch.bench import smoke
 
+        if args.strategy == "mesh":
+            return smoke.smoke_mesh(device=device)
         return smoke.main(["--device", device.type])
 
     if not args.validate_only:

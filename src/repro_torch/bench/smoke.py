@@ -19,6 +19,12 @@ lanes:
 5. ``protocols``: ssp / geotp / fastc / tiga / opta x seeds 0-1, warmup 0.
 
 Each leg is recorded under ``sweeps.smoke_<leg>`` in the port's bench file.
+Every leg names ``strategy="vmap"``, so that on the CPU too (where ``auto``
+picks the map lanes) the smoke runs the lockstep lanes.
+
+``smoke_mesh`` (``python -m repro_torch.bench.run --smoke --strategy
+mesh``) is the counterpart of the reference's ``smoke_mesh``: leg 1's grid
+under the mesh placement, split over every device the census counts.
 The guards are the reference's semantic ones; a failure prints the
 reference's message, records the entry and returns 1:
 
@@ -60,7 +66,7 @@ import sys
 import time
 
 from repro_torch.bench import common
-from repro_torch.core.engine import BENCH_FILE, record_smoke
+from repro_torch.core.engine import BENCH_FILE, load_bench, mesh_device_count, record_smoke
 from repro_torch.core.engine.metrics import drain_stats
 from repro_torch.device import resolve_device
 
@@ -213,7 +219,8 @@ def smoke(path=None, *, device=None) -> SmokeRun:
         t0 = time.time()
         results[name] = common.run_sweep(
             f"smoke_{name}", cells, None, SMOKE_T, banks=[banks[c["seed"]] for c in cells],
-            horizon_s=SMOKE_HORIZON_S, warmup_s=warmup_s, path=path, drain=drain, device=dev,
+            horizon_s=SMOKE_HORIZON_S, warmup_s=warmup_s, strategy="vmap", path=path,
+            drain=drain, device=dev,
         )
         walls[name] = time.time() - t0
         print(_leg_line(name, results[name], walls[name]), flush=True)
@@ -308,6 +315,66 @@ def smoke(path=None, *, device=None) -> SmokeRun:
         return SmokeRun(1, entry, results, walls)
     print(f"[smoke] OK: recorded in {path if path is not None else BENCH_FILE}")
     return SmokeRun(0, entry, results, walls)
+
+
+def smoke_mesh(path=None, *, device=None) -> int:
+    """Leg 1's grid (drained, each seed's bank) under the mesh placement,
+    split over every device the census counts (`launch.mesh.local_devices`);
+    correctness is the tests' (`tests/test_torch_mesh.py`: the mesh equals
+    the map strategy on every leaf). This records throughput and guards
+    liveness, with the reference's messages:
+
+    * it fails when the census counts one device (nothing would be split;
+      a host with one card fails here). The reference runs the grid before
+      it reads the count; the port reads the count first;
+    * it fails unless every cell commits (a dead lane means a padding lane
+      leaked into a real one, or the split's init broke).
+
+    The mesh keys (``events_mesh``, ``wall_mesh_s``,
+    ``events_per_sec_mesh``, ``strategy_resolved_mesh``, ``mesh_devices``,
+    ``wall_mesh_total_s``) are merged into the smoke record of the bench
+    file; the port has no stored baseline, so nothing is compared with
+    one. Returns 0 or 1."""
+    dev = resolve_device(device)
+    ndev = mesh_device_count("mesh", None, dev)
+    if ndev < 2:
+        print(f"[smoke] MESH REGRESSION: only {ndev} device visible — nothing was sharded; "
+              f"the mesh needs more than one {dev.type} device")
+        return 1
+    t_all = time.time()
+    banks = {sd: common.ycsb_bank(SMOKE_T, theta=0.9, dist_ratio=0.2, seed=sd)
+             for sd in SMOKE_SEEDS}
+    cells, warmup_s, drain = leg_cells()["grid"]
+    t0 = time.time()
+    res = common.run_sweep(
+        "smoke_mesh", cells, None, SMOKE_T, banks=[banks[c["seed"]] for c in cells],
+        horizon_s=SMOKE_HORIZON_S, warmup_s=warmup_s, strategy="mesh", path=path, drain=drain,
+        device=dev,
+    )
+    wall = time.time() - t0
+    eps_mesh = res.events / max(wall, 1e-9)
+    d = res.drain
+    print(f"[smoke] mesh: {len(cells)} worlds on {res.mesh_devices} devices, {res.events} "
+          f"events, {res.steps} steps, {wall:.3f} s (capture included) -> {eps_mesh:.1f} "
+          f"events/sec (strategy_resolved={res.strategy_resolved}, drain hit "
+          f"{d['drain_hit_rate']:.4f}, mean window {d['mean_window_len']})")
+    entry = dict(load_bench(path).get("smoke", {}))
+    entry.update({
+        "events_mesh": res.events,
+        "wall_mesh_s": round(wall, 2),
+        "events_per_sec_mesh": round(eps_mesh, 1),
+        "strategy_resolved_mesh": res.strategy_resolved,
+        "mesh_devices": res.mesh_devices,
+        "wall_mesh_total_s": round(time.time() - t_all, 2),
+    })
+    record_smoke(entry, path, device=dev)
+    commits = [m["commits"] for m in res.metrics]
+    if any(c == 0 for c in commits):
+        print(f"[smoke] MESH REGRESSION: commits={commits} — a sharded lane went dead (padding "
+              f"leaked into a real lane or sharded init broke)")
+        return 1
+    print(f"[smoke] OK: recorded mesh smoke in {path if path is not None else BENCH_FILE}")
+    return 0
 
 
 def main(argv=None) -> int:

@@ -7,16 +7,20 @@
   (typed rows or legacy crash triples, validated per cell, one row count
   across cells), `replica_tau` and `repl_lag_us`, plus free-form labels and
   optional per-cell Banks; the reference's validation messages.
-* **`Simulator`** — runs a Grid's cells on one device (`device=None` means
-  CUDA; it raises when no card is present), as [B] lockstep lanes
-  (`strategy="vmap"`, what `auto` picks) or as sequential lanes, one after
-  another (`strategy="map"`, the slow path on the card). `drain` defaults
+* **`Simulator`** — runs a Grid's cells on its device type (`device=None`
+  means CUDA; it raises when no card is present), as [B] lockstep lanes
+  (`strategy="vmap"`, what `auto` picks on one card), as sequential lanes,
+  one after another (`strategy="map"`, what `auto` picks on the CPU; the
+  slow path on the card), or split over every visible device
+  (`strategy="mesh"`, what `auto` picks when the census
+  `launch.mesh.local_devices` counts more than one; `mesh_devices` caps
+  it), each slice on the lanes `auto` picks for one device. `drain` defaults
   to True, as the reference: each step is the windowed drain
   (`fused._omni_window` on lockstep lanes, `apply._drain_step` on map
   lanes); `drain=False` steps `omni._omni_step` / `step._step`.
   `.resume(result)` continues a result's states to a later horizon (in
-  place: the result's states must not be reused), on either placement.
-  `strategy="mesh"` raises. A grid's fault row count sets the run's
+  place: the result's states must not be reused), on any placement. A
+  grid's fault row count sets the run's
   `SimConfig.max_faults`.
 * **`RunResult`** — final states (batched over cells), one metric dict per
   cell, the step count, wall time; `.rows()`, `.world(i)`,
@@ -42,7 +46,9 @@ from repro_torch.core.netmodel import INF_US, PAPER_RTT_MS
 from repro_torch.core.protocols import PRESETS, ProtocolConfig
 from repro_torch.core.workloads import Bank, bank_to, stack_banks
 from repro_torch.core.engine.metrics import drain_stats, world_index
-from repro_torch.core.engine.placement import resolve_strategy, simulate_batch
+from repro_torch.core.engine.placement import (
+    mesh_device_count, resolve_strategy, simulate_batch,
+)
 from repro_torch.core.engine.state import (
     FAULT_COLS,
     KIND_CRASH,
@@ -56,7 +62,6 @@ from repro_torch.core.engine.state import (
     tree_leaves,
     tree_map,
 )
-from repro_torch.unported import not_ported
 
 # engine-owned axes a Grid cell may set; everything else is a free-form label
 GRID_AXES = (
@@ -596,7 +601,7 @@ class Simulator:
         return dataclasses.replace(self.cfg, max_faults=F)
 
     def _run(self, cfg: SimConfig, bank: Bank, bank_batched: bool, strategy: str, *,
-             worlds: WorldSpec | None = None, states=None):
+             worlds: WorldSpec | None = None, states=None, mesh_devices: int = 1):
         """One timed, synchronised `simulate_batch` call: fresh from `worlds`,
         or continuing `states` in place. Returns the config that ran (the
         placement's), the final states, the metrics, the steps, the wall
@@ -607,7 +612,7 @@ class Simulator:
         t0 = time.perf_counter()
         cfg, states, metrics, steps = simulate_batch(
             cfg, bank, worlds, bank_batched=bank_batched, states=states, strategy=strategy,
-            device=self.device,
+            mesh_devices=mesh_devices, device=self.device,
         )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -633,12 +638,14 @@ class Simulator:
 
     def run_grid(self, grid: Grid, bank: Bank | None = None, *, strategy: str = "auto",
                  mesh_devices: int | None = None) -> RunResult:
-        """Run every cell of a Grid on this device: as [B] lockstep lanes
-        (`strategy="vmap"` or ``"auto"``) or as sequential lanes, one after
-        another (``"map"``)."""
-        if mesh_devices not in (None, 1):
-            raise not_ported("mesh_devices > 1 (multi-GPU grids)", "A7")
-        resolved = resolve_strategy(strategy)
+        """Run every cell of a Grid on this device type: as [B] lockstep
+        lanes (``"vmap"``), as sequential lanes, one after another
+        (``"map"``), or split over the worlds mesh (``"mesh"``:
+        `mesh_devices` devices, default every one the census counts);
+        ``"auto"`` is resolved by `placement.resolve_strategy`. `bank` is
+        shared by every cell unless the Grid carries per-cell banks."""
+        resolved = resolve_strategy(strategy, device=self.device)
+        ndev = mesh_device_count(resolved, mesh_devices, self.device)
         if grid.num_ds != self.cfg.num_ds:
             raise ValueError(
                 f"grid num_ds={grid.num_ds} != Simulator num_ds={self.cfg.num_ds}"
@@ -653,13 +660,14 @@ class Simulator:
         self._check_bank(bank, batched=bank_batched)
         worlds = grid.worlds()
         cfg, states, metrics, steps, wall, bank = self._run(
-            self._cfg_for(worlds.faults), bank, bank_batched, resolved, worlds=worlds
+            self._cfg_for(worlds.faults), bank, bank_batched, resolved, worlds=worlds,
+            mesh_devices=ndev,
         )
         return RunResult(
             cfg=cfg, states=states, metrics=metrics, cells=[dict(c) for c in grid.cells],
             strategy=strategy, wall_s=wall, steps=steps, bank=bank,
             bank_batched=bank_batched, batched=True, strategy_resolved=resolved,
-            layout=_layout(states),
+            mesh_devices=ndev, layout=_layout(states),
         )
 
     def _check_states(self, result: RunResult) -> None:
@@ -695,7 +703,10 @@ class Simulator:
         Both are rounded to the microsecond, not truncated, as the
         reference does (`horizon_s` often arrives as ``now / 1e6 +
         delta``). The fault shape (`max_faults`) is the result's. The
-        placement defaults to the original run's.
+        placement defaults to the original run's: the same requested
+        strategy and, on the mesh, the same device count; a mesh
+        continuation re-splits the states onto the mesh's devices and
+        copies the result back into them.
 
         The run steps `result.states`' own tensors in place, the port's
         form of the reference's donated buffers: `result.states` (and any
@@ -704,10 +715,11 @@ class Simulator:
         have the shape, dtype and device the run left it with (`ValueError`
         otherwise, naming the leaf); a leaf replaced through `with_states`
         is read as it is, and nothing derived from it is recomputed."""
-        if mesh_devices not in (None, 1):
-            raise not_ported("mesh_devices > 1 (multi-GPU grids)", "A7")
         strategy = strategy if strategy is not None else result.strategy
-        resolved = resolve_strategy(strategy)
+        resolved = resolve_strategy(strategy, device=self.device)
+        if mesh_devices is None and resolved == "mesh" and result.mesh_devices > 1:
+            mesh_devices = result.mesh_devices
+        ndev = mesh_device_count(resolved, mesh_devices, self.device)
         self._check_states(result)
         cfg = result.cfg
         if horizon_s is not None:
@@ -715,10 +727,12 @@ class Simulator:
         if warmup_s is not None:
             cfg = dataclasses.replace(cfg, warmup_us=round(warmup_s * 1e6))
         cfg, states, metrics, steps, wall, bank = self._run(
-            cfg, result.bank, result.bank_batched, resolved, states=result.states
+            cfg, result.bank, result.bank_batched, resolved, states=result.states,
+            mesh_devices=ndev,
         )
         return RunResult(
             cfg=cfg, states=states, metrics=metrics, cells=result.cells, strategy=strategy,
             wall_s=wall, steps=steps, bank=bank, bank_batched=result.bank_batched,
-            batched=result.batched, strategy_resolved=resolved, layout=_layout(states),
+            batched=result.batched, strategy_resolved=resolved, mesh_devices=ndev,
+            layout=_layout(states),
         )

@@ -35,6 +35,10 @@ Python and dispatch cost of each op. This is the port's counterpart of
 the reference's jit-compiled while loop (`repro.core.engine.batch`). On
 the CPU the same function runs eagerly.
 
+The worlds mesh (`placement`'s ``mesh`` row) runs several slices of one
+batch through `run_slices`: a stepper a slice on the slice's device, every
+slice's replays issued before the host reads any of them.
+
 Frozen lanes are idempotent, so the host reads "all lanes done" only every
 `_CHECK_EVERY` steps (one device sync per check) instead of each step; the
 up to `_CHECK_EVERY - 1` steps past the end change nothing, and they are
@@ -43,6 +47,7 @@ counted in the steps `run` returns.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 
@@ -121,6 +126,9 @@ class EagerStep:
         for _ in range(n):
             self.step()
 
+    def join(self) -> None:
+        """Nothing to wait for: the steps have run."""
+
 
 class CapturedStep:
     """`step` captured once into a CUDA graph, then replayed.
@@ -131,8 +139,12 @@ class CapturedStep:
     nothing, so the `geo_schedule` launches the wrapper counted while it
     was recorded are the launches of one replay: they are taken back out of
     the count, and `replay(n)` adds n times as many. A failed capture
-    raises; nothing steps eagerly in its place. `cuda` is the module whose
-    `Stream`, `current_stream`, `stream`, `CUDAGraph` and `graph` are used
+    raises; nothing steps eagerly in its place. The replays run on the
+    stepper's own stream (the warm-up's side stream), after the work the
+    current stream holds, so that several slices' graphs on one card can
+    run side by side; `join` makes the current stream wait for them before
+    the host reads the state. `cuda` is the module whose `Stream`,
+    `current_stream`, `stream`, `CUDAGraph` and `graph` are used
     (`torch.cuda`; the CPU tests pass a stand-in)."""
 
     def __init__(self, step, cuda=torch.cuda):
@@ -150,12 +162,18 @@ class CapturedStep:
             step()
         self.launches = geo_ops.geo_schedule.launches - before
         geo_ops.geo_schedule.launches = before
+        self.cuda, self.stream = cuda, side
         self.seconds = time.perf_counter() - t0
 
     def replay(self, n: int) -> None:
-        for _ in range(n):
-            self.graph.replay()
+        self.stream.wait_stream(self.cuda.current_stream())
+        with self.cuda.stream(self.stream):
+            for _ in range(n):
+                self.graph.replay()
         geo_ops.geo_schedule.launches += n * self.launches
+
+    def join(self) -> None:
+        self.cuda.current_stream().wait_stream(self.stream)
 
 
 def _stepper(step, s: SimState):
@@ -191,6 +209,12 @@ def _run_map(cfg: SimConfig, bank: Bank, state: SimState):
     return state, steps
 
 
+def _on(s: SimState):
+    """The context a slice on `s`'s device is captured and replayed in."""
+    dev = s.now.device
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
 def run(cfg: SimConfig, bank: Bank, state: SimState):
     """Step every lane to the horizon (or the event budget), in place.
 
@@ -200,25 +224,56 @@ def run(cfg: SimConfig, bank: Bank, state: SimState):
     the lockstep steps executed, idle tail steps included. `run.capture_s`
     is the last run's warm-up and capture time (0 on the CPU and for
     sequential lanes), part of its wall time."""
-    run.capture_s = 0.0
+    states, steps = run_slices(cfg, [bank], [state])
+    return states[0], steps
+
+
+def run_slices(cfg: SimConfig, banks: list, states: list):
+    """`run` over several slices of one batch (the worlds mesh's, one a
+    device), each stepped in place on its own device; returns (states,
+    steps summed over the slices).
+
+    Lockstep slices get a stepper each (a `CapturedStep` recorded under
+    the slice's device, replaying on its own stream there), and every
+    slice's `replay(n)` is issued before any slice is joined and the host
+    reads its "all lanes done": a read waits for its device, so reading
+    between the issues would run the slices one after another (on one card
+    the slices' streams also run side by side). A slice stops on its own
+    check, so each takes the steps it would take alone; one slice is
+    `run`'s loop as it is. `run.slice_capture_s` holds each stepped
+    slice's warm-up and capture seconds, `run.capture_s` their sum."""
+    run.capture_s, run.slice_capture_s = 0.0, []
     if not cfg.lockstep:
-        return _run_map(cfg, bank, state)
-    steps = 0
-    if not bool(_active(cfg, state).any()):
-        return state, steps
-    stepper = _stepper(functools.partial(step_into, cfg, bank, state), state)
-    run.capture_s = stepper.seconds
-    steps = stepper.warm_steps
-    n = _CHECK_EVERY - steps  # the first check after _CHECK_EVERY steps, as on the CPU
-    while True:
-        stepper.replay(n)
-        steps += n
-        if not bool(_active(cfg, state).any()):
-            return state, steps
+        steps = 0
+        for bank, s in zip(banks, states):
+            steps += _run_map(cfg, bank, s)[1]
+        return states, steps
+    live, steps = [], 0
+    for bank, s in zip(banks, states):
+        if not bool(_active(cfg, s).any()):
+            continue
+        with _on(s):
+            stepper = _stepper(functools.partial(step_into, cfg, bank, s), s)
+        run.slice_capture_s.append(stepper.seconds)
+        steps += stepper.warm_steps
+        live.append((stepper, s))
+    run.capture_s = sum(run.slice_capture_s)
+    # the first check after _CHECK_EVERY steps, as on the CPU
+    n = _CHECK_EVERY - (live[0][0].warm_steps if live else 0)
+    while live:
+        for stepper, s in live:
+            with _on(s):
+                stepper.replay(n)
+            steps += n
+        for stepper, s in live:
+            with _on(s):
+                stepper.join()
+        live = [(stepper, s) for stepper, s in live if bool(_active(cfg, s).any())]
         n = _CHECK_EVERY
+    return states, steps
 
 
-run.capture_s = 0.0
+run.capture_s, run.slice_capture_s = 0.0, []
 
 
 def simulate(cfg: SimConfig, bank: Bank, tau_true_us, tau_ds_us, jitter_milli: int = 0,

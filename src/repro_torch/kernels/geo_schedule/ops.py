@@ -71,3 +71,14 @@ def geo_schedule(tau, lel, inv, c_cnt, t_cnt, a_cnt, valid):
 
 
 geo_schedule.launches = 0
+
+
+def schedule_batch(tau, lel, inv, c_cnt, t_cnt, a_cnt, valid, *, bn: int = 256):
+    """The reference's public name for the batched scheduler op
+    (`repro.kernels.geo_schedule.ops.schedule_batch`): `geo_schedule`.
+
+    `bn` is accepted and ignored: it is the Pallas kernel's row-block size
+    on the TPU, while the CUDA kernel sizes its own launch. There is no
+    `interpret`: nothing in the port runs interpreted (the plain version
+    runs on CPU tensors)."""
+    return geo_schedule(tau, lel, inv, c_cnt, t_cnt, a_cnt, valid)

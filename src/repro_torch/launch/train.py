@@ -1,4 +1,4 @@
-"""Training launcher: real end-to-end training on one device (port of
+"""Training launcher: real end-to-end training (port of
 `repro.launch.train`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
@@ -6,11 +6,13 @@
 
 The reference's options, output lines and returned loss list, plus
 `--device` (default: the card). It integrates the port's substrate: the
-reference's initial weights for seed 0 (`init_params_threefry`), AdamW, the
-deterministic data pipeline and GeoTP one-round-commit checkpointing with
-restart recovery. It trains on one device and prints that device where the
-reference prints its local mesh; the mesh, sharded parameters and gradient
-compression wait for the mesh slice (ROADMAP.md §A item A7).
+local mesh (`launch.mesh.make_local_mesh`, printed on the first line as
+the reference prints it), the reference's initial weights for seed 0
+(`init_params_threefry`), AdamW, the deterministic data pipeline and GeoTP
+one-round-commit checkpointing with restart recovery. It trains on
+`--device` itself: the mesh's data axis has one device on the chip host
+(`--device cpu` gives ``devices=1``). As the reference's launcher does, it
+calls no gradient compression (`dist.compression`; ROADMAP.md §C, C12).
 
 Two of the reference's semantics are kept as they are (ROADMAP.md §C):
 `--reduced` is `store_true` with default True, so the launcher always
@@ -47,6 +49,7 @@ def main(argv=None):
     from repro_torch.data.pipeline import DataConfig, global_batch
     from repro_torch.device import resolve_device
     from repro_torch.dist.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import model as mdl, stack
     from repro_torch.models.schema import init_params_threefry
     from repro_torch.optim import adamw
@@ -54,8 +57,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated
     cfg = registry.reduced(args.arch) if args.reduced else registry.get(args.arch)
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"[train] arch={cfg.name} device={dev} ({name})")
+    mesh = make_local_mesh(device=dev)
+    print(f"[train] arch={cfg.name} devices={len(mesh.devices)} mesh={mesh.shape}")
 
     params = init_params_threefry(stack.build_schema(cfg), 0, dev)
     opt = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,

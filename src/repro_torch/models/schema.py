@@ -1,11 +1,21 @@
 """Parameter schema: one declarative source of truth for the shape and
 initialization of every weight (port of `repro.models.schema`).
 
-A schema is a flat dict  name -> ParamSpec(shape, axes, init, dtype) . The
-logical axis names are kept so that a schema reads as the reference's; the
-mesh tools that consume them (`shardings`, `logical_to_spec`) belong to
-multi-device work (ROADMAP.md §A item A7). `abstract_params` gives the
-shapes and dtypes as tensors on the `meta` device (no allocation).
+A schema is a flat dict  name -> ParamSpec(shape, axes, init, dtype) .
+From it, without materializing weights:
+  * abstract_params(schema) — the shapes and dtypes as tensors on the
+    `meta` device (no allocation);
+  * shardings(schema, rules, mesh) — each weight's partition spec over a
+    mesh (`launch.mesh.Mesh`): a tuple with one entry a dimension, a mesh
+    axis name, a tuple of names or None (replicated), the reference's
+    `NamedSharding(mesh, spec).spec`;
+  * init_params(...) / init_params_threefry(...) — real tensors.
+
+Logical axis vocabulary (the reference's, MaxText-style): "layers" (the
+stacked-layer dim, never sharded), "embed" (d_model, the FSDP axis),
+"vocab", "heads", "kv", "mlp", "experts" (the wide dims, over "model"),
+"state" / "conv" / None (small dims, replicated); `dist.sharding` holds
+the rules that map them onto mesh axes.
 
 `init_params` draws from an explicit `torch.Generator`, fast on the card but
 not JAX's numbers for the same seed: tests that compare the two packages
@@ -50,6 +60,41 @@ def abstract_params(schema: Schema) -> dict:
     """{name: tensor on the `meta` device} of each spec's shape and dtype."""
     return {n: torch.empty(s.shape, dtype=torch_dtype(s.dtype), device="meta")
             for n, s in schema.items()}
+
+
+def logical_to_spec(axes: tuple, rules: dict) -> tuple:
+    """The partition spec of a weight whose dims carry the logical `axes`:
+    each dim's mesh axis (or tuple of axes) from `rules`, or None. One mesh
+    axis shards at most one dim of a tensor: a later dim that maps to an
+    axis already used is replicated."""
+    mesh_axes = []
+    used = set()
+    for ax in axes:
+        m = rules.get(ax)
+        if m is None or m in used:
+            mesh_axes.append(None)
+        else:
+            mesh_axes.append(m)
+            used.add(m if isinstance(m, str) else tuple(m))
+    return tuple(mesh_axes)
+
+
+def shardings(schema: Schema, rules: dict, mesh) -> dict:
+    """{name: partition spec} of every weight over `mesh`, which is read
+    only for its axis sizes (`mesh.shape`). A mesh axis that does not
+    divide its dim is dropped (that dim is replicated), as the reference
+    prefers replication for oddball dims such as kv = 8 on a 16-way axis."""
+    out = {}
+    for n, s in schema.items():
+        fixed = []
+        for dim, m in zip(s.shape, logical_to_spec(s.axes, rules)):
+            if m is None:
+                fixed.append(None)
+                continue
+            size = mesh.shape[m] if isinstance(m, str) else math.prod(mesh.shape[a] for a in m)
+            fixed.append(m if dim % size == 0 else None)
+        out[n] = tuple(fixed)
+    return out
 
 
 def init_params_threefry(schema: Schema, seed: int = 0, device=None, dtype=None) -> dict:

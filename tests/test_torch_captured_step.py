@@ -79,7 +79,7 @@ def test_static_buffer_run_matches_reference(per_cell, monkeypatch):
         real(cfg, bank, s)
 
     monkeypatch.setattr(batch, "step_into", step_into)
-    tres = _port_sim(tb if tb is not None else tg.banks[0]).run_grid(tg, tb)
+    tres = _port_sim(tb if tb is not None else tg.banks[0]).run_grid(tg, tb, strategy="vmap")
     rsim = r_engine.Simulator.from_bank(rb if rb is not None else rg.banks[0],
                                         horizon_s=HORIZON_S, warmup_s=WARMUP_S, drain=False,
                                         track_slots=True)
@@ -154,7 +154,7 @@ def test_launch_accounting_of_the_windowed_step_with_a_stand_in_graph(monkeypatc
 
 def _check_launch_accounting(drain, monkeypatch):
     _, tg, _, tb = _grids(False)
-    eager = _port_sim(tb, drain).run_grid(tg, tb)
+    eager = _port_sim(tb, drain).run_grid(tg, tb, strategy="vmap")
 
     real = geo_ops.geo_schedule
 
@@ -171,7 +171,7 @@ def _check_launch_accounting(drain, monkeypatch):
         return made[-1]
 
     monkeypatch.setattr(batch, "_stepper", stepper)
-    res = _port_sim(tb, drain).run_grid(tg, tb)
+    res = _port_sim(tb, drain).run_grid(tg, tb, strategy="vmap")
     (cap,) = made
     graph = cap.graph
     assert cap.warm_steps == batch._WARMUP_STEPS and cap.launches == 2

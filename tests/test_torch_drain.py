@@ -54,7 +54,7 @@ def _port_run(case, drain=True):
     _, tg, _, tbank = _grids(case)
     sim = Simulator.from_bank(tbank, horizon_s=HORIZON_S, warmup_s=WARMUP_S, drain=drain,
                               track_slots=True, device="cpu")
-    return sim.run_grid(tg, tbank)
+    return sim.run_grid(tg, tbank, strategy="vmap")
 
 
 @functools.lru_cache(maxsize=None)

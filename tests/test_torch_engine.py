@@ -74,7 +74,7 @@ def _run_both(rgrid, tgrid, rbank, tbank):
         tbank if tbank is not None else tgrid.banks[0],
         horizon_s=HORIZON_S, warmup_s=WARMUP_S, drain=False, track_slots=True, device="cpu",
     )
-    tres = tsim.run_grid(tgrid, tbank)
+    tres = tsim.run_grid(tgrid, tbank, strategy="vmap")
     assert_states_equal(tres.states, rres.states)
     _rows_equal(tres.rows(), rres.rows())
     assert tres.steps >= max(m["events"] for m in tres.metrics)

@@ -100,7 +100,7 @@ def _port_run(drain):
     tbank = _banks()[1]
     sim = Simulator.from_bank(tbank, horizon_s=HORIZON_S, warmup_s=0.0, drain=drain,
                               track_slots=True, device="cpu")
-    return sim.run_grid(Grid.cross(**AXES), tbank)
+    return sim.run_grid(Grid.cross(**AXES), tbank, strategy="vmap")
 
 
 def _differing_leaves(port_states, ref_states):
@@ -362,8 +362,9 @@ def test_grid_fault_axes_match_reference():
 def test_simulator_derives_max_faults_from_the_grid():
     tbank = _banks()[1]
     sim = Simulator.from_bank(tbank, horizon_s=0.05, warmup_s=0.0, device="cpu")
-    res = sim.run_grid(Grid.cross(preset="geotp", rtt_ms=RTT, faults=((20_000, 0, 40_000),)), tbank)
+    res = sim.run_grid(Grid.cross(preset="geotp", rtt_ms=RTT, faults=((20_000, 0, 40_000),)), tbank,
+                       strategy="vmap")
     assert res.cfg.max_faults == 1 and sim.cfg.max_faults == 0
     assert res.states.fault_stage.tolist() == [[2]]
-    res0 = sim.run_grid(Grid.cross(preset="geotp", rtt_ms=RTT), tbank)
+    res0 = sim.run_grid(Grid.cross(preset="geotp", rtt_ms=RTT), tbank, strategy="vmap")
     assert res0.cfg.max_faults == 0 and res0.drain["availability"] == 1.0

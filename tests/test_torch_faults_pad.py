@@ -21,9 +21,10 @@ def _pad_pair():
     tbank = _banks()[1]
     sim = Simulator.from_bank(tbank, horizon_s=0.5, warmup_s=0.0, track_slots=True, device="cpu")
     presets = tuple(sorted(PRESETS))
-    clean = sim.run_grid(Grid.cross(preset=presets, rtt_ms=RTT), tbank)
+    clean = sim.run_grid(Grid.cross(preset=presets, rtt_ms=RTT), tbank, strategy="vmap")
     pad = ((INF_US, 0, INF_US),) * 3
-    padded = sim.run_grid(Grid.cross(preset=presets, rtt_ms=RTT, faults=(pad,)), tbank)
+    padded = sim.run_grid(Grid.cross(preset=presets, rtt_ms=RTT, faults=(pad,)), tbank,
+                          strategy="vmap")
     return clean, padded
 
 

@@ -66,8 +66,8 @@ def _run_figure(side, name, tag, horizon_s):
                                      record=False)
         else:
             res = t_common.run_sweep(t, cells, bank, terminals, banks=banks,
-                                     horizon_s=cut, warmup_s=w, record=False,
-                                     device="cpu")
+                                     horizon_s=cut, warmup_s=w, strategy="vmap",
+                                     record=False, device="cpu")
         for m in res.metrics:
             m["wall_s"], m["sweep_wall_s"] = 0.25, 1.0
         real["res"] = res

@@ -30,6 +30,7 @@ the CPU (a few minutes; nothing is written):
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import pathlib
@@ -54,7 +55,9 @@ from repro.core import engine as r_engine  # noqa: E402
 from repro_torch.bench import claims, figures  # noqa: E402
 from repro_torch.bench import run as t_run  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
-from repro_torch.core.engine.state import HIST_BINS, N_ABORT_CAUSES, N_STOP_REASONS  # noqa: E402
+from repro_torch.core.engine.state import (  # noqa: E402
+    HIST_BINS, N_ABORT_CAUSES, N_STOP_REASONS, tree_leaves,
+)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIGS = [fn.__name__ for fn in r_figures.ALL_FIGURES]
@@ -318,12 +321,24 @@ def test_sweep_cut_keeps_a_zero_warmup():
 
 
 @pytest.mark.parametrize("kw", [dict(strategy="mesh"), dict(mesh_devices=2)])
-def test_run_sweep_mesh_raises_a7(kw):
+def test_run_sweep_mesh_raises_a7(kw, monkeypatch):
+    """`run_sweep` places the grid on the mesh, as the reference's does:
+    `strategy="mesh"`, or ``auto`` with `mesh_devices`, over the census
+    (patched to 2 CPU devices); the cells equal the map lanes' run."""
     from repro_torch.bench import common
+    from repro_torch.launch import mesh
 
     bank = common.ycsb_bank(2, records=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A7"):
-        common.run_sweep("x", [dict(preset="ssp")], bank, 2, device="cpu", record=False, **kw)
+    cells = [dict(preset="ssp"), dict(preset="geotp"), dict(preset="ssp", seed=1)]
+    run = functools.partial(common.run_sweep, "x", cells, bank, 2, horizon_s=0.2, warmup_s=0.0,
+                            device="cpu", record=False)
+    want = run(strategy="map")
+    monkeypatch.setattr(mesh, "local_devices", lambda device=None: [torch.device("cpu")] * 2)
+    res = run(**kw)
+    assert (res.strategy_resolved, res.mesh_devices, len(res.metrics)) == ("mesh", 2, 3)
+    assert [m["events"] for m in res.metrics] == [m["events"] for m in want.metrics]
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(tree_leaves(res.states),
+                                                           tree_leaves(want.states)))
 
 
 def test_summary_line_and_ycsb_bank_equal_the_reference():
@@ -518,9 +533,39 @@ def test_cli_validate_only_on_the_cpu_prints_the_summary(tmp_path):
     assert lines[-24:-1] == want
 
 
+# the census patched to 4 CPU devices and the smoke cut to T = 8 and 0.8 s,
+# then the command line
+MESH_CLI = (
+    "import sys, torch\n"
+    "from repro_torch.launch import mesh\n"
+    "mesh.local_devices = lambda device=None: [torch.device('cpu')] * 4\n"
+    "from repro_torch.bench import run, smoke\n"
+    "smoke.SMOKE_T, smoke.SMOKE_HORIZON_S, smoke.SMOKE_WARMUP_S = 8, 0.8, 0.1\n"
+    "sys.exit(run.main(sys.argv[1:]))\n"
+)
+
+
 def test_cli_strategy_mesh_raises_a7(tmp_path):
-    out = _cli(["--smoke", "--strategy", "mesh", "--device", "cpu"], tmp_path)
-    assert out.returncode != 0 and "ROADMAP.md §A item A7" in out.stderr
+    """`--smoke --strategy mesh` (the reference's `smoke_mesh`): with the
+    one device the CPU has, it fails with the reference's message before
+    it runs anything; with the census patched to 4 devices it runs the
+    smoke grid over them and merges the mesh keys into the smoke record."""
+    import os
+
+    args = ["--smoke", "--strategy", "mesh", "--device", "cpu"]
+    out = _cli(args, tmp_path)
+    assert out.returncode == 1, out.stderr
+    assert "[smoke] MESH REGRESSION: only 1 device visible — nothing was sharded" in out.stdout
+    assert not (tmp_path / "results").exists()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", MESH_CLI, *args], cwd=tmp_path,
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "[smoke] mesh: 16 worlds on 4 devices" in out.stdout
+    entry = json.loads((tmp_path / "results" / "bench_torch" / "BENCH_engine.json").read_text())
+    smoke = entry["smoke"]
+    assert (smoke["strategy_resolved_mesh"], smoke["mesh_devices"]) == ("mesh", 4)
+    assert smoke["events_mesh"] == entry["sweeps"]["smoke_mesh"]["events"] > 0
 
 
 @pytest.mark.parametrize("only", [None, "fig1", "fig11", "fig17_partitions", "table1", "fig"])
@@ -558,10 +603,13 @@ def test_engine_exports_every_reference_name(name):
 
 
 def test_mesh_device_count_answers_as_the_reference():
+    """1 off the mesh; on the mesh every device the census counts: one CPU
+    here, as the reference counts jax's one CPU device."""
     for s in ("map", "vmap", "auto"):
         assert engine.mesh_device_count(s) == r_engine.mesh_device_count(s) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A7"):
-        engine.mesh_device_count("mesh")
+    assert engine.mesh_device_count("mesh", device="cpu") == r_engine.mesh_device_count(
+        "mesh") == 1
+    assert engine.mesh_device_count("mesh", 1, "cpu") == r_engine.mesh_device_count("mesh", 1)
 
 
 # ---------------------------------------------------------------------------

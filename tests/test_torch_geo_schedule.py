@@ -69,6 +69,20 @@ def test_plain_version_matches_reference_kernel(n, d, k, bn):
     np.testing.assert_array_equal(p2.numpy(), p.numpy())
 
 
+@pytest.mark.parametrize("n,d,k,bn", GEO_CASES[:3])
+def test_schedule_batch_is_the_reference_public_op(n, d, k, bn):
+    """The reference's public name `schedule_batch` (its `bn` taken and
+    ignored): the wrapper's outputs, equal to the reference op's."""
+    args = _inputs(n, d, k)
+    off_k, p_k = schedule_batch(*(jnp.asarray(x) for x in args), bn=bn, interpret=True)
+    targs = [torch.from_numpy(x) for x in args]
+    off, p = t_ops.schedule_batch(*targs, bn=bn)
+    want = t_ops.geo_schedule(*targs)
+    assert torch.equal(off, want[0]) and torch.equal(p, want[1])
+    np.testing.assert_array_equal(off.numpy(), np.asarray(off_k))
+    np.testing.assert_allclose(p.numpy(), np.asarray(p_k), rtol=0, atol=1e-6)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     args = [torch.from_numpy(x) for x in _inputs(8, 4, 5)]
     bad = list(args)

@@ -4,8 +4,8 @@ bit for bit, the cache leaves after prefill and decode, the plain int8
 decode, and the port's counterpart of
 `tests/models/test_int8_cache.py::test_int8_cache_matches_bf16` with its
 limits (prefill logits 1e-3 abs / rel, decode logits 0.05 relative to their
-largest). That file's `test_int8_cache_specs_halve_bytes` needs
-`models/flops.py`, which is ROADMAP §A item A7; it has no counterpart yet.
+largest). That file's `test_int8_cache_specs_halve_bytes` has its
+counterpart in `tests/test_torch_flops.py`, beside the port's `flops.py`.
 
 Tolerances: the quantizer is exact on equal inputs. Cache values from the
 two packages' own bf16 products are held within one int8 step (the bf16

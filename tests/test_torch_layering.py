@@ -1,6 +1,5 @@
 """The PyTorch port stands alone: no JAX, nothing of `repro` or of the
-reference's `benchmarks`, CUDA by default, and loud about what it has not
-ported yet."""
+reference's `benchmarks`, CUDA by default, and every placement runs."""
 
 import os
 import pathlib
@@ -15,6 +14,7 @@ from repro_torch.core import workloads
 from repro_torch.core.engine import Grid, Simulator, apply, window
 from repro_torch.core.engine.batch import lane_bank
 from repro_torch.core.engine.state import init_state_world, stack_worlds
+from repro_torch.launch import mesh
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -43,11 +43,12 @@ def test_import_leaves_jax_and_repro_unloaded():
 # the modules of slices 2 and 3 (the serving path of the LM stack: the
 # dense GQA family, then the recurrent mixers), slice 9's windowed drain and
 # slice 10's fault injection, slice 11's bench harness, slice 12's
-# sequential lanes, slice 13's figures, claims, examples and shims and
+# sequential lanes, slice 13's figures, claims, examples and shims,
 # slice 14's training (the optimizer, the data pipeline, the checkpoints,
-# the launcher, the flash backward's binding), beside slice 1's
+# the launcher, the flash backward's binding) and slice 16's FLOPs model,
+# mesh and sharding tools, elastic resizing, compression and placement,
+# beside slice 1's
 SLICE_MODULES = [
-    "unported.py",
     "configs/registry.py",
     "models/config.py",
     "models/schema.py",
@@ -96,7 +97,22 @@ SLICE_MODULES = [
     "dist/checkpoint.py",
     "launch/train.py",
     "examples/train_lm.py",
+    "models/flops.py",
+    "launch/mesh.py",
+    "dist/sharding.py",
+    "dist/elastic.py",
+    "dist/compression.py",
+    "core/engine/placement.py",
+    "core/engine/batch.py",
+    "core/engine/api.py",
 ]
+
+
+def test_version_is_the_reference_version():
+    import repro
+    import repro_torch
+
+    assert repro_torch.__version__ == repro.__version__ == "1.0.0"
 
 
 def test_sources_import_no_jax_and_no_repro():
@@ -131,10 +147,12 @@ def _bank():
     "case",
     ["drain", "map", "mesh", "resume-map", "resume-mesh"],
 )
-def test_unported_paths_raise_not_implemented(case):
-    """`mesh` (and `resume`'s mesh placement) raise A7. The sequential
-    lanes run: `_drain_step` and its window plan,
-    `run_grid(strategy="map")` and `resume(strategy="map")`."""
+def test_unported_paths_raise_not_implemented(case, monkeypatch):
+    """Every placement runs; none raises `NotImplementedError` any more:
+    `_drain_step` and its window plan, `run_grid(strategy="map")` (what
+    ``auto`` picks on one CPU, as the reference's table does),
+    `run_grid(strategy="mesh")` over the census (patched to 2 CPU devices
+    here) and `resume` on the map and on the mesh (its device count kept)."""
     bank = _bank()
     grid = Grid.cross(preset=("ssp",), rtt_ms=(0.0, 10.0))
     sim = Simulator.from_bank(bank, horizon_s=0.05, warmup_s=0.0, device="cpu")
@@ -150,27 +168,24 @@ def test_unported_paths_raise_not_implemented(case):
         nxt = apply._drain_step(cfg, lb, s)
         assert int(nxt.iters[0]) >= 1 and int(nxt.noops[0]) == 0
         return
+    ref = sim.run_grid(grid, bank)  # auto on one CPU: the map lanes
+    assert (ref.strategy_resolved, ref.mesh_devices) == ("map", 1) and not ref.cfg.lockstep
+    assert all(m["noops"] == 0 for m in ref.metrics) and ref.events > 0 and ref.cfg.drain
+    monkeypatch.setattr(mesh, "local_devices", lambda device=None: [torch.device("cpu")] * 2)
     if case in ("map", "mesh"):
-        if case == "mesh":
-            with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A7"):
-                sim.run_grid(grid, bank, strategy=case)
-            return
-        res = sim.run_grid(grid, bank, strategy="map")
-        assert res.strategy_resolved == "map" and not res.cfg.lockstep
-        assert all(m["noops"] == 0 for m in res.metrics) and res.events > 0
+        res = sim.run_grid(grid, bank, strategy=case)
+        assert res.strategy_resolved == case and not res.cfg.lockstep
+        assert res.mesh_devices == (2 if case == "mesh" else 1)
+        assert res.metrics[0]["noops"] == 0 and res.events == ref.events
         return
-    # resume and save are ported; resume's mesh placement is not
-    res = sim.run_grid(grid, bank)
-    assert res.strategy_resolved == "vmap" and res.metrics[0]["noops"] == 0 and res.cfg.drain
-    if case == "resume-map":
-        events = res.events
-        res = sim.resume(res, horizon_s=0.1, strategy="map")
-        assert res.strategy_resolved == "map" and not res.cfg.lockstep
-        assert res.events > events and res.metrics[0]["noops"] == 0
-        return
-    for kw in (dict(strategy="mesh"), dict(mesh_devices=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §A item A7"):
-            sim.resume(res, horizon_s=0.1, **kw)
+    res = sim.resume(ref, horizon_s=0.1, strategy=case[len("resume-"):])
+    assert res.strategy_resolved == case[len("resume-"):] and not res.cfg.lockstep
+    assert res.events > ref.events and res.metrics[0]["noops"] == 0
+    if case == "resume-mesh":
+        assert res.mesh_devices == 2
+        again = sim.resume(res, horizon_s=0.15)  # the mesh and its count are kept
+        assert (again.strategy_resolved, again.mesh_devices) == ("mesh", 2)
+        assert again.events > res.events
 
 
 def test_grid_validation_messages():

@@ -92,7 +92,7 @@ def _port(case):
     drain, faults = CASES[case]
     tbank = _banks()[1]
     sim = _sim(drain)
-    res = sim.run_grid(Grid(_cells(faults)), tbank)
+    res = sim.run_grid(Grid(_cells(faults)), tbank, strategy="vmap")
     res = res.with_states(res.states._replace(
         tau_true=torch.tensor(NEW_TAU, dtype=torch.int32)))
     return sim.resume(res, horizon_s=H2, warmup_s=0.0)
@@ -109,7 +109,7 @@ def test_resumed_grid_matches_reference_map_lanes(case):
     assert tres.cfg.horizon_us == rres.cfg.horizon_us == 300_000
     assert tres.cfg.warmup_us == 0 and tres.cfg.lockstep and tres.cfg.drain == drain
     assert tres.cfg.max_faults == (0 if faults is None else len(faults))
-    assert tres.strategy == "auto" and tres.strategy_resolved == "vmap" and tres.batched
+    assert tres.strategy == tres.strategy_resolved == "vmap" and tres.batched
     assert torch.equal(tres.states.tau_true, torch.tensor(NEW_TAU, dtype=torch.int32))
     ref_states = rres.states
     if drain:  # the map lanes never fuse
@@ -148,9 +148,9 @@ def test_resume_equals_one_uninterrupted_run():
     tbank = _banks()[1]
     grid = Grid(_cells(CRASH_HEAVY))
     sim = Simulator.from_bank(tbank, horizon_s=H1, warmup_s=0.0, device="cpu")
-    res = sim.resume(sim.run_grid(grid, tbank), horizon_s=H2)
+    res = sim.resume(sim.run_grid(grid, tbank, strategy="vmap"), horizon_s=H2)
     whole = Simulator.from_bank(tbank, horizon_s=H2, warmup_s=0.0, device="cpu").run_grid(
-        grid, tbank)
+        grid, tbank, strategy="vmap")
     assert res.cfg == whole.cfg
     _rows_equal(res.metrics, whole.metrics)
     assert res.drain["abort_causes"]["crash"] > 0

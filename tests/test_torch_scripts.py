@@ -57,7 +57,7 @@ def _check_launch_shapes(drain, monkeypatch):
     monkeypatch.setattr(scheduler, "plan_dispatch", record)
     grid = _grid()
     res = Simulator.from_bank(grid.banks[0], horizon_s=0.05, warmup_s=0.0, drain=drain,
-                              device="cpu").run_grid(grid)
+                              device="cpu").run_grid(grid, strategy="vmap")
     assert len(seen) == 2 * res.steps and res.cfg.drain == drain
     launches = chip_smoke.step_launches(B, D, K, seed=0)
     want = [_signature(launches["eq9"]), _signature(launches["eq8"])]

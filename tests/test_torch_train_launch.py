@@ -8,7 +8,8 @@ every step's batch equal to the reference's `global_batch` bit for bit, the
 first loss within 2e-3 of the reference's loss on its own initial weights
 and that batch (the port draws them with its threefry: the same uniforms,
 erfinv within ~1e-5), the loss down by more than 0.3, step 30 committed.
-Then `--resume` after step 30's COMMIT is removed: `recover` returns 20,
+Its first line is the reference's, from the local mesh. Then `--resume`
+after step 30's COMMIT is removed: `recover` returns 20,
 the run goes on from step 20, the parameters it starts from are step 20's
 checkpoint, and step 30 is committed again.
 """
@@ -23,6 +24,7 @@ import torch
 
 from repro.configs import registry as r_registry
 from repro.data import pipeline as r_pipe
+from repro.launch.mesh import make_local_mesh as make_local_mesh_ref
 from repro.models import model as r_model
 from repro.models import stack as r_stack
 from repro.models.schema import init_params as r_init_params
@@ -55,7 +57,11 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
     with contextlib.redirect_stdout(out):
         losses = train.main(ARGS + ["--ckpt-dir", str(tmp_path)])
     lines = out.getvalue().splitlines()
-    assert lines[0] == "[train] arch=llama3.2-3b-reduced device=cpu (cpu)"
+    # the reference's first line, from the local mesh (one CPU device here)
+    r_mesh = make_local_mesh_ref()
+    assert lines[0] == (f"[train] arch=llama3.2-3b-reduced devices={len(jax.devices())} "
+                        f"mesh={dict(r_mesh.shape)}")
+    assert lines[0] == "[train] arch=llama3.2-3b-reduced devices=1 mesh={'data': 1, 'model': 1}"
     assert len(losses) == 30 and losses[-1] < losses[0] - 0.3, (losses[0], losses[-1])
     assert [ln for ln in lines if ln.startswith("[ckpt]")] == [
         f"[ckpt] committed step {s}" for s in (10, 20, 30)]
@@ -111,7 +117,7 @@ def test_train_lm_example_runs_the_reduced_100m_config(tmp_path):
                                 "--device", "cpu"])
     lines = out.getvalue().splitlines()
     assert lines[0] == "params: 100.1M"
-    assert lines[1] == "[train] arch=llama3-100m-reduced device=cpu (cpu)"
+    assert lines[1] == "[train] arch=llama3-100m-reduced devices=1 mesh={'data': 1, 'model': 1}"
     assert len(losses) == 8 and losses[-1] < losses[0]
     assert lines[-1] == "OK: loss decreased; checkpoints committed with one-round protocol."
 
