@@ -273,13 +273,19 @@ Slice 11, continuation (`Simulator.resume`, `RunResult.with_states` /
    reference's (FIG11_ONLINE_REF); two `geo_schedule` launches a step;
    each segment's steps, seconds, events/s and launches;
 5f. the port's smoke (`repro_torch.bench.smoke`, the reference smoke's
-   cells: fig5's YCSB deployment at T = 32, 2.5 s, drained, single-event,
-   faults, partitions, protocols) with its bench file in a temporary
-   directory: every guard holds, every leg's cells equal the JAX
-   reference's events, commits and aborts (SMOKE_REF), the bench file
-   holds the smoke entry and a sweep a leg, two `geo_schedule` launches a
-   step; each leg's steps, seconds, events/s, drain hit rate and mean
-   window.
+   cells: fig5's YCSB deployment at T = 32, 2.5 s, every leg drained) with
+   its bench file in a temporary directory: the four card legs (the grid
+   on the vmap lanes, faults, partitions, protocols) here, and the CPU
+   legs (slice 17: the reference's sequential map leg, the grid through
+   `strategy="map"` on the CPU, and its seed comparator, `engine.simulate`
+   on one world, single-event, beside it), which ran in a process of their
+   own started in phase 2; then `smoke.finish`: every guard holds (the
+   vmap leg equal to the map leg cell for cell), every leg's cells equal
+   the JAX reference's events, commits and aborts (SMOKE_REF), the bench
+   file holds the smoke entry (``events_per_sec_seed`` and
+   ``speedup_vs_seed`` included, ``map_device`` "cpu") and a sweep a leg,
+   two `geo_schedule` launches a step of the card legs; each leg's steps,
+   seconds, events/s, drain hit rate and mean window.
 
 Slice 12, the sequential lanes (`strategy="map"`, `engine.simulate`), run
 after phase 5f:
@@ -415,14 +421,33 @@ backward kernels), run after phase 20:
    profiled step's device time, each step's bound and `mfu` (as 20e's; for
    recurrentgemma-9b those of the 8-layer config). The kernels line gains `mlstm_bwd` and
    `rglru_bwd` (21c's and 21d's launches); the forward launches join
-   `mlstm_chunk`'s, `rglru_scan`'s and `flash_attention`'s records. For
-   the script's time (it must end well inside 1,200 s on a slower host),
-   phase 5e runs geotp's chain of fig11's online segments and not ssp's
-   (FIG11_CHIP_SEGMENTS), phase 5g drops its fault-free drained map
-   run (SEQ_RUNS), phase 5h's horizon is 0.3 s (fig15's 0.45 s),
-   the serving paths take 32 decode steps and their routers 20 requests,
-   20e 3 timed steps, and the engine profiles after phase 5d a window of
-   32 events a lane (`profile_step.WINDOW`).
+   `mlstm_chunk`'s, `rglru_scan`'s and `flash_attention`'s records.
+
+Slice 17, the planning tools (`launch/dryrun.py`, `roofline.py`,
+`perf.py`: tensors on `meta`, no device), run inside phase 20e, on its
+tensors before they are freed:
+
+22. (a) `dryrun.build_cell` for 20e's own cell (llama3.2-3b at full width,
+   2 x 2048, remat="full") on `make_local_mesh()` (the one card: data 1,
+   model 1), traced on meta under the FLOP counter: its per-device
+   argument bytes equal the bytes of the tensors 20e holds (float32
+   masters, m, v, the step, the batch), its output bytes those of the
+   step's outputs (parameters, optimizer state, metrics) plus XLA's 8
+   bytes a leaf of the output tuple; (b) the roofline's compute and memory
+   terms for that cell over one GPU equal `step_bound`'s (one source of
+   the H100's constants: `launch.roofline`); (c) perf.py's two runnable
+   variants (mixtral_remat, mixtral_capacity) on the planning mesh, each
+   record and its seconds, and the two decode variants' error (ROADMAP
+   C13); the phase's seconds.
+
+For the script's time (it must end well inside 1,200 s on a slower host),
+phase 5e runs geotp's chain of fig11's online segments and not ssp's
+   (FIG11_CHIP_SEGMENTS), phase 5g drops its fault-free drained map run
+(SEQ_RUNS), phase 5h's horizon is 0.3 s (fig15's 0.45 s), the serving
+paths take 32 decode steps and their routers 20 requests, 20e 3 timed
+steps, the engine profiles after phase 5d a window of 32 events a lane
+(`profile_step.WINDOW`), and 5f's map leg runs on the CPU beside the
+card's phases.
 
 The last two lines are a JSON record of the kernels and
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
@@ -454,10 +479,12 @@ B_MAIN, D_MAIN, K_MAIN = 16, 4, 5  # lanes, data sources, ops per txn of phase 5
 # phase 5's processed events, as the eager lockstep step processed them; the
 # captured step runs the same step, so any other count is a fault
 MAIN_EVENTS = 139_853
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit); the HBM rate and
+# the bf16 tensor rate are the planning tools' (`launch.roofline`): one source
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS as BF16_TENSOR_OPS_PER_S  # noqa: E402
+
 FP32_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 on the tensor cores
 TF32_TENSOR_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
 
 
@@ -1020,11 +1047,37 @@ def cpu_run(kind, drain):
                                  states=tree_map(lambda x: x.numpy(), res.states))
 
 
+def smoke_cpu_run():
+    """Phase 5f's CPU legs (`smoke.cpu_legs`: the map leg and the seed
+    comparator, one torch thread), run in a process of its own beside the
+    card's phases: their result with the map leg's states as numpy arrays
+    and no bank."""
+    from repro_torch.bench import smoke
+    from repro_torch.core.engine.state import tree_map
+
+    torch.set_num_threads(1)
+    cpu = smoke.cpu_legs()
+    res = dataclasses.replace(cpu.map, states=tree_map(lambda x: x.numpy(), cpu.map.states),
+                              bank=None, layout=())
+    return dataclasses.replace(cpu, map=res)
+
+
+def smoke_cpu_result(future):
+    """A `smoke_cpu_run`'s result with the map leg's states as tensors."""
+    from repro_torch.core.engine.state import tree_map
+
+    cpu = future.result()
+    return dataclasses.replace(cpu, map=dataclasses.replace(
+        cpu.map, states=tree_map(torch.from_numpy, cpu.map.states)))
+
+
 def start_cpu_runs():
-    """The CPU runs of phases 4, 4b and 4c (single-event, windowed) and of
-    phase 5g (a) (the map lanes), each started in a process of its own;
-    returns (pool, {(kind, drain): future of a `cpu_run`}, {(schedule,
-    drain): future of a `seq_cpu_run`})."""
+    """The CPU runs of phases 4, 4b and 4c (single-event, windowed), of
+    phase 5g (a) (the map lanes) and of phase 5f (the smoke's map leg and
+    seed comparator), each in a process of its own (the smoke's starts when
+    the first of the others ends); returns (pool, {(kind, drain): future of
+    a `cpu_run`}, {(schedule, drain): future of a `seq_cpu_run`}, the
+    future of a `smoke_cpu_run`)."""
     import multiprocessing
 
     pool = concurrent.futures.ProcessPoolExecutor(
@@ -1032,7 +1085,7 @@ def start_cpu_runs():
     runs = {(kind, drain): pool.submit(cpu_run, kind, drain)
             for kind in CPU_RUNS for drain in (False, True)}
     seq = {(sch, drain): pool.submit(seq_cpu_run, sch, drain) for sch, drain in SEQ_RUNS}
-    return pool, runs, seq
+    return pool, runs, seq, pool.submit(smoke_cpu_run)
 
 
 def cpu_result(cpu_runs, kind, drain):
@@ -3384,7 +3437,7 @@ def profile_train_step(step, params, state, batch, names=("flash_attention_bwd",
                 top=[(n[:90], round(t, 3)) for n, t in top])
 
 
-def train_at_width(cfg, dev, lr, warmup, steps, counts, label):
+def train_at_width(cfg, dev, lr, warmup, steps, counts, label, hold=None):
     """Phases 20e and 21d: `cfg` at full width on the card, float32 weights
     drawn there, AdamW, remat="full", one repeated batch of TRAIN_B x
     TRAIN_S tokens: a first step under the profiler (`profile_train_step`;
@@ -3395,7 +3448,9 @@ def train_at_width(cfg, dev, lr, warmup, steps, counts, label):
     included. The losses must be finite and the last below the first.
     Prints and returns the step's ms, tokens/s, peak device memory, losses
     (the profiled step's first) and the profile (each backward kernel's
-    device ms beside all device kernels')."""
+    device ms beside all device kernels'). `hold(params, state, batch,
+    metrics, bound)` is called on the step's tensors, as the last step left
+    them, before they are freed."""
     from repro_torch.data.pipeline import DataConfig, global_batch
     from repro_torch.models import model, stack
     from repro_torch.models.schema import init_params
@@ -3463,9 +3518,11 @@ def train_at_width(cfg, dev, lr, warmup, steps, counts, label):
     bnd = step_bound(label, cfg, ShapeCell("train", TRAIN_S, TRAIN_B, "train"), step_s)
     out = dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s, peak_gib=peak, losses=losses,
                n_params=n_params, bound=bnd, **prof)
+    print(f"{label}: {time.perf_counter() - t_all:.1f} s in all")
+    if hold is not None:
+        hold(params, state, batch, m, bnd)
     del params, state, batch, m, prof
     torch.cuda.empty_cache()
-    print(f"{label}: {time.perf_counter() - t_all:.1f} s in all")
     return out
 
 
@@ -3529,11 +3586,16 @@ def training_phases(dev, records, full=None):
           f"remat=\"full\", {TRAIN_B} x {TRAIN_S} tokens")
     L = full.n_layers
     fl_ops.reset_launches()
+
+    def phase22(*tensors):  # on 20e's tensors, before train_at_width frees them
+        nums["22"] = planning_phase(full, dev, *tensors)
+
     nums["20e"] = train_at_width(
         full, dev, TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS,
         {"flash_attention": (lambda: fl_ops.mha.launches, 2 * L),
          "flash_attention_bwd": (lambda: fl_ops.mha_backward.launches, L)},
-        f"{full.name} x {L} layers")
+        f"{full.name} x {L} layers",
+        hold=phase22)
     launches = {"fwd": fl_ops.mha.launches, "bwd": fl_ops.mha_backward.launches}
     if fl_ops.mha_backward.launches_by_dtype["bfloat16"] != launches["bwd"]:
         raise AssertionError(f"backward launches {fl_ops.mha_backward.launches_by_dtype}: not bf16")
@@ -3581,6 +3643,100 @@ def training_phases(dev, records, full=None):
                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib_ms})
     return records, nums
+
+
+# ---------------------------------------------------------------------------
+# slice 17: the planning tools (launch/dryrun.py, roofline.py, perf.py)
+# ---------------------------------------------------------------------------
+
+# phase 22 (c): the perf variants that build (the two decode ones raise, C13)
+PERF_RUNNABLE = ("mixtral_remat", "mixtral_capacity")
+PERF_C13 = ("qwen2_int8_kv", "xlstm_tp_off")
+
+
+def _nbytes(tree) -> tuple[int, int]:
+    """(bytes, leaves) of the tensors of a nested dict / tuple."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size(), 1
+    items = tree.values() if isinstance(tree, dict) else tree
+    sums = [_nbytes(x) for x in items]
+    return sum(b for b, _ in sums), sum(n for _, n in sums)
+
+
+def planning_phase(cfg, dev, params, state, batch, metrics, bnd) -> dict:
+    """Phase 22, on 20e's tensors before they are freed: (a) the dry run's
+    cell for 20e's own step (`dryrun.build_cell(cfg, cell, make_local_mesh(
+    device=dev), remat="full")`, the one card: data 1, model 1, traced on
+    meta): its
+    per-device argument bytes equal the bytes 20e holds (the float32
+    masters, m, v, the step, the batch) and its output bytes the step's
+    outputs' (parameters, optimizer state, metrics) plus the output tuple's
+    table; (b) the roofline's compute and memory terms for that cell, over
+    one GPU, equal `step_bound`'s (`bnd`); (c) `perf.py`'s runnable variants
+    on the planning mesh, each record and its seconds, and the two decode
+    variants' C13 error. Returns the numbers."""
+    import tempfile
+
+    from repro_torch.launch import dryrun, perf, roofline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.config import ShapeCell
+
+    phase(f"22 the planning tools on 20e's cell: dryrun.build_cell on the card's mesh, the "
+          f"roofline's terms, perf.py's variants")
+    t_all = time.perf_counter()
+    cell = ShapeCell("train", TRAIN_S, TRAIN_B, "train")
+    mesh = make_local_mesh(device=dev)
+    t0 = time.perf_counter()
+    fn, args, in_sh, out_sh, extra = dryrun.build_cell(cfg, cell, mesh, remat="full")
+    t1 = time.perf_counter()
+    outs, flops = dryrun.trace(fn, args)
+    t2 = time.perf_counter()
+    arg_b = dryrun.per_device_bytes(args, in_sh, mesh)
+    out_b = dryrun.output_bytes(outs, out_sh, mesh)
+    held_b, held_n = _nbytes((params, state, batch))
+    step_b, step_n = _nbytes((params, state, metrics))
+    held_out = step_b + dryrun.OUTPUT_TUPLE_ENTRY_BYTES * step_n
+    print(f"(a) {cfg.name} x {cfg.n_layers} layers, {TRAIN_B} x {TRAIN_S}, remat full, mesh "
+          f"{mesh.shape} ({mesh.devices[0]}): accum {extra['accum']}; built in {t1 - t0:.2f} s, "
+          f"traced on meta in {t2 - t1:.2f} s ({flops:.6g} FLOPs counted, the analytic model's "
+          f"{bnd['total_flops']:.6g})")
+    print(f"    argument_size_in_bytes {arg_b} vs 20e's held tensors {held_b} ({held_n} "
+          f"tensors); output_size_in_bytes {out_b} vs the step's outputs {step_b} + "
+          f"{dryrun.OUTPUT_TUPLE_ENTRY_BYTES} x {step_n} leaves = {held_out}")
+    if (extra["accum"], arg_b, out_b) != (1, held_b, held_out):
+        raise AssertionError(f"dryrun bytes {arg_b} / {out_b} (accum {extra['accum']}) != "
+                             f"20e's {held_b} / {held_out} (accum 1)")
+    t = roofline.cell_terms(cfg, cell, 1, remat="full")
+    c_ms, m_ms = t["t_compute_s"] * 1e3, t["t_memory_s"] * 1e3
+    print(f"(b) roofline over 1 GPU: compute {c_ms:.4f} ms, memory {m_ms:.4f} ms; step_bound "
+          f"{bnd['flops_ms']:.4f} ms, {bnd['hbm_ms']:.4f} ms (PEAK_FLOPS {roofline.PEAK_FLOPS:g}, "
+          f"HBM_BW {roofline.HBM_BW:g}, one source)")
+    if (c_ms, m_ms) != (bnd["flops_ms"], bnd["hbm_ms"]):
+        raise AssertionError(f"roofline terms {c_ms} / {m_ms} ms != step_bound's "
+                             f"{bnd['flops_ms']} / {bnd['hbm_ms']} ms")
+    variants = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in PERF_RUNNABLE:
+            t0 = time.perf_counter()
+            entry = perf.run_variant(name, pathlib.Path(tmp) / "perf_iterations.json")
+            secs = time.perf_counter() - t0
+            rec = {k: v for k, v in entry.items() if k != "hypothesis"}
+            print(f"(c) {name}: {secs:.3f} s; record {json.dumps(rec, default=float)}")
+            variants[name] = dict(seconds=secs, before=entry["before"]["roofline_step_s"],
+                                  after=entry["after"]["roofline_step_s"])
+    for name in PERF_C13:
+        try:
+            perf.VARIANTS[name]()
+        except AttributeError as e:
+            if "cache_shardings" not in str(e):
+                raise
+            print(f"(c) {name}: {type(e).__name__}: {e} (ROADMAP C13, as the reference)")
+        else:
+            raise AssertionError(f"{name} built: C13 no longer holds")
+    secs = time.perf_counter() - t_all
+    print(f"phase 22: {secs:.1f} s")
+    return dict(arg_bytes=arg_b, out_bytes=out_b, compute_ms=c_ms, memory_ms=m_ms,
+                counted_flops=flops, variants=variants, seconds=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -4044,8 +4200,8 @@ FIG11_ONLINE_REF = [
 # JAX reference gives them for the reference smoke's cells
 # (`benchmarks/run.py::smoke`, run through `benchmarks.common.run_sweep` on
 # the CPU with strategy="map" and record=False; the same command as
-# FIG11_ONLINE_REF). The drained and the single-event leg share the grid's
-# numbers (the reference's steps are bitwise-interchangeable).
+# FIG11_ONLINE_REF). The vmap leg (grid) and the map leg share the grid's
+# numbers: the reference's vmap and map legs give the same cells.
 _SMOKE_GRID = [
     ("ssp", 0, 3550, 193, 0), ("ssp-local", 0, 3970, 256, 0), ("scalardb", 0, 1473, 73, 0),
     ("geotp", 0, 3879, 233, 0), ("ssp", 1, 4537, 253, 0), ("ssp-local", 1, 4397, 278, 0),
@@ -4056,7 +4212,7 @@ _SMOKE_GRID = [
 ]
 SMOKE_REF = {
     "grid": _SMOKE_GRID,
-    "single": _SMOKE_GRID,
+    "map": _SMOKE_GRID,
     "faults": [("ssp", 0, 3541, 195, 54), ("geotp", 0, 3329, 191, 67)],
     "partitions": [("ssp", 0, 2802, 140, 31), ("geotp", 0, 3241, 179, 41)],
     "protocols": [
@@ -4134,11 +4290,15 @@ def fig11_online_phase(device=None) -> int:
     return tot["launches"]
 
 
-def smoke_phase(device=None) -> int:
+def smoke_phase(cpu_future, device=None) -> int:
     """Phase 5f: `repro_torch.bench.smoke` with its bench file in a temporary
-    directory: every guard holds, every leg's cells equal SMOKE_REF, the
-    file holds the entry and one sweep a leg, two geo_schedule launches a
-    step. Returns the launches."""
+    directory: its card legs here (`smoke.card_legs`), its CPU legs (the map
+    leg and the seed comparator, `smoke.cpu_legs`) from the process phase 2
+    started (`cpu_future`, a `smoke_cpu_run`), then `smoke.finish`: every
+    guard holds (the vmap and map legs equal cell for cell among them),
+    every leg's cells equal SMOKE_REF, the file holds the entry and one
+    sweep a leg, two geo_schedule launches a step of the card legs. Returns
+    the launches."""
     import tempfile
 
     from repro_torch.bench import smoke
@@ -4146,9 +4306,15 @@ def smoke_phase(device=None) -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "BENCH_engine.json"
+        t_all = time.time()
         ops.geo_schedule.launches = 0
-        run = smoke.smoke(path, device=device)
+        results, walls = smoke.card_legs(path, device=device)
         launches = ops.geo_schedule.launches
+        t0 = time.perf_counter()
+        cpu = smoke_cpu_result(cpu_future)
+        print(f"the CPU legs' result read in {time.perf_counter() - t0:.3f} s (map leg "
+              f"{cpu.map_wall:.3f} s, seed comparator {cpu.seed_wall:.3f} s on the CPU)")
+        run = smoke.finish(results, walls, cpu, path, device=device, t_all=t_all)
         bench = json.loads(path.read_text())
     if run.rc != 0:
         raise AssertionError("the port's smoke failed a guard")
@@ -4157,10 +4323,14 @@ def smoke_phase(device=None) -> int:
     tags = sorted(f"smoke_{name}" for name in smoke.LEGS)
     if sorted(bench["sweeps"]) != tags or any("steps" not in bench["sweeps"][t] for t in tags):
         raise AssertionError(f"bench file sweeps {sorted(bench['sweeps'])} != {tags}")
+    if (run.entry["map_device"], bench["sweeps"]["smoke_map"]["torch_backend"]) != ("cpu",) * 2:
+        raise AssertionError("the map leg did not run on the CPU")
     env = {k: run.entry[k] for k in ("torch_backend", "device_name", "power_limit")}
-    print(f"bench file: the smoke entry ({len(run.entry)} keys) and sweeps {tags}; {env}")
-    steps = sum(r.steps for r in run.results.values())
-    on_card = next(iter(run.results.values())).states.now.device.type == "cuda"
+    print(f"bench file: the smoke entry ({len(run.entry)} keys) and sweeps {tags}; {env}; "
+          f"events_per_sec_seed {run.entry['events_per_sec_seed']}, speedup_vs_seed "
+          f"{run.entry['speedup_vs_seed']} (both on the CPU)")
+    steps = sum(run.results[n].steps for n in smoke.CARD_LEGS)
+    on_card = run.results["grid"].states.now.device.type == "cuda"
     if launches != (2 * steps if on_card else 0):
         raise AssertionError(f"geo_schedule launches {launches} != 2 x {steps} steps")
     bad = []
@@ -4172,14 +4342,15 @@ def smoke_phase(device=None) -> int:
         if diff or len(got) != len(SMOKE_REF[name]):
             bad.append((name, diff))
         d = res.drain
-        print(f"{name:10s} {len(res)} lanes: {res.steps} steps, {run.walls[name]:.3f} s "
-              f"(run {res.wall_s:.3f} s), {res.events / run.walls[name]:.1f} events/s, drain "
-              f"hit rate {d['drain_hit_rate']}, mean window {d['mean_window_len']}: "
+        print(f"{name:10s} {len(res)} {res.strategy_resolved} lanes on the "
+              f"{res.states.now.device.type}: {res.steps} steps, {run.walls[name]:.3f} s (run "
+              f"{res.wall_s:.3f} s), {res.events / run.walls[name]:.1f} events/s, drain hit "
+              f"rate {d['drain_hit_rate']}, mean window {d['mean_window_len']}: "
               f"{'the reference' if not diff else diff}")
     if bad:
         raise AssertionError(f"smoke legs differ from SMOKE_REF: {bad}")
-    print(f"smoke: every leg's cells equal to the reference; {steps} steps, geo_schedule "
-          f"launches {launches}")
+    print(f"smoke: every leg's cells equal to the reference; the card legs' {steps} steps, "
+          f"geo_schedule launches {launches}")
     return launches
 
 
@@ -4835,9 +5006,10 @@ def main() -> int:
     pool = concurrent.futures.ThreadPoolExecutor(len(LM_KERNELS))
     builds = {name: pool.submit(timed_build, name) for name in LM_KERNELS}
     pool.shutdown(wait=False)
-    # the CPU runs of phases 4-4c and 5g (a) (~5-75 s each, eager) beside the
-    # builds and phases 3-5d; phase 4d and 5g read them
-    cpu_pool, cpu_runs, seq_cpu_runs = start_cpu_runs()
+    # the CPU runs of phases 4-4c and 5g (a) (~5-75 s each, eager) and 5f's
+    # CPU legs (~60-100 s) beside the builds and phases 3-5d; phases 4d, 5f
+    # and 5g read them
+    cpu_pool, cpu_runs, seq_cpu_runs, smoke_cpu = start_cpu_runs()
     t0 = time.perf_counter()
     _build.build("geo_schedule", verbose=True)
     _build.load("geo_schedule")
@@ -4957,8 +5129,11 @@ def main() -> int:
           f"segments of {figures.FIG11_SEGMENT_S} s")
     launches += fig11_online_phase()
 
-    phase("5f the port's smoke (repro_torch.bench.smoke): fig5 YCSB, T=32, five legs")
-    launches += smoke_phase()
+    phase("5f the port's smoke (repro_torch.bench.smoke): fig5 YCSB, T=32, four legs on the "
+          "card, the map leg and the seed comparator on the CPU")
+    t0 = time.perf_counter()
+    launches += smoke_phase(smoke_cpu)
+    print(f"phase 5f: {time.perf_counter() - t0:.1f} s")
 
     phase(f"5g the sequential lanes on the card: strategy=\"map\" and engine.simulate, 12 "
           f"presets at T={SEQ_T} and fig5's world at T={T_MAIN}")

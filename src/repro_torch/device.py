@@ -8,6 +8,9 @@ import subprocess
 import torch
 
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
+# where a kernel wrapper computes by its kernel's plain version: the CPU, and
+# `meta` (the planning tools' trace: shapes and dtypes, no storage, no kernel)
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -23,6 +26,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
     return dev
+
+
+def plain_device(x: torch.Tensor) -> bool:
+    """Whether a kernel wrapper takes its plain version for `x` (a CPU or a
+    `meta` tensor); a CUDA tensor launches the kernel or raises."""
+    return x.device.type in PLAIN_DEVICES
 
 
 def smi_line(device=0) -> str:

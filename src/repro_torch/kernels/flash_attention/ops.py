@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import plain_device
 from repro_torch.kernels.flash_attention import flash_attention as _cuda
 from repro_torch.kernels.flash_attention import flash_attention_bwd as _cuda_bwd
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
@@ -62,7 +63,7 @@ def _check(q, k, v) -> None:
 
 def _forward(qt, kt, vt, causal, window, chunk_local, logit_cap):
     """One launch (or plain call) on the kernel's layout [B,H,S,d]."""
-    if qt.device.type == "cpu":
+    if plain_device(qt):
         return attention_ref(qt, kt, vt, causal=causal, window=window, chunk_local=chunk_local,
                              logit_cap=logit_cap)
     out = qt.new_empty(qt.shape[:3] + (vt.shape[-1],))
@@ -80,7 +81,7 @@ def _check_args(q, k, v, causal, window, logit_cap) -> None:
     if k.shape[1] != q.shape[1] and (causal or window):
         raise ValueError(f"mha: causal or windowed attention needs q_len == kv_len, got "
                          f"{q.shape[1]} and {k.shape[1]}")
-    if q.device.type not in ("cpu", "cuda"):
+    if not plain_device(q) and q.device.type != "cuda":
         raise ValueError(f"mha: no kernel for device {q.device}")
 
 
@@ -136,7 +137,7 @@ def mha_backward(q, k, v, out, dout, *, causal: bool = True, window: int = 0,
                          f"got {tuple(out.shape)} and {tuple(dout.shape)}")
     if {out.dtype, dout.dtype} != {q.dtype} or {out.device, dout.device} != {q.device}:
         raise TypeError("mha_backward: out and dout must share q's dtype and device")
-    if q.device.type == "cpu":
+    if plain_device(q):
         return attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window,
                                  chunk_local=chunk_local, logit_cap=logit_cap)
     _cuda_bwd.entry()

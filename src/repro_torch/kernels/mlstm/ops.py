@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import plain_device
 from repro_torch.kernels.mlstm import mlstm as _cuda
 from repro_torch.kernels.mlstm import mlstm_bwd as _cuda_bwd
 from repro_torch.kernels.mlstm.ref import mlstm_bwd_ref, mlstm_ref
@@ -64,7 +65,7 @@ def _forward(q, k, v, logi, logf):
     F = torch.cumsum(logf.float(), dim=-1).contiguous()
     qc, kc, vc = (x.contiguous() for x in (q, k, v))
     li = logi.float().contiguous()
-    if q.device.type == "cpu":
+    if plain_device(q):
         return mlstm_ref(q, k, v, logi, logf), (qc, kc, vc, li, F)
     out = torch.empty_like(vc)
     _cuda.launch(qc, kc, vc, F, li, out, q.shape[-1] ** -0.5)
@@ -98,7 +99,7 @@ def mlstm(q, k, v, logi, logf):
     Differentiable in every input (`_Mlstm`) when grad mode is on and one
     of them requires a gradient."""
     _check(q, k, v, logi, logf)
-    if q.device.type not in ("cpu", "cuda"):
+    if not plain_device(q) and q.device.type != "cuda":
         raise ValueError(f"mlstm: no kernel for device {q.device}")
     grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, logi, logf))
     if q.device.type == "cuda":
@@ -107,7 +108,7 @@ def mlstm(q, k, v, logi, logf):
             _cuda_bwd.entry()  # the backward's library too, before the forward's work
     if grad:
         return _Mlstm.apply(q, k, v, logi, logf)
-    if q.device.type == "cpu":
+    if plain_device(q):
         return mlstm_ref(q, k, v, logi, logf)
     return _forward(q, k, v, logi, logf)[0]
 
@@ -125,7 +126,7 @@ def mlstm_bwd(q, k, v, logi, F, h, dh):
                          f"and {tuple(dh.shape)}")
     if {h.dtype, dh.dtype} != {q.dtype} or {h.device, dh.device} != {q.device}:
         raise TypeError("mlstm_bwd: h and dh must share q's dtype and device")
-    if q.device.type == "cpu":
+    if plain_device(q):
         return mlstm_bwd_ref(q, k, v, logi, F, h, dh)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_bwd: no kernel for device {q.device}")

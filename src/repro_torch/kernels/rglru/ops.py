@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import plain_device
 from repro_torch.kernels.rglru import rglru as _cuda
 from repro_torch.kernels.rglru import rglru_bwd as _cuda_bwd
 from repro_torch.kernels.rglru.ref import gated_input, rglru_bwd_ref, rglru_ref
@@ -62,7 +63,7 @@ def _kernel_device(x, name, grad) -> None:
     """Raise unless x is on a device with a kernel; on CUDA, build and load
     the forward's library (and, with `grad`, the backward's) before any
     work, so one that cannot load raises first."""
-    if x.device.type == "cpu":
+    if plain_device(x):
         return
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
@@ -73,7 +74,7 @@ def _kernel_device(x, name, grad) -> None:
 
 def _scan(la, bc):
     """One launch of the contract (or its plain call) on contiguous tensors."""
-    if bc.device.type == "cpu":
+    if plain_device(bc):
         return rglru_ref(la, bc)
     out = torch.empty_like(bc)
     _cuda.launch(la, bc, out)
@@ -84,7 +85,7 @@ def _scan(la, bc):
 def _op(la, gx, h0):
     """One launch of the fused op (or the plain composition) on contiguous
     tensors."""
-    if gx.device.type == "cpu":
+    if plain_device(gx):
         b = gated_input(la, gx)
         return rglru_scan(la, b) if h0 is None else rglru_ref(la, b, h0)
     out = torch.empty_like(gx)
@@ -178,7 +179,7 @@ def rglru_bwd(log_a, x, h, dh, h0=None, fused=False):
         raise TypeError("rglru_bwd: h and dh must share x's dtype and device")
     if h0 is not None and not fused:
         raise ValueError("rglru_bwd: h0 belongs to the fused op")
-    if x.device.type == "cpu":
+    if plain_device(x):
         return rglru_bwd_ref(log_a, x, h, dh, h0=h0, fused=fused)
     _kernel_device(x, "rglru_bwd", True)
     la, xc, hc, dhc, h0c = _contiguous(log_a, x, h, dh, h0)

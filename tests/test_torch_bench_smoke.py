@@ -8,12 +8,15 @@ reference tables against the reference's own cells, on the CPU.
 * A small smoke (T = 8, 0.4 s, seeds 0-1, the fault and partition rows
   moved inside that horizon) and the reference's own smoke at the same
   constants both pass their guards. The port's entry has the reference
-  entry's keys, less the seed comparator's two, plus `runtime_env`'s and
-  ``map_leg``, and one sweep a leg; every key that both measure the same
-  way (the drain telemetry, the fault and partition fields, each
-  protocol's events, WAN rounds, WAN rounds a transaction and fast
-  commits) equals the reference's.
-* ``python -m repro_torch.bench.smoke`` without a card raises.
+  entry's keys (the seed comparator's included) plus `runtime_env`'s and
+  ``map_device``, and one sweep a leg; every key that both measure the
+  same way (the map leg's drain telemetry and loop iterations, the vmap
+  leg's, the fault and partition fields, each protocol's events, WAN
+  rounds, WAN rounds a transaction and fast commits) equals the
+  reference's. The seed comparator's cell equals the reference's
+  `engine.simulate` cell.
+* ``python -m repro_torch.bench.smoke`` without a card raises; its CPU
+  legs (the map leg, the seed comparator) run without one.
 * `chip_smoke`'s FIG11_ONLINE_REF and SMOKE_REF rows are fig11's online
   segments and the smoke's cells, in order.
 
@@ -66,12 +69,12 @@ def ref_entry_keys():
 
 def ref_leg_cells():
     """The reference smoke's cells and warmups, as `benchmarks/run.py`
-    builds them; its map leg is the port's grid and single legs."""
+    builds them; its map and vmap legs are the port's map and grid legs."""
     r = r_run
     grid = [dict(preset=p, seed=sd) for sd in r.SMOKE_SEEDS for p in r.SMOKE_PRESETS]
     return {
         "grid": (grid, r.SMOKE_WARMUP_S),
-        "single": (grid, r.SMOKE_WARMUP_S),
+        "map": (grid, r.SMOKE_WARMUP_S),
         "faults": ([dict(preset=p, seed=0, faults=r.SMOKE_FAULTS) for p in ("ssp", "geotp")],
                    r.SMOKE_WARMUP_S),
         "partitions": ([dict(preset=p, seed=0, faults=r.SMOKE_PARTITIONS, **r.SMOKE_REPLICAS)
@@ -90,9 +93,10 @@ def test_legs_are_the_reference_smoke_cells():
     port, ref = smoke.leg_cells(), ref_leg_cells()
     assert list(port) == list(smoke.LEGS) == list(ref)
     for name in smoke.LEGS:
-        cells, warmup_s, drain = port[name]
+        cells, warmup_s, strategy = port[name]
         assert (cells, warmup_s) == ref[name], name
-        assert drain == (name != "single"), name
+        assert strategy == ("map" if name == "map" else "vmap"), name
+    assert set(smoke.LEGS) == set(smoke.CARD_LEGS) | {"map"}
 
 
 _PART_OK = {"availability": 0.83, "failovers": 8, "stale_reads": 30}
@@ -124,10 +128,10 @@ GUARD_CASES = {
     "legs-equal": (smoke.legs_equal_guard, ([{"preset": "ssp"}], [_ROW], [dict(_ROW)]), None),
     "legs-events-differ": (smoke.legs_equal_guard,
                            ([{"preset": "ssp"}], [_ROW], [{**_ROW, "events": 11}]),
-                           "DRAIN PARITY"),
+                           "STRATEGY PARITY"),
     "legs-aborts-differ": (smoke.legs_equal_guard,
                            ([{"preset": "ssp"}], [_ROW], [{**_ROW, "aborts": 0}]),
-                           "DRAIN PARITY"),
+                           "STRATEGY PARITY"),
 }
 
 
@@ -166,14 +170,16 @@ SMALL = dict(
 SAME_KEYS = (
     "worlds", "terminals", "horizon_s", "events_batched", "drain_hit_rate",
     "drain_hit_rate_vmap", "mean_window_len", "window_stops", "chained",
-    "scheduled_stop_share", "plan_fused_vmap", "loop_iters_vmap", "availability_fault",
+    "scheduled_stop_share", "plan_fused_vmap", "loop_iters_map", "loop_iters_vmap",
+    "availability_fault",
     "abort_causes_fault", "commits_during_fault", "availability_partition",
     "failovers_partition", "stale_reads_partition", "max_staleness_us_partition", "protocols",
 )
-# wall-clock readings, and the map leg's loop count (the port's stand-in leg)
+# wall-clock readings
 TIMED_KEYS = (
     "wall_batched_s", "events_per_sec_batched", "events_per_sec_map", "events_per_sec_vmap",
-    "vmap_vs_map", "wall_fault_s", "wall_partition_s", "wall_protocols_s", "total_wall_s",
+    "vmap_vs_map", "events_per_sec_seed", "speedup_vs_seed", "wall_fault_s",
+    "wall_partition_s", "wall_protocols_s", "total_wall_s",
 )
 JAX_KEYS = ("jax_version", "jax_backend", "jax_device_count")
 
@@ -200,24 +206,27 @@ def test_tiny_smoke_records_the_reference_entry_keys(small_smokes):
     run, path, _, _ = small_smokes
     assert run.rc == 0
     env = runtime_env("cpu")
-    assert set(smoke.LEFT_OUT) <= ref_entry_keys()
-    assert set(run.entry) == (ref_entry_keys() - set(smoke.LEFT_OUT)) | set(env) | {"map_leg"}
+    assert {"events_per_sec_seed", "speedup_vs_seed"} <= ref_entry_keys()
+    assert set(run.entry) == ref_entry_keys() | set(env) | {"map_device"}
     bench = load_bench(path)
     assert bench["smoke"] == run.entry
     assert sorted(bench["sweeps"]) == sorted(f"smoke_{n}" for n in smoke.LEGS)
     for name in smoke.LEGS:
         assert bench["sweeps"][f"smoke_{name}"]["steps"] == run.results[name].steps
     assert [m["events"] for m in run.results["grid"].metrics] == [
-        m["events"] for m in run.results["single"].metrics]
-    assert run.entry["events_batched"] == run.results["grid"].events > 0
-    # the *_map keys read the single-event leg, and the entry says so
-    assert run.entry["map_leg"] == smoke.MAP_LEG
-    assert run.entry["loop_iters_map"] == run.results["single"].drain["loop_iters"]
+        m["events"] for m in run.results["map"].metrics]
+    # the *_map and *_batched keys read the map leg, which ran on the CPU
+    res_map = run.results["map"]
+    assert (res_map.strategy_resolved, res_map.states.now.device.type) == ("map", "cpu")
+    assert bench["sweeps"]["smoke_map"]["torch_backend"] == run.entry["map_device"] == "cpu"
+    assert run.entry["events_batched"] == res_map.events > 0
+    assert run.entry["loop_iters_map"] == res_map.drain["loop_iters"]
+    assert run.entry["loop_iters_vmap"] == run.results["grid"].drain["loop_iters"]
 
 
 def test_smoke_entry_keys_are_sorted_into_same_timed_and_left_out():
     ref = ref_entry_keys()
-    groups = (SAME_KEYS, TIMED_KEYS, ("loop_iters_map",), smoke.LEFT_OUT)
+    groups = (SAME_KEYS, TIMED_KEYS)
     assert sorted(k for g in groups for k in g) == sorted(ref)
 
 
@@ -253,6 +262,41 @@ def test_cli_without_a_card_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         smoke.main(["--path", str(tmp_path / "b.json")])
     assert not (tmp_path / "b.json").exists()
+
+
+def test_cpu_legs_run_on_the_cpu_without_a_card(monkeypatch):
+    """The map leg and the seed comparator ask for the CPU themselves: they
+    run where no card is, and record nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, value in SMALL.items():
+        monkeypatch.setattr(smoke, name, value)
+    cpu = smoke.cpu_legs()
+    assert (cpu.map.strategy_resolved, cpu.map.states.now.device.type) == ("map", "cpu")
+    assert len(cpu.map) == len(smoke.leg_cells()["map"][0])
+    assert cpu.map.events > 0 and cpu.seed_events > 0 and cpu.seed_wall > 0
+
+
+def test_seed_comparator_is_the_reference_seed_cell():
+    """`seed_leg` runs the reference's seed cell (`benchmarks/run.py`'s
+    `engine.simulate` call): equal events at the small constants."""
+    from benchmarks import common as r_common
+    from repro.core import engine as r_engine
+    from repro.core import protocol as r_protocol
+    from repro.core.netmodel import make_net_params
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name, value in SMALL.items():
+            mp.setattr(smoke, name, value)
+        events, _ = smoke.seed_leg(smoke.smoke_banks()[0])
+    T = SMALL["SMOKE_T"]
+    net = make_net_params()
+    cfg = r_engine.SimConfig(
+        terminals=T, max_ops=5, num_ds=4, bank_txns=256, proto=r_protocol.PRESETS["ssp"],
+        warmup_us=int(SMALL["SMOKE_WARMUP_S"] * 1e6),
+        horizon_us=int(SMALL["SMOKE_HORIZON_S"] * 1e6), drain=False)
+    bank = r_common.ycsb_bank(T, theta=0.9, dist_ratio=0.2, seed=0)
+    _, m = r_engine.simulate(cfg, bank, net.tau_dm, net.tau_ds, jitter_milli=30)
+    assert events == m["events"] > 0
 
 
 def test_chip_smoke_tables_are_the_figure_and_smoke_cells():
@@ -317,7 +361,7 @@ def ref_smoke():
              for sd in r.SMOKE_SEEDS}
     out = {}
     for name, (cells, warmup_s) in ref_leg_cells().items():
-        if name == "single":
+        if name == "map":
             out[name] = out["grid"]
             continue
         res = common.run_sweep(f"ref_{name}", cells, None, r.SMOKE_T,

@@ -45,9 +45,9 @@ def test_import_leaves_jax_and_repro_unloaded():
 # slice 10's fault injection, slice 11's bench harness, slice 12's
 # sequential lanes, slice 13's figures, claims, examples and shims,
 # slice 14's training (the optimizer, the data pipeline, the checkpoints,
-# the launcher, the flash backward's binding) and slice 16's FLOPs model,
-# mesh and sharding tools, elastic resizing, compression and placement,
-# beside slice 1's
+# the launcher, the flash backward's binding), slice 16's FLOPs model,
+# mesh and sharding tools, elastic resizing, compression and placement, and
+# slice 17's planning tools, beside slice 1's
 SLICE_MODULES = [
     "configs/registry.py",
     "models/config.py",
@@ -105,6 +105,9 @@ SLICE_MODULES = [
     "core/engine/placement.py",
     "core/engine/batch.py",
     "core/engine/api.py",
+    "launch/roofline.py",
+    "launch/dryrun.py",
+    "launch/perf.py",
 ]
 
 
