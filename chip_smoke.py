@@ -114,7 +114,11 @@ Slice 2, the serving path of the LM stack (dense GQA, llama3.2-3b):
    decode B = 1 over 64 slots, slot 0 valid), within 2e-5 (f32) / 2e-2
    (bf16) abs + rel; in bf16 at the serving shapes and the EXTRA_* cases
    also per query row (||d|| <= 1e-2 ||ref|| + 1e-3: sees a dropped key
-   tile) and bit for bit over two calls; CUDA-event times of the kernel,
+   tile) and bit for bit over two calls; flash with its rows' lse output
+   (what a training step's forward writes) on the FLASH / WIDE / EXTRA
+   cases and the prefill shape, both dtypes: the output bit for bit that of
+   the launch without it, the lse within 1e-4 abs + rel of the plain
+   version's; CUDA-event times of the kernel,
    its plain version and `F.scaled_dot_product_attention` (timed only,
    never used by the port);
 8. model, GPU vs CPU — llama3.2-3b at full width cut to 2 layers, one set of
@@ -141,7 +145,11 @@ Slice 3, the recurrent mixers (xlstm-350m, recurrentgemma-9b):
 10. kernels vs plain versions on the card — `mlstm_chunk` on MLSTM_CASES at
     10 x TOL and `rglru_scan` on RGLRU_CASES at 5 x TOL (the reference
     tests' limits), both dtypes, mlstm's bf16 (tensor-core) kernel also per
-    query row and bit for bit over two calls; the RG-LRU kernel's fused
+    query row and bit for bit over two calls; mlstm with its rows' m and n
+    output (what a training step's forward writes) on MLSTM_CASES and the
+    serving shape, both dtypes: h bit for bit that of the launch without
+    them, m within 1e-4 abs + rel and n within 1e-3 relative L2 of the plain
+    version's; the RG-LRU kernel's fused
     entry `ops.rglru` (b formed in the kernel) against the plain
     composition (`gated_input`, then `rglru_ref`) on RGLRU_CASES with and
     without a carry h0, and from h0 at S = 1 and 300 at the serving width,
@@ -330,21 +338,23 @@ Slice 14, training on the card (`forward_train`, the loss, the AdamW train
 step, the data pipeline, the one-round-commit checkpoints, the launcher),
 run after phase 19:
 
-20a. build — `flash_attention_bwd.cu` (the flash backward: an lse / D
-   pre-pass, a dK / dV kernel, a dQ kernel; mma.sync for bf16 with
-   dh <= 128, the CUDA cores else), started in phase 2 beside the
-   other LM kernels and printed in phase 6 with ptxas's line for each
-   variant;
-20b. the backward vs its plain version `attention_bwd_ref` (float32 math)
-   on phase 7's FLASH_CASES and EXTRA_FLASH_CASES shapes and BWD_EXTRA
-   (llama3.2-3b's [2, 2048, 24/8, 128], recurrentgemma-9b's local
-   attention as 21d trains it, [2, 2048, 16/1, 256], window 2048, cap 50,
-   MLA's dv 64 < dh 96, a window, a chunk-local band, a cap of 50, a
-   non-causal and a cross shape), float32
-   within 1e-4 abs + rel, bf16 each of dQ / dK / dV within 2e-2 relative
-   L2, two calls bit for bit equal; CUDA-event times of the kernel, its
-   plain version and SDPA's backward (timed only) at llama's shape, beside
-   the bound from its flops and bytes;
+20a. build — `flash_attention_bwd.cu` (the flash backward: a D pass, then
+   bf16 on wgmma, a dK / dV kernel and a dQ kernel, and float32 on the CUDA
+   cores), started in phase 2 beside the other LM kernels and printed in
+   phase 6 with ptxas's line for each variant (a kernel whose wgmma
+   instructions ptxas serialized fails the build, here as for every kernel);
+20b. the backward vs its plain version `attention_bwd_ref` (float32 math),
+   both given the forward kernel's rows' lse, on phase 7's FLASH_CASES and
+   EXTRA_FLASH_CASES shapes and BWD_EXTRA (llama3.2-3b's
+   [2, 2048, 24/8, 128], recurrentgemma-9b's local attention as 21d trains
+   it, [2, 2048, 16/1, 256], window 2048, cap 50, MLA's dv 64 < dh 96, a
+   window, a chunk-local band, caps of 50 at dh 256 and 128 and of 5 at dh
+   64, a non-causal and a cross shape), float32 within 1e-4 abs + rel, bf16
+   each of dQ / dK / dV within 2e-2 relative L2, two calls bit for bit equal;
+   CUDA-event times of the kernel and its plain version at llama's and at
+   recurrentgemma's shape beside the bound from their flops and bytes, with
+   SDPA's backward (timed only) at llama's and, without the cap, as a
+   same-work comparator at recurrentgemma's;
 20c. one train step (`make_train_step`'s body) of llama3.2-3b at full
    width cut to 2 layers, weights drawn on the CPU and copied, 2 x 128
    tokens, on both devices: the loss within 1e-2, grad_norm within 2%,
@@ -379,14 +389,15 @@ run after phase 19:
 Slice 15, the recurrent families train on the card (the mLSTM and RG-LRU
 backward kernels), run after phase 20:
 
-21a. build — `mlstm_chunk_bwd.cu` (an m / n / c pre-pass, a dK / dV /
-   dlogi kernel and a dQ / dF kernel; mma.sync for bf16, the CUDA cores
-   for float32) and
+21a. build — `mlstm_chunk_bwd.cu` (a c / 1/n row pass, then bf16 on wgmma,
+   a dK / dV / dlogi kernel and a dQ / dF kernel, and float32 on the CUDA
+   cores) and
    `rglru_scan_bwd.cu` (the reverse scan, one thread a channel; the
    contract's and the fused op's entries), started in phase 2 beside the
    other LM kernels and printed in phase 6 with ptxas's lines;
 21b. each backward kernel against its plain version (`mlstm_bwd_ref`,
-   `rglru_bwd_ref`, float32 math) on MLSTM_CASES / RGLRU_CASES, ragged S
+   given the forward kernel's rows' m and n, `rglru_bwd_ref`, float32
+   math) on MLSTM_CASES / RGLRU_CASES, ragged S
    and dh (MLSTM_BWD_EXTRA, RGLRU_BWD_EXTRA) and the training shapes
    (mLSTM [2, 4, 2048, 256], RG-LRU [2, 2048, 4096] with log_a in the
    model's range; the contract, and the fused entry with and without h0),
@@ -395,7 +406,7 @@ backward kernels), run after phase 20:
    plain version at the training shapes beside the bound (no PyTorch call
    computes either gradient: no library time);
 21c. reduced xlstm-350m in bf16 (the training path's type, the mLSTM
-   backward's mma.sync route) layer by layer, GPU vs CPU on the CPU's
+   backward's wgmma route) layer by layer, GPU vs CPU on the CPU's
    input to each layer: the gradients of the input and of the weights
    within 20d's 5e-2 relative L2 (`layer_grads_both`); then, printed and
    not held, its whole bf16 step's gradients GPU vs CPU and the CPU's bf16
@@ -544,7 +555,9 @@ def ptxas_lines(report: str) -> list[str]:
 
 def print_build(name: str, secs: float, note: str = "", strict: bool = False) -> None:
     """The build's time and ptxas's line for each variant; `strict`: fail
-    unless every variant keeps its state in registers (no stack, no spill)."""
+    unless every variant keeps its state in registers (no stack, no spill).
+    Every build fails if ptxas serialized a kernel's wgmma instructions
+    (its C7510 / C7520 notes: each product would wait for the last)."""
     from repro_torch.kernels import _build
 
     print(f"built {_build.library_path(name).relative_to(ROOT)} in {secs:.2f} s{note}")
@@ -554,6 +567,10 @@ def print_build(name: str, secs: float, note: str = "", strict: bool = False) ->
     bad = [e[0] for e in ptxas_entries(report) if any(e[2:])]
     if strict and bad:
         raise AssertionError(f"{name}: stack frame or spills in {bad}")
+    serial = [kernel_label(m) for m in re.findall(
+        r"wgmma\.mma_async instructions are serialized.*?function '(\S+?)'", report)]
+    if serial:
+        raise AssertionError(f"{name}: ptxas serialized the wgmma instructions of {serial}")
 
 
 def geo_inputs(n, d, k, seed):
@@ -1448,6 +1465,38 @@ def check_tight(kind, case, dev, seed=0, logit_cap=0.0, valid_slots=None, patter
     return check_case(*built, bf16, dev, tight=True)
 
 
+def check_flash_stats(case, dtype, dev, seed=0, logit_cap=0.0) -> float:
+    """The forward kernel with its lse output (what `mha` writes under a
+    gradient) against the same launch without it: the output bit for bit
+    equal; the lse within BWD_F32_TOL abs + rel of its plain version's
+    (`attention_ref(..., with_lse=True)`, one batch row and KV head at a
+    time). Returns the lse's max |d|."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, S, H, KV, dh, causal, window, cl, dv = flash_dims(case)
+    q, k, v = _to_bhsd(*flash_inputs(case, dtype, dev, seed,
+                                     scale=SOFTCAP_INPUT_SCALE if logit_cap else 1.0))
+    mask = (causal, window, cl, logit_cap)
+    bare = ops._forward(q, k, v, *mask)
+    out, lse = ops._forward(q, k, v, *mask, with_lse=True)
+    G = H // KV
+    ref = torch.empty_like(lse)
+    for b in range(B):
+        for n in range(KV):
+            h = slice(n * G, (n + 1) * G)
+            ref[b:b + 1, h] = attention_ref(q[b:b + 1, h], k[b:b + 1, n:n + 1],
+                                            v[b:b + 1, n:n + 1], causal=causal, window=window,
+                                            chunk_local=cl, logit_cap=logit_cap,
+                                            with_lse=True)[1]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    label = f"flash {case} {dtype} cap {logit_cap} with lse"
+    if not torch.equal(out, bare):
+        raise AssertionError(f"{label}: the output differs from the launch without lse")
+    return check_close(lse, ref, BWD_F32_TOL, f"{label}: lse")
+
+
 def check_flash(case, dtype, dev, seed=0, logit_cap=0.0) -> float:
     """The kernel (through `ops.mha`) against its plain version."""
     return check_case(*flash_case(case, dtype, dev, seed, logit_cap), dtype, dev)
@@ -1856,6 +1905,18 @@ def serving_phases(dev, builds):
             err_d = max(err_d, e)
         print(f"rows {kind:6s} {str(case):40s} bf16 cap {cap:g} {pat or ''}: max |d| {e:.3g}, "
               f"worst row ||d||/||ref|| {r:.3g} (limit {ROW_RTOL}); two calls equal")
+    # the forward with its rows' lse (what `mha` writes under a gradient) against the same
+    # launch without it: the output bit for bit, the lse against the plain version's
+    err_l = 0.0
+    for dt in (torch.float32, bf16):
+        for i, case in enumerate(FLASH_CASES + WIDE_FLASH_CASES):
+            err_l = max(err_l, check_flash_stats(case, dt, dev, seed=i))
+        for i, (case, cap) in enumerate(EXTRA_FLASH_CASES):
+            err_l = max(err_l, check_flash_stats(case, dt, dev, seed=i, logit_cap=cap))
+        err_l = max(err_l, check_flash_stats(f_main, dt, dev))
+    print(f"flash with lse (FLASH / WIDE / EXTRA cases and {f_main}, float32 and bf16): each "
+          f"output equal bit for bit to the launch without lse; lse max |d| {err_l:.3g} (tol "
+          f"{BWD_F32_TOL} abs + rel)")
     f_ms, f_plain, f_lib = time_flash(f_main, dev)
     f_work = flash_work(f_main, 2)
     f_bound, f_by = bound(*f_work, BF16_TENSOR_OPS_PER_S)
@@ -2037,6 +2098,31 @@ def mlstm_inputs(case, dtype, dev, seed):
     logi = 0.5 * torch.randn((B, H, S), generator=gen, device=dev)
     logf = torch.nn.functional.logsigmoid(torch.randn((B, H, S), generator=gen, device=dev) + 2)
     return q, k, v, logi, logf
+
+
+def check_mlstm_stats(case, dtype, dev, seed=0) -> float:
+    """The forward kernel with its m / n outputs (what `mlstm` writes under
+    a gradient) against the same launch without them: h bit for bit equal;
+    m within BWD_F32_TOL abs + rel of the plain version's
+    (`mlstm_ref(..., with_stats=True)`), n within STATS_N_RL2 relative L2
+    (σ is a signed float32 sum in another order). Returns m's max |d|."""
+    from repro_torch.kernels.mlstm import ops
+    from repro_torch.kernels.mlstm.ref import mlstm_ref
+
+    x = mlstm_inputs(case, dtype, dev, seed)
+    bare = ops._forward(*x)[0]
+    h, m, n, _ = ops._forward(*x, with_stats=True)
+    _, m_ref, n_ref = mlstm_ref(*x, with_stats=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    label = f"mlstm {case} {dtype} with m and n"
+    if not torch.equal(h, bare):
+        raise AssertionError(f"{label}: h differs from the launch without the statistics")
+    e = check_close(m, m_ref, BWD_F32_TOL, f"{label}: m")
+    rl = rel_l2(n, n_ref)
+    if not rl <= STATS_N_RL2:
+        raise AssertionError(f"{label}: n's relative L2 {rl:.4g} (limit {STATS_N_RL2})")
+    return e
 
 
 def rglru_inputs(case, dtype, dev, seed):
@@ -2616,6 +2702,13 @@ def recurrent_phases(dev, records):
                   f"max |d| {ed:.3g}")
     xl, rg = registry.get(XLSTM_ARCH), registry.get(RG_ARCH)
     m_main, r_main, f_rg, d_rg = recurrent_shapes(xl, rg)
+    # the forward with its rows' m and n (what `mlstm` writes under a gradient) against the
+    # same launch without them: h bit for bit, m and n against the plain version's
+    err_s = max(check_mlstm_stats(c, dt, dev, seed=i) for dt in (torch.float32, torch.bfloat16)
+                for i, c in enumerate(MLSTM_CASES + [m_main]))
+    print(f"mlstm with m and n (MLSTM_CASES and {m_main}, float32 and bf16): h equal bit for "
+          f"bit to the launch without them; m max |d| {err_s:.3g} (tol {BWD_F32_TOL} abs + rel), "
+          f"n within {STATS_N_RL2} relative L2")
     errs["rglru_scan"] = rglru_phase(r_main, dev)
     # the serving shapes: mlstm in float32 at SERVE_F32_TOL and in bf16; the
     # capped attention in both dtypes
@@ -3157,11 +3250,13 @@ def slice8_phases(dev, records):
 
 # phase 20b: (B, Sq, Sk, H, KV, dh, dv, causal, window, chunk_local, cap) of
 # the backward's checks beyond phase 7's FLASH_CASES and EXTRA_FLASH_CASES
-# shapes: llama3.2-3b's training shape (BWD_MAIN, the timed one), minicpm3's
-# MLA heads (dv 64 < dh 96), a sliding window, a chunk-local band, a cap of
-# 50 at dh 256, recurrentgemma-9b's local attention at its training shape of
-# phase 21d (BWD_RG: MQA at dh 256, window 2048, cap 50, the CUDA-core
-# route), a non-causal encoder and a cross shape (Sk != Sq)
+# shapes: llama3.2-3b's training shape (BWD_MAIN, timed), minicpm3's MLA
+# heads (dv 64 < dh 96), a sliding window, a chunk-local band, a cap of 50 at
+# dh 256, recurrentgemma-9b's local attention at its training shape of phase
+# 21d (BWD_RG, timed: MQA at dh 256, window 2048, cap 50; the bf16 route's
+# dh-256 kernels with the query heads split over blocks), a non-causal
+# encoder and a cross shape (Sk != Sq), and caps of 50 and 5 at dh 128 and
+# 64 (the bf16 route's dh <= 128 kernels with the cap)
 BWD_MAIN = (2, 2048, 2048, 24, 8, 128, 128, True, 0, False, 0.0)
 BWD_RG = (2, 2048, 2048, 16, 1, 256, 256, True, 2048, False, 50.0)
 BWD_EXTRA = [
@@ -3173,8 +3268,11 @@ BWD_EXTRA = [
     (1, 1500, 1500, 8, 1, 256, 256, True, 1024, False, 50.0),
     (2, 777, 777, 8, 8, 64, 64, False, 0, False, 0.0),
     (2, 96, 1024, 16, 16, 64, 64, False, 0, False, 0.0),
+    (1, 512, 512, 4, 2, 128, 128, True, 256, False, 50.0),
+    (2, 300, 300, 4, 1, 64, 64, True, 0, False, 5.0),
 ]
 BWD_F32_TOL = 1e-4  # abs + rel: float32 sums in another order
+STATS_N_RL2 = 1e-3  # the mLSTM forward's n: a signed float32 sum in another order
 BWD_BF16_RL2 = 2e-2  # relative L2 of each of dQ / dK / dV in bf16
 # phases 20c-20e: the GPU-vs-CPU train step's bounds
 TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RL2 = 1e-2, 2e-2, 5e-2
@@ -3204,9 +3302,10 @@ def bwd_cases():
 
 
 def bwd_inputs(case, dtype, dev, seed=0):
-    """q [B,H,Sq,dh], k [B,KV,Sk,dh], v [B,KV,Sk,dv], dout [B,H,Sq,dv] and
-    the forward kernel's out on them (what training saves), the kernel's
-    layout; the mask's keywords."""
+    """q [B,H,Sq,dh], k [B,KV,Sk,dh], v [B,KV,Sk,dv], the forward kernel's
+    out on them and its rows' lse float32 [B,H,Sq] (what training saves),
+    dout [B,H,Sq,dv], the kernel's layout, in `mha_backward`'s order; the
+    mask's keywords."""
     from repro_torch.kernels.flash_attention import ops as fl_ops
 
     B, Sq, Sk, H, KV, dh, dv, causal, window, cl, cap = case
@@ -3215,8 +3314,8 @@ def bwd_inputs(case, dtype, dev, seed=0):
                    ((B, H, Sq, dh), (B, KV, Sk, dh), (B, KV, Sk, dv), (B, H, Sq, dv)))
     kw = dict(causal=causal, window=window, chunk_local=cl, logit_cap=cap)
     with torch.no_grad():
-        o = fl_ops.mha(*(x.transpose(1, 2) for x in (q, k, v)), **kw).transpose(1, 2)
-    return (q, k, v, o.contiguous(), do), kw
+        o, lse = fl_ops._forward(q, k, v, causal, window, cl, cap, with_lse=True)
+    return (q, k, v, o, do, lse), kw
 
 
 def rel_l2(a, b) -> float:
@@ -3226,9 +3325,10 @@ def rel_l2(a, b) -> float:
 
 def check_bwd(case, dtype, dev, seed=0):
     """The backward kernel against `attention_bwd_ref` (float32 math) on
-    one case: float32 within BWD_F32_TOL abs + rel, bf16 each of dQ / dK /
-    dV within BWD_BF16_RL2 relative L2; two calls bit for bit equal.
-    Returns (max |d|, the worst relative L2)."""
+    one case, both given the forward kernel's lse: float32 within
+    BWD_F32_TOL abs + rel, bf16 each of dQ / dK / dV within BWD_BF16_RL2
+    relative L2; two calls bit for bit equal. Returns (max |d|, the worst
+    relative L2)."""
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
@@ -3274,7 +3374,10 @@ def bwd_work(case, itemsize):
 
 def time_bwd(case, dev):
     """(kernel, plain, SDPA's backward) ms per call at one bf16 shape, CUDA
-    events. SDPA's backward is timed here only, never used by the port."""
+    events. SDPA's backward is timed here only, never used by the port; it
+    computes the function only without a cap and a window shorter than S
+    (else its time is a same-work comparator without the cap, the causal
+    mask standing in for a window of S)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fl_ops
@@ -3283,11 +3386,18 @@ def time_bwd(case, dev):
     args, kw = bwd_inputs(case, torch.bfloat16, dev, 1)
     k_ms = cuda_ms(lambda: fl_ops.mha_backward(*args, **kw), 5)
     p_ms = cuda_ms(lambda: attention_bwd_ref(*args, **kw), 2)
-    q, k, v, _, do = args
+    q, k, v, _, do, _ = args
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=kw["causal"], enable_gqa=True)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 5)
     return k_ms, p_ms, lib_ms
+
+
+def sdpa_computes(case) -> bool:
+    """Does SDPA's causal / full mask compute this case's function (no cap,
+    no window shorter than S, no chunk-local band)?"""
+    B, Sq, Sk, H, KV, dh, dv, causal, window, cl, cap = case
+    return not cap and (not window or (window >= Sq and not cl))
 
 
 def train_step_both(cfg, weights, batch, dev, opt, label, routed=False, read_counts=None):
@@ -3385,8 +3495,8 @@ PROFILE_TOP = 8  # phases 20e, 21d: the profiled step's kernels with the most de
 # the backward kernels of a profiled train step, by the name of the kernel
 # whose launches they are: the flash backward's (`bwd_pre` / `bwd_dkdv` /
 # `bwd_dq`, their mma variants), the mLSTM backward's and the RG-LRU's
-BWD_KERNEL_RES = {"flash_attention_bwd": r"(?<![a-z_])bwd_(pre|dkdv|dq)_",
-                  "mlstm_bwd": r"mlstm_bwd_(pre|dkdv|dq)_(mma_)?kernel",
+BWD_KERNEL_RES = {"flash_attention_bwd": r"(?<![a-z_])bwd_(delta|dkdv|dq|sum)_",
+                  "mlstm_bwd": r"mlstm_bwd_(c|dkdv|dq)_(wgmma_)?kernel",
                   "rglru_bwd": r"rglru_bwd_kernel"}
 
 
@@ -3552,13 +3662,19 @@ def training_phases(dev, records, full=None):
             err = max(err, e)
             print(f"bwd {str(case):58s} {str(dt)[6:]:8s} max |d| {e:.3g}, worst relative L2 "
                   f"{rl:.3g}; two calls equal", flush=True)
-    k_ms, p_ms, lib_ms = time_bwd(BWD_MAIN, dev)
-    work = bwd_work(BWD_MAIN, 2)
-    b_ms, b_by = bound(*work, BF16_TENSOR_OPS_PER_S)
-    print(f"bwd {BWD_MAIN} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA backward "
-          f"{lib_ms:.4f} ms; {work[0]} bytes, {work[1]:.4g} flops, bound {b_ms:.4g} ms ({b_by}); "
-          f"{work[1] / k_ms / 1e9:.2f} TFLOP/s")
-    nums["bwd"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms)
+    for key, case in (("bwd", BWD_MAIN), ("bwd_rg", BWD_RG)):
+        k_ms, p_ms, lib_ms = time_bwd(case, dev)
+        work = bwd_work(case, 2)
+        b_ms, b_by = bound(*work, BF16_TENSOR_OPS_PER_S)
+        sdpa = ("SDPA backward" if sdpa_computes(case) else
+                "SDPA backward without the cap (a same-work comparator, not the function)")
+        print(f"bwd {case} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, {sdpa} "
+              f"{lib_ms:.4f} ms; {work[0]} bytes, {work[1]:.4g} flops, bound {b_ms:.4g} ms "
+              f"({b_by}); {work[1] / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+        nums[key] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms if sdpa_computes(case) else None,
+                         comparator_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    k_ms, p_ms, lib_ms, b_ms, b_by = (nums["bwd"][x] for x in ("ms", "plain_ms", "library_ms",
+                                                               "bound_ms", "bound_by"))
 
     cpu = torch.device("cpu")
     full = full or registry.get(SERVE_ARCH)
@@ -3602,7 +3718,8 @@ def training_phases(dev, records, full=None):
     prof = nums["20e"]
     if prof["device_ms"] is not None:
         print(f"the flash backward: {prof['bwd_kernels']['flash_attention_bwd']} kernels, "
-              f"{3 * L} expected; isolated (20b) {L} x {k_ms:.3f} ms = {L * k_ms:.1f} ms, an "
+              f"{3 * L} expected (D, dK / dV, dQ a call); isolated (20b) {L} x {k_ms:.3f} ms = "
+              f"{L * k_ms:.1f} ms, an "
               f"estimate")
 
     phase("20f the launcher and its checkpoints on the card (the reference integration test's "
@@ -3782,15 +3899,17 @@ def recurrent_train_shapes():
 
 
 def mlstm_bwd_inputs(case, dtype, dev, seed):
-    """`mlstm_inputs`, the forward's F = cumsum(logf) and its output h (the
-    kernel's), and dh ~ N(0, 1) in `dtype`: the arguments of `ops.mlstm_bwd`."""
+    """`mlstm_inputs`, the forward's F = cumsum(logf), its output h and its
+    rows' m and n (the kernel's, as a training step's forward writes them),
+    and dh ~ N(0, 1) in `dtype`: the arguments of `ops.mlstm_bwd`."""
     from repro_torch.kernels.mlstm import ops
 
     q, k, v, logi, logf = mlstm_inputs(case, dtype, dev, seed)
     with torch.no_grad():
-        h = ops.mlstm(q, k, v, logi, logf)
+        h, m, n, _ = ops._forward(q, k, v, logi, logf, with_stats=True)
     gen = torch.Generator(device=dev).manual_seed(seed + 1000)
-    return q, k, v, logi, torch.cumsum(logf, dim=-1), h, _randn(q.shape, dtype, dev, gen)
+    return (q, k, v, logi, torch.cumsum(logf, dim=-1), h, _randn(q.shape, dtype, dev, gen), m,
+            n)
 
 
 def rglru_bwd_inputs(case, dtype, dev, seed, entry):
@@ -3845,8 +3964,8 @@ def same_bits(a, b) -> bool:
 
 def check_mlstm_bwd(case, dtype, dev, seed=0):
     """The mLSTM backward kernel (`ops.mlstm_bwd`) against `mlstm_bwd_ref`
-    (float32 math) on one case (`check_grads`); two calls bit for bit
-    equal."""
+    (float32 math) on one case, both given the forward kernel's m and n
+    (`check_grads`); two calls bit for bit equal."""
     from repro_torch.kernels.mlstm import ops
     from repro_torch.kernels.mlstm.ref import mlstm_bwd_ref
 

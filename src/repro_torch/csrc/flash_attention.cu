@@ -96,7 +96,11 @@
 // flag: the uncapped variant is the plain kernel (a per-score `cap > 0 ?`
 // select cost 9% at llama's prefill).
 //
-// Both: masked scores are the finite -1e30 of the TPU kernel, never -inf: a
+// Both: under a gradient the wrapper passes a float32 [B,H,S] buffer and the
+// epilogue writes each row's log-sum-exp m + log(l) there, which the
+// backward (csrc/flash_attention_bwd.cu) forms P from; without one (null)
+// nothing else changes. Masked scores are the finite -1e30 of the TPU
+// kernel, never -inf: a
 // row whose first needed tile is all masked adds exp(0) = 1 terms that the
 // next real key wipes out through alpha = exp(-1e30 - m_new) = 0, where -inf
 // would give NaN. Keys past the end of the sequence are -inf (no term). The
@@ -150,8 +154,9 @@ size_t smem_bytes(int dh, int dv) {
 template <typename T, int BQ, int DMAX, bool CAP, bool NARROW, bool CROSS>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int H, int KV, int S, int Sk_arg, int dh, int dv_arg,
-             float scale, float cap, int causal, int window, int chunk_local) {
+             T* __restrict__ out, float* __restrict__ lse, int H, int KV, int S, int Sk_arg,
+             int dh, int dv_arg, float scale, float cap, int causal, int window,
+             int chunk_local) {
   const int dv = NARROW ? dv_arg : dh;  // one live register fewer where dv == dh
   const int Sk = CROSS ? Sk_arg : S;    // keys: the queries' S unless CROSS
   constexpr int RQ = BQ / 16;   // query rows per thread
@@ -291,6 +296,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int qp = q0 + ty * RQ + i;
     if (qp >= S) continue;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * S + qp] = m[i] + logf(l[i]);
     T* orow = out + ((size_t)bh * S + qp) * dv;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
@@ -301,8 +307,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 }
 
 template <typename T, int BQ, int DMAX, bool CROSS>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV, int S,
-           int Sk, int dh, int dv, float scale, float cap, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
+           int KV, int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
            int chunk_local, cudaStream_t stream) {
   const size_t smem = smem_bytes<T, BQ>(dh, dv);
   auto kern = dv == dh ? (cap > 0.0f ? flash_kernel<T, BQ, DMAX, true, false, CROSS>
@@ -315,23 +321,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   const long long blocks = (long long)B * H * ((S + BQ - 1) / BQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kern<<<(unsigned)blocks, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                     (T*)out, H, KV, S, Sk, dh, dv, scale, cap,
-                                                     causal, window, chunk_local);
+                                                     (T*)out, lse, H, KV, S, Sk, dh, dv, scale,
+                                                     cap, causal, window, chunk_local);
   return (int)cudaGetLastError();
 }
 
 template <bool CROSS>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-               int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
-               int chunk_local, cudaStream_t st) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
+               int KV, int S, int Sk, int dh, int dv, float scale, float cap, int causal,
+               int window, int chunk_local, cudaStream_t st) {
   if (dh <= 64)
-    return launch<float, 64, 64, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+    return launch<float, 64, 64, CROSS>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap,
                                         causal, window, chunk_local, st);
   if (dh <= 128)
-    return launch<float, 64, 128, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+    return launch<float, 64, 128, CROSS>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap,
                                          causal, window, chunk_local, st);
   if (dh <= 256)
-    return launch<float, 32, 256, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+    return launch<float, 32, 256, CROSS>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap,
                                          causal, window, chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -362,9 +368,9 @@ constexpr int wg_min_blocks() {
 template <int DP, int DPV, bool NARROW, bool CAP, bool CROSS>
 __global__ void __launch_bounds__(kWgThreads, (wg_min_blocks<DP, DPV, NARROW, CAP, CROSS>()))
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ out, int H, int KV, int S,
-                   int Sk_arg, int dh, int dv_arg, float scale, float cap, int causal,
-                   int window, int chunk_local, int aligned) {
+                   const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                   int H, int KV, int S, int Sk_arg, int dh, int dv_arg, float scale, float cap,
+                   int causal, int window, int chunk_local, int aligned) {
   const int dv = NARROW ? dv_arg : dh;  // not NARROW: dv == dh, no register of its own
   const int Sk = CROSS ? Sk_arg : S;    // keys: the queries' S unless CROSS
   constexpr int NP = DP / 64;                    // 64-column panels of Q and K
@@ -558,6 +564,8 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qp = qw + ra + 8 * half;
     if (qp >= S) continue;
     const float inv = half ? inv1 : inv0;
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(size_t)bh * S + qp] = half ? m1 + logf(l1) : m0 + logf(l0);
     bf16* orow = out + ((size_t)bh * S + qp) * dv;
 #pragma unroll
     for (int p = 0; p < NPV; ++p) {
@@ -577,9 +585,9 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DP, int DPV, bool NARROW, bool CROSS>
-int launch_wg(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-              int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
-              int chunk_local, cudaStream_t stream) {
+int launch_wg(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
+              int KV, int S, int Sk, int dh, int dv, float scale, float cap, int causal,
+              int window, int chunk_local, cudaStream_t stream) {
   constexpr size_t smem = wg_smem_bytes<DP, DPV>();
   auto kern = cap > 0.0f ? flash_wgmma_kernel<DP, DPV, NARROW, true, CROSS>
                          : flash_wgmma_kernel<DP, DPV, NARROW, false, CROSS>;
@@ -591,47 +599,47 @@ int launch_wg(const void* q, const void* k, const void* v, void* out, int B, int
   const int aligned = dh % 8 == 0 && dv % 8 == 0 &&
                       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   kern<<<(unsigned)blocks, kWgThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, H, KV, S, Sk, dh, dv, scale,
-      cap, causal, window, chunk_local, aligned);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, lse, H, KV, S, Sk, dh, dv,
+      scale, cap, causal, window, chunk_local, aligned);
   return (int)cudaGetLastError();
 }
 
 // V's panels by dv, at most Q/K's DP; dv == dh takes the variant without dv
 template <int DP, bool CROSS>
-int launch_dp(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-              int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
-              int chunk_local, cudaStream_t st) {
+int launch_dp(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
+              int KV, int S, int Sk, int dh, int dv, float scale, float cap, int causal,
+              int window, int chunk_local, cudaStream_t st) {
   if (dv == dh)
-    return launch_wg<DP, DP, false, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+    return launch_wg<DP, DP, false, CROSS>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap,
                                            causal, window, chunk_local, st);
   if (dv <= 64)
-    return launch_wg<DP, 64, true, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+    return launch_wg<DP, 64, true, CROSS>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap,
                                           causal, window, chunk_local, st);
   if constexpr (DP >= 128) {
     if (dv <= 128)
-      return launch_wg<DP, 128, true, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+      return launch_wg<DP, 128, true, CROSS>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap,
                                              causal, window, chunk_local, st);
   }
   if constexpr (DP >= 256) {
     if (dv <= 256)
-      return launch_wg<DP, 256, true, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap,
+      return launch_wg<DP, 256, true, CROSS>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap,
                                              causal, window, chunk_local, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool CROSS>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-                int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
-                int chunk_local, cudaStream_t st) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
+                int KV, int S, int Sk, int dh, int dv, float scale, float cap, int causal,
+                int window, int chunk_local, cudaStream_t st) {
   if (dh <= 64)
-    return launch_dp<64, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+    return launch_dp<64, CROSS>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
                                 window, chunk_local, st);
   if (dh <= 128)
-    return launch_dp<128, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+    return launch_dp<128, CROSS>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
                                  window, chunk_local, st);
   if (dh <= 256)
-    return launch_dp<256, CROSS>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+    return launch_dp<256, CROSS>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
                                  window, chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -639,13 +647,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); cap <= 0:
-// no logit cap; dv: V's head dim, 0 < dv <= dh; S queries against Sk keys,
+// no logit cap; lse_out: null, or a float32 [B,H,S] that receives each
+// row's log-sum-exp m + log(l) of the masked scores (the backward's P); dv: V's head dim, 0 < dv <= dh; S queries against Sk keys,
 // Sk != S only without the causal and window masks (cross-attention), where
 // the CROSS variants take the key count as an argument of its own. Shapes
 // are checked by the Python wrapper.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int H, int KV, int S, int Sk, int dh, int dv,
-                                      float scale, float cap, int causal, int window,
+                                      void* lse_out, int B, int H, int KV, int S, int Sk, int dh,
+                                      int dv, float scale, float cap, int causal, int window,
                                       int chunk_local, int dtype, void* stream) {
   if (B == 0 || H == 0 || S == 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV != 0 || dh <= 0 || dv <= 0 || dv > dh || Sk <= 0)
@@ -653,15 +662,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const bool cross = Sk != S;
   if (cross && (causal || window > 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == 0)
-    return cross ? launch_f32<true>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+    return cross ? launch_f32<true>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
                                     window, chunk_local, st)
-                 : launch_f32<false>(q, k, v, out, B, H, KV, S, S, dh, dv, scale, cap, causal,
+                 : launch_f32<false>(q, k, v, out, lse, B, H, KV, S, S, dh, dv, scale, cap, causal,
                                      window, chunk_local, st);
   if (dtype == 1)
-    return cross ? launch_bf16<true>(q, k, v, out, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+    return cross ? launch_bf16<true>(q, k, v, out, lse, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
                                      window, chunk_local, st)
-                 : launch_bf16<false>(q, k, v, out, B, H, KV, S, S, dh, dv, scale, cap, causal,
+                 : launch_bf16<false>(q, k, v, out, lse, B, H, KV, S, S, dh, dv, scale, cap, causal,
                                       window, chunk_local, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,8 @@
 // backward, since src/repro has no custom_vjp. The forward's function is
 //   s[i, j] = cap(q_i . k_j * scale), cap(x) = tanh(x / c) * c (c > 0) or x
 //   P = softmax_j(where(mask(i, j), s, -1e30)),  O = P . V
-// and, with dO given and lse the row log-sum-exp of the masked scores,
+// and, with dO given and lse the row log-sum-exp of the masked scores, which
+// the forward kernel writes beside O when it runs under a gradient,
 //   P[i, j] = exp(s[i, j] - lse[i]) where mask(i, j), else 0
 //   D[i]    = rowsum(dO ∘ O)[i]                  (= rowsum(P ∘ dP))
 //   dV      = Pᵀ · dO
@@ -18,47 +19,77 @@
 // summed over the G query heads of a KV head for dK and dV. q [B,H,S,dh],
 // k [B,KV,Sk,dh], v [B,KV,Sk,dv], o and dO [B,H,S,dv] (dv <= dh; Sk != S only
 // without the causal and window masks: cross-attention), all float32 or all
-// bfloat16; dq, dk, dv in that type, every sum in float32.
+// bfloat16, and lse float32 [B,H,S]; dq, dk, dv in that type, every sum in
+// float32.
 //
-// Three kernels, launched in turn on the caller's stream by
-// flash_attention_bwd_launch, in one of two routes:
-// - bfloat16 with dh <= 128 (the training path's every call): on the tensor
-//   cores, mma.sync m16n8k16 with float32 accumulation (kernels 1m-3m
-//   below; their own comment has the design);
-// - float32, and bfloat16 with dh > 128: on the CUDA cores in float32
-//   (kernels 1-3), as follows.
-// 1. `bwd_pre_kernel`, one block per (b·h, query tile): the row lse by the
-//    forward's online max / sum (masked scores the finite -1e30, keys past Sk
-//    -inf, so a row whose first needed tile is all masked loses those terms
-//    to alpha = 0 as in the forward) and D from O and dO, into two float32
-//    [B,H,S] workspaces. The forward kernel stays as it is: an lse output
-//    from the forward is a later saving.
-// 2. `bwd_dkdv_kernel`, one block per (b·kv head, 32-key tile): the K and V
-//    tiles stay in shared memory, the block walks the G query heads of its
-//    group and, for each, the query tiles of 64 its keys are needed by (the
-//    forward's block predicate), recomputing P and dS for the tile
-//    ([32 keys][64 queries], 2 x 8 a thread) and accumulating dK and dV in
-//    registers (2 key rows x dh / 8 columns a thread).
-// 3. `bwd_dq_kernel`, one block per (b·h, query tile): Q, dO, lse and D stay,
-//    the block walks the needed 64-key tiles, recomputes P and dS and
-//    accumulates dQ in registers.
-// No atomics: each output element is summed by one thread in a fixed order,
-// so two calls give the same bits. P and dS are recomputed by both kernels 2
-// and 3: 8 products of S x Sk x d a head where a kernel with atomics on dQ
-// would do 5 (FA2).
+// flash_attention_bwd_launch runs, on the caller's stream:
+// 0. `bwd_delta_kernel`, one warp a row: D into a float32 [B,H,S] slice of
+//    the workspace (a bandwidth pass; S is never recomputed for lse).
+// then one of two routes, by dtype:
 //
-// Tiles are staged in shared memory as the type they are in device memory
-// (half the bytes for bf16), with a row stride of an odd number of 4-byte
-// words, so the threads of a warp that read different rows hit different
-// banks. The thread layout is the float32 forward kernel's: 16 row groups x
-// 8 column lanes; the eight lanes of a row reduce with shuffles.
+// bfloat16 (every call of the training path), on wgmma (wgmma.cuh): a dK /
+// dV kernel and a dQ kernel that recomputes S and dP (rather than summing
+// dQ across key tiles through device memory), seven products a (64-query,
+// 64-key) tile pair (Sᵀ, dPᵀ, dV, dK; S, dP, dQ), no atomics: every output
+// element is summed by one thread in a fixed order, so two calls give the
+// same bits. Blocks are two
+// warpgroups; K / V or Q / dO stay in shared memory as 128-byte-swizzled
+// 64-column panels while the other side's 64-row tiles (and their lse / D
+// rows) arrive through a two-stage cp.async ring, issued one tile ahead. P
+// and dS enter the dV / dK / dQ products as bf16 A fragments from registers
+// (the accumulator's layout is the A operand's), as FA2 rounds them; every
+// sum stays float32. Exponentials are ex2.approx on a fused exponent, the
+// cap's tanh is 1 - 2 / (exp(2x) + 1) (~1e-7 of tanhf); a pair that the
+// mask leaves whole skips the per-element mask (`tile_full`); blocks are
+// numbered heaviest first. Two shapes, by head dim:
+// - dh <= 128, the pair kernels: a warpgroup owns 64 rows and both of their
+//   accumulators (dK and dV: 128 registers a thread at dh 128).
+//   `bwd_dkdv_pair_kernel`, one block per (b·kv head, 128 keys, split of
+//   the G query heads), reads each needed (query head, 64-query) item's Q
+//   and dO once for its two warpgroups; a warpgroup issues Sᵀ = K·Qᵀ and
+//   dPᵀ = V·dOᵀ together, forms P (from the forward's lse) while dPᵀ runs,
+//   issues dV += Pᵀ·dO, forms dSᵀ = P ∘ (dPᵀ - D) while dV runs, then
+//   dK += dSᵀ·Q. `bwd_dq_pair_kernel`, one block per (b·h, 128 queries),
+//   the same for S = Q·Kᵀ, dP = dO·Vᵀ and dQ += dS·K over the needed key
+//   tiles. The warpgroups never wait for each other inside an item.
+// - dh 256 (recurrentgemma-9b), the split kernels: a 64 x 256 float32
+//   accumulator takes 128 registers a thread, so dK and dV go to separate
+//   warpgroups of one 64-key block (`bwd_dkdv_wgmma_kernel`): warpgroup 0
+//   forms Sᵀ and P (to shared memory as float32) and accumulates dV,
+//   warpgroup 1 forms dPᵀ and, once P is there, dSᵀ and accumulates dK; S,
+//   P and dS are formed once a pair. `bwd_dq_wgmma_kernel` (per b·h, 64
+//   queries): warpgroup 0 forms P, warpgroup 1 dP and dS, handed back as
+//   bf16 A fragments through shared memory, and dQ's four 64-column panels
+//   are split two and two.
+// The dK / dV blocks split a KV head's G query heads when B·KV·(Sk / keys a
+// block) would leave fewer than 256 blocks (recurrentgemma's MQA: 64 blocks
+// of 16 heads become 256 of four): each split writes float32 dK / dV
+// partials to the workspace and `bwd_sum_kernel` adds them in split order
+// and rounds to bf16. Head dims are padded to 64, 128 or 256 columns in
+// shared memory only (V and dO to Q / K's: dv < dh is MLA's narrow V, off
+// the timed path), zero past dh and dv; S and Sk are taken as they are, the
+// ragged edges masked. No branch sits between a wgmma stage's fence and
+// commit, and branches around stages test the warp-uniform `warpgroup()`:
+// ptxas would otherwise serialize every wgmma of the kernel (C7520).
+//
+// float32 (chip_smoke.py's 1e-4 checks; TF32 would keep ~3 digits): on the
+// CUDA cores, kernels 2-3 below: `bwd_dkdv_kernel` (per (b·kv head, 32-key
+// tile), walking the G query heads and their needed 64-query tiles,
+// recomputing P and dS, dK / dV in registers) and `bwd_dq_kernel` (per
+// (b·h, query tile)). Tiles are staged as the type they are in device
+// memory with a row stride of an odd number of 4-byte words; 16 row groups x
+// 8 column lanes, the eight lanes of a row reducing with shuffles.
 //
 // Bound: 2·(3·dh + 2·dv) flops per unmasked (query, key) pair of a head
-// (five products: P's recompute, dP, dV, dQ, dK) against the tensors'
-// bytes; at llama3.2-3b's training shape ([2, 2048, 24/8, 128], causal,
-// bf16) that is ~1.3e11 flops to ~134 MB: the tensor cores' rate bounds it
-// (0.13 ms at 989 TFLOP/s). Both routes recompute P and dS twice and S a
-// third time for the lse, 8 products where FA2 with atomics does 5.
+// (five products: P's recompute, dP, dV, dQ, dK) against the tensors' bytes;
+// at llama3.2-3b's training shape ([2, 2048, 24/8, 128], causal, bf16) ~1.3e11
+// flops to ~134 MB: the tensor cores' rate bounds it (0.13 ms at 989
+// TFLOP/s); at recurrentgemma-9b's ([2, 2048, 16/1, 256], window 2048, cap
+// 50) 1.72e11 flops, 0.174 ms. The bf16 route does seven products, S and dP
+// twice; what holds it back from the bound (PERF.md): one block of eight
+// warps an SM, so the per-element softmax and the per-item barriers expose
+// their latency, and at dh 256 the two warpgroups' elementwise phases run
+// one after the other.
 //
 // Built with -fmad=false like every kernel of the port: products use fmaf.
 //
@@ -69,13 +100,13 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_sync.cuh"  // the mma.sync kernels' fragments, tiles and cp.async
+#include "wgmma.cuh"  // the swizzled tiles, descriptors, cp.async and wgmma
 
 namespace {
 
-constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
-constexpr int kBK = 64;        // keys a tile in kernels 1 and 3
+constexpr int kBK = 64;        // keys a tile in kernel 3
 constexpr int kBKV = 32;       // keys a block in kernel 2
 constexpr int kBQ2 = 64;       // queries a tile in kernel 2
 
@@ -116,118 +147,36 @@ __device__ __forceinline__ bool allowed(int qp, int kp, int causal, int window,
   return ok;
 }
 
+// Kernel 0: D = rowsum(dO ∘ O), one warp a row, its lanes over the columns.
+template <typename T>
+__global__ void __launch_bounds__(256)
+bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+                 long long rows, int dv) {
+  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;  // the whole warp
+  const T* orow = o + r * dv;
+  const T* grow = dout + r * dv;
+  float acc = 0.0f;
+  for (int d = lane; d < dv; d += 32) acc = fmaf(ld(orow + d), ld(grow + d), acc);
+#pragma unroll
+  for (int w = 1; w < 32; w <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0) delta[r] = acc;
+}
+
 // A tile of `rows` rows of d elements from row r0 of src (n rows in all)
 // into dst with row stride ts; rows past n are zeros.
 template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int r0, int rows, int n, int d,
-                                          int ts) {
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, int r0, int rows, int n, int d,
+                                           int ts) {
   for (int i = threadIdx.x; i < rows * d; i += kThreads) {
     const int r = i / d, c = i - r * d;
     dst[r * ts + c] = r0 + r < n ? src[(size_t)(r0 + r) * d + c] : T(0.0f);
   }
 }
 
-// Kernel 1: lse and D of BQ query rows.
-template <typename T, int BQ, bool CAP>
-__global__ void __launch_bounds__(kThreads)
-bwd_pre_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ o,
-               const T* __restrict__ dout, float* __restrict__ lse, float* __restrict__ delta,
-               int H, int KV, int S, int Sk, int dh, int dv, float scale, float cap, int causal,
-               int window, int chunk_local) {
-  constexpr int RQ = BQ / 16;
-  const int nq = (S + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nq;
-  const int q0 = (blockIdx.x % nq) * BQ;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KV);
-  const int ts = row_stride<T>(dh);
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);  // [BQ][ts]
-  T* k_s = q_s + BQ * ts;                   // [64][ts]
-
-  const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
-  const T* kb = k + (size_t)(b * KV + kvh) * Sk * dh;
-  load_tile(q_s, q + (size_t)bh * S * dh, q0, BQ, S, dh, ts);
-
-  // D = rowsum(dO ∘ O), each row's dv products split over its 8 lanes
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int qp = q0 + ty * RQ + i;
-    float acc = 0.0f;
-    if (qp < S) {
-      const T* orow = o + ((size_t)bh * S + qp) * dv;
-      const T* grow = dout + ((size_t)bh * S + qp) * dv;
-      for (int d = tx; d < dv; d += 8) acc = fmaf(ld(orow + d), ld(grow + d), acc);
-    }
-#pragma unroll
-    for (int w = 1; w < 8; w <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
-    if (qp < S && tx == 0) delta[(size_t)bh * S + qp] = acc;
-  }
-
-  float m[RQ], l[RQ];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.0f;
-  }
-  for (int k0 = 0; k0 < Sk; k0 += kBK) {
-    if (!tile_needed(q0, BQ, k0, kBK, causal, window, chunk_local)) continue;
-    __syncthreads();  // the previous tile's readers are done with k_s
-    load_tile(k_s, kb, k0, kBK, Sk, dh, ts);
-    __syncthreads();
-    float s[RQ][8];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < dh; ++d) {
-      float kx[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kx[j] = ld(k_s + (tx + 8 * j) * ts + d);
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const float qx = ld(q_s + (ty * RQ + i) * ts + d);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qx, kx[j], s[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qp = q0 + ty * RQ + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kp = k0 + tx + 8 * j;
-        float x = -INFINITY;  // past the end of the keys: no term
-        if (kp < Sk) {
-          const float sc = CAP ? tanhf(s[i][j] * scale / cap) * cap : s[i][j] * scale;
-          x = allowed(qp, kp, causal, window, chunk_local) ? sc : kNeg;
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int w = 1; w < 8; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sum += expf(s[i][j] - m_new);
-#pragma unroll
-      for (int w = 1; w < 8; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      l[i] = fmaf(l[i], expf(m[i] - m_new), sum);
-      m[i] = m_new;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int qp = q0 + ty * RQ + i;
-    if (qp < S && tx == 0) lse[(size_t)bh * S + qp] = m[i] + logf(l[i]);
-  }
-}
-
-// Kernel 2: dK and dV of kBKV keys of one KV head, over its G query heads.
+// Kernel 2 (float32): dK and dV of kBKV keys of one KV head, over its G
+// query heads.
 template <typename T, int DMAX, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -256,8 +205,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   T* do_s = q_s + kBQ2 * ts;                         // [kBQ2][tv]
 
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
-  load_tile(k_s, k + (size_t)bkv * Sk * dh, k0, kBKV, Sk, dh, ts);
-  load_tile(v_s, v + (size_t)bkv * Sk * dv, k0, kBKV, Sk, dv, tv);
+  stage_tile(k_s, k + (size_t)bkv * Sk * dh, k0, kBKV, Sk, dh, ts);
+  stage_tile(v_s, v + (size_t)bkv * Sk * dv, k0, kBKV, Sk, dv, tv);
 
   float adk[RK][ND], adv[RK][ND];
 #pragma unroll
@@ -270,8 +219,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     for (int q0 = 0; q0 < S; q0 += kBQ2) {
       if (!tile_needed(q0, kBQ2, k0, kBKV, causal, window, chunk_local)) continue;
       __syncthreads();  // the previous tile's readers are done with the tiles
-      load_tile(q_s, q + (size_t)bh * S * dh, q0, kBQ2, S, dh, ts);
-      load_tile(do_s, dout + (size_t)bh * S * dv, q0, kBQ2, S, dv, tv);
+      stage_tile(q_s, q + (size_t)bh * S * dh, q0, kBQ2, S, dh, ts);
+      stage_tile(do_s, dout + (size_t)bh * S * dv, q0, kBQ2, S, dv, tv);
       for (int r = tid; r < kBQ2; r += kThreads) {
         const bool in = q0 + r < S;
         lse_s[r] = in ? lse[(size_t)bh * S + q0 + r] : 0.0f;
@@ -387,7 +336,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-// Kernel 3: dQ of BQ query rows of one head.
+// Kernel 3 (float32): dQ of BQ query rows of one head.
 template <typename T, int BQ, int DMAX, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -414,8 +363,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   const T* kb = k + (size_t)(b * KV + kvh) * Sk * dh;
   const T* vb = v + (size_t)(b * KV + kvh) * Sk * dv;
-  load_tile(q_s, q + (size_t)bh * S * dh, q0, BQ, S, dh, ts);
-  load_tile(do_s, dout + (size_t)bh * S * dv, q0, BQ, S, dv, tv);
+  stage_tile(q_s, q + (size_t)bh * S * dh, q0, BQ, S, dh, ts);
+  stage_tile(do_s, dout + (size_t)bh * S * dv, q0, BQ, S, dv, tv);
   float lr[RQ], dr[RQ], acc[RQ][ND];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
@@ -429,8 +378,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   for (int k0 = 0; k0 < Sk; k0 += kBK) {
     if (!tile_needed(q0, BQ, k0, kBK, causal, window, chunk_local)) continue;
     __syncthreads();  // the previous tile's readers are done with k_s, v_s, ds_s
-    load_tile(k_s, kb, k0, kBK, Sk, dh, ts);
-    load_tile(v_s, vb, k0, kBK, Sk, dv, tv);
+    stage_tile(k_s, kb, k0, kBK, Sk, dh, ts);
+    stage_tile(v_s, vb, k0, kBK, Sk, dv, tv);
     __syncthreads();
 
     float s[RQ][8], t[RQ][8];
@@ -529,30 +478,33 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 with dh <= 128: the same three kernels on the tensor cores
-// (mma.sync m16n8k16, bf16 in, float32 accumulate). A block is four warps;
-// each warp owns 16 rows of the block's tile (queries in kernels 1m and 3m,
-// keys in kernel 2m) and walks 64-row tiles of the other side. Tiles are
-// staged as bf16 [rows][DP + 8] (DP = dh rounded up to 64 or 128, the pad
-// columns zero; the 16-byte row pad puts the eight rows of an ldmatrix in
-// distinct banks) and read into fragments with ldmatrix (.trans where the
-// product's k index is the tile's row). A product's C fragment becomes the
-// next product's A fragment in registers: P and dS are rounded to bf16 for
-// dV += Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K, as FA2 does; every sum stays in
-// float32 and no element is summed by two threads, so two calls give the
-// same bits. A tile that the mask leaves whole skips the per-pair mask
-// (`tile_full`); blocks are numbered heaviest tile first across all heads,
-// so the long causal blocks start in the first wave; exp is __expf.
-// Kernel 1m, one block per (b·h, 64 queries): lse and D as kernel 1;
-// kernel 2m, one per (b·kv head, 64 keys): dK and dV over the G query heads
-// and needed query tiles; kernel 3m, one per (b·h, 64 queries): dQ.
+// bfloat16: wgmma (design at the top)
+// ---------------------------------------------------------------------------
+
+constexpr long long kTargetBlocks = 256;  // split the query heads below this many dK/dV blocks
+
+// The keys a dK / dV block holds: 64 (the split kernel, DP 256) or 128 (the
+// pair kernel, DP <= 128).
+constexpr int dkdv_keys(int DP) { return DP > 128 ? 64 : 128; }
+
+// The splits of a KV head's G query heads over dK / dV blocks of `keys`
+// keys: as many as it takes to reach kTargetBlocks blocks, each split a run
+// of whole heads.
+__host__ __device__ inline int dkdv_splits(int B, int KV, int Sk, int G, int keys) {
+  const long long units = (long long)B * KV * ((Sk + keys - 1) / keys);
+  long long want = (kTargetBlocks + units - 1) / units;
+  if (want > G) want = G;
+  if (want < 1) want = 1;
+  const int per = (int)((G + want - 1) / want);  // heads a split
+  return (G + per - 1) / per;
+}
 
 // Is every pair of the 64 x 64 tile from (q0, k0) inside the keys and
 // queries and allowed? The allowed keys of a query are one interval whose
 // ends grow with the query, so the four corners decide.
 __device__ __forceinline__ bool tile_full(int q0, int k0, int S, int Sk, int causal, int window,
                                           int chunk_local) {
-  const int q1 = q0 + kMmaRows - 1, k1 = k0 + kMmaRows - 1;
+  const int q1 = q0 + kT - 1, k1 = k0 + kT - 1;
   return q1 < S && k1 < Sk && allowed(q0, k0, causal, window, chunk_local) &&
          allowed(q0, k1, causal, window, chunk_local) &&
          allowed(q1, k0, causal, window, chunk_local) &&
@@ -566,339 +518,525 @@ __device__ __forceinline__ int next_needed(int from, int n, F need) {
   return from;
 }
 
-// A warp's 16 x 64 scores s (query rows qr and qr + 8, keys from k0) as
-// the forward's softmax sees them: capped and scaled; masked pairs the
-// finite kNeg, keys past Sk -inf (no term). Without MASK every pair is in.
-template <bool CAP, bool MASK>
-__device__ __forceinline__ void masked_scores(float (*s)[4], int qr, int k0, int Sk, float scale,
-                                              float cap, int causal, int window,
-                                              int chunk_local) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qp = qr + 8 * (e >> 1), kp = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
-      const float v = s[j][e];
-      const float sc = CAP ? tanhf(v * scale / cap) * cap : v * scale;
-      if (MASK) s[j][e] = kp < Sk ? (allowed(qp, kp, causal, window, chunk_local) ? sc : kNeg)
-                                  : -INFINITY;
-      else s[j][e] = sc;
-    }
+// tanh(x) = 1 - 2 / (exp(2x) + 1) by __expf and __fdividef: within ~1e-7
+// absolute of tanhf (|x| large: exactly ±1), a few instructions where the
+// accurate tanhf takes tens; the cap's 50 makes that ~5e-6 in a score.
+__device__ __forceinline__ float tanh_exp(float x) {
+  return 1.0f - __fdividef(2.0f, __expf(2.0f * x) + 1.0f);
 }
 
-// Each kernel walks its tiles through two buffers: the copies of the next
-// needed tile are issued before the current one is used, so they fly while
-// the tensor cores work (one cp.async group a tile; the first group also
-// holds the block's own tiles).
-
-// Kernel 1m: lse and D of 64 query rows.
-template <int DP, bool CAP>
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_pre_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
-                   float* __restrict__ lse, float* __restrict__ delta, int H, int KV, int S,
-                   int Sk, int dh, int dv, float scale, float cap, int causal, int window,
-                   int chunk_local, int vec) {
-  constexpr int LD = DP + 8, BQ = kMmaRows, BK = kMmaRows, TILE = kMmaRows * LD;
-  const int nq = (S + BQ - 1) / BQ, nk = (Sk + BK - 1) / BK, nbh = gridDim.x / nq;
-  // the last query tiles of every head, the heaviest under a causal mask, first
-  const int bh = blockIdx.x % nbh;
-  const int q0 = (nq - 1 - blockIdx.x / nbh) * BQ;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KV);
-  const int nk16 = (dh + 15) / 16;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
-  __nv_bfloat16* k_s = q_s + TILE;                                   // [2][64][LD]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const __nv_bfloat16* kb = k + (size_t)(b * KV + kvh) * Sk * dh;
-  auto need = [&](int t) { return tile_needed(q0, BQ, t * BK, BK, causal, window, chunk_local); };
-  load_tile_mma<DP>(q_s, q + (size_t)bh * S * dh, q0, BQ, S, dh, vec);
-  int cur = next_needed(0, nk, need);
-  if (cur < nk) load_tile_mma<DP>(k_s, kb, cur * BK, BK, Sk, dh, vec);
-  cp_async_commit();
-
-  // D = rowsum(dO ∘ O), while the first tiles land: a warp's 16 rows, its
-  // lanes over the columns
-  for (int r = 0; r < 16; ++r) {
-    const int qp = q0 + warp * 16 + r;
-    float acc = 0.0f;
-    if (qp < S) {
-      const __nv_bfloat16* orow = o + ((size_t)bh * S + qp) * dv;
-      const __nv_bfloat16* grow = dout + ((size_t)bh * S + qp) * dv;
-      for (int d = lane; d < dv; d += 32) acc = fmaf(ld(orow + d), ld(grow + d), acc);
-    }
-#pragma unroll
-    for (int w = 1; w < 32; w <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
-    if (qp < S && lane == 0) delta[(size_t)bh * S + qp] = acc;
-  }
-
-  const int qr = q0 + warp * 16 + (lane >> 2);  // rows qr and qr + 8
-  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
-  for (int buf = 0; cur < nk; buf ^= 1) {
-    const int nxt = next_needed(cur + 1, nk, need), k0 = cur * BK;
-    if (nxt < nk) load_tile_mma<DP>(k_s + (buf ^ 1) * TILE, kb, nxt * BK, BK, Sk, dh, vec);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-    mma_abt<DP>(s, q_s + warp * 16 * LD, k_s + buf * TILE, nk16);
-    if (tile_full(q0, k0, S, Sk, causal, window, chunk_local))
-      masked_scores<CAP, false>(s, qr, k0, Sk, scale, cap, causal, window, chunk_local);
-    else
-      masked_scores<CAP, true>(s, qr, k0, Sk, scale, cap, causal, window, chunk_local);
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hf], s[j][2 * hf + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[hf], mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        sum += __expf(s[j][2 * hf] - m_new) + __expf(s[j][2 * hf + 1] - m_new);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[hf] = fmaf(l[hf], __expf(m[hf] - m_new), sum);
-      m[hf] = m_new;
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-    cur = nxt;
-  }
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int qp = qr + 8 * hf;
-    if (qp < S && (lane & 3) == 0) lse[(size_t)bh * S + qp] = m[hf] + logf(l[hf]);
-  }
+// 2^x by the special-function unit (ex2.approx: relative error ~2^-22;
+// 0 for x far below -126)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// P and dS of one C element from its score s and dP: p = exp(x - lse)
-// where the pair is allowed, ds = p·(dP - D), times 1 - tanh² under the cap.
+// P = exp(s - lse) of one raw score x where `ok`, else 0: s = x·scale, or
+// under CAP tanh(x·scale·icap)·cap (icap = 1 / cap); sl2 = scale·log2(e),
+// l2 = the row's lse·log2(e). pc (returned): P, times 1 - tanh² under the
+// cap, what dS multiplies.
 template <bool CAP>
-__device__ __forceinline__ void p_ds(float& s, float& dp, bool ok, float scale, float cap,
-                                     float lse_r, float d_r) {
-  float p = 0.0f, ds = 0.0f;
+__device__ __forceinline__ float p_of(float& x, bool ok, float scale, float cap, float icap,
+                                      float sl2, float l2) {
+  float p = 0.0f, pc = 0.0f;
   if (ok) {
-    float t = 0.0f, x;
     if (CAP) {
-      t = tanhf(s * scale / cap);
-      x = t * cap;
+      const float t = tanh_exp(x * scale * icap);
+      p = ex2(fmaf(t * cap, kLog2e, -l2));
+      pc = p * (1.0f - t * t);
     } else {
-      x = s * scale;
+      p = ex2(fmaf(x, sl2, -l2));
+      pc = p;
     }
-    p = __expf(x - lse_r);
-    ds = p * (dp - d_r);
-    if (CAP) ds = ds * (1.0f - t * t);
   }
-  s = p;
-  dp = ds;
+  x = p;
+  return pc;
 }
 
-// p_ds over a warp's 16 x 64 tiles: rows r0 + lane / 4 and + 8, columns
-// c0 + 8 j + 2 (lane % 4) + {0, 1}; KEYS: the rows are keys (kernel 2m, lse
-// and D a column, in shared memory), else queries (kernel 3m, lse and D a
-// row, in registers). Without MASK every pair is in.
-template <bool CAP, bool MASK, bool KEYS>
-__device__ __forceinline__ void p_ds_tile(float (*s)[4], float (*dp)[4], int r0, int c0, int S,
-                                          int Sk, float scale, float cap, int causal, int window,
-                                          int chunk_local, const float* lse_x,
-                                          const float* d_x) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + (lane >> 2) + 8 * (e >> 1), cc = j * 8 + (lane & 3) * 2 + (e & 1);
-      const int qp = KEYS ? c0 + cc : r, kp = KEYS ? r : c0 + cc;
-      const bool ok = !MASK || (kp < Sk && qp < S && allowed(qp, kp, causal, window, chunk_local));
-      const int x = KEYS ? cc : e >> 1;
-      p_ds<CAP>(s[j][e], dp[j][e], ok, scale, cap, lse_x[x], d_x[x]);
-    }
+template <int DP>
+constexpr size_t dkdv_smem() {
+  // K, V and two stages of Q and dO (DP x 128 bytes each), P (64 x 64
+  // float32), two stages of lse and D, 1 KB to align the base
+  return (size_t)6 * DP * 128 + 64 * 64 * 4 + 2 * 2 * 64 * 4 + 1024;
 }
 
-// Kernel 2m: dK and dV of 64 keys of one KV head (a warp's 16), over its G
-// query heads and their needed 64-query tiles.
+// Kernel 1: dK (warpgroup 1) and dV (warpgroup 0) of 64 keys of one KV head
+// over one split of its query heads.
 template <int DP, bool CAP>
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dvo, int H,
-                    int KV, int S, int Sk, int dh, int dv, float scale, float cap, int causal,
-                    int window, int chunk_local, int vec) {
-  constexpr int LD = DP + 8, BK = kMmaRows, BQ = kMmaRows, TILE = kMmaRows * LD;
-  const int nk = (Sk + BK - 1) / BK, nqt = (S + BQ - 1) / BQ, nbkv = gridDim.x / nk;
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      bf16* __restrict__ dk, bf16* __restrict__ dvo, float* __restrict__ part,
+                      int B, int H, int KV, int S, int Sk, int dh, int dv, float scale, float cap,
+                      int causal, int window, int chunk_local, int nsplit, int aligned) {
+  constexpr int NP = DP / 64;
+  constexpr int T_BYTES = NP * kT * 128;  // one tile
+  const int G = H / KV, nqt = (S + kT - 1) / kT;
+  const int nunits = B * KV * nsplit;
   // the first key tiles of every head, which need the most queries, first
-  const int bkv = blockIdx.x % nbkv;
-  const int k0 = blockIdx.x / nbkv * BK;
+  const int unit = blockIdx.x % nunits, k0 = blockIdx.x / nunits * kT;
+  const int bkv = unit / nsplit, sp = unit % nsplit;
   const int b = bkv / KV, kvh = bkv % KV;
-  const int G = H / KV, n_it = G * nqt;  // item it: query head it / nqt, tile it % nqt
-  const int nh16 = (dh + 15) / 16, nv16 = (dv + 15) / 16;
+  const int per = (G + nsplit - 1) / nsplit, g0 = sp * per, g1 = min(G, g0 + per);
+  const int n_it = (g1 - g0) * nqt;  // item it: query head g0 + it / nqt, tile it % nqt
+  const int tid = threadIdx.x, wg = warpgroup(), t = tid & 127;
+  const int ra = 16 * (t >> 5) + ((tid & 31) >> 2), cq = 2 * (tid & 3);
+  const float icap = CAP ? 1.0f / cap : 0.0f, sl2 = scale * kLog2e;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* lse_s = reinterpret_cast<float*>(smem_raw);                     // [2][64]
-  float* dl_s = lse_s + 2 * BQ;                                          // [2][64]
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(dl_s + 2 * BQ);  // [64][LD]
-  __nv_bfloat16* v_s = k_s + TILE;                                       // [64][LD]
-  __nv_bfloat16* q_s = v_s + TILE;                                       // [2][64][LD]
-  __nv_bfloat16* do_s = q_s + 2 * TILE;                                  // [2][64][LD]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* k_s = base;
+  unsigned char* v_s = base + T_BYTES;
+  unsigned char* st_s = base + 2 * T_BYTES;  // stage s: Q at st_s + 2 s T_BYTES, dO after it
+  float* p_s = reinterpret_cast<float*>(base + 6 * T_BYTES);  // [32][128]: warpgroup 0's P
+  float* r_s = p_s + 32 * 128;  // stage s: lse at r_s + 128 s, D at r_s + 128 s + 64
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool al = aligned != 0;
   auto need = [&](int it) {
-    return tile_needed((it % nqt) * BQ, BQ, k0, BK, causal, window, chunk_local);
+    return tile_needed((it % nqt) * kT, kT, k0, kT, causal, window, chunk_local);
   };
-  auto issue = [&](int it, int buf) {
-    const int bh = b * H + kvh * G + it / nqt, q0 = (it % nqt) * BQ;
-    load_tile_mma<DP>(q_s + buf * TILE, q + (size_t)bh * S * dh, q0, BQ, S, dh, vec);
-    load_tile_mma<DP>(do_s + buf * TILE, dout + (size_t)bh * S * dv, q0, BQ, S, dv, vec);
-    load_rows_async(lse_s + buf * BQ, lse + (size_t)bh * S, q0, S);
-    load_rows_async(dl_s + buf * BQ, delta + (size_t)bh * S, q0, S);
+  auto issue = [&](int it, int s) {
+    const size_t bh = (size_t)b * H + kvh * G + g0 + it / nqt;
+    const int q0 = (it % nqt) * kT;
+    load_tile<kT, DP>(st_s + 2 * s * T_BYTES, q + bh * S * dh, q0, S, dh, al, tid);
+    load_tile<kT, DP>(st_s + (2 * s + 1) * T_BYTES, dout + bh * S * dv, q0, S, dv, al, tid);
+    load_row64(r_s + 128 * s, lse + bh * S, q0, S, tid);
+    load_row64(r_s + 128 * s + 64, delta + bh * S, q0, S, tid);
   };
-  load_tile_mma<DP>(k_s, k + (size_t)bkv * Sk * dh, k0, BK, Sk, dh, vec);
-  load_tile_mma<DP>(v_s, v + (size_t)bkv * Sk * dv, k0, BK, Sk, dv, vec);
+  load_tile<kT, DP>(k_s, k + (size_t)bkv * Sk * dh, k0, Sk, dh, al, tid);
+  load_tile<kT, DP>(v_s, v + (size_t)bkv * Sk * dv, k0, Sk, dv, al, tid);
   int cur = next_needed(0, n_it, need);
   if (cur < n_it) issue(cur, 0);
   cp_async_commit();
-  const int kr = k0 + warp * 16 + (lane >> 2);  // key rows kr and kr + 8
 
-  float adk[DP / 8][4], adv[DP / 8][4];
+  float acc[NP][32];
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
+  for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) adk[j][e] = adv[j][e] = 0.0f;
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+  // warpgroup 0: Sᵀ = K·Qᵀ, then dV += Pᵀ·dO; warpgroup 1: dPᵀ = V·dOᵀ,
+  // then dK += dSᵀ·Q
+  const uint32_t a_addr = smem_u32(wg == 0 ? k_s : v_s);
+  const int cols_o = wg == 0 ? dv : dh;
 
-  for (int buf = 0; cur < n_it; buf ^= 1) {
-    const int nxt = next_needed(cur + 1, n_it, need), q0 = (cur % nqt) * BQ;
-    if (nxt < n_it) issue(nxt, buf ^ 1);
+  for (int s = 0; cur < n_it; s ^= 1) {
+    const int nxt = next_needed(cur + 1, n_it, need), q0 = (cur % nqt) * kT;
+    if (nxt < n_it) issue(nxt, s ^ 1);
     cp_async_commit();
-    cp_async_wait1();
+    cp_async_wait<1>();  // all but the newest group: item cur (and K, V) have landed
+    fence_proxy_async();
     __syncthreads();
-    const __nv_bfloat16* qb = q_s + buf * TILE;
-    const __nv_bfloat16* gb = do_s + buf * TILE;
+    const uint32_t q_addr = smem_u32(st_s + 2 * s * T_BYTES), g_addr = q_addr + T_BYTES;
+    const float* rows = r_s + 128 * s;
 
-    // sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: key rows, query columns
-    float s[8][4], dp[8][4];
+    float x[32];
+    scores<DP>(x, a_addr, wg == 0 ? q_addr : g_addr);
+    if (wg == 0) {  // P: key rows k0 + ra (+ 8), query columns q0 + 8 jj + cq (+ 1)
+      const bool full = tile_full(q0, k0, S, Sk, causal, window, chunk_local);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int i = 0; i < 32; ++i) {
+        const int kp = k0 + ra + ((i & 2) ? 8 : 0), qc = 8 * (i >> 2) + cq + (i & 1);
+        const int qp = q0 + qc;
+        const bool ok = full || (kp < Sk && qp < S && allowed(qp, kp, causal, window,
+                                                              chunk_local));
+        p_s[i * 128 + t] = p_of<CAP>(x[i], ok, scale, cap, icap, sl2, rows[qc] * kLog2e);
+      }
+    } else {  // dPᵀ - D while warpgroup 0 forms P
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
-    mma_abt<DP>(s, k_s + warp * 16 * LD, qb, nh16);
-    mma_abt<DP>(dp, v_s + warp * 16 * LD, gb, nv16);
-    if (tile_full(q0, k0, S, Sk, causal, window, chunk_local))
-      p_ds_tile<CAP, false, true>(s, dp, k0 + warp * 16, q0, S, Sk, scale, cap, causal, window,
-                                  chunk_local, lse_s + buf * BQ, dl_s + buf * BQ);
-    else
-      p_ds_tile<CAP, true, true>(s, dp, k0 + warp * 16, q0, S, Sk, scale, cap, causal, window,
-                                 chunk_local, lse_s + buf * BQ, dl_s + buf * BQ);
-    // dV += Pᵀ·dO, dK += dSᵀ·Q over the tile's queries
-    mma_xb<DP, DP>(adv, s, gb, 0, nv16);
-    mma_xb<DP, DP>(adk, dp, qb, 0, nh16);
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+      for (int i = 0; i < 32; ++i) x[i] -= rows[64 + 8 * (i >> 2) + cq + (i & 1)];
+    }
+    __syncthreads();  // P in shared memory
+    if (wg == 1) {    // dSᵀ = P ∘ (dPᵀ - D)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] *= p_s[i * 128 + t];
+    }
+    uint32_t a[4][4];
+    to_a(a, x);
+    accumulate<NP>(acc, a, wg == 0 ? g_addr : q_addr, 0);
+    __syncthreads();  // every reader is done with stage s and with p_s
     cur = nxt;
   }
+  cp_async_wait<0>();
 
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kp = kr + 8 * (e >> 1), d = j * 8 + (lane & 3) * 2 + (e & 1);
-      if (kp >= Sk) continue;
-      if (d < dh) st(dk + ((size_t)bkv * Sk + kp) * dh + d, adk[j][e] * scale);
-      if (d < dv) st(dvo + ((size_t)bkv * Sk + kp) * dv + d, adv[j][e]);
-    }
+  // warpgroup 0 holds dV, warpgroup 1 dK (times scale); split partials are
+  // float32 planes [nsplit][B·KV·Sk·dh] of dK, then [nsplit][B·KV·Sk·dv] of dV
+  float* pp = nullptr;
+  if (nsplit > 1) {
+    const size_t nk_el = (size_t)B * KV * Sk * dh, nv_el = (size_t)B * KV * Sk * dv;
+    pp = wg == 1 ? part + sp * nk_el : part + nsplit * nk_el + sp * nv_el;
+  }
+  store_rows<NP>(acc, wg == 1 ? dk : dvo, pp, (size_t)bkv * Sk, k0, Sk, 0, cols_o,
+                 wg == 1 ? scale : 1.0f, ra, cq);
 }
 
-// Kernel 3m: dQ of 64 query rows of one head (a warp's 16).
+// Kernel 2: the split partials of kernel 1 added in split order, as bf16.
+__global__ void __launch_bounds__(256)
+bwd_sum_kernel(const float* __restrict__ part, bf16* __restrict__ out, long long n, int nsplit) {
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < n;
+       i += (long long)gridDim.x * 256) {
+    float s = 0.0f;
+    for (int sp = 0; sp < nsplit; ++sp) s += part[sp * n + i];
+    out[i] = __float2bfloat16_rn(s);
+  }
+}
+
+template <int DP>
+constexpr size_t dq_smem() {
+  // Q, dO and two stages of K and V (DP x 128 bytes each), P (64 x 64
+  // float32), dS as bf16 A fragments (64 x 64 x 2 bytes), 1 KB to align
+  return (size_t)6 * DP * 128 + 64 * 64 * 4 + 64 * 64 * 2 + 1024;
+}
+
+// Kernel 3: dQ of 64 query rows of one head; warpgroup 0 forms P,
+// warpgroup 1 dP and dS, and the dQ panels are split between them.
 template <int DP, bool CAP>
-__global__ void __launch_bounds__(kMmaThreads)
-bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dq, int H, int KV, int S, int Sk, int dh, int dv,
-                  float scale, float cap, int causal, int window, int chunk_local, int vec) {
-  constexpr int LD = DP + 8, BQ = kMmaRows, BK = kMmaRows, TILE = kMmaRows * LD;
-  const int nq = (S + BQ - 1) / BQ, nk = (Sk + BK - 1) / BK;
-  const int nbh = gridDim.x / nq;
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int H, int KV, int S, int Sk, int dh, int dv,
+                    float scale, float cap, int causal, int window, int chunk_local,
+                    int aligned) {
+  constexpr int NP = DP / 64;
+  constexpr int NPW = NP > 1 ? NP / 2 : 1;  // dQ panels a warpgroup accumulates
+  constexpr int T_BYTES = NP * kT * 128;
+  const int nq = (S + kT - 1) / kT, nk = (Sk + kT - 1) / kT, nbh = gridDim.x / nq;
   // the last query tiles of every head, the heaviest under a causal mask, first
-  const int bh = blockIdx.x % nbh;
-  const int q0 = (nq - 1 - blockIdx.x / nbh) * BQ;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KV);
-  const int nh16 = (dh + 15) / 16, nv16 = (dv + 15) / 16;
+  const int bh = blockIdx.x % nbh, q0 = (nq - 1 - blockIdx.x / nbh) * kT;
+  const int b = bh / H, kvh = (bh % H) / (H / KV);
+  const int tid = threadIdx.x, wg = warpgroup(), t = tid & 127;
+  const int ra = 16 * (t >> 5) + ((tid & 31) >> 2), cq = 2 * (tid & 3);
+  const float icap = CAP ? 1.0f / cap : 0.0f, sl2 = scale * kLog2e;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
-  __nv_bfloat16* do_s = q_s + TILE;                                  // [64][LD]
-  __nv_bfloat16* k_s = do_s + TILE;                                  // [2][64][LD]
-  __nv_bfloat16* v_s = k_s + 2 * TILE;                               // [2][64][LD]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = base;
+  unsigned char* g_s = base + T_BYTES;       // dO
+  unsigned char* st_s = base + 2 * T_BYTES;  // stage s: K at st_s + 2 s T_BYTES, V after it
+  float* p_s = reinterpret_cast<float*>(base + 6 * T_BYTES);  // [32][128]: warpgroup 0's P
+  uint32_t* ds_s = reinterpret_cast<uint32_t*>(p_s + 32 * 128);  // [16][128]: dS fragments
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const __nv_bfloat16* kb = k + (size_t)(b * KV + kvh) * Sk * dh;
-  const __nv_bfloat16* vb = v + (size_t)(b * KV + kvh) * Sk * dv;
-  auto need = [&](int t) { return tile_needed(q0, BQ, t * BK, BK, causal, window, chunk_local); };
-  auto issue = [&](int t, int buf) {
-    load_tile_mma<DP>(k_s + buf * TILE, kb, t * BK, BK, Sk, dh, vec);
-    load_tile_mma<DP>(v_s + buf * TILE, vb, t * BK, BK, Sk, dv, vec);
+  const bool al = aligned != 0;
+  const bf16* kb = k + (size_t)(b * KV + kvh) * Sk * dh;
+  const bf16* vb = v + (size_t)(b * KV + kvh) * Sk * dv;
+  auto need = [&](int j) { return tile_needed(q0, kT, j * kT, kT, causal, window, chunk_local); };
+  auto issue = [&](int j, int s) {
+    load_tile<kT, DP>(st_s + 2 * s * T_BYTES, kb, j * kT, Sk, dh, al, tid);
+    load_tile<kT, DP>(st_s + (2 * s + 1) * T_BYTES, vb, j * kT, Sk, dv, al, tid);
   };
-  load_tile_mma<DP>(q_s, q + (size_t)bh * S * dh, q0, BQ, S, dh, vec);
-  load_tile_mma<DP>(do_s, dout + (size_t)bh * S * dv, q0, BQ, S, dv, vec);
+  load_tile<kT, DP>(q_s, q + (size_t)bh * S * dh, q0, S, dh, al, tid);
+  load_tile<kT, DP>(g_s, dout + (size_t)bh * S * dv, q0, S, dv, al, tid);
   int cur = next_needed(0, nk, need);
   if (cur < nk) issue(cur, 0);
   cp_async_commit();
-  const int qr = q0 + warp * 16 + (lane >> 2);  // rows qr and qr + 8
-  float lr[2], dr[2];
+
+  // warpgroup 0 reads its rows' lse, warpgroup 1 their D
+  const float* rsrc = (wg == 0 ? lse : delta) + (size_t)bh * S;
+  float rv[2];
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int qp = qr + 8 * hf;
-    lr[hf] = qp < S ? lse[(size_t)bh * S + qp] : 0.0f;
-    dr[hf] = qp < S ? delta[(size_t)bh * S + qp] : 0.0f;
+  for (int half = 0; half < 2; ++half) {
+    const int qp = q0 + ra + 8 * half;
+    rv[half] = qp < S ? rsrc[qp] : 0.0f;
   }
-  float acc[DP / 8][4];
+  float acc[NPW][32];
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  for (int p = 0; p < NPW; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+  const uint32_t a_addr = smem_u32(wg == 0 ? q_s : g_s);
+  // the dQ panels: [0, NP / 2) warpgroup 0, the rest warpgroup 1; at NP 1
+  // both accumulate the one panel (no branch around a wgmma stage) and
+  // warpgroup 1 stores it
+  const int p0 = NP > 1 ? wg * NPW : 0;
 
-  for (int buf = 0; cur < nk; buf ^= 1) {
-    const int nxt = next_needed(cur + 1, nk, need), k0 = cur * BK;
-    if (nxt < nk) issue(nxt, buf ^ 1);
+  for (int s = 0; cur < nk; s ^= 1) {
+    const int nxt = next_needed(cur + 1, nk, need), k0 = cur * kT;
+    if (nxt < nk) issue(nxt, s ^ 1);
     cp_async_commit();
-    cp_async_wait1();
+    cp_async_wait<1>();
+    fence_proxy_async();
     __syncthreads();
-    const __nv_bfloat16* kt = k_s + buf * TILE;
+    const uint32_t k_addr = smem_u32(st_s + 2 * s * T_BYTES), v_addr = k_addr + T_BYTES;
 
-    // s = Q·Kᵀ and dP = dO·Vᵀ: query rows, key columns
-    float s[8][4], dp[8][4];
+    float x[32];
+    scores<DP>(x, a_addr, wg == 0 ? k_addr : v_addr);
+    if (wg == 0) {  // P: query rows q0 + ra (+ 8), key columns k0 + 8 jj + cq (+ 1)
+      const bool full = tile_full(q0, k0, S, Sk, causal, window, chunk_local);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int i = 0; i < 32; ++i) {
+        const int qp = q0 + ra + ((i & 2) ? 8 : 0), kp = k0 + 8 * (i >> 2) + cq + (i & 1);
+        const bool ok = full || (kp < Sk && qp < S && allowed(qp, kp, causal, window,
+                                                              chunk_local));
+        p_s[i * 128 + t] = p_of<CAP>(x[i], ok, scale, cap, icap, sl2, rv[(i >> 1) & 1] * kLog2e);
+      }
+    } else {  // dP - D while warpgroup 0 forms P
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
-    mma_abt<DP>(s, q_s + warp * 16 * LD, kt, nh16);
-    mma_abt<DP>(dp, do_s + warp * 16 * LD, v_s + buf * TILE, nv16);
-    if (tile_full(q0, k0, S, Sk, causal, window, chunk_local))
-      p_ds_tile<CAP, false, false>(s, dp, q0 + warp * 16, k0, S, Sk, scale, cap, causal, window,
-                                   chunk_local, lr, dr);
-    else
-      p_ds_tile<CAP, true, false>(s, dp, q0 + warp * 16, k0, S, Sk, scale, cap, causal, window,
-                                  chunk_local, lr, dr);
-    // dQ += dS·K over the tile's keys
-    mma_xb<DP, DP>(acc, dp, kt, 0, nh16);
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+      for (int i = 0; i < 32; ++i) x[i] -= rv[(i >> 1) & 1];
+    }
+    __syncthreads();  // P in shared memory
+    uint32_t a[4][4];
+    if (wg == 1) {  // dS = P ∘ (dP - D), to bf16 fragments for both warpgroups
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] *= p_s[i * 128 + t];
+      to_a(a, x);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) ds_s[i * 128 + t] = a[i >> 2][i & 3];
+    }
+    __syncthreads();  // dS in shared memory
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a[i >> 2][i & 3] = ds_s[i * 128 + t];
+    }
+    accumulate<NPW>(acc, a, k_addr, p0);
+    __syncthreads();  // every reader is done with stage s, p_s and ds_s
     cur = nxt;
   }
+  cp_async_wait<0>();
+  if (NP > 1 || wg == 1)
+    store_rows<NPW>(acc, dq, nullptr, (size_t)bh * S, q0, S, p0, dh, scale, ra, cq);
+}
 
+// ---- dh <= 128: a warpgroup a 64-row tile of its own ---------------------
+//
+// At DP <= 128 one warpgroup holds both accumulators of its rows (dK and dV:
+// 128 registers a thread at DP 128), so the two warpgroups of a block take
+// 64 rows each and share the other side's tiles: a dK / dV block holds 128
+// keys and reads each (head, 64-query) item's Q and dO once for both, a dQ
+// block 128 queries and each key tile's K and V once. The warpgroups do not
+// wait for each other inside an item, so one's softmax runs while the
+// other's products keep the tensor cores busy, and inside a warpgroup the
+// groups overlap: Sᵀ and dPᵀ are issued together, P is formed while dPᵀ
+// runs, dV while dS is formed.
+
+template <int DP>
+constexpr size_t pair_smem() {
+  // eight 64-row tiles (DP x 128 bytes each), two stages of 128 row
+  // statistics, 1 KB to align the base
+  return (size_t)8 * DP * 128 + 2 * 128 * 4 + 1024;
+}
+
+// Kernel 1 at DP <= 128: dK and dV of 128 keys (64 a warpgroup) of one KV
+// head over one split of its query heads.
+template <int DP, bool CAP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_dkdv_pair_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dvo, float* __restrict__ part,
+                     int B, int H, int KV, int S, int Sk, int dh, int dv, float scale, float cap,
+                     int causal, int window, int chunk_local, int nsplit, int aligned) {
+  constexpr int NP = DP / 64;
+  constexpr int T_BYTES = NP * kT * 128;  // one 64-row tile
+  const int G = H / KV, nqt = (S + kT - 1) / kT;
+  const int nunits = B * KV * nsplit;
+  // the first key tiles of every head, which need the most queries, first
+  const int unit = blockIdx.x % nunits, k0 = blockIdx.x / nunits * 2 * kT;
+  const int bkv = unit / nsplit, sp = unit % nsplit;
+  const int b = bkv / KV, kvh = bkv % KV;
+  const int per = (G + nsplit - 1) / nsplit, g0 = sp * per, g1 = min(G, g0 + per);
+  const int n_it = (g1 - g0) * nqt;  // item it: query head g0 + it / nqt, tile it % nqt
+  const int tid = threadIdx.x, wg = warpgroup(), t = tid & 127;
+  const int ra = 16 * (t >> 5) + ((tid & 31) >> 2), cq = 2 * (tid & 3);
+  const float icap = CAP ? 1.0f / cap : 0.0f, sl2 = scale * kLog2e;
+  const int kw = k0 + kT * wg;  // this warpgroup's first key
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* k_s = base + wg * T_BYTES;      // this warpgroup's K; V two tiles on
+  unsigned char* st_s = base + 4 * T_BYTES;      // stage s: Q at st_s + 2 s T_BYTES, dO after
+  float* r_s = reinterpret_cast<float*>(base + 8 * T_BYTES);  // stage s: lse, D at 128 s
+
+  const bool al = aligned != 0;
+  auto need = [&](int it) {
+    return tile_needed((it % nqt) * kT, kT, k0, 2 * kT, causal, window, chunk_local);
+  };
+  auto issue = [&](int it, int s) {
+    const size_t bh = (size_t)b * H + kvh * G + g0 + it / nqt;
+    const int q0 = (it % nqt) * kT;
+    load_tile<kT, DP>(st_s + 2 * s * T_BYTES, q + bh * S * dh, q0, S, dh, al, tid);
+    load_tile<kT, DP>(st_s + (2 * s + 1) * T_BYTES, dout + bh * S * dv, q0, S, dv, al, tid);
+    load_row64(r_s + 128 * s, lse + bh * S, q0, S, tid);
+    load_row64(r_s + 128 * s + 64, delta + bh * S, q0, S, tid);
+  };
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
+  for (int w = 0; w < 2; ++w) {
+    load_tile<kT, DP>(base + w * T_BYTES, k + (size_t)bkv * Sk * dh, k0 + kT * w, Sk, dh, al,
+                      tid);
+    load_tile<kT, DP>(base + (2 + w) * T_BYTES, v + (size_t)bkv * Sk * dv, k0 + kT * w, Sk, dv,
+                      al, tid);
+  }
+  int cur = next_needed(0, n_it, need);
+  if (cur < n_it) issue(cur, 0);
+  cp_async_commit();
+
+  float adv[NP][32], adk[NP][32];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qp = qr + 8 * (e >> 1), d = j * 8 + (lane & 3) * 2 + (e & 1);
-      if (qp < S && d < dh) st(dq + ((size_t)bh * S + qp) * dh + d, acc[j][e] * scale);
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) adv[p][i] = adk[p][i] = 0.0f;
+  const uint32_t k_addr = smem_u32(k_s), v_addr = k_addr + 2 * T_BYTES;
+
+  for (int s = 0; cur < n_it; s ^= 1) {
+    const int nxt = next_needed(cur + 1, n_it, need), q0 = (cur % nqt) * kT;
+    if (nxt < n_it) issue(nxt, s ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: item cur (and K, V) have landed
+    fence_proxy_async();
+    __syncthreads();
+    if (kw < Sk && tile_needed(q0, kT, kw, kT, causal, window, chunk_local)) {
+      const uint32_t q_addr = smem_u32(st_s + 2 * s * T_BYTES), g_addr = q_addr + T_BYTES;
+      const float* rows = r_s + 128 * s;
+      float x[32], dp[32];
+      scores_issue<DP>(x, k_addr, q_addr);   // Sᵀ = K·Qᵀ
+      scores_issue<DP>(dp, v_addr, g_addr);  // dPᵀ = V·dOᵀ
+      wg_wait<1>();
+      fence_regs(x);
+      // P: key rows kw + ra (+ 8), query columns q0 + 8 jj + cq (+ 1); x
+      // becomes P (times 1 - tanh² under the cap), aP its bf16 fragments
+      const bool full = tile_full(q0, kw, S, Sk, causal, window, chunk_local);
+      uint32_t aP[4][4];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int kp = kw + ra + ((i & 2) ? 8 : 0), qc = 8 * (i >> 2) + cq;
+        float pc[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qp = q0 + qc + e;
+          const bool ok = full || (kp < Sk && qp < S && allowed(qp, kp, causal, window,
+                                                                chunk_local));
+          pc[e] = p_of<CAP>(x[i + e], ok, scale, cap, icap, sl2, rows[qc + e] * kLog2e);
+        }
+        aP[i >> 3][(i >> 1) & 3] = pack_bf16(x[i], x[i + 1]);
+        x[i] = pc[0];
+        x[i + 1] = pc[1];
+      }
+      accumulate_issue<NP>(adv, aP, g_addr, 0);  // dV += Pᵀ·dO
+      wg_wait<1>();
+      fence_regs(dp);
+      uint32_t aS[4][4];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = x[i] * (dp[i] - rows[64 + 8 * (i >> 2) + cq + (i & 1)]);
+      to_a(aS, dp);
+      accumulate_issue<NP>(adk, aS, q_addr, 0);  // dK += dSᵀ·Q
+      wg_wait0();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        fence_regs(adv[p]);
+        fence_regs(adk[p]);
+      }
     }
+    __syncthreads();  // every reader is done with stage s
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+
+  float* pk = nullptr;
+  float* pv = nullptr;
+  if (nsplit > 1) {
+    const size_t nk_el = (size_t)B * KV * Sk * dh, nv_el = (size_t)B * KV * Sk * dv;
+    pk = part + sp * nk_el;
+    pv = part + nsplit * nk_el + sp * nv_el;
+  }
+  store_rows<NP>(adv, dvo, pv, (size_t)bkv * Sk, kw, Sk, 0, dv, 1.0f, ra, cq);
+  store_rows<NP>(adk, dk, pk, (size_t)bkv * Sk, kw, Sk, 0, dh, scale, ra, cq);
+}
+
+// Kernel 3 at DP <= 128: dQ of 128 query rows (64 a warpgroup) of one head.
+template <int DP, bool CAP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_dq_pair_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dq, int H, int KV, int S, int Sk, int dh, int dv,
+                   float scale, float cap, int causal, int window, int chunk_local, int aligned) {
+  constexpr int NP = DP / 64;
+  constexpr int T_BYTES = NP * kT * 128;
+  const int nq = (S + 2 * kT - 1) / (2 * kT), nk = (Sk + kT - 1) / kT, nbh = gridDim.x / nq;
+  // the last query tiles of every head, the heaviest under a causal mask, first
+  const int bh = blockIdx.x % nbh, q0 = (nq - 1 - blockIdx.x / nbh) * 2 * kT;
+  const int b = bh / H, kvh = (bh % H) / (H / KV);
+  const int tid = threadIdx.x, wg = warpgroup(), t = tid & 127;
+  const int ra = 16 * (t >> 5) + ((tid & 31) >> 2), cq = 2 * (tid & 3);
+  const float icap = CAP ? 1.0f / cap : 0.0f, sl2 = scale * kLog2e;
+  const int qw = q0 + kT * wg;  // this warpgroup's first query
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* st_s = base + 4 * T_BYTES;  // stage s: K at st_s + 2 s T_BYTES, V after it
+
+  const bool al = aligned != 0;
+  const bf16* kb = k + (size_t)(b * KV + kvh) * Sk * dh;
+  const bf16* vb = v + (size_t)(b * KV + kvh) * Sk * dv;
+  auto need = [&](int j) {
+    return tile_needed(q0, 2 * kT, j * kT, kT, causal, window, chunk_local);
+  };
+  auto issue = [&](int j, int s) {
+    load_tile<kT, DP>(st_s + 2 * s * T_BYTES, kb, j * kT, Sk, dh, al, tid);
+    load_tile<kT, DP>(st_s + (2 * s + 1) * T_BYTES, vb, j * kT, Sk, dv, al, tid);
+  };
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {  // Q of warpgroup w, then its dO two tiles on
+    load_tile<kT, DP>(base + w * T_BYTES, q + (size_t)bh * S * dh, q0 + kT * w, S, dh, al, tid);
+    load_tile<kT, DP>(base + (2 + w) * T_BYTES, dout + (size_t)bh * S * dv, q0 + kT * w, S, dv,
+                      al, tid);
+  }
+  int cur = next_needed(0, nk, need);
+  if (cur < nk) issue(cur, 0);
+  cp_async_commit();
+
+  float l2[2], dr[2];  // this warpgroup's rows' lse·log2(e) and D
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qp = qw + ra + 8 * half;
+    l2[half] = qp < S ? lse[(size_t)bh * S + qp] * kLog2e : 0.0f;
+    dr[half] = qp < S ? delta[(size_t)bh * S + qp] : 0.0f;
+  }
+  float acc[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+  const uint32_t q_addr = smem_u32(base + wg * T_BYTES), g_addr = q_addr + 2 * T_BYTES;
+
+  for (int s = 0; cur < nk; s ^= 1) {
+    const int nxt = next_needed(cur + 1, nk, need), k0 = cur * kT;
+    if (nxt < nk) issue(nxt, s ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    if (qw < S && tile_needed(qw, kT, k0, kT, causal, window, chunk_local)) {
+      const uint32_t k_addr = smem_u32(st_s + 2 * s * T_BYTES), v_addr = k_addr + T_BYTES;
+      float x[32], dp[32];
+      scores_issue<DP>(x, q_addr, k_addr);   // S = Q·Kᵀ
+      scores_issue<DP>(dp, g_addr, v_addr);  // dP = dO·Vᵀ
+      wg_wait<1>();
+      fence_regs(x);
+      // P: query rows qw + ra (+ 8), key columns k0 + 8 jj + cq (+ 1)
+      const bool full = tile_full(qw, k0, S, Sk, causal, window, chunk_local);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qp = qw + ra + ((i & 2) ? 8 : 0), kp = k0 + 8 * (i >> 2) + cq + (i & 1);
+        const bool ok = full || (kp < Sk && qp < S && allowed(qp, kp, causal, window,
+                                                              chunk_local));
+        x[i] = p_of<CAP>(x[i], ok, scale, cap, icap, sl2, l2[(i >> 1) & 1]);
+      }
+      wg_wait0();
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = x[i] * (dp[i] - dr[(i >> 1) & 1]);
+      uint32_t a[4][4];
+      to_a(a, dp);
+      accumulate<NP>(acc, a, k_addr, 0);  // dQ += dS·K
+    }
+    __syncthreads();  // every reader is done with stage s
+    cur = nxt;
+  }
+  cp_async_wait<0>();
+  store_rows<NP>(acc, dq, nullptr, (size_t)bh * S, qw, S, 0, dh, scale, ra, cq);
 }
 
 template <typename K>
@@ -906,26 +1044,30 @@ cudaError_t prepare(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <typename T>
+int launch_delta(const void* o, const void* dout, float* delta, long long rows, int dv,
+                 cudaStream_t st) {
+  const long long blocks = (rows + 7) / 8;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  bwd_delta_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(static_cast<const T*>(o),
+                                                        static_cast<const T*>(dout), delta, rows,
+                                                        dv);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DMAX, bool CAP>
-int launch_all(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               void* dq, void* dk, void* dvo, float* lse, float* delta, int B, int H, int KV,
-               int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
+int launch_all(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
+               void* dvo, const float* lse, const float* delta, int B, int H, int KV, int S,
+               int Sk, int dh, int dv, float scale, float cap, int causal, int window,
                int chunk_local, cudaStream_t st) {
-  constexpr int BQ = DMAX > 128 ? 32 : 64;  // query rows a block in kernels 1 and 3
+  constexpr int BQ = DMAX > 128 ? 32 : 64;  // query rows a block in kernel 3
   const size_t ts = row_stride<T>(dh), tv = row_stride<T>(dv);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
-  const T* ot = static_cast<const T*>(o);
   const T* gt = static_cast<const T*>(dout);
   const int nq = (S + BQ - 1) / BQ, nk = (Sk + kBKV - 1) / kBKV;
   cudaError_t err;
-
-  const size_t sm_pre = sizeof(T) * (BQ + kBK) * ts;
-  if ((err = prepare(bwd_pre_kernel<T, BQ, CAP>, sm_pre)) != cudaSuccess) return (int)err;
-  bwd_pre_kernel<T, BQ, CAP><<<B * H * nq, kThreads, sm_pre, st>>>(
-      qt, kt, ot, gt, lse, delta, H, KV, S, Sk, dh, dv, scale, cap, causal, window, chunk_local);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t sm_kv = sizeof(float) * (2 * kBKV * (kBQ2 + 1) + 2 * kBQ2) +
                        sizeof(T) * ((kBKV + kBQ2) * ts + (kBKV + kBQ2) * tv);
@@ -944,116 +1086,150 @@ int launch_all(const void* q, const void* k, const void* v, const void* o, const
 }
 
 template <typename T, bool CAP>
-int launch_dh(const void* q, const void* k, const void* v, const void* o, const void* dout,
-              void* dq, void* dk, void* dvo, float* lse, float* delta, int B, int H, int KV,
-              int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
+int launch_dh(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
+              void* dvo, const float* lse, const float* delta, int B, int H, int KV, int S,
+              int Sk, int dh, int dv, float scale, float cap, int causal, int window,
               int chunk_local, cudaStream_t st) {
   if (dh <= 64)
-    return launch_all<T, 64, CAP>(q, k, v, o, dout, dq, dk, dvo, lse, delta, B, H, KV, S, Sk,
-                                  dh, dv, scale, cap, causal, window, chunk_local, st);
+    return launch_all<T, 64, CAP>(q, k, v, dout, dq, dk, dvo, lse, delta, B, H, KV, S, Sk, dh,
+                                  dv, scale, cap, causal, window, chunk_local, st);
   if (dh <= 128)
-    return launch_all<T, 128, CAP>(q, k, v, o, dout, dq, dk, dvo, lse, delta, B, H, KV, S, Sk,
-                                   dh, dv, scale, cap, causal, window, chunk_local, st);
-  return launch_all<T, 256, CAP>(q, k, v, o, dout, dq, dk, dvo, lse, delta, B, H, KV, S, Sk, dh,
-                                 dv, scale, cap, causal, window, chunk_local, st);
+    return launch_all<T, 128, CAP>(q, k, v, dout, dq, dk, dvo, lse, delta, B, H, KV, S, Sk, dh,
+                                   dv, scale, cap, causal, window, chunk_local, st);
+  return launch_all<T, 256, CAP>(q, k, v, dout, dq, dk, dvo, lse, delta, B, H, KV, S, Sk, dh, dv,
+                                 scale, cap, causal, window, chunk_local, st);
 }
 
 template <int DP, bool CAP>
-int launch_mma(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               void* dq, void* dk, void* dvo, float* lse, float* delta, int B, int H, int KV,
-               int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
-               int chunk_local, int vec, cudaStream_t st) {
-  typedef __nv_bfloat16 T;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* ot = static_cast<const T*>(o);
-  const T* gt = static_cast<const T*>(dout);
-  const size_t tile = sizeof(T) * kMmaRows * (DP + 8);
-  const int nq = (S + kMmaRows - 1) / kMmaRows, nk = (Sk + kMmaRows - 1) / kMmaRows;
+int launch_wg(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
+              void* dvo, const float* lse, const float* delta, float* part, int B, int H, int KV,
+              int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
+              int chunk_local, int aligned, cudaStream_t st) {
+  constexpr bool PAIR = DP <= 128;
+  constexpr int KEYS = dkdv_keys(DP), QUERIES = PAIR ? 2 * kT : kT;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(dout);
+  const int nq = (S + QUERIES - 1) / QUERIES, nk = (Sk + KEYS - 1) / KEYS;
+  const int nsplit = dkdv_splits(B, KV, Sk, H / KV, KEYS);
+  const long long kv_blocks = (long long)B * KV * nsplit * nk, q_blocks = (long long)B * H * nq;
+  if (kv_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  bf16* dkt = static_cast<bf16*>(dk);
+  bf16* dvt = static_cast<bf16*>(dvo);
+  bf16* dqt = static_cast<bf16*>(dq);
   cudaError_t err;
 
-  if ((err = prepare(bwd_pre_mma_kernel<DP, CAP>, 3 * tile)) != cudaSuccess) return (int)err;
-  bwd_pre_mma_kernel<DP, CAP><<<B * H * nq, kMmaThreads, 3 * tile, st>>>(
-      qt, kt, ot, gt, lse, delta, H, KV, S, Sk, dh, dv, scale, cap, causal, window, chunk_local,
-      vec);
+  if constexpr (PAIR) {
+    constexpr size_t sm = pair_smem<DP>();
+    if ((err = prepare(bwd_dkdv_pair_kernel<DP, CAP>, sm)) != cudaSuccess) return (int)err;
+    bwd_dkdv_pair_kernel<DP, CAP><<<(unsigned)kv_blocks, kWgThreads, sm, st>>>(
+        qt, kt, vt, gt, lse, delta, dkt, dvt, part, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+        window, chunk_local, nsplit, aligned);
+  } else {
+    constexpr size_t sm = dkdv_smem<DP>();
+    if ((err = prepare(bwd_dkdv_wgmma_kernel<DP, CAP>, sm)) != cudaSuccess) return (int)err;
+    bwd_dkdv_wgmma_kernel<DP, CAP><<<(unsigned)kv_blocks, kWgThreads, sm, st>>>(
+        qt, kt, vt, gt, lse, delta, dkt, dvt, part, B, H, KV, S, Sk, dh, dv, scale, cap, causal,
+        window, chunk_local, nsplit, aligned);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (nsplit > 1) {
+    const long long nk_el = (long long)B * KV * Sk * dh, nv_el = (long long)B * KV * Sk * dv;
+    bwd_sum_kernel<<<1024, 256, 0, st>>>(part, dkt, nk_el, nsplit);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    bwd_sum_kernel<<<1024, 256, 0, st>>>(part + nsplit * nk_el, dvt, nv_el, nsplit);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
 
-  const size_t sm_kv = sizeof(float) * 4 * kMmaRows + 6 * tile;
-  if ((err = prepare(bwd_dkdv_mma_kernel<DP, CAP>, sm_kv)) != cudaSuccess) return (int)err;
-  bwd_dkdv_mma_kernel<DP, CAP><<<B * KV * nk, kMmaThreads, sm_kv, st>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dvo), H, KV, S, Sk, dh,
-      dv, scale, cap, causal, window, chunk_local, vec);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  if ((err = prepare(bwd_dq_mma_kernel<DP, CAP>, 6 * tile)) != cudaSuccess) return (int)err;
-  bwd_dq_mma_kernel<DP, CAP><<<B * H * nq, kMmaThreads, 6 * tile, st>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), H, KV, S, Sk, dh, dv, scale, cap, causal,
-      window, chunk_local, vec);
+  if constexpr (PAIR) {
+    constexpr size_t sm = pair_smem<DP>();
+    if ((err = prepare(bwd_dq_pair_kernel<DP, CAP>, sm)) != cudaSuccess) return (int)err;
+    bwd_dq_pair_kernel<DP, CAP><<<(unsigned)q_blocks, kWgThreads, sm, st>>>(
+        qt, kt, vt, gt, lse, delta, dqt, H, KV, S, Sk, dh, dv, scale, cap, causal, window,
+        chunk_local, aligned);
+  } else {
+    constexpr size_t sm = dq_smem<DP>();
+    if ((err = prepare(bwd_dq_wgmma_kernel<DP, CAP>, sm)) != cudaSuccess) return (int)err;
+    bwd_dq_wgmma_kernel<DP, CAP><<<(unsigned)q_blocks, kWgThreads, sm, st>>>(
+        qt, kt, vt, gt, lse, delta, dqt, H, KV, S, Sk, dh, dv, scale, cap, causal, window,
+        chunk_local, aligned);
+  }
   return (int)cudaGetLastError();
 }
 
 template <bool CAP>
-int launch_mma_dh(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                  void* dq, void* dk, void* dvo, float* lse, float* delta, int B, int H, int KV,
-                  int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
-                  int chunk_local, int vec, cudaStream_t st) {
+int launch_wg_dh(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                 void* dk, void* dvo, const float* lse, const float* delta, float* part, int B,
+                 int H, int KV, int S, int Sk, int dh, int dv, float scale, float cap, int causal,
+                 int window, int chunk_local, int aligned, cudaStream_t st) {
   if (dh <= 64)
-    return launch_mma<64, CAP>(q, k, v, o, dout, dq, dk, dvo, lse, delta, B, H, KV, S, Sk, dh,
-                               dv, scale, cap, causal, window, chunk_local, vec, st);
-  return launch_mma<128, CAP>(q, k, v, o, dout, dq, dk, dvo, lse, delta, B, H, KV, S, Sk, dh,
-                              dv, scale, cap, causal, window, chunk_local, vec, st);
+    return launch_wg<64, CAP>(q, k, v, dout, dq, dk, dvo, lse, delta, part, B, H, KV, S, Sk, dh,
+                              dv, scale, cap, causal, window, chunk_local, aligned, st);
+  if (dh <= 128)
+    return launch_wg<128, CAP>(q, k, v, dout, dq, dk, dvo, lse, delta, part, B, H, KV, S, Sk, dh,
+                               dv, scale, cap, causal, window, chunk_local, aligned, st);
+  return launch_wg<256, CAP>(q, k, v, dout, dq, dk, dvo, lse, delta, part, B, H, KV, S, Sk, dh,
+                             dv, scale, cap, causal, window, chunk_local, aligned, st);
 }
 
-template <typename T>
-int launch_type(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                void* dq, void* dk, void* dvo, float* lse, float* delta, int B, int H, int KV,
-                int S, int Sk, int dh, int dv, float scale, float cap, int causal, int window,
-                int chunk_local, cudaStream_t st) {
-  if (cap > 0.0f)
-    return launch_dh<T, true>(q, k, v, o, dout, dq, dk, dvo, lse, delta, B, H, KV, S, Sk, dh, dv,
-                              scale, cap, causal, window, chunk_local, st);
-  return launch_dh<T, false>(q, k, v, o, dout, dq, dk, dvo, lse, delta, B, H, KV, S, Sk, dh, dv,
-                             scale, cap, causal, window, chunk_local, st);
+// The workspace's float32 slices: D [B·H·S], then (bf16 with split query
+// heads) the dK and dV partials.
+size_t delta_floats(int B, int H, int S) { return ((size_t)B * H * S + 63) / 64 * 64; }
+
+size_t part_floats(int B, int H, int KV, int Sk, int dh, int dv, int dtype) {
+  if (dtype != 1 || KV <= 0 || H % KV != 0) return 0;
+  const int nsplit = dkdv_splits(B, KV, Sk, H / KV, dkdv_keys(dh <= 128 ? 128 : 256));
+  return nsplit > 1 ? (size_t)nsplit * B * KV * Sk * (dh + dv) : 0;
 }
 
 }  // namespace
 
-// q [B,H,S,dh], k [B,KV,Sk,dh], v [B,KV,Sk,dv], o and dout [B,H,S,dv] ->
-// dq [B,H,S,dh], dk [B,KV,Sk,dh], dv [B,KV,Sk,dv]; lse and delta are float32
-// [B,H,S] workspaces. dtype 0: float32, 1: bfloat16 (every tensor of the call).
+// Bytes of the workspace a call of flash_attention_bwd_launch needs.
+extern "C" long long flash_attention_bwd_workspace_bytes(int B, int H, int KV, int S, int Sk,
+                                                         int dh, int dv, int dtype) {
+  return (long long)(sizeof(float) *
+                     (delta_floats(B, H, S) + part_floats(B, H, KV, Sk, dh, dv, dtype)));
+}
+
+// q [B,H,S,dh], k [B,KV,Sk,dh], v [B,KV,Sk,dv], o and dout [B,H,S,dv], lse
+// float32 [B,H,S] (the forward's) -> dq [B,H,S,dh], dk [B,KV,Sk,dh], dv
+// [B,KV,Sk,dv]; ws holds flash_attention_bwd_workspace_bytes. dtype 0:
+// float32, 1: bfloat16 (every tensor of the call but lse and ws).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
-                                          const void* o, const void* dout, void* dq, void* dk,
-                                          void* dvo, void* lse, void* delta, int B, int H, int KV,
-                                          int S, int Sk, int dh, int dv, float scale, float cap,
-                                          int causal, int window, int chunk_local, int dtype,
-                                          void* stream) {
+                                          const void* o, const void* dout, const void* lse,
+                                          void* dq, void* dk, void* dvo, void* ws, int B, int H,
+                                          int KV, int S, int Sk, int dh, int dv, float scale,
+                                          float cap, int causal, int window, int chunk_local,
+                                          int dtype, void* stream) {
   if (B == 0 || H == 0 || S == 0) return (int)cudaGetLastError();
   if (KV <= 0 || H % KV != 0 || dh <= 0 || dh > 256 || dv <= 0 || dv > dh || Sk <= 0)
     return (int)cudaErrorInvalidValue;
   if (Sk != S && (causal || window > 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  float* l = static_cast<float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  if (dtype == 0)
-    return launch_type<float>(q, k, v, o, dout, dq, dk, dvo, l, dl, B, H, KV, S, Sk, dh, dv,
-                              scale, cap, causal, window, chunk_local, st);
-  if (dtype == 1 && dh <= 128) {
-    const int vec = dh % 8 == 0 && dv % 8 == 0 &&
-                    ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 == 0;
+  const float* l = static_cast<const float*>(lse);
+  float* delta = static_cast<float*>(ws);
+  float* part = delta + delta_floats(B, H, S);
+  const long long rows = (long long)B * H * S;
+  int err;
+  if (dtype == 0) {
+    if ((err = launch_delta<float>(o, dout, delta, rows, dv, st)) != 0) return err;
     if (cap > 0.0f)
-      return launch_mma_dh<true>(q, k, v, o, dout, dq, dk, dvo, l, dl, B, H, KV, S, Sk, dh, dv,
-                                 scale, cap, causal, window, chunk_local, vec, st);
-    return launch_mma_dh<false>(q, k, v, o, dout, dq, dk, dvo, l, dl, B, H, KV, S, Sk, dh, dv,
-                                scale, cap, causal, window, chunk_local, vec, st);
+      return launch_dh<float, true>(q, k, v, dout, dq, dk, dvo, l, delta, B, H, KV, S, Sk, dh,
+                                    dv, scale, cap, causal, window, chunk_local, st);
+    return launch_dh<float, false>(q, k, v, dout, dq, dk, dvo, l, delta, B, H, KV, S, Sk, dh, dv,
+                                   scale, cap, causal, window, chunk_local, st);
   }
-  if (dtype == 1 && cap > 0.0f)  // dh > 128: the CUDA cores
-    return launch_all<__nv_bfloat16, 256, true>(q, k, v, o, dout, dq, dk, dvo, l, dl, B, H, KV,
-                                                S, Sk, dh, dv, scale, cap, causal, window,
-                                                chunk_local, st);
-  if (dtype == 1)
-    return launch_all<__nv_bfloat16, 256, false>(q, k, v, o, dout, dq, dk, dvo, l, dl, B, H, KV,
-                                                 S, Sk, dh, dv, scale, cap, causal, window,
-                                                 chunk_local, st);
+  if (dtype == 1) {
+    if ((err = launch_delta<bf16>(o, dout, delta, rows, dv, st)) != 0) return err;
+    const int aligned = dh % 8 == 0 && dv % 8 == 0 &&
+                        ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 == 0;
+    if (cap > 0.0f)
+      return launch_wg_dh<true>(q, k, v, dout, dq, dk, dvo, l, delta, part, B, H, KV, S, Sk, dh,
+                                dv, scale, cap, causal, window, chunk_local, aligned, st);
+    return launch_wg_dh<false>(q, k, v, dout, dq, dk, dvo, l, delta, part, B, H, KV, S, Sk, dh,
+                               dv, scale, cap, causal, window, chunk_local, aligned, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -64,7 +64,12 @@
 // take 169 KB, so the block asks for dynamic shared memory above 48 KB and
 // one block fits an SM.
 //
-// Both keep the TPU kernel's numerics: m starts at -1e30, masked entries are
+// Both write, under a gradient, each row's m and its normaliser n =
+// max(|σ|, exp(-m), 1e-30), signed as σ where |σ| sets it, into two float32
+// [B,H,S] buffers the wrapper passes (null without a gradient): the
+// backward (csrc/mlstm_chunk_bwd.cu) reads a_i and sign(σ_i) from them
+// instead of recomputing σ. Both keep the TPU kernel's numerics: m starts
+// at -1e30, masked entries are
 // the finite -1e30 (exp(-1e30 - m) = 0 once a real key has set m), the row
 // sum is signed and kept apart from the stabiliser m, and
 // w = ((q.k) * scale) * D. The library is built with -fmad=false: products
@@ -105,7 +110,7 @@ template <typename T, int BQ, int DMAX>
 __global__ void __launch_bounds__(kThreads)
 mlstm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const float* __restrict__ F, const float* __restrict__ logi, T* __restrict__ out,
-             int S, int dh, float scale) {
+             float* __restrict__ m_out, float* __restrict__ n_out, int S, int dh, float scale) {
   constexpr int RQ = BQ / 16;   // query rows per thread
   constexpr int ND = DMAX / 8;  // output columns per thread
   const int nq = (S + BQ - 1) / BQ;
@@ -232,7 +237,12 @@ mlstm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int i = 0; i < RQ; ++i) {
     const int qp = q0 + ty * RQ + i;
     if (qp >= S) continue;
-    const float norm = fmaxf(fmaxf(fabsf(rs[i]), expf(-m[i])), 1e-30f);
+    const float fl = fmaxf(expf(-m[i]), 1e-30f);
+    const float norm = fmaxf(fabsf(rs[i]), fl);
+    if (m_out != nullptr && tx == 0) {  // n signed by σ where |σ| sets it
+      m_out[base + qp] = m[i];
+      n_out[base + qp] = fabsf(rs[i]) > fl ? rs[i] : fl;
+    }
     T* orow = out + (base + qp) * dh;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
@@ -244,7 +254,8 @@ mlstm_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 template <typename T, int BQ, int DMAX>
 int launch(const void* q, const void* k, const void* v, const float* F, const float* logi,
-           void* out, int BH, int S, int dh, float scale, cudaStream_t stream) {
+           void* out, float* m_out, float* n_out, int BH, int S, int dh, float scale,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<T, BQ>(dh);
   auto kern = mlstm_kernel<T, BQ, DMAX>;
   cudaError_t err =
@@ -253,15 +264,18 @@ int launch(const void* q, const void* k, const void* v, const float* F, const fl
   const long long blocks = (long long)BH * ((S + BQ - 1) / BQ);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kern<<<(unsigned)blocks, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, F,
-                                                     logi, (T*)out, S, dh, scale);
+                                                     logi, (T*)out, m_out, n_out, S, dh, scale);
   return (int)cudaGetLastError();
 }
 
 int launch_f32(const void* q, const void* k, const void* v, const float* F, const float* logi,
-               void* out, int BH, int S, int dh, float scale, cudaStream_t st) {
-  if (dh <= 64) return launch<float, 64, 64>(q, k, v, F, logi, out, BH, S, dh, scale, st);
-  if (dh <= 128) return launch<float, 64, 128>(q, k, v, F, logi, out, BH, S, dh, scale, st);
-  if (dh <= 256) return launch<float, 32, 256>(q, k, v, F, logi, out, BH, S, dh, scale, st);
+               void* out, float* m, float* n, int BH, int S, int dh, float scale,
+               cudaStream_t st) {
+  if (dh <= 64) return launch<float, 64, 64>(q, k, v, F, logi, out, m, n, BH, S, dh, scale, st);
+  if (dh <= 128)
+    return launch<float, 64, 128>(q, k, v, F, logi, out, m, n, BH, S, dh, scale, st);
+  if (dh <= 256)
+    return launch<float, 32, 256>(q, k, v, F, logi, out, m, n, BH, S, dh, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -271,13 +285,6 @@ int launch_f32(const void* q, const void* k, const void* v, const float* F, cons
 
 constexpr int kWgBQ = 128;  // queries a block: two warpgroups of 64 rows
 constexpr int kWgBK = 64;   // keys a tile
-
-// 4 bytes from global to shared memory, zero-filled when bytes == 0
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
 
 // F and logi of keys [k0, k0 + 64) into g (F at g, logi at g + 64), 0 past S
 __device__ __forceinline__ void load_gates(float* g, const float* __restrict__ Fb,
@@ -311,7 +318,8 @@ template <int DP>
 __global__ void __launch_bounds__(kWgThreads, 1)
 mlstm_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const float* __restrict__ F,
-                   const float* __restrict__ logi, bf16* __restrict__ out, int S, int dh,
+                   const float* __restrict__ logi, bf16* __restrict__ out,
+                   float* __restrict__ m_out, float* __restrict__ n_out, int S, int dh,
                    float scale, int aligned) {
   constexpr int NP = DP / 64;                    // 64-column panels
   constexpr int Q_BYTES = NP * kWgBQ * 128;
@@ -481,13 +489,18 @@ mlstm_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     rs0 += __shfl_xor_sync(0xffffffffu, rs0, o_);
     rs1 += __shfl_xor_sync(0xffffffffu, rs1, o_);
   }
-  const float norm0 = fmaxf(fmaxf(fabsf(rs0), expf(-m0)), 1e-30f);
-  const float norm1 = fmaxf(fmaxf(fabsf(rs1), expf(-m1)), 1e-30f);
+  const float floor0 = fmaxf(expf(-m0), 1e-30f), floor1 = fmaxf(expf(-m1), 1e-30f);
+  const float norm0 = fmaxf(fabsf(rs0), floor0), norm1 = fmaxf(fabsf(rs1), floor1);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qp = half ? r1 : r0;
     if (qp >= S) continue;
     const float norm = half ? norm1 : norm0;
+    if (m_out != nullptr && (lane & 3) == 0) {  // n signed by σ where |σ| sets it
+      const float rs = half ? rs1 : rs0, fl = half ? floor1 : floor0;
+      m_out[row0 + qp] = half ? m1 : m0;
+      n_out[row0 + qp] = fabsf(rs) > fl ? rs : fl;
+    }
     bf16* orow = out + (row0 + qp) * dh;
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
@@ -509,7 +522,8 @@ mlstm_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DP>
 int launch_wg(const void* q, const void* k, const void* v, const float* F, const float* logi,
-              void* out, int BH, int S, int dh, float scale, cudaStream_t stream) {
+              void* out, float* m, float* n, int BH, int S, int dh, float scale,
+              cudaStream_t stream) {
   constexpr size_t smem = wg_smem_bytes<DP>();
   auto kern = mlstm_wgmma_kernel<DP>;
   cudaError_t err =
@@ -519,32 +533,38 @@ int launch_wg(const void* q, const void* k, const void* v, const float* F, const
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const int aligned = dh % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   kern<<<(unsigned)blocks, kWgThreads, smem, stream>>>((const bf16*)q, (const bf16*)k,
-                                                       (const bf16*)v, F, logi, (bf16*)out, S,
-                                                       dh, scale, aligned);
+                                                       (const bf16*)v, F, logi, (bf16*)out, m,
+                                                       n, S, dh, scale, aligned);
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, const float* F, const float* logi,
-                void* out, int BH, int S, int dh, float scale, cudaStream_t st) {
-  if (dh <= 64) return launch_wg<64>(q, k, v, F, logi, out, BH, S, dh, scale, st);
-  if (dh <= 128) return launch_wg<128>(q, k, v, F, logi, out, BH, S, dh, scale, st);
-  if (dh <= 256) return launch_wg<256>(q, k, v, F, logi, out, BH, S, dh, scale, st);
+                void* out, float* m, float* n, int BH, int S, int dh, float scale,
+                cudaStream_t st) {
+  if (dh <= 64) return launch_wg<64>(q, k, v, F, logi, out, m, n, BH, S, dh, scale, st);
+  if (dh <= 128) return launch_wg<128>(q, k, v, F, logi, out, m, n, BH, S, dh, scale, st);
+  if (dh <= 256) return launch_wg<256>(q, k, v, F, logi, out, m, n, BH, S, dh, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores) for q, k, v
-// and out; F and logi float32. Shapes are checked by the Python wrapper.
+// and out; F and logi float32. m_out, n_out: both null, or float32 [BH, S]
+// that receive each row's m and its normaliser n = max(|σ|, exp(-m),
+// 1e-30), signed as σ where |σ| sets it (what the backward needs of σ).
+// Shapes are checked by the Python wrapper.
 extern "C" int mlstm_chunk_launch(const void* q, const void* k, const void* v, const void* F,
-                                  const void* logi, void* out, int BH, int S, int dh,
-                                  float scale, int dtype, void* stream) {
+                                  const void* logi, void* out, void* m_out, void* n_out, int BH,
+                                  int S, int dh, float scale, int dtype, void* stream) {
   if (BH == 0 || S == 0) return (int)cudaGetLastError();
   if (dh <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* f = (const float*)F;
   const float* li = (const float*)logi;
-  if (dtype == 0) return launch_f32(q, k, v, f, li, out, BH, S, dh, scale, st);
-  if (dtype == 1) return launch_bf16(q, k, v, f, li, out, BH, S, dh, scale, st);
+  float* m = static_cast<float*>(m_out);
+  float* n = static_cast<float*>(n_out);
+  if (dtype == 0) return launch_f32(q, k, v, f, li, out, m, n, BH, S, dh, scale, st);
+  if (dtype == 1) return launch_bf16(q, k, v, f, li, out, m, n, BH, S, dh, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the bf16 tensor-core kernels
-// (flash_attention.cu, mlstm_chunk.cu; rglru_scan.cu takes only the cp.async
-// helpers): wgmma's 128-byte-swizzled
-// shared-memory layout and descriptors, cp.async loads of 16-byte chunks
-// into that layout, the wgmma instructions (m64n64k16, bf16 in, float32
-// accumulate) and the split of a float32 operand into a bf16 pair hi + lo.
+// (flash_attention.cu, flash_attention_bwd.cu, mlstm_chunk.cu,
+// mlstm_chunk_bwd.cu; rglru_scan.cu takes only the cp.async helpers):
+// wgmma's 128-byte-swizzled shared-memory layout and descriptors, cp.async
+// loads of 16-byte chunks into that layout and of float32 rows, the wgmma
+// instructions (m64n64k16, bf16 in, float32 accumulate) and the split of
+// a float32 operand into a bf16 pair hi + lo.
 //
 // Layout: a tile of ROWS rows x DP head-dim columns is stored as DP / 64
 // panels of 64 columns, 128-byte rows, each panel 1024-byte aligned, with
@@ -59,6 +60,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int by
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// 4 bytes from global to shared memory, zero-filled when bytes == 0
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -71,6 +78,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// all but the N most recent committed groups of this warpgroup have ended
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -135,6 +147,16 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uin
   lo = pack_bf16(p0 - hf.x, p1 - hf.y);
 }
 
+// The 64 float32 values src[r0 .. r0 + 64) into dst by cp.async (threads
+// 0-63), zero past n.
+__device__ __forceinline__ void load_row64(float* dst, const float* __restrict__ src, int r0,
+                                           int n, int tid) {
+  if (tid < 64) {
+    const bool in = r0 + tid < n;
+    cp_async4(smem_u32(dst + tid), in ? src + r0 + tid : src, in ? 4 : 0);
+  }
+}
+
 // Copy rows [row0, row0 + ROWS) x the DP head-dim columns of a [S][dh]
 // matrix into the swizzled panels at `dst`, zero past S and past dh.
 template <int ROWS, int DP>
@@ -160,6 +182,118 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* __rest
         w[e] = lo | (hi << 16);
       }
       *reinterpret_cast<uint4*>(dst + off) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 64-row tiles, a warpgroup's products on them (the backward kernels)
+// ---------------------------------------------------------------------------
+
+constexpr int kT = 64;                 // rows of a tile: wgmma's M and a score tile's N
+constexpr uint32_t kPanel = kT * 128;  // bytes of one 64-column panel of a 64-row tile
+
+// d[64 x 64] = A·Bᵀ over the DP head-dim columns (zeros past the operands'
+// widths), A and B 64-row K-major tiles at a_addr and b_addr, issued and
+// committed as one group (`wg_wait` ends it; then `fence_regs(d)`). A
+// warpgroup's call. No branch between the fence and the commit: ptxas
+// serializes every wgmma of a kernel whose pipeline stage has one (C7520).
+template <int DP>
+__device__ __forceinline__ void scores_issue(float (&d)[32], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.0f;
+  fence_regs(d);
+  wg_fence();
+  const uint32_t ad = desc_lo(a_addr, 16), bd = desc_lo(b_addr, 16);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = ((kk >> 2) * kPanel + (kk & 3) * 32) >> 4;
+    wgmma_ss(d, ad + off, bd + off, kk > 0);
+  }
+  wg_commit();
+}
+
+// `scores_issue`, waited for.
+template <int DP>
+__device__ __forceinline__ void scores(float (&d)[32], uint32_t a_addr, uint32_t b_addr) {
+  scores_issue<DP>(d, a_addr, b_addr);
+  wg_wait0();
+  fence_regs(d);
+}
+
+// acc[j] += X·B[:, 64 (p0 + j) ...] for the panels j < NPW, X (64 x 64) as
+// bf16 A fragments a, B a 64-row MN-major tile at b_addr, issued and
+// committed as one group: a and acc stay untouched until a `wg_wait` ends
+// it (then `fence_regs` on acc). A warpgroup's call.
+template <int NPW>
+__device__ __forceinline__ void accumulate_issue(float (&acc)[NPW][32], const uint32_t (&a)[4][4],
+                                                 uint32_t b_addr, int p0) {
+  const uint32_t bd = desc_lo(b_addr, kPanel);
+#pragma unroll
+  for (int j = 0; j < NPW; ++j) fence_regs(acc[j]);
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < NPW; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc[j], a[kk], bd + (((p0 + j) * kPanel + kk * 16 * 128) >> 4));
+  wg_commit();
+}
+
+// `accumulate_issue`, waited for.
+template <int NPW>
+__device__ __forceinline__ void accumulate(float (&acc)[NPW][32], const uint32_t (&a)[4][4],
+                                           uint32_t b_addr, int p0) {
+  accumulate_issue<NPW>(acc, a, b_addr, p0);
+  wg_wait0();
+#pragma unroll
+  for (int j = 0; j < NPW; ++j) fence_regs(acc[j]);
+}
+
+// This thread's warpgroup, as a value the compiler knows is warp-uniform
+// (a broadcast from lane 0), so the branches on it around a warpgroup's
+// wgmma stages are not divergent paths.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+}
+
+// x (a 64 x 64 accumulator) rounded to bf16 A fragments: k step kk holds
+// columns 16 kk .. 16 kk + 15
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// A warpgroup's 64 x NPW panels of float32 accumulators, rows r0 + ra and
+// r0 + ra + 8 (< n), columns 64 (p0 + j) + 8 jj + cq + {0, 1} (< cols),
+// times mul: bf16 into out (row stride cols) or, with part, float32 there.
+template <int NPW>
+__device__ __forceinline__ void store_rows(const float (&acc)[NPW][32], bf16* out, float* part,
+                                           size_t row0, int r0, int n, int p0, int cols,
+                                           float mul, int ra, int cq) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + ra + 8 * half;
+    if (r >= n) continue;
+    const size_t off = (row0 + r) * (size_t)cols;
+#pragma unroll
+    for (int j = 0; j < NPW; ++j) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int d = 64 * (p0 + j) + 8 * jj + cq;
+        const float x0 = acc[j][4 * jj + 2 * half] * mul, x1 = acc[j][4 * jj + 2 * half + 1] * mul;
+        if (part != nullptr) {
+          if (d < cols) part[off + d] = x0;
+          if (d + 1 < cols) part[off + d + 1] = x1;
+        } else if (d + 1 < cols && (cols & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(out + off + d) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (d < cols) out[off + d] = __float2bfloat16_rn(x0);
+          if (d + 1 < cols) out[off + d + 1] = __float2bfloat16_rn(x1);
+        }
+      }
     }
   }
 }

@@ -22,7 +22,7 @@ def entry():
     """The C entry point; the library is built at the first call."""
     fn = _build.load("flash_attention").flash_attention_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 4
+        [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 7
         + [ctypes.c_float] * 2
         + [ctypes.c_int] * 4
@@ -33,18 +33,20 @@ def entry():
 
 
 def launch(q, k, v, out, scale: float, causal: bool, window: int, chunk_local: bool,
-           logit_cap: float) -> None:
+           logit_cap: float, lse=None) -> None:
     """Enqueue one kernel on the current stream of the tensors' device.
     q [B,H,S,dh], k [B,KV,Sk,dh], v [B,KV,Sk,dv], out [B,H,S,dv] (Sk != S:
-    cross-attention, no causal or window mask); `logit_cap` <= 0: no cap."""
+    cross-attention, no causal or window mask); `logit_cap` <= 0: no cap;
+    `lse`: None, or a float32 [B,H,S] that receives each row's
+    log-sum-exp of its masked scores (what the backward needs)."""
     B, H, S, dh = q.shape
     KV, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     fn = entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, S, Sk, dh, dv,
-            scale,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, KV, S, Sk, dh, dv, scale,
             float(logit_cap), int(causal), int(window), int(chunk_local), DTYPE_CODES[q.dtype],
             stream,
         )

@@ -18,12 +18,15 @@ attention does (its TPU kernel has no cap).
 
 `mha` is differentiable: when grad mode is on and q, k or v requires a
 gradient, it runs as the `torch.autograd.Function` `_Mha`, whose forward is
-the same launch (or plain call) and whose backward is `mha_backward`: the
-hand-written backward (`csrc/flash_attention_bwd.cu`, three kernels, no
-atomics: bfloat16 with dh <= 128 on the tensor cores, the rest on the CUDA
-cores) on CUDA tensors, `ref.attention_bwd_ref` on CPU tensors.
-`mha_backward.launches` counts its calls on the card. Without a gradient
-`mha` takes the path it always took.
+the same launch (or plain call) with the rows' log-sum-exp as a second
+output (float32 [B,H,S], written by the kernel's epilogue) and whose
+backward is `mha_backward` on the saved q, k, v, out and lse: the
+hand-written backward (`csrc/flash_attention_bwd.cu`: a D pass, then
+bfloat16 on wgmma, a dK / dV kernel and a dQ kernel, float32 on the CUDA
+cores; no atomics, two calls give the same bits) on CUDA tensors,
+`ref.attention_bwd_ref` on CPU tensors. `mha_backward.launches` counts its
+calls on the card. Without a gradient `mha` takes the path it always took,
+with no lse written.
 """
 
 from __future__ import annotations
@@ -61,17 +64,20 @@ def _check(q, k, v) -> None:
             raise ValueError(f"mha: {name} on {x.device}, q on {q.device}")
 
 
-def _forward(qt, kt, vt, causal, window, chunk_local, logit_cap):
-    """One launch (or plain call) on the kernel's layout [B,H,S,d]."""
+def _forward(qt, kt, vt, causal, window, chunk_local, logit_cap, with_lse=False):
+    """One launch (or plain call) on the kernel's layout [B,H,S,d]; with
+    `with_lse`, (out, the rows' log-sum-exp float32 [B,H,S])."""
     if plain_device(qt):
         return attention_ref(qt, kt, vt, causal=causal, window=window, chunk_local=chunk_local,
-                             logit_cap=logit_cap)
+                             logit_cap=logit_cap, with_lse=with_lse)
     out = qt.new_empty(qt.shape[:3] + (vt.shape[-1],))
-    _cuda.launch(qt, kt, vt, out, qt.shape[-1] ** -0.5, causal, window, chunk_local, logit_cap)
+    lse = qt.new_empty(qt.shape[:3], dtype=torch.float32) if with_lse else None
+    _cuda.launch(qt, kt, vt, out, qt.shape[-1] ** -0.5, causal, window, chunk_local, logit_cap,
+                 lse=lse)
     mha.launches += 1
     mha.launches_by_dtype[str(qt.dtype)[6:]] += 1
     mha.cross_launches += kt.shape[2] != qt.shape[2]
-    return out
+    return (out, lse) if with_lse else out
 
 
 def _check_args(q, k, v, causal, window, logit_cap) -> None:
@@ -86,21 +92,22 @@ def _check_args(q, k, v, causal, window, logit_cap) -> None:
 
 
 class _Mha(torch.autograd.Function):
-    """`mha` with a gradient: the forward's launch, then `mha_backward`."""
+    """`mha` with a gradient: the forward's launch with the rows' lse, then
+    `mha_backward`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk_local, logit_cap):
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        out = _forward(qt, kt, vt, causal, window, chunk_local, logit_cap)
-        ctx.save_for_backward(qt, kt, vt, out)
+        out, lse = _forward(qt, kt, vt, causal, window, chunk_local, logit_cap, with_lse=True)
+        ctx.save_for_backward(qt, kt, vt, out, lse)
         ctx.mask = (causal, window, chunk_local, logit_cap)
         return out.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, dout):
-        qt, kt, vt, out = ctx.saved_tensors
+        qt, kt, vt, out, lse = ctx.saved_tensors
         causal, window, chunk_local, logit_cap = ctx.mask
-        dq, dk, dv = mha_backward(qt, kt, vt, out, dout.transpose(1, 2), causal=causal,
+        dq, dk, dv = mha_backward(qt, kt, vt, out, dout.transpose(1, 2), lse, causal=causal,
                                   window=window, chunk_local=chunk_local, logit_cap=logit_cap)
         return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), None, None, None, None
 
@@ -122,13 +129,14 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0, chunk_local: bool = Fa
     return _forward(qt, kt, vt, causal, window, chunk_local, logit_cap).transpose(1, 2)
 
 
-def mha_backward(q, k, v, out, dout, *, causal: bool = True, window: int = 0,
+def mha_backward(q, k, v, out, dout, lse, *, causal: bool = True, window: int = 0,
                  chunk_local: bool = False, logit_cap: float = 0.0):
     """The gradient of the kernel's function on its layout: q [B,H,S,dh],
     k [B,KV,Sk,dh], v [B,KV,Sk,dv], the forward's out and its gradient dout
-    [B,H,S,dv] -> (dq, dk, dv) in q's dtype. On CUDA tensors one call of the
-    backward's entry point (its three kernels; float32 workspaces for the row
-    lse and D), counted in `mha_backward.launches`; on CPU tensors
+    [B,H,S,dv] and the forward's row log-sum-exp lse float32 [B,H,S] ->
+    (dq, dk, dv) in q's dtype. On CUDA tensors one call of the backward's
+    entry point (its kernels; a float32 workspace for D and the split
+    partials), counted in `mha_backward.launches`; on CPU tensors
     `attention_bwd_ref`."""
     _check_args(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal, window,
                 logit_cap)
@@ -137,16 +145,17 @@ def mha_backward(q, k, v, out, dout, *, causal: bool = True, window: int = 0,
                          f"got {tuple(out.shape)} and {tuple(dout.shape)}")
     if {out.dtype, dout.dtype} != {q.dtype} or {out.device, dout.device} != {q.device}:
         raise TypeError("mha_backward: out and dout must share q's dtype and device")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"mha_backward: lse must be float32 {tuple(q.shape[:3])} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
     if plain_device(q):
-        return attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window,
+        return attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window,
                                  chunk_local=chunk_local, logit_cap=logit_cap)
     _cuda_bwd.entry()
-    q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout))
+    q, k, v, out, dout, lse = (x.contiguous() for x in (q, k, v, out, dout, lse))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = q.new_empty(q.shape[:3], dtype=torch.float32)
-    delta = torch.empty_like(lse)
-    _cuda_bwd.launch(q, k, v, out, dout, dq, dk, dv, lse, delta, q.shape[-1] ** -0.5, causal,
-                     window, chunk_local, logit_cap)
+    _cuda_bwd.launch(q, k, v, out, dout, lse, dq, dk, dv, q.shape[-1] ** -0.5, causal, window,
+                     chunk_local, logit_cap)
     mha_backward.launches += 1
     mha_backward.launches_by_dtype[str(q.dtype)[6:]] += 1
     return dq, dk, dv

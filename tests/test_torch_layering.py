@@ -122,7 +122,7 @@ def test_sources_import_no_jax_and_no_repro():
     pat = re.compile(r"^\s*(from|import)\s+(jax|repro|benchmarks)(\.|\s|$)", re.M)
     files = sorted(PKG.rglob("*.py"))
     assert {PKG / m for m in SLICE_MODULES} <= set(files)
-    files += [ROOT / "chip_smoke.py", ROOT / "profile_step.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "profile_step.py", ROOT / "time_backwards.py"]
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"

@@ -103,14 +103,15 @@ def _mlstm_inputs(case, seed):
 
 
 def _port_mlstm_bwd(q, k, v, logi, logf, g, dtype):
-    """`mlstm_bwd_ref` on the port's tensors in `dtype`, dlogf formed from
-    dF as the wrapper forms it."""
+    """`mlstm_bwd_ref` on the port's tensors in `dtype`, given the plain
+    forward's row statistics m and n as the wrapper passes them, dlogf
+    formed from dF as the wrapper forms it."""
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     qt, kt, vt, gt = (torch.from_numpy(x).to(tdt) for x in (q, k, v, g))
     li, lf = torch.from_numpy(logi), torch.from_numpy(logf)
     F = torch.cumsum(lf, dim=-1)
-    h = mlstm_ref(qt, kt, vt, li, lf)
-    dq, dk, dv, dlogi, dF = mlstm_bwd_ref(qt, kt, vt, li, F, h, gt)
+    h, m, n = mlstm_ref(qt, kt, vt, li, lf, with_stats=True)
+    dq, dk, dv, dlogi, dF = mlstm_bwd_ref(qt, kt, vt, li, F, h, gt, m, n)
     return dq, dk, dv, dlogi, torch.flip(torch.cumsum(torch.flip(dF, (-1,)), dim=-1), (-1,))
 
 

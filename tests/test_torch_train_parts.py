@@ -95,8 +95,9 @@ def _reference_grads(case, q, k, v, g):
 
 @pytest.mark.parametrize("name", list(BWD_CASES))
 def test_attention_backward_matches_jax_grad(name):
-    """`attention_bwd_ref` (the kernel's plain version, FA2 form) and
-    autograd through the port's CPU `mha` against the reference's gradient."""
+    """`attention_bwd_ref` (the kernel's plain version, FA2 form), given the
+    plain forward's row lse as the wrapper passes it, and autograd through
+    the port's CPU `mha` against the reference's gradient."""
     case = BWD_CASES[name]
     *_, causal, window, cl, cap = case
     q, k, v, g = _bwd_inputs(case)
@@ -104,8 +105,9 @@ def test_attention_backward_matches_jax_grad(name):
     kw = dict(causal=causal, window=window, chunk_local=cl, logit_cap=cap)
 
     qt, kt, vt, gt = (torch.from_numpy(x).transpose(1, 2).contiguous() for x in (q, k, v, g))
-    out = attention_ref(qt, kt, vt, **kw)
-    plain = attention_bwd_ref(qt, kt, vt, out, gt, **kw)
+    out, lse = attention_ref(qt, kt, vt, **kw, with_lse=True)
+    assert torch.equal(out, attention_ref(qt, kt, vt, **kw))
+    plain = attention_bwd_ref(qt, kt, vt, out, gt, lse, **kw)
     np.testing.assert_allclose(out.transpose(1, 2).numpy(), ref[0], atol=BWD_TOL, rtol=BWD_TOL)
     for got, want, label in zip(plain, ref[1:], "qkv"):
         np.testing.assert_allclose(got.transpose(1, 2).numpy(), want, atol=BWD_TOL,
