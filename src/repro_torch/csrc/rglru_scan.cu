@@ -30,24 +30,9 @@
 // from the true h_{t-1} by expf, a rounded mul and an add (the library is
 // built with -fmad=false), as a sequential loop computes it.
 //
-// Handoff. Each thread's carry is one 64-bit word: the chunk index that may
-// read it in the high half, the float32 h in the low half, written by one
-// store. A naturally aligned 64-bit access is single-copy atomic, so a
-// reader that sees the index also sees the h of the same store; no other
-// data passes between blocks (h_t goes to `out`, read by no block), so no
-// fence is needed. Loads and stores are .relaxed.gpu, which bypasses the
-// non-coherent L1. The workspace (a ticket and the carries) is zeroed by a
-// cudaMemsetAsync on the launch stream before the kernel, so an index left
-// by an earlier launch is never read, the host never synchronises, and a
-// captured stream can record both.
-//
-// Forward progress. A block takes its (column, chunk) from an atomicAdd
-// ticket in chunk-major order, not from blockIdx. Chunk c of a column waits
-// only for chunk c - 1 of that column, whose ticket is smaller by the number
-// of columns: it was taken earlier, so by a block that is already running
-// and stays resident until it finishes. That block waits only for a smaller
-// ticket again, down to chunk 0, which waits for nothing. So every waiting
-// block waits for a running block, whatever the number of blocks resident.
+// Handoff, forward progress and workspace: rglru_chain.cuh. A chunk's
+// place in its column's chain is its index c: chunk c waits for the final h
+// of chunk c - 1.
 //
 // Plain C interface (loaded with ctypes): returns the first cudaError.
 
@@ -56,14 +41,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "rglru_chain.cuh"
 #include "wgmma.cuh"  // smem_u32, cp_async16, cp_async_commit, cp_async_wait
 
 namespace {
 
-constexpr int kTE = 128;  // channels a block, one thread each
-constexpr int kTC = 64;   // steps of t a block
-constexpr size_t kTicketBytes = 16;
-constexpr int kMaxDevices = 64;
+constexpr int kTC = 64;  // steps of t a block (kTE channels: rglru_chain.cuh)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -74,15 +57,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ unsigned long long load_carry(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void store_carry(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
 }
 
 // FUSE: x is gx and b is formed here; else x is b. VEC: 16-byte cp.async
@@ -97,10 +71,8 @@ rglru_chain_kernel(const float* __restrict__ log_a, const T* __restrict__ x,
   extern __shared__ __align__(16) unsigned char smem[];
   float* a_s = reinterpret_cast<float*>(smem);                  // [kTC][kTE] log_a, then a
   T* b_s = reinterpret_cast<T*>(smem + kTC * kTE * sizeof(float));  // [kTC][kTE] b (or gx)
-  __shared__ unsigned tile;
   const int j = threadIdx.x;
-  if (j == 0) tile = atomicAdd(ticket, 1u);
-  __syncthreads();
+  const unsigned tile = take_ticket(ticket);
   const int chunk = (int)(tile / (unsigned)n_cols);
   const int col = (int)(tile % (unsigned)n_cols);
   const int tiles_e = (E + kTE - 1) / kTE;
@@ -150,12 +122,7 @@ rglru_chain_kernel(const float* __restrict__ log_a, const T* __restrict__ x,
   if (chunk == 0) {
     h = h0 != nullptr ? h0[(size_t)bi * E + e0 + j] : 0.0f;
   } else {
-    unsigned long long v = load_carry(slot);
-    while ((unsigned)(v >> 32) != (unsigned)chunk) {
-      __nanosleep(32);
-      v = load_carry(slot);
-    }
-    h = __uint_as_float((unsigned)v);
+    h = wait_carry(slot, chunk);
   }
   T* o = out + base + j;
 #pragma unroll 8
@@ -163,15 +130,7 @@ rglru_chain_kernel(const float* __restrict__ log_a, const T* __restrict__ x,
     h = a_s[r * kTE + j] * h + to_f32(b_s[r * kTE + j]);
     o[(size_t)r * E] = from_f32<T>(h);
   }
-  if (chunk + 1 < n_chunks)
-    store_carry(slot, ((unsigned long long)(chunk + 1) << 32) | __float_as_uint(h));
-}
-
-long long n_columns(int B, int E) { return (long long)B * ((E + kTE - 1) / kTE); }
-
-// a ticket, then one carry word a channel of every column
-size_t workspace_bytes(int B, int E) {
-  return kTicketBytes + (size_t)n_columns(B, E) * kTE * sizeof(unsigned long long);
+  if (chunk + 1 < n_chunks) put_carry(slot, chunk + 1, h);
 }
 
 template <typename T, bool FUSE, bool VEC>
@@ -179,25 +138,16 @@ int launch_variant(const float* log_a, const void* x, const float* h0, void* out
                    int B, int S, int E, cudaStream_t stream) {
   auto kern = rglru_chain_kernel<T, FUSE, VEC>;
   const int smem = kTC * kTE * (int)(sizeof(float) + sizeof(T));
-  // set once a device, at the first launch (before any capture records one)
   static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    configured[dev] = true;
-  }
-  const long long n_cols = n_columns(B, E);
+  if (const int err = allow_smem(kern, smem, configured)) return err;
+  const long long n_cols = chain_columns(B, E);
   const long long n_chunks = (S + kTC - 1) / kTC;
   const long long blocks = n_cols * n_chunks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  e = cudaMemsetAsync(ws, 0, workspace_bytes(B, E), stream);
+  unsigned* ticket;
+  unsigned long long* carry;
+  cudaError_t e = reset_chain(ws, B, E, stream, &ticket, &carry);
   if (e != cudaSuccess) return (int)e;
-  unsigned* ticket = (unsigned*)ws;
-  unsigned long long* carry = (unsigned long long*)((char*)ws + kTicketBytes);
   kern<<<(unsigned)blocks, kTE, smem, stream>>>(log_a, (const T*)x, h0, (T*)out, ticket, carry,
                                                  S, E, (int)n_cols, (int)n_chunks);
   return (int)cudaGetLastError();
@@ -219,7 +169,9 @@ int launch(const void* log_a, const void* x, const void* h0, void* out, void* ws
 }  // namespace
 
 // Bytes of the workspace a launch at (B, E) needs.
-extern "C" long long rglru_workspace_bytes(int B, int E) { return (long long)workspace_bytes(B, E); }
+extern "C" long long rglru_workspace_bytes(int B, int E) {
+  return (long long)chain_workspace_bytes(B, E);
+}
 
 // The TPU kernel's contract: h from b, h_{-1} = 0. dtype: 0 = float32,
 // 1 = bfloat16 (b and out); log_a float32. Shapes are checked by the

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the bf16 tensor-core kernels
 // (flash_attention.cu, flash_attention_bwd.cu, mlstm_chunk.cu,
-// mlstm_chunk_bwd.cu; rglru_scan.cu takes only the cp.async helpers):
+// mlstm_chunk_bwd.cu; rglru_scan.cu and rglru_scan_bwd.cu take only the
+// cp.async helpers):
 // wgmma's 128-byte-swizzled shared-memory layout and descriptors, cp.async
 // loads of 16-byte chunks into that layout and of float32 rows, the wgmma
 // instructions (m64n64k16, bf16 in, float32 accumulate) and the split of

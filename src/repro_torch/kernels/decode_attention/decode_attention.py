@@ -63,7 +63,8 @@ def launch_args(q, k_cache, v_cache, valid, out, scratch, scale: float, logit_ca
 def launch_args_int8(q, k_cache, v_cache, k_scale, v_scale, valid, out, scratch, scale: float,
                      logit_cap: float, splits: int, per: int) -> tuple:
     """As `launch_args` for an int8 cache [B,Sc,KV,dh] and its float32
-    scales [B,Sc,KV]: the kernel dequantizes to q's dtype as it loads."""
+    scales [B,Sc,KV]: the kernel dequantizes each element to q's dtype
+    where it would read the bf16 (or float32) cache's element."""
     return (entry_int8(), q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), valid.data_ptr(), out.data_ptr(),
             scratch.data_ptr()) + _tail(q, k_cache, scale, logit_cap, splits, per)

@@ -10,9 +10,11 @@ splits them by the cache's dtype: an int8 cache (float32 scales beside it,
 element as it loads it. A cache of no slots (Sc = 0: an encoder-decoder's
 cross step over an empty encoder memory) gives zeros, the reference's
 value of an empty sum, without a launch: `decode.empty_calls` counts
-those. `split_plan` cuts the cache into splits from the shapes and the
-card's SM count alone (the host never reads `valid`), and `prepare`
-allocates the float32 partials the merge reads. The kernel takes dh as it is (up to 256) and scales by 1/sqrt(dh)
+those. A bf16 q (every model's) takes the kernel's tensor-core route, a
+float32 q (the checks) its CUDA-core route, for either cache. `plan` cuts
+the cache into splits for the route (`split_plan_mma` / `split_plan`) from
+the shapes and the card's SM count alone (the host never reads `valid`),
+and `prepare` allocates the float32 partials the merge reads. The kernel takes dh as it is (up to 256) and scales by 1/sqrt(dh)
 itself: the reference wrapper's padding of dh to 128 is a TPU matrix-unit
 artefact.
 `logit_cap` > 0 caps each scaled score at `tanh(s / cap) * cap` before the
@@ -35,8 +37,14 @@ MAX_CHUNKS = 256  # chunks a split at most (the kernel lists them in shared memo
 # valid chunks of its slot range, which the host cannot see: small splits
 # let rows of different lengths spread evenly over the card. chip_smoke.py
 # phase 7 times 2 to 12 an SM at llama3.2-3b's and recurrentgemma-9b's
-# decode shapes (PERF.md §6)
+# decode shapes (PERF.md §6). BLOCKS_PER_SM is the CUDA-core route's (a
+# float32 q), MMA_BLOCKS_PER_SM the tensor-core route's (a bf16 q): the int8
+# and bf16 caches share it, so that the int8 entry stays bit for bit the
+# bf16 entry on the dequantized cache; 4 keeps the int8 entry the faster of
+# the two at h2o's full ring and llama's linear cache (phase 17) and at
+# phase 7's llama shapes (PERF.md §6)
 BLOCKS_PER_SM = 6
+MMA_BLOCKS_PER_SM = 4
 
 
 def split_plan(B: int, KV: int, Sc: int, sms: int,
@@ -50,6 +58,36 @@ def split_plan(B: int, KV: int, Sc: int, sms: int,
     want = -(-per_sm * sms // max(B * KV, 1))
     per_chunks = min(MAX_CHUNKS, max(1, chunks // want))
     return -(-chunks // per_chunks), CHUNK * per_chunks
+
+
+def split_plan_mma(B: int, H: int, KV: int, Sc: int, dh: int, sms: int,
+                   per_sm: int = MMA_BLOCKS_PER_SM) -> tuple[int, int]:
+    """(splits, slots_per_split) of the tensor-core route for a card of `sms`
+    SMs: as many splits as keep the blocks (B·KV·row groups of 16 query rows,
+    times the splits) within per_sm·sms, one at the least, each a whole number
+    of the kernel's rounds
+    (two chunks, one at dh > 128, where two warps share a step) and at most
+    MAX_CHUNKS chunks; the splits cover [0, Sc) once, the last may be
+    ragged."""
+    chunks = -(-Sc // CHUNK)
+    step = 1 if dh > 128 else 2
+    blocks = max(B * KV * -(-(H // max(KV, 1)) // 16), 1)
+    splits = max(1, per_sm * sms // blocks)
+    per_chunks = -(-chunks // splits)
+    per_chunks = min(MAX_CHUNKS, -(-per_chunks // step) * step)
+    return -(-chunks // per_chunks), CHUNK * per_chunks
+
+
+def plan(q, k_cache, per_sm: int | None = None) -> tuple[int, int]:
+    """The split plan of q's route on q's device: `split_plan_mma` for a
+    bf16 q, `split_plan` for a float32 one; `per_sm` overrides the route's
+    blocks an SM."""
+    B, H, dh = q.shape
+    Sc, KV = k_cache.shape[1], k_cache.shape[2]
+    sms = sm_count(q.device)
+    if q.dtype == torch.bfloat16:
+        return split_plan_mma(B, H, KV, Sc, dh, sms, per_sm or MMA_BLOCKS_PER_SM)
+    return split_plan(B, KV, Sc, sms, per_sm or BLOCKS_PER_SM)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,14 +139,14 @@ def _check(q, k_cache, v_cache, valid, k_scale=None, v_scale=None) -> None:
 
 
 def prepare(q, k_cache, v_cache, valid, logit_cap: float = 0.0,
-            per_sm: int = BLOCKS_PER_SM, k_scale=None, v_scale=None) -> tuple:
+            per_sm: int | None = None, k_scale=None, v_scale=None) -> tuple:
     """The kernel's call on checked CUDA inputs (q [B,H,dh], Sc >= 1):
     (out, args), where `_cuda.run(args)` enqueues the split kernel and its
     merge into out (the int8 entry point when `k_scale` is given). Plans
-    the split for the device (`split_plan`) and allocates out and the
-    float32 partials."""
+    the split for q's route on the device (`plan`) and allocates out and
+    the float32 partials."""
     B, H, dh = q.shape
-    splits, per = split_plan(B, k_cache.shape[2], k_cache.shape[1], sm_count(q.device), per_sm)
+    splits, per = plan(q, k_cache, per_sm)
     out = torch.empty_like(q)
     scratch = torch.empty(B * H * splits * (dh + 2), dtype=torch.float32, device=q.device)
     if k_scale is not None:

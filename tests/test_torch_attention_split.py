@@ -60,6 +60,41 @@ def test_split_plan_follows_the_sm_count(sms):
         assert splits == 1 or B * KV * (splits - 1) < 2 * per_sm * sms  # no more than it aims at
 
 
+@pytest.mark.parametrize("B,H,KV,Sc,dh", [(1, 1, 1, 1, 64), (1, 24, 8, 64, 128),
+                                         (2, 6, 2, 33, 34), (8, 32, 8, 4096, 120),
+                                         (8, 24, 8, 4001, 128), (4, 16, 1, 2048, 256),
+                                         (2, 40, 2, 700, 64), (3, 6, 2, 1000, 34),
+                                         (64, 32, 8, 4096, 128), (1, 8, 1, 100_000, 256)])
+def test_mma_split_plan_covers_every_slot_once(B, H, KV, Sc, dh):
+    """The tensor-core route's plan: whole rounds a split (two chunks, one at
+    dh > 128) but where MAX_CHUNKS caps it, every slot in one split, no
+    empty split, and no more blocks than one wave of MMA_BLOCKS_PER_SM an SM
+    (or one split a row group where the rows alone are more)."""
+    splits, per = dec_ops.split_plan_mma(B, H, KV, Sc, dh, H100_SMS)
+    step = 1 if dh > 128 else 2
+    assert per % (dec_ops.CHUNK * step) == 0 and 0 < per <= dec_ops.CHUNK * dec_ops.MAX_CHUNKS
+    cover = torch.zeros(Sc, dtype=torch.int64)
+    for sp in range(splits):
+        cover[sp * per: min(Sc, (sp + 1) * per)] += 1
+    assert bool((cover == 1).all()) and (splits - 1) * per < Sc
+    blocks = B * KV * -(-(H // KV) // 16)
+    assert blocks * splits <= max(dec_ops.MMA_BLOCKS_PER_SM * H100_SMS, blocks)
+
+
+def test_plan_takes_the_route_of_q(monkeypatch):
+    """A bf16 q plans for the tensor-core route, a float32 q for the
+    CUDA-core one; `per_sm` overrides either's blocks an SM."""
+    monkeypatch.setattr(dec_ops, "sm_count", lambda device: H100_SMS)
+    B, Sc, H, KV, dh = 8, 4096, 32, 8, 120
+    k = torch.zeros((B, Sc, KV, dh), dtype=torch.int8)
+    q = torch.zeros((B, H, dh))
+    assert dec_ops.plan(q.bfloat16(), k) == dec_ops.split_plan_mma(B, H, KV, Sc, dh, H100_SMS)
+    assert dec_ops.plan(q, k) == dec_ops.split_plan(B, KV, Sc, H100_SMS)
+    assert dec_ops.plan(q.bfloat16(), k, per_sm=1) == \
+        dec_ops.split_plan_mma(B, H, KV, Sc, dh, H100_SMS, 1)
+    assert dec_ops.plan(q, k, per_sm=2) == dec_ops.split_plan(B, KV, Sc, H100_SMS, 2)
+
+
 def split_merge(q, k, v, valid, logit_cap=0.0):
     """The CUDA decode kernel's arithmetic: per (b, kv head, split) block an
     online softmax over chunks of 32 slots that skips a chunk with no valid

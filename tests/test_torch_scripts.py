@@ -6,6 +6,7 @@ where it records host activity only). Both refuse to run without a card."""
 import dataclasses
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -526,6 +527,10 @@ def test_kernels_line_names_all_five_with_every_key():
     last = chip_smoke.KERNEL_NAMES[-1]
     with pytest.raises(AssertionError, match="keys"):
         chip_smoke.kernels_line(records[:-1] + [{"name": last}])
+    # the decode entries add their bare time; no other key passes
+    chip_smoke.kernels_line(records[:-1] + [dict(records[-1], bare_ms=1.0)])
+    with pytest.raises(AssertionError, match="keys"):
+        chip_smoke.kernels_line(records[:-1] + [dict(records[-1], other_ms=1.0)])
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.kernels_line(records[:-1] + [dict(rec, name=last, launches=0)])
 
@@ -539,7 +544,6 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
     import time as _time
 
     from repro_torch.configs import registry
-    from repro_torch.kernels.decode_attention import decode_attention as d_bind
     from repro_torch.kernels.decode_attention import ops as d_ops
     from repro_torch.kernels.flash_attention import flash_attention as f_bind
     from repro_torch.kernels.flash_attention import ops as f_ops
@@ -566,9 +570,7 @@ def test_recurrent_phases_run_on_the_cpu(monkeypatch):
 
     monkeypatch.setattr(chip_smoke, "cuda_ms", host_ms)
     monkeypatch.setattr(f_bind, "launch", lambda *a, **k: None)
-    monkeypatch.setattr(d_bind, "run", lambda args: None)
-    monkeypatch.setattr(d_ops, "prepare", lambda *a, **k: (None, ()))
-    monkeypatch.setattr(d_ops, "sm_count", lambda dev: 132)
+    _stand_in_the_decode_binding(monkeypatch)
     monkeypatch.setattr(chip_smoke, "time_mlstm",
                         lambda m, dev: {"mlstm_bf16": (1.0, 2.0), "mlstm": (1.0, 2.0)})
     monkeypatch.setattr(chip_smoke, "time_rglru", lambda r, dev: dict.fromkeys(
@@ -790,15 +792,59 @@ def _stand_in_the_card(monkeypatch):
     monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, iters=500: host_ms(fn, iters))
 
 
+def _stand_in_the_decode_binding(monkeypatch) -> list:
+    """The decode binding's C side stood in for (132 SMs, the arguments
+    `ops.prepare` passes to each entry, a launch that does nothing), so
+    that `ops.prepare` and `ops.plan` run as on the card. Returns the list
+    into which each stood-in call appends (entry, splits, slots a split)."""
+    from repro_torch.kernels.decode_attention import decode_attention as d_bind
+    from repro_torch.kernels.decode_attention import ops as d_ops
+
+    made = []
+
+    def args(entry):
+        def launch_args(q, *rest):
+            splits, per = rest[-2:]
+            made.append((entry, splits, per))
+            return (entry, splits, per)
+        return launch_args
+
+    monkeypatch.setattr(d_bind, "launch_args", args("bf16"))
+    monkeypatch.setattr(d_bind, "launch_args_int8", args("int8"))
+    monkeypatch.setattr(d_bind, "run", lambda a: None)
+    monkeypatch.setattr(d_ops, "sm_count", lambda dev: 132)
+    return made
+
+
+def test_decode_split_sweep_runs_on_the_cpu(monkeypatch):
+    """Phase 7's sweep of decode's split plan at a small shape: each
+    blocks-an-SM target of DECODE_SPLIT_SWEEP through `ops.prepare`, the
+    int8 entry on the quantized cache beside the bf16 entry with the same
+    plan, a (bf16, int8) pair of times each."""
+    from repro_torch.kernels.decode_attention import ops as d_ops
+
+    _stand_in_the_card(monkeypatch)
+    made = _stand_in_the_decode_binding(monkeypatch)
+    case = (2, 700, 8, 2, 64)
+    res = chip_smoke.sweep_decode_split([("small", case, None, 0.0)], torch.device("cpu"),
+                                        int8=True)
+    sweep = chip_smoke.DECODE_SPLIT_SWEEP
+    assert sorted(res) == sorted(("small", n) for n in sweep)
+    assert all(len(t) == 2 and min(t) >= 0 for t in res.values())
+    plans = [d_ops.split_plan_mma(2, 8, 2, 700, 64, 132, n) for n in sweep]
+    assert made == [(e, *p) for p in plans for e in ("bf16", "int8")]
+
+
 def test_slice8_phases_run_on_the_cpu(monkeypatch):
     """Phases 17-19 end to end at a tiny size on the CPU (reduced internvl2
     with 8 patches, seamless with 24 frames and one encoder and decoder
     layer in the GPU-vs-CPU check, h2o with a 32-slot ring past which its
     prefill of 40 wraps): the wrappers run the plain versions, each call
-    counted as its launch would be; CUDA events and device memory are stood
-    in for. Checks the plumbing, the launch counts against the layer
-    pattern (the encoder's and the cross-attention's included), the
-    router's empty-memory decode, the int8 run's limits and the records."""
+    counted as its launch would be; CUDA events, device memory and the decode
+    binding's C side (phase 17 times the bare entry point) are stood in for. Checks
+    the plumbing, the launch counts against the layer pattern (the
+    encoder's and the cross-attention's included), the router's
+    empty-memory decode, the int8 run's limits and the records."""
     from repro_torch.configs import registry
 
     small = {n: registry.reduced(n) for n in ("internvl2-26b", "seamless-m4t-large-v2",
@@ -817,6 +863,7 @@ def test_slice8_phases_run_on_the_cpu(monkeypatch):
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(chip_smoke.router, "__defaults__", (5,))
     _stand_in_the_card(monkeypatch)
+    made = _stand_in_the_decode_binding(monkeypatch)
     from repro_torch.kernels.flash_attention import flash_attention as f_bind
 
     monkeypatch.setattr(f_bind, "launch", lambda *a, **k: None)
@@ -839,7 +886,12 @@ def test_slice8_phases_run_on_the_cpu(monkeypatch):
     assert by_name["decode_attention_int8"]["launches"] == i8["int8"]
     assert by_name["decode_attention_int8"]["library_ms"] is None
     assert by_name["flash_attention_cross"]["library_ms"] >= 0
-    assert all(set(r) == set(chip_smoke.KERNEL_KEYS) for r in records)
+    # the int8 record's `ms` is through the wrapper, its bare entry point's beside it
+    assert set(by_name.pop("decode_attention_int8")) == {*chip_smoke.KERNEL_KEYS, "bare_ms"}
+    assert all(set(r) == set(chip_smoke.KERNEL_KEYS) for r in by_name.values())
+    # phase 17 timed both timed cases' entries through `ops.prepare`, int8 and bf16
+    assert {e for e, _, _ in made} == {"bf16", "int8"}
+    by_name = {r["name"]: r for r in records}
     want_fl = 1 + sum(r["launches"]["mha"] - r["cross"] for r in runs.values()) + i8["flash"]
     assert by_name["flash_attention"]["launches"] == want_fl
     want_dec = 1 + sum(r["decode_by_cache"]["bfloat16"] for r in runs.values()) + i8["bf16"]
@@ -913,6 +965,40 @@ def test_kernel_label_names_the_int8_variant():
     assert chip_smoke.kernel_label(mangled) == "decode_split_kernel<bfloat16, 128, int8>"
     same = mangled.replace("Li128EaE", "Li128ES1_E")
     assert chip_smoke.kernel_label(same) == "decode_split_kernel<bfloat16, 128>"
+
+
+def test_kernel_label_names_the_decode_routes():
+    """The tensor-core decode kernel's variants (head-dim bucket, then the
+    cache's element type) and the CUDA-core kernel's (the float32 route:
+    a float32 or an int8 cache)."""
+    ns = "_ZN52_GLOBAL__N__9b822bd5_19_decode_attention_cu_3848999b"
+    mma = ns + "17decode_mma_kernelILi128EaEEvPK13__nv_bfloat16PKT0_S6_PKfS8_PKhPfSB_SB_iiiiffii"
+    assert chip_smoke.kernel_label(mma) == "decode_mma_kernel<128, int8>"
+    bf16 = mma.replace("Li128EaE", "Li256E13__nv_bfloat16E")
+    assert chip_smoke.kernel_label(bf16) == "decode_mma_kernel<256, bfloat16>"
+    split = ns + "19decode_split_kernelILi64EfEEvPKfPKT0_S5_S2_S2_PKhPfS8_S8_iiiiffii"
+    assert chip_smoke.kernel_label(split) == "decode_split_kernel<64, float32>"
+    assert chip_smoke.kernel_label(split.replace("Li64EfE", "Li64EaE")) == \
+        "decode_split_kernel<64, int8>"
+
+
+@pytest.mark.parametrize("kernel,name", [
+    ("flash_attention_bwd", "void (anonymous namespace)::bwd_dkdv_pair_kernel<128>(...)"),
+    ("flash_attention_bwd", "void (anonymous namespace)::bwd_delta_kernel<float>(...)"),
+    ("mlstm_bwd", "void (anonymous namespace)::mlstm_bwd_dq_wgmma_kernel<256>(...)"),
+    ("mlstm_bwd", "void (anonymous namespace)::mlstm_bwd_c_kernel(...)"),
+    ("rglru_bwd", "void (anonymous namespace)::rglru_bwd_chain_kernel<float, true, true>(...)"),
+    ("rglru_bwd", "void (anonymous namespace)::rglru_bwd_chain_kernel<__nv_bfloat16, false, "
+                  "false>(...)"),
+    (None, "void (anonymous namespace)::rglru_chain_kernel<float, true, true>(...)"),
+    (None, "void (anonymous namespace)::decode_mma_kernel<128, signed char>(...)"),
+])
+def test_backward_kernel_names_attribute_each_launch_to_one_kernel(kernel, name):
+    """A profiled train step's device records go to the backward kernel
+    whose launches they are (`BWD_KERNEL_RES`), to no other, and forward
+    kernels to none."""
+    hits = [k for k, pat in chip_smoke.BWD_KERNEL_RES.items() if re.search(pat, name)]
+    assert hits == ([kernel] if kernel else [])
 
 
 def test_profile_window_of_a_faulted_step_on_the_cpu(monkeypatch):
